@@ -74,3 +74,9 @@ def _span_leak_audit():
     leaked = current_span()
     assert leaked is None, \
         f"span {leaked.name!r} leaked out of the test's trace scope"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
