@@ -11,15 +11,26 @@ Phases, each printed on its own line:
 3. kernel parity: every kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0: every result is an integer or a
    bitmap), at edge shapes and at the main path's shapes, timed with CUDA
-   events beside its bound;
-4. main path: the SSB scale-factor-1 deployment (6 shards x 2^20
+   events (the call, host enqueue included) and with ``torch.profiler``
+   (the kernel alone) beside its bound;
+4. main path 1: the SSB scale-factor-1 deployment (6 shards x 2^20
    lineorder columns, a 7-row mutex ``year`` and a 1000-row keyed mutex
    ``brand``) imported through ``API.import_bits`` and queried with
    ``GroupBy(Rows(year), Rows(brand), limit=100)TopN(brand, n=10)`` and a
    set of ``Count`` trees, every answer checked against a numpy oracle
-   built from the generator, every kernel's launch count checked above 0;
-5. one ``{"kernels": [...]}`` JSON line;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   built from the generator, the launch count of every kernel this path
+   runs checked above 0;
+5. main path 2: the BSI deployment (``BASELINE.json`` config 2: 10 shards
+   x 2^20 columns, one ``int`` field ``amount`` of depth 20, a value in
+   every column) imported through ``API.import_values`` and queried with
+   ``Sum(Row(amount > 524288), field=amount)`` plus Range counts, Min,
+   Max and Percentile, each against a numpy oracle, with all four
+   kernels' launch counts checked above 0; then a small index with
+   negative values, a base, a decimal field and GroupBy aggregates,
+   whose stacks also hold bsi_compare and pair_counts against their
+   plain versions at that index's shapes;
+6. one ``{"kernels": [...]}`` JSON line;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -54,6 +65,8 @@ def _mem_rate(name: str) -> float:
 #: 32-bit __popc results per clock per SM, compute capability 9.0
 #: (NVIDIA's arithmetic instruction throughput table)
 POPC_PER_CLOCK_PER_SM = 16
+#: 32-bit bitwise AND/OR/XOR results per clock per SM, same table
+LOP_PER_CLOCK_PER_SM = 64
 
 
 def _time_ms(fn, reps: int = 10, trials: int = 9) -> float:
@@ -77,6 +90,34 @@ def _time_ms(fn, reps: int = 10, trials: int = 9) -> float:
     return statistics.median(per)
 
 
+def _device_ms(fn, kernel: str = "", calls: int = 20):
+    """Mean device milliseconds per call of ``fn`` spent in kernels whose
+    name contains ``kernel`` ("" = every device activity, copies
+    included), from a ``torch.profiler`` trace of ``calls`` calls; None
+    when the trace holds no device time for them. Unlike ``_time_ms``,
+    this excludes the host's time to enqueue each launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # no CUPTI tracing on this machine
+        print(f"profiler: {e}")
+        return None
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / calls / 1e3 if us > 0 else None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def _rand_words(rng, shape, device):
     import numpy as np
     import torch
@@ -89,6 +130,18 @@ class Report:
     def __init__(self, gpu_name: str, power_limit: str):
         self.label = f"({gpu_name}, power limit {power_limit})"
         self.kernels = {}
+
+    def launched(self, path: str, counts: dict, expected) -> None:
+        """Record one main path's launch counts; every kernel of
+        ``expected`` must have launched on it."""
+        for name in expected:
+            assert counts.get(name, 0) > 0, \
+                f"kernel {name} was not launched on the {path} path"
+        for name, c in counts.items():
+            k = self.kernels.setdefault(name, {"name": name, "route": "cuda",
+                                               "max_abs_err": 0})
+            k["launches"] = k.get("launches", 0) + c
+            k.setdefault("launches_by_path", {})[path] = c
 
     def kernel(self, name: str, **kw) -> None:
         self.kernels.setdefault(name, {"name": name, "route": "cuda",
@@ -109,25 +162,30 @@ class Report:
 
 
 def phase_kernels(report: Report, rng, device, popc_rate: float,
-                  mem_rate: float) -> None:
+                  mem_rate: float, lop_rate: float) -> None:
     import numpy as np
     import torch
 
     from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
     from pilosa_tpu_torch.ops import groupby as G
     from pilosa_tpu_torch.ops import scatter as SC
     from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
-    main_w = 6 * WORDS_PER_SHARD  # the main path's stacked width
+    main_w = 6 * WORDS_PER_SHARD  # the SSB path's stacked width
+    bsi_w = 10 * WORDS_PER_SHARD  # the BSI path's stacked width
 
     # -- tape_count ---------------------------------------------------------
     tapes = [
+        ((("or", 0, 0),), 1),  # the BSI aggregates' one-plane count
         ((("and", 0, 1),), 2),
+        ((("andnot", 0, 1),), 2),  # the Percentile walk's low half
         ((("or", 0, 1), ("xor", 2, 0)), 2),
         ((("and", 0, 1), ("andnot", 3, 2)), 3),
         ((("and", 0, 1), ("or", 4, 2), ("andnot", 5, 3)), 4),
     ]
-    for w in (1, 7, 512, main_w):
+    # the edge-case index's one shard, and both main paths' widths
+    for w in (1, 7, 512, WORDS_PER_SHARD, main_w, bsi_w):
         for tape, n_leaves in tapes:
             leaves = [_rand_words(rng, (w,), device) for _ in range(n_leaves)]
             mask = _rand_words(rng, (w,), device)
@@ -138,16 +196,18 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
     tape = (("and", 0, 1),)  # Count(Intersect(Row, Row)) on the main path
     ms = _time_ms(lambda: B.tape_count(tape, leaves))
     plain_ms = _time_ms(lambda: B.tape_count_plain(tape, leaves))
+    kern_ms = _device_ms(lambda: B.tape_count(tape, leaves), "tape_count")
     by_bytes = (2 * main_w * 4 + 4) / mem_rate * 1e3
     by_ops = main_w / popc_rate * 1e3
     report.kernel("tape_count", source="pilosa_tpu_torch/csrc/tape_count.cu",
                   replaces="pilosa_tpu/ops/bitmap.py:209", ms=ms,
                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations",
-                  library_ms=None, shape=f"2 leaves x {main_w} words")
+                  library_ms=None, shape=f"2 leaves x {main_w} words",
+                  kernel_ms=kern_ms)
     print(f"kernel tape_count: 2x{main_w} words {ms:.4f} ms "
-          f"(plain {plain_ms:.4f} ms, bound {max(by_bytes, by_ops):.4f} ms) "
-          f"{report.label}")
+          f"(kernel alone {_fmt_ms(kern_ms)}, plain {plain_ms:.4f} ms, "
+          f"bound {max(by_bytes, by_ops):.4f} ms) {report.label}")
 
     # -- pair_counts --------------------------------------------------------
     cases = [(1, 1, 1), (3, 5, 7), (37, 37, 512), (8, 256, 512),
@@ -163,19 +223,36 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                torch.full((4, 4), 512 * 32, dtype=torch.int32, device=device))
     report.err("pair_counts", G.pair_counts(ones, zeros),
                torch.zeros((4, 4), dtype=torch.int32, device=device))
-    timings = {}
+    timings, kernel_alone = {}, {}
     for r1 in (8, 1):  # GroupBy year x brand block; TopN filter x block
         a = _rand_words(rng, (r1, main_w), device)
         b = _rand_words(rng, (256, main_w), device)
         ms = _time_ms(lambda: G.pair_counts(a, b))
         plain_ms = _time_ms(lambda: G.pair_counts_plain(a, b), reps=2,
                             trials=5)
+        kernel_alone[r1] = _device_ms(lambda: G.pair_counts(a, b),
+                                      "pair_counts")
         by_bytes = ((r1 + 256) * main_w * 4 + r1 * 256 * 4) / mem_rate * 1e3
         by_ops = r1 * 256 * main_w / popc_rate * 1e3
         timings[r1] = (ms, plain_ms, by_bytes, by_ops)
         print(f"kernel pair_counts: {r1}x256x{main_w} words {ms:.4f} ms "
-              f"(plain {plain_ms:.4f} ms, bytes bound {by_bytes:.4f} ms, "
+              f"(kernel alone {_fmt_ms(kernel_alone[r1])}, plain "
+              f"{plain_ms:.4f} ms, bytes bound {by_bytes:.4f} ms, "
               f"popc bound {by_ops:.4f} ms) {report.label}")
+    # Sum on the BSI path: the two sign classes x the 20 magnitude planes
+    # (a view of the stack)
+    a = _rand_words(rng, (2, bsi_w), device)
+    stack = _rand_words(rng, (2 + 20, bsi_w), device)
+    report.err("pair_counts", G.pair_counts(a, stack[2:]),
+               G.pair_counts_plain(a, stack[2:]))
+    sum_ms = _time_ms(lambda: G.pair_counts(a, stack[2:]))
+    sum_kern_ms = _device_ms(lambda: G.pair_counts(a, stack[2:]),
+                             "pair_counts")
+    sum_bound = max((22 * bsi_w * 4 + 2 * 20 * 4) / mem_rate * 1e3,
+                    2 * 20 * bsi_w / popc_rate * 1e3)
+    print(f"kernel pair_counts: 2x20x{bsi_w} words (Sum) {sum_ms:.4f} ms "
+          f"(kernel alone {_fmt_ms(sum_kern_ms)}, bound {sum_bound:.4f} ms) "
+          f"{report.label}")
     ms, plain_ms, by_bytes, by_ops = timings[8]
     report.kernel("pair_counts",
                   source="pilosa_tpu_torch/csrc/pair_counts.cu",
@@ -183,8 +260,11 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations",
                   library_ms=None, shape=f"8x256x{main_w}",
+                  kernel_ms=kernel_alone[8], topn_kernel_ms=kernel_alone[1],
                   topn_ms=timings[1][0],
-                  topn_bound_ms=max(timings[1][2], timings[1][3]))
+                  topn_bound_ms=max(timings[1][2], timings[1][3]),
+                  sum_ms=sum_ms, sum_kernel_ms=sum_kern_ms,
+                  sum_bound_ms=sum_bound)
 
     # -- scatter_merge ------------------------------------------------------
     for n, m in ((512, 1), (1024, 300), (32768, 5000), (32768, 32768)):
@@ -204,6 +284,8 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
     masks = torch.full((n,), -1, dtype=torch.int32, device=device)
     ms = _time_ms(lambda: SC.scatter_merge_(flat, addr, masks))
     plain_ms = _time_ms(lambda: SC.scatter_merge_plain(flat, addr, masks))
+    kern_ms = _device_ms(lambda: SC.scatter_merge_(flat, addr, masks),
+                         "scatter_merge")
     by_bytes = (16 * m + 4) / mem_rate * 1e3
     by_ops = m / popc_rate * 1e3
     report.kernel("scatter_merge",
@@ -211,13 +293,50 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                   replaces="pilosa_tpu/ops/scatter.py:91", ms=ms,
                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations",
-                  library_ms=None, shape=f"{m} updates into {n} words")
+                  library_ms=None, shape=f"{m} updates into {n} words",
+                  kernel_ms=kern_ms)
     print(f"kernel scatter_merge: {m} updates into {n} words {ms:.4f} ms "
-          f"(plain {plain_ms:.4f} ms, bound {max(by_bytes, by_ops):.4f} ms) "
+          f"(kernel alone {_fmt_ms(kern_ms)}, plain {plain_ms:.4f} ms, "
+          f"bound {max(by_bytes, by_ops):.4f} ms) {report.label}")
+
+    # -- bsi_compare --------------------------------------------------------
+    for depth in (1, 20, 64):
+        top = 1 << depth
+        mid = int(rng.integers(1, min(top, 1 << 62)))
+        consts = [(-mid, None), (-1, None), (0, None), (mid, None),
+                  (top, None), (-top - 5, None)]
+        pairs = [(-mid, mid), (mid, -mid), (0, 0), (-top, top), (5, 4)]
+        for w in (1, 7, 512, 1000, bsi_w):
+            planes = _rand_words(rng, (S.OFFSET + depth, w), device)
+            for op in (S.EQ, S.NE, S.LT, S.LE, S.GT, S.GE, S.BETWEEN):
+                for c, c2 in (pairs if op == S.BETWEEN else consts):
+                    report.err("bsi_compare",
+                               S.bsi_compare(planes, op, c, c2),
+                               S.bsi_compare_plain(planes, op, c, c2))
+    planes = _rand_words(rng, (S.OFFSET + 20, bsi_w), device)
+    ms = _time_ms(lambda: S.bsi_compare(planes, S.GT, 524288))
+    plain_ms = _time_ms(lambda: S.bsi_compare_plain(planes, S.GT, 524288),
+                        reps=3, trials=5)
+    kern_ms = _device_ms(lambda: S.bsi_compare(planes, S.GT, 524288),
+                         "bsi_compare")
+    by_bytes = (22 + 1) * bsi_w * 4 / mem_rate * 1e3
+    # per word: two sign-class masks, six logic ops per plane (3 per
+    # class), the overflow/sign selection and the op
+    by_ops = (2 + 6 * 20 + 4) * bsi_w / lop_rate * 1e3
+    report.kernel("bsi_compare", source="pilosa_tpu_torch/csrc/bsi_compare.cu",
+                  replaces="pilosa_tpu/ops/bsi.py:138", ms=ms,
+                  plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+                  bound_by="bytes" if by_bytes >= by_ops else "operations",
+                  library_ms=None, shape=f"GT over 22 x {bsi_w} words",
+                  ops_bound_ms=by_ops, kernel_ms=kern_ms)
+    print(f"kernel bsi_compare: GT over 22x{bsi_w} words {ms:.4f} ms "
+          f"(kernel alone {_fmt_ms(kern_ms)}, plain {plain_ms:.4f} ms, bytes "
+          f"bound {by_bytes:.4f} ms, logic bound {by_ops:.4f} ms) "
           f"{report.label}")
     torch.cuda.synchronize()
-    print("library_ms: null for every kernel: PyTorch has no popcount op, "
-          "so no single PyTorch call computes any of these functions")
+    print("library_ms: null for every kernel: PyTorch has no popcount op "
+          "and no bit-sliced compare, so no single PyTorch call computes "
+          "any of these functions")
 
 
 def phase_main_path(report: Report, args) -> None:
@@ -309,9 +428,8 @@ def phase_main_path(report: Report, args) -> None:
     st = stacked_set(fb, list(range(shards)), "standard")
     if shards == 6:
         assert st.n_blocks == 4, f"brand stack has {st.n_blocks} blocks"
-    for name, c in launched.items():
-        assert c > 0, f"kernel {name} was not launched on the main path"
-        report.kernel(name, launches=c)
+    report.launched("ssb", launched,
+                    ("tape_count", "pair_counts", "scatter_merge"))
 
     p50 = statistics.median(_wall_ms(lambda: api.query("ssb", q))
                             for _ in range(11))
@@ -341,6 +459,193 @@ def phase_main_path(report: Report, args) -> None:
     print(f"main path: p50 of the GroupBy+TopN query {p50:.3f} ms; p50 of "
           f"Count(Intersect) {count_p50:.3f} ms {report.label}")
     print("main path: every answer matches the numpy oracle")
+
+
+def _percentile_oracle(sorted_vals, nth: float):
+    """(value, count) at percentile ``nth`` by the JAX package's rank rule
+    (pilosa_tpu/ops/bsi.py:491-496): rank = ceil(nth/100 * total) in
+    integers, clipped to [1, total], counted from the smallest value."""
+    total = sorted_vals.size
+    x100 = round(nth * 100)
+    q, rem = divmod(total, 10000)
+    rank = min(max(x100 * q + (x100 * rem + 9999) // 10000, 1), total)
+    v = int(sorted_vals[rank - 1])
+    return v, int((sorted_vals == v).sum())
+
+
+def phase_bsi_path(report: Report, args, shards: int = 10) -> None:
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core.stacked import stacked_bsi
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(args.seed)
+    n = shards * SHARD_WIDTH
+    amount = rng.integers(0, 1 << 20, n)
+    cols = np.arange(n, dtype=np.int64)
+
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    api = API()
+    api.create_index("b")
+    api.create_field("b", "amount", {"type": "int"})
+    api.import_values("b", "amount", cols=cols, values=amount)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+
+    half = 524288
+    v = int(amount[12345])
+    sum_q = f"Sum(Row(amount > {half}), field=amount)"
+    counts_q = {
+        f"Count(Row(amount > {half}))": amount > half,
+        "Count(Row(1000 <= amount <= 2000))":
+            (amount >= 1000) & (amount <= 2000),
+        f"Count(Row(amount == {v}))": amount == v,
+        f"Count(Row(amount != {v}))": amount != v,
+        "Count(Row(amount < 100))": amount < 100,
+    }
+    got_sum = api.query("b", sum_q)[0]
+    got_counts = {q: api.query("b", q)[0] for q in counts_q}
+    got_min = api.query("b", "Min(field=amount)")[0]
+    got_max = api.query("b", f"Max(Row(amount < {half}), field=amount)")[0]
+    got_pct = {nth: api.query("b", f"Percentile(field=amount, nth={nth})")[0]
+               for nth in (50, 99)}
+    torch.cuda.synchronize()
+    launched = KU.launches()
+
+    # -- oracle ---------------------------------------------------------------
+    big = amount[amount > half]
+    assert (got_sum.val, got_sum.count) == (int(big.sum()), big.size), \
+        f"{sum_q} disagrees: {got_sum}"
+    for q, sel in counts_q.items():
+        assert got_counts[q] == int(sel.sum()), f"{q} disagrees"
+    lo = int(amount.min())
+    assert (got_min.val, got_min.count) == (lo, int((amount == lo).sum())), \
+        "Min disagrees"
+    below = amount[amount < half]
+    hi = int(below.max())
+    assert (got_max.val, got_max.count) == (hi, int((below == hi).sum())), \
+        "filtered Max disagrees"
+    ordered = np.sort(amount)
+    for nth, got in got_pct.items():
+        assert (got.val, got.count) == _percentile_oracle(ordered, nth), \
+            f"Percentile nth={nth} disagrees"
+
+    field = api.holder.index("b").field("amount")
+    st = stacked_bsi(field, list(range(shards)))
+    assert st.depth == 20, f"stack depth {st.depth}"
+    assert st.planes.is_cuda and st.planes.shape == (22, n // 32)
+    report.launched("bsi", launched, ("tape_count", "pair_counts",
+                                      "scatter_merge", "bsi_compare"))
+
+    p50 = statistics.median(_wall_ms(lambda: api.query("b", sum_q))
+                            for _ in range(11))
+
+    def sum_kernels():  # the Sum query's device work on its resident stack
+        filt = st.compare(S.GT, half)
+        S.bsi_plane_popcounts(st.planes, filt)
+
+    kern_ms = _time_ms(sum_kernels, reps=5, trials=7)
+    busy_ms = _device_ms(lambda: api.query("b", sum_q), calls=11)
+    print(f"bsi path: {n} columns, depth {st.depth}; import {import_s:.3f} s; "
+          f"BSI stack bytes {st.planes.numel() * 4}; device bytes allocated "
+          f"{torch.cuda.memory_allocated()} (earlier paths' stacks "
+          f"included); launches {launched} {report.label}")
+    print(f"bsi path: p50 of {sum_q} {p50:.3f} ms; its device work "
+          f"(bsi_compare, sign masks, pair_counts, tape_count) {kern_ms:.4f} "
+          f"ms, {100 * kern_ms / p50:.1f}% of the p50; device busy per query "
+          f"in a profiler trace {_fmt_ms(busy_ms)} {report.label}")
+    _bsi_edge_cases(report, API)
+    print("bsi path: every answer matches the numpy oracle")
+
+
+def _bsi_edge_cases(report: Report, API) -> None:
+    """One shard: negative values with a base, a decimal field, GroupBy
+    Sum aggregates over one and two fields, against numpy; then the
+    kernels at this index's shapes against their plain versions."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core.stacked import stacked_bsi, stacked_set
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(17)
+    n = SHARD_WIDTH
+    cols = np.arange(n, dtype=np.int64)
+    m = rng.integers(0, 5, n)
+    g = rng.integers(0, 3, n)
+    base = -250
+    v = rng.integers(-30000, 30000, n)
+    d_stored = rng.integers(-10 ** 6, 10 ** 6, n)
+    api = API()
+    api.create_index("e")
+    api.create_field("e", "m", {"type": "mutex"})
+    api.create_field("e", "g", {"type": "mutex"})
+    api.create_field("e", "v", {"type": "int", "base": base})
+    api.create_field("e", "d", {"type": "decimal", "scale": 2})
+    api.import_bits("e", "m", rows=m, cols=cols)
+    api.import_bits("e", "g", rows=g, cols=cols)
+    api.import_values("e", "v", cols=cols, values=v)
+    api.import_values("e", "d", cols=cols, values=d_stored / 100)
+
+    stored = v - base  # GroupBy's agg is the raw stored sum
+    got = api.query("e", "GroupBy(Rows(m), aggregate=Sum(field=v))")[0]
+    want = [(r, int((m == r).sum()), int(stored[m == r].sum()))
+            for r in range(5)]
+    assert [(x.group[0].row_id, x.count, x.agg) for x in got] == want, \
+        "1-field GroupBy Sum disagrees"
+    got = api.query("e", "GroupBy(Rows(m), Rows(g), aggregate=Sum(field=v))")[0]
+    want = [(a, b, int(((m == a) & (g == b)).sum()),
+             int(stored[(m == a) & (g == b)].sum()))
+            for a in range(5) for b in range(3)]
+    assert [(x.group[0].row_id, x.group[1].row_id, x.count, x.agg)
+            for x in got] == want, "2-field GroupBy Sum disagrees"
+    neg = v[v < 0]
+    checks = {
+        "Min(field=v)": (int(v.min()), int((v == v.min()).sum())),
+        "Max(Row(v < 0), field=v)": (int(neg.max()),
+                                     int((neg == neg.max()).sum())),
+        "Percentile(field=v, nth=10)": _percentile_oracle(np.sort(v), 10),
+        "Sum(Row(m=2), field=v)": (int(v[m == 2].sum()), int((m == 2).sum())),
+        "Sum(field=d)": (int(d_stored.sum()) / 100, n),
+    }
+    for q, want in checks.items():
+        r = api.query("e", q)[0]
+        assert (r.val, r.count) == want, f"{q}: {r} != {want}"
+
+    # the kernels on this index's own stacks, at the shapes its queries
+    # give them, against their plain versions
+    idx = api.holder.index("e")
+    for fname in ("v", "d"):
+        planes = stacked_bsi(idx.field(fname), [0]).planes
+        for op, c, c2 in ((S.GT, 0, None), (S.LT, -7000, None),
+                          (S.EQ, 250, None), (S.NE, 250, None),
+                          (S.BETWEEN, -30000, 12345)):
+            report.err("bsi_compare", S.bsi_compare(planes, op, c, c2),
+                       S.bsi_compare_plain(planes, op, c, c2))
+    planes = stacked_bsi(idx.field("v"), [0]).planes
+    mags = planes[S.OFFSET:]
+    pos_m = planes[S.EXISTS] & ~planes[S.SIGN]
+    neg_m = planes[S.EXISTS] & planes[S.SIGN]
+    # 1-field GroupBy Sum: a row block x the 2 * depth signed planes
+    signed = torch.cat([mags & pos_m[None, :], mags & neg_m[None, :]])
+    st_g = stacked_set(idx.field("g"), [0], "standard")
+    for _, a in stacked_set(idx.field("m"), [0], "standard").iter_blocks():
+        report.err("pair_counts", G.pair_counts(a, signed),
+                   G.pair_counts_plain(a, signed))
+        # 2-field GroupBy Sum: both sign classes of a block x one plane
+        # of the other field's block
+        a2 = torch.cat([a & pos_m[None, :], a & neg_m[None, :]])
+        for _, b in st_g.iter_blocks():
+            bk = (b & mags[-1][None, :]).contiguous()
+            report.err("pair_counts", G.pair_counts(a2, bk),
+                       G.pair_counts_plain(a2, bk))
 
 
 def _wall_ms(fn) -> float:
@@ -393,11 +698,14 @@ def main() -> int:
 
     report = Report(gpu_name, power_limit)
     device = torch.device("cuda", 0)
+    lop_rate = LOP_PER_CLOCK_PER_SM * props.multi_processor_count \
+        * clock_mhz * 1e6
     phase_kernels(report, np.random.default_rng(args.seed + 1), device,
-                  popc_rate, mem_rate)
+                  popc_rate, mem_rate, lop_rate)
     print("kernel parity: every kernel matches its plain version bit for "
           "bit")
     phase_main_path(report, args)
+    phase_bsi_path(report, args)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """API facade: the programmatic surface over holder + executor.
 
 Port of the core of ``pilosa_tpu/api.py`` (reference: api.go:209): create
-indexes and fields, bulk-import bits (by row id or row key, with the
-``_exists`` field kept up to date) and run PQL reads. ``API()`` runs on
+indexes and fields (set, mutex, bool, int, decimal, timestamp), bulk-import
+bits (by row id or row key) and BSI values (by column id or key), keeping
+the ``_exists`` field up to date, and run PQL reads. ``API()`` runs on
 the card, ``cuda:0``; ``API(device="cpu")`` runs every kernel's plain
 PyTorch version on the CPU. Without a card, ``API()`` raises.
 """
@@ -42,6 +43,11 @@ class API:
         fo = FieldOptions(
             type=FieldType(o.pop("type", "set")),
             keys=bool(o.pop("keys", False)),
+            min=o.pop("min", None),
+            max=o.pop("max", None),
+            base=int(o.pop("base", 0)),
+            scale=int(o.pop("scale", 0)),
+            time_unit=o.pop("timeUnit", "s"),
             cache_type=o.pop("cacheType", "ranked"),
             cache_size=int(o.pop("cacheSize", 50000)),
         )
@@ -78,7 +84,34 @@ class API:
             raise ValueError("rows and cols must be the same length")
         with self.holder.write_lock:
             changed = fld.import_bits(rows, cols)
-            if idx.options.track_existence:
-                idx.field(EXISTENCE_FIELD).import_bits(
-                    np.zeros(len(cols), dtype=np.int64), cols)
+            self._mark_exists(idx, cols)
         return changed
+
+    def import_values(self, index: str, field: str,
+                      cols: Optional[Sequence[int]] = None,
+                      values: Sequence = (),
+                      col_keys: Optional[Sequence[str]] = None) -> int:
+        """Bulk BSI import of external values (reference: api.go
+        ImportValue -> fragment.importValue): later duplicates of a column
+        win; returns the number of values written."""
+        idx = self.holder.index(index)
+        fld = idx.field(field)
+        if not fld.options.type.is_bsi:
+            raise ValueError(f"field {field!r} is not an int-like field")
+        if col_keys is not None:
+            if idx.translate is None:
+                raise ValueError(f"index {index!r} does not use string keys")
+            cols = bulk_translate_ids(idx.translate, col_keys)
+        if cols is None or len(cols) != len(values):
+            raise ValueError("cols and values must be the same length")
+        cols = np.asarray(cols, dtype=np.int64)
+        with self.holder.write_lock:
+            fld.set_values(cols, values)
+            self._mark_exists(idx, cols)
+        return len(cols)
+
+    @staticmethod
+    def _mark_exists(idx: Index, cols) -> None:
+        if idx.options.track_existence:
+            idx.field(EXISTENCE_FIELD).import_bits(
+                np.zeros(len(cols), dtype=np.int64), cols)

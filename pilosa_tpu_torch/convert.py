@@ -14,11 +14,14 @@ imports that package):
             "row_keys": {"MFGR#1000": 1, ...},        # keyed fields only
             "shards": {0: {"row_ids": [1, 2, ...],
                            "planes": np.uint32[n_rows, WORDS_PER_SHARD]}},
+            "bsi": {0: np.uint32[2 + depth, WORDS_PER_SHARD]},  # int-like
         }, ...],
     }, ...]}
 
 Row ``i`` of ``planes`` holds the bits of ``row_ids[i]`` in the standard
-view. After loading, the port answers what the source answered.
+view; a ``bsi`` stack is an int-like field's [exists, sign, magnitude
+bits LSB-first] planes of one shard (both keys may be absent). After
+loading, the port answers what the source answered.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.fragment import _grow_rows
 from pilosa_tpu_torch.core.index import EXISTENCE_FIELD
+from pilosa_tpu_torch.ops.bsi import OFFSET
 from pilosa_tpu_torch.core.schema import FieldOptions, IndexOptions
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
@@ -45,7 +49,17 @@ def load_state(api, state: dict) -> None:
                    else idx.create_field(name, opts))
             if fld.translate is not None:
                 fld.translate.replace_all(f_state.get("row_keys", {}))
-            for shard, sh in f_state["shards"].items():
+            for shard, planes in f_state.get("bsi", {}).items():
+                planes = np.asarray(planes, dtype=np.uint32)
+                if (planes.ndim != 2 or planes.shape[0] <= OFFSET
+                        or planes.shape[1] != WORDS_PER_SHARD):
+                    raise ValueError(f"{name} shard {shard}: BSI planes "
+                                     f"{planes.shape} are not a stack")
+                frag = fld.bsi_fragment(int(shard), create=True)
+                frag.planes = planes.copy()
+                frag.depth = planes.shape[0] - OFFSET
+                frag.version += 1
+            for shard, sh in f_state.get("shards", {}).items():
                 row_ids = [int(r) for r in sh["row_ids"]]
                 planes = np.asarray(sh["planes"], dtype=np.uint32)
                 if planes.shape != (len(row_ids), WORDS_PER_SHARD):
@@ -58,4 +72,3 @@ def load_state(api, state: dict) -> None:
                 frag.row_ids = row_ids
                 frag.row_index = {r: i for i, r in enumerate(row_ids)}
                 frag.version += 1
-

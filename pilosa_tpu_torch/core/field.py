@@ -1,26 +1,33 @@
 """Field: a typed attribute of an index.
 
-Port of ``pilosa_tpu/core/field.py`` for set, mutex and bool fields: a
-field owns views (the standard view in this slice), each holding one
-fragment per shard, plus the row-key store when ``keys`` is on
-(reference: field.go:73, :449). BSI fields, time views and the WAL wait
-for later slices.
+Port of ``pilosa_tpu/core/field.py`` for set, mutex, bool, int, decimal
+and timestamp fields: a field owns views (the standard view so far), each
+holding one fragment per shard, plus the row-key store when ``keys`` is
+on (reference: field.go:73, :449). Int-like fields store one BSI fragment
+per shard and map external values to stored integers through their base,
+decimal scale or time unit (reference: field.go bsiGroup). Time views and
+the WAL wait for later slices.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 from typing import Dict, Iterable, Optional, Set
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.core import timeq
-from pilosa_tpu_torch.core.fragment import SetFragment, group_sorted
+from pilosa_tpu_torch.core.fragment import (BSIFragment, SetFragment,
+                                            group_sorted)
 from pilosa_tpu_torch.core.schema import FieldOptions, FieldType
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP
 
-_PORTED_TYPES = (FieldType.SET, FieldType.MUTEX, FieldType.BOOL)
+_PORTED_TYPES = (FieldType.SET, FieldType.MUTEX, FieldType.BOOL,
+                 FieldType.INT, FieldType.DECIMAL, FieldType.TIMESTAMP)
+
+_TIME_UNITS_PER_S = {"s": 1, "ms": 1000, "us": 1_000_000, "ns": 1_000_000_000}
 
 
 def _int64(xs) -> np.ndarray:
@@ -42,7 +49,64 @@ class Field:
         self.write_lock = write_lock
         # view name -> shard -> fragment
         self.views: Dict[str, Dict[int, SetFragment]] = {}
+        # BSI storage (int/decimal/timestamp): shard -> BSIFragment
+        self.bsi: Dict[int, BSIFragment] = {}
         self.translate = TranslateStore(start=1) if options.keys else None
+
+    # -- value <-> stored mapping (BSI) -------------------------------------
+
+    def to_stored(self, value) -> int:
+        """External value -> stored integer (reference: field.go bsiGroup
+        base/scale handling; decimal scale field.go:293)."""
+        t = self.options.type
+        if t == FieldType.DECIMAL:
+            scaled = round(float(value) * (10 ** self.options.scale))
+            return int(scaled) - self.options.base
+        if t == FieldType.TIMESTAMP:
+            if isinstance(value, str):
+                value = dt.datetime.fromisoformat(value.replace("Z", "+00:00"))
+            if isinstance(value, dt.datetime):
+                if value.tzinfo is None:
+                    value = value.replace(tzinfo=dt.timezone.utc)
+                value = (value.timestamp()
+                         * _TIME_UNITS_PER_S[self.options.time_unit])
+            return int(round(value)) - self.options.base
+        if self.options.min is not None and value < self.options.min:
+            raise ValueError(f"value {value} < field min {self.options.min}")
+        if self.options.max is not None and value > self.options.max:
+            raise ValueError(f"value {value} > field max {self.options.max}")
+        return int(value) - self.options.base
+
+    def from_stored(self, stored: int):
+        raw = stored + self.options.base
+        if self.options.type == FieldType.DECIMAL:
+            return raw / (10 ** self.options.scale)
+        return raw
+
+    def _to_stored_bulk(self, values) -> np.ndarray:
+        """Vectorized :meth:`to_stored` for int and decimal values,
+        element-wise otherwise (timestamps, mixed types); min/max bounds
+        raise here exactly as in ``to_stored``."""
+        t = self.options.type
+        try:
+            if t == FieldType.INT:
+                out = np.asarray(values, dtype=np.int64)
+            elif t == FieldType.DECIMAL:
+                out = np.round(np.asarray(values, dtype=np.float64)
+                               * (10 ** self.options.scale)).astype(np.int64)
+                return out - self.options.base
+            else:
+                raise TypeError
+        except (TypeError, ValueError, OverflowError):
+            return np.array([self.to_stored(v) for v in values],
+                            dtype=np.int64)
+        if self.options.min is not None and (out < self.options.min).any():
+            bad = int(out[out < self.options.min][0])
+            raise ValueError(f"value {bad} < field min {self.options.min}")
+        if self.options.max is not None and (out > self.options.max).any():
+            bad = int(out[out > self.options.max][0])
+            raise ValueError(f"value {bad} > field max {self.options.max}")
+        return out - self.options.base
 
     # -- fragment accessors --------------------------------------------------
 
@@ -58,8 +122,15 @@ class Field:
             frag = frags[shard] = SetFragment(shard, self.device)
         return frag
 
+    def bsi_fragment(self, shard: int, create: bool = False
+                     ) -> Optional[BSIFragment]:
+        frag = self.bsi.get(shard)
+        if frag is None and create:
+            frag = self.bsi[shard] = BSIFragment(shard)
+        return frag
+
     def shards(self) -> Set[int]:
-        out: Set[int] = set()
+        out: Set[int] = set(self.bsi)
         for frags in self.views.values():
             out.update(frags)
         return out
@@ -104,3 +175,25 @@ class Field:
             changed += (frag.set_mutex_many(r, p) if mutex
                         else frag.set_many(r, p))
         return changed
+
+    def set_values(self, cols: Iterable[int], values: Iterable) -> None:
+        """Bulk BSI write of external values (reference: api.go
+        ImportValue -> fragment.importValue); converts and validates all
+        values before any fragment changes."""
+        cols = _int64(cols)
+        if not isinstance(values, (list, tuple, np.ndarray)):
+            values = list(values)
+        stored = self._to_stored_bulk(values)
+        if cols.size != stored.size:
+            raise ValueError("cols and values must be the same length")
+        shards = cols >> SHARD_WIDTH_EXP
+        pos = cols & (SHARD_WIDTH - 1)
+        for shard, (p, v) in group_sorted(shards, pos, stored):
+            self.bsi_fragment(shard, create=True).set_values(p, v)
+
+    def value(self, col: int):
+        """Point read of one column's external value, or None."""
+        shard, pos = divmod(col, SHARD_WIDTH)
+        frag = self.bsi_fragment(shard)
+        stored = frag.value(pos) if frag is not None else None
+        return None if stored is None else self.from_stored(stored)

@@ -1,22 +1,25 @@
 """Fragments: per-(field, view, shard) bitmap storage.
 
-Port of ``SetFragment`` from ``pilosa_tpu/core/fragment.py``. A fragment
-is a mutable host ``np.uint32[capacity, WORDS]`` plane matrix plus a
-row-id -> plane-slot map; every write lands here and bumps ``version``.
+Port of ``SetFragment`` and ``BSIFragment`` from
+``pilosa_tpu/core/fragment.py``. A set fragment is a mutable host
+``np.uint32[capacity, WORDS]`` plane matrix plus a row-id -> plane-slot
+map; a BSI fragment is the ``np.uint32[2+depth, WORDS]`` bit-plane stack
+of an int-like field. Every write lands here and bumps ``version``.
 Device views are built from the host planes by core/stacked.py, which
 rebuilds a stack whose fragments changed. Row capacity grows in powers
-of two. ``BSIFragment`` and the write-delta log that feeds the stack
-advance paths wait for later slices.
+of two, BSI depth as values need it. The write-delta log that feeds the
+stack advance paths, and BSI clears (PQL writes), wait for later slices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch import native
+from pilosa_tpu_torch.ops import bsi as bsiops
 from pilosa_tpu_torch.ops import scatter as scatterops
 from pilosa_tpu_torch.ops.bitmap import bits_to_plane
 from pilosa_tpu_torch.shardwidth import BITS_PER_WORD, WORDS_PER_SHARD
@@ -144,3 +147,59 @@ class SetFragment:
             self.planes[s] |= plane
         self.version += 1
         return changed
+
+
+class BSIFragment:
+    """Bit-sliced integer storage for int/decimal/timestamp fields: plane
+    stack ``[exists, sign, magnitude...]`` (reference: fragment.go:62-66)
+    whose bit depth grows on demand like the reference's importValue
+    (fragment.go:1947)."""
+
+    def __init__(self, shard: int, words: int = WORDS_PER_SHARD,
+                 depth: int = 1):
+        self.shard = shard
+        self.words = words
+        self.depth = depth
+        self.planes = np.zeros((bsiops.OFFSET + depth, words), dtype=np.uint32)
+        self.version = 0
+
+    def _ensure_depth(self, depth: int) -> None:
+        if depth <= self.depth:
+            return
+        out = np.zeros((bsiops.OFFSET + depth, self.words), dtype=np.uint32)
+        out[: self.planes.shape[0]] = self.planes
+        self.planes = out
+        self.depth = depth
+
+    def set_values(self, cols: Sequence[int], values: Sequence[int]) -> None:
+        """Write (col, stored value) pairs; later duplicates win and a
+        written column is cleared before it is set (reference:
+        fragment.go:1947 importValue)."""
+        cols = np.asarray(cols, dtype=np.int64)
+        values = np.asarray(values, dtype=np.int64)
+        if cols.size == 0:
+            return
+        _, last = np.unique(cols[::-1], return_index=True)
+        idx = cols.size - 1 - last
+        cols, values = cols[idx], values[idx]
+        self._ensure_depth(max(bsiops.bits_needed(int(values.min())),
+                               bsiops.bits_needed(int(values.max()))))
+        self.planes &= ~bits_to_plane(cols, self.words)[None, :]
+        self.planes |= bsiops.encode_values(cols, values, self.depth,
+                                            self.words)
+        self.version += 1
+
+    def value(self, col: int) -> Optional[int]:
+        """Point read (host): the stored value of a column, or None."""
+        w, b = divmod(col, BITS_PER_WORD)
+        mask = np.uint32(1) << np.uint32(b)
+        if not (self.planes[bsiops.EXISTS, w] & mask):
+            return None
+        mag = 0
+        for k in range(self.depth):
+            if self.planes[bsiops.OFFSET + k, w] & mask:
+                mag |= 1 << k
+        return -mag if self.planes[bsiops.SIGN, w] & mask else mag
+
+    def exists_plane(self) -> np.ndarray:
+        return self.planes[bsiops.EXISTS]

@@ -19,11 +19,16 @@ fragments on first touch and LRU-evicted by the global
 than the stack's snapshot raises :class:`StackStale`, and the executor
 retries the read on a fresh stack.
 
-Caches hang on the owning Field keyed by (view, shard tuple) and are
-validated against the fragment version vector: a stack whose fragments
-changed is rebuilt. The JAX package's in-place advance paths
-(``_advance_set``) and compressed blocks (``ops/ctiles.py``) wait for
-later slices.
+**BSI stacks** (:class:`StackedBSI`) hold an int-like field's plane
+stacks across shards as one dense ``int32[2+depth, S*W]``; bit depth is
+bounded, so they never page, but they are charged and evicted like any
+block.
+
+Caches hang on the owning Field keyed by (kind, view) and shard tuple and
+are validated against the fragment version vector: a stack whose
+fragments changed is rebuilt. The JAX package's in-place advance paths
+(``_advance_set``, ``_advance_bsi``) and compressed blocks
+(``ops/ctiles.py``) wait for later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from pilosa_tpu_torch import platform
 from pilosa_tpu_torch.ops import bitmap as bitops
+from pilosa_tpu_torch.ops import bsi as bsiops
 from pilosa_tpu_torch.ops import topk as topkops
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
@@ -274,6 +280,79 @@ class StackedSet:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+class StackedBSI:
+    """BSI plane stacks across shards: ``int32[2+depth, S*W]`` on the device.
+
+    Shards shallower than the deepest member are zero-padded (a zero
+    magnitude plane adds nothing to a compare or a sum). The tensor is
+    budget-charged and evictable: an evicted one rebuilds lazily on the
+    next touch with the same version check as a set block (a write since
+    the snapshot raises :class:`StackStale`)."""
+
+    def __init__(self, shards: Sequence[int], fragments,
+                 device: torch.device, words: int = WORDS_PER_SHARD,
+                 write_lock=None):
+        self.shards = tuple(shards)
+        self.words = words
+        self.device = device
+        self.total_words = len(self.shards) * words
+        self.depth = max([f.depth for f in fragments if f is not None]
+                         or [1])
+        self.serial = next(_stack_serial)
+        self._write_lock = (write_lock if write_lock is not None
+                            else contextlib.nullcontext())
+        self._lock = threading.Lock()
+        self._fragments = list(fragments)
+        self._built_vers = _versions(fragments)
+        self._planes: Optional[torch.Tensor] = self._build_host()
+        self._charge()
+
+    def _build_host(self) -> torch.Tensor:
+        host = np.zeros((bsiops.OFFSET + self.depth, self.total_words),
+                        dtype=np.uint32)
+        for si, frag in enumerate(self._fragments):
+            if frag is not None:
+                lo = si * self.words
+                host[: frag.planes.shape[0], lo:lo + self.words] = frag.planes
+        return platform.h2d_copy(host, self.device)
+
+    def _charge(self) -> None:
+        BUDGET.charge((self.serial, 0), _nbytes(self._planes),
+                      lambda s=self: s._drop())
+
+    def _drop(self) -> None:
+        self._planes = None
+
+    def release_device(self) -> None:
+        BUDGET.release((self.serial, 0))
+
+    @property
+    def planes(self) -> torch.Tensor:
+        """The resident ``[2+depth, S*W]`` tensor, rebuilt under the writer
+        lock with the version check when it was evicted."""
+        blk = self._planes
+        if blk is not None:
+            BUDGET.touch((self.serial, 0))
+            return blk
+        with self._write_lock, self._lock:
+            blk = self._planes
+            if blk is None:
+                if _versions(self._fragments) != self._built_vers:
+                    raise StackStale(
+                        "fragment advanced past the stack snapshot")
+                blk = self._planes = self._build_host()
+        self._charge()
+        return blk
+
+    def compare(self, op: str, value: int,
+                value2: Optional[int] = None) -> torch.Tensor:
+        """Range compare over the stack (stored-space constants)."""
+        return bsiops.bsi_compare(self.planes, op, value, value2)
+
+    def exists_plane(self) -> torch.Tensor:
+        return self.planes[bsiops.EXISTS]
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -344,6 +423,26 @@ def stacked_set(field, shards: Sequence[int], view: str) -> StackedSet:
         hit = _cache_get(field, group, subset, vers)
         if hit is None:
             hit = StackedSet(shards, fragments, field.device,
+                             write_lock=_writer_lock(field))
+            _cache_put(field, group, subset, vers, hit)
+    return hit
+
+
+def stacked_bsi(field, shards: Sequence[int]) -> StackedBSI:
+    """Build-or-reuse the BSI stack of ``field`` over ``shards``, cached
+    like :func:`stacked_set` (a field without BSI fragments stacks as one
+    all-zero plane of depth 1, as in the JAX package)."""
+    group, subset = ("bsi",), tuple(shards)
+    fragments = [field.bsi_fragment(s) for s in shards]
+    hit = _cache_get(field, group, subset, _versions(fragments))
+    if hit is not None:
+        return hit
+    with _writer_lock(field):
+        fragments = [field.bsi_fragment(s) for s in shards]
+        vers = _versions(fragments)
+        hit = _cache_get(field, group, subset, vers)
+        if hit is None:
+            hit = StackedBSI(shards, fragments, field.device,
                              write_lock=_writer_lock(field))
             _cache_put(field, group, subset, vers, hit)
     return hit

@@ -4,11 +4,13 @@ Port of ``pilosa_tpu/ops/groupby.py``. The TPU computed this as an int8
 matmul on the MXU after expanding every word into 32 bit lanes; on the
 H100 the hand-written kernel in ``csrc/pair_counts.cu`` ANDs packed words
 and counts them with ``__popc`` (its header says what bounds it and how
-it splits the work). ``pair_sums`` (GroupBy with a Sum aggregate) waits
-for the BSI slice.
+it splits the work). ``pair_sums`` (GroupBy over two fields with a Sum
+aggregate) is one pair_counts launch per magnitude plane.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -57,8 +59,30 @@ def pair_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def masked_pair_counts(a: torch.Tensor, b: torch.Tensor,
-                       filt: torch.Tensor) -> torch.Tensor:
-    """pair_counts under a filter plane (reference: GroupBy's optional
-    filter argument, executor.go:3277). ``popcount(A_i & F & B_j)`` needs
-    the filter on one side only, so B is read as it is."""
+                       filt: Optional[torch.Tensor]) -> torch.Tensor:
+    """pair_counts under a filter plane, or none (reference: GroupBy's
+    optional filter argument, executor.go:3277). ``popcount(A_i & F &
+    B_j)`` needs the filter on one side only, so B is read as it is."""
+    if filt is None:
+        return pair_counts(a, b)
     return pair_counts((a & filt[None, :]).contiguous(), b)
+
+
+def pair_sums(a: torch.Tensor, b: torch.Tensor, mags: torch.Tensor,
+              pos: torch.Tensor, neg: torch.Tensor):
+    """Per-magnitude-plane pair counts for two-field GroupBy with a Sum
+    aggregate (port of ``pilosa_tpu/ops/groupby.py:207``):
+
+        pos_k[i, j] = popcount(A_i & B_j & M_k & pos)
+
+    and the same with ``neg``. The two sign-masked A sides stack into one
+    A, so each plane is ONE pair_counts launch; the host assembles the
+    exact per-group sum ``Σ_k 2^k (pos_k - neg_k)``.
+
+    Returns (pos int32[D, R1, R2], neg int32[D, R1, R2])."""
+    r1 = a.shape[0]
+    a2 = torch.cat([a & pos[None, :], a & neg[None, :]])
+    parts = [pair_counts(a2, (b & mags[k][None, :]).contiguous())
+             for k in range(mags.shape[0])]
+    both = torch.stack(parts)  # [D, 2*R1, R2]
+    return both[:, :r1], both[:, r1:]

@@ -36,7 +36,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 
 #: kernel sources, one nvcc process each
-SOURCES = ("tape_count.cu", "pair_counts.cu", "scatter_merge.cu")
+SOURCES = ("tape_count.cu", "pair_counts.cu", "scatter_merge.cu",
+           "bsi_compare.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -57,6 +58,29 @@ class TapeDesc(ctypes.Structure):
         ("op", ctypes.c_uint8 * MAX_OPS),
         ("a", ctypes.c_uint8 * MAX_OPS),
         ("b", ctypes.c_uint8 * MAX_OPS),
+    ]
+
+
+class BsiSide(ctypes.Structure):
+    """Mirror of ``struct BsiSide`` in csrc/bsi_compare.cu: one predicate
+    constant as its magnitude bits (LSB-first), overflow and sign."""
+    _fields_ = [
+        ("bits", ctypes.c_uint64),
+        ("overflow", ctypes.c_int),
+        ("neg", ctypes.c_int),
+    ]
+
+
+class BsiDesc(ctypes.Structure):
+    """Mirror of ``struct BsiDesc`` in csrc/bsi_compare.cu, passed to the
+    kernel by value."""
+    _fields_ = [
+        ("planes", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("w", ctypes.c_longlong),
+        ("depth", ctypes.c_int),
+        ("op", ctypes.c_int),
+        ("side", BsiSide * 2),
     ]
 
 
@@ -169,6 +193,8 @@ def lib() -> ctypes.CDLL:
         dll.pk_pair_counts.restype = i
         dll.pk_scatter_merge.argtypes = [vp, ll, vp, vp, ll, vp, vp]
         dll.pk_scatter_merge.restype = i
+        dll.pk_bsi_compare.argtypes = [ctypes.POINTER(BsiDesc), vp]
+        dll.pk_bsi_compare.restype = i
         dll.pk_error_string.argtypes = [i]
         dll.pk_error_string.restype = ctypes.c_char_p
         _lib = dll

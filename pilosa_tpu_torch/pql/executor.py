@@ -3,11 +3,12 @@ tensors, with one device->host copy per result.
 
 Port of the read path of ``pilosa_tpu/pql/executor.py`` (reference:
 executor.go, dispatch :679-841): ``Count`` over bitmap trees, the bitmap
-calls Row / Intersect / Union / Difference / Xor / Not / All, ``TopN``
-without ``from``/``to``, ``GroupBy`` over one or two ``Rows`` with an
-optional ``filter=`` and no ``aggregate``, ``Options(shards=)``, and the
-``StackStale`` retry. Every other call raises ``PQLError("not ported
-yet: ...")``.
+calls Row / Intersect / Union / Difference / Xor / Not / All (with Range
+rows of int-like fields), ``Sum`` / ``Min`` / ``Max`` / ``Percentile``,
+``TopN`` without ``from``/``to``, ``GroupBy`` over one or two ``Rows``
+with an optional ``filter=`` and ``aggregate=Sum(...)`` or ``Count(...)``,
+``Options(shards=)``, and the ``StackStale`` retry. Every other call
+raises ``PQLError("not ported yet: ...")``.
 
 Key translation happens host-side around the kernels (reference:
 executor.go:6814 preTranslate, :7519 translateResults).
@@ -25,14 +26,17 @@ from pilosa_tpu_torch.core.field import Field
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import EXISTENCE_ROW, Index
 from pilosa_tpu_torch.core.schema import FieldType
-from pilosa_tpu_torch.core.stacked import StackStale, stacked_set
+from pilosa_tpu_torch.core.stacked import (StackedBSI, StackStale,
+                                           stacked_bsi, stacked_set)
 from pilosa_tpu_torch.errors import PQLError, not_ported
 from pilosa_tpu_torch.ops import bitmap as B
+from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import topk as T
-from pilosa_tpu_torch.ops.groupby import masked_pair_counts, pair_counts
+from pilosa_tpu_torch.ops.groupby import (masked_pair_counts, pair_counts,
+                                          pair_sums)
 from pilosa_tpu_torch.pql import programs
 from pilosa_tpu_torch.pql import result as R
-from pilosa_tpu_torch.pql.ast import Call, Query
+from pilosa_tpu_torch.pql.ast import Call, Condition, Query
 from pilosa_tpu_torch.pql.parser import parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
 
@@ -44,10 +48,12 @@ _BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
 _WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "Delete"}
 
 #: calls of the JAX executor that later slices port
-_LATER_CALLS = {"Sum", "Min", "Max", "Percentile", "Rows", "ConstRow",
-                "UnionRows", "Shift", "Distinct", "Limit", "IncludesColumn",
-                "Extract", "Apply", "Arrow", "Sort", "FieldValue",
-                "ExternalLookup"} | _WRITE_CALLS
+_LATER_CALLS = {"Rows", "ConstRow", "UnionRows", "Shift", "Distinct",
+                "Limit", "IncludesColumn", "Extract", "Apply", "Arrow",
+                "Sort", "FieldValue", "ExternalLookup"} | _WRITE_CALLS
+
+_COND_TO_BSI = {"==": S.EQ, "!=": S.NE, "<": S.LT, "<=": S.LE,
+                ">": S.GT, ">=": S.GE, "between": S.BETWEEN}
 
 
 def has_write_calls(query) -> bool:
@@ -126,6 +132,10 @@ class Executor:
             return self._execute_call(idx, call.children[0], shards)
         if name == "Count":
             return self._execute_count(idx, call, shards)
+        if name in ("Sum", "Min", "Max"):
+            return self._execute_bsi_agg(idx, call, shards)
+        if name == "Percentile":
+            return self._execute_percentile(idx, call, shards)
         if name in ("TopN", "TopK"):
             return self._execute_topn(idx, call, shards)
         if name == "GroupBy":
@@ -173,10 +183,28 @@ class Executor:
     def _eval_all(self, idx: Index, call: Call, shard_list: List[int]
                   ) -> torch.Tensor:
         """The device plane of a bitmap call over all shards at once."""
-        plane = programs.run_plane(self, idx, call, shard_list)
-        if plane is None:
-            raise not_ported("BSI range rows")
-        return plane
+        return programs.run_plane(self, idx, call, shard_list)
+
+    def _eval_bsi_row(self, field: Field, value, shard_list: List[int]
+                      ) -> torch.Tensor:
+        """BSI range predicate: one bsi_compare launch over the field's
+        stack (reference: executor.go executeRowShard BSI branch ->
+        fragment.rangeOp, fragment.go:937)."""
+        if not field.options.type.is_bsi:
+            raise PQLError(f"field {field.name!r} is not an int-like field")
+        st = stacked_bsi(field, shard_list)
+        if not isinstance(value, Condition):
+            value = Condition("==", value)
+        op = _COND_TO_BSI[value.op]
+        if value.op == "between":
+            lo, hi = value.value
+            return st.compare(op, field.to_stored(lo), field.to_stored(hi))
+        if value.value is None:
+            # `!= null` = exists; `== null` = not exists (needs existence)
+            if value.op == "!=":
+                return st.exists_plane()
+            raise PQLError("== null is not supported; use Not(Row(f != null))")
+        return st.compare(op, field.to_stored(value.value))
 
     def _materialize_row(self, idx: Index, call: Call, shards) -> Any:
         shard_list = self._shards(idx, shards)
@@ -212,9 +240,81 @@ class Executor:
             return 0
         # ops + popcount in ONE tape_count launch over resident planes
         count = programs.run_count(self, idx, call.children[0], shard_list)
-        if count is None:
-            raise not_ported("BSI range rows")
         return _Deferred([count], lambda c: int(c))
+
+    # -- BSI aggregates (reference: executor.go executeSum/Min/Max) -----------
+
+    def _agg_filter(self, idx: Index, call: Call, shard_list: List[int],
+                    st: StackedBSI) -> torch.Tensor:
+        if call.children:
+            return self._eval_all(idx, call.children[0], shard_list)
+        return st.exists_plane()
+
+    def _execute_bsi_agg(self, idx: Index, call: Call, shards) -> Any:
+        fname = call.arg("field") or call.arg("_field")
+        if fname is None:
+            raise PQLError(f"{call.name} requires field=")
+        field = idx.field(fname)
+        if not field.options.type.is_bsi:
+            raise PQLError(f"field {fname!r} is not an int-like field")
+        shard_list = self._shards(idx, shards)
+        if call.name == "Sum":
+            if not shard_list:
+                return R.ValCount(val=0, count=0)
+            st = stacked_bsi(field, shard_list)
+            filt = self._agg_filter(idx, call, shard_list, st)
+            count, pos, neg = S.bsi_plane_popcounts(st.planes, filt)
+
+            def fin_sum(count_np, pos_np, neg_np):
+                stored, n = S.finish_sum(count_np, pos_np, neg_np)
+                # stored = actual - base => sum(actual) = sum(stored)+base*n
+                val = stored + field.options.base * n
+                if field.options.type == FieldType.DECIMAL:
+                    val = val / (10 ** field.options.scale)
+                return R.ValCount(val=val, count=n)
+
+            return _Deferred([count, pos, neg], fin_sum)
+        # Min / Max (reference: executor.go executeMinShard/MaxShard); the
+        # stacked layout makes the cross-shard merge implicit
+        if not shard_list:
+            return R.ValCount(val=None, count=0)
+        st = stacked_bsi(field, shard_list)
+        filt = self._agg_filter(idx, call, shard_list, st)
+        return _Deferred(S.bsi_minmax(st.planes, filt, call.name == "Max"),
+                         self._value_finalizer(field))
+
+    @staticmethod
+    def _value_finalizer(field: Field) -> Callable:
+        """Finalize (bits, negative, count, total) of a Min/Max/Percentile
+        walk into a ValCount of the field's external value."""
+
+        def finalize(*walk_np):
+            stored, count, total = S.finish_value(*walk_np)
+            if total == 0:
+                return R.ValCount(val=None, count=0)
+            return R.ValCount(val=field.from_stored(stored), count=count)
+
+        return finalize
+
+    # -- Percentile (reference: executor.go:1310) ------------------------------
+
+    def _execute_percentile(self, idx: Index, call: Call, shards) -> Any:
+        field = idx.field(call.arg("field") or call.arg("_field"))
+        nth = call.arg("nth")
+        if nth is None:
+            raise PQLError("Percentile requires nth=")
+        nth = float(nth)
+        if not 0 <= nth <= 100:
+            raise PQLError("nth must be within [0, 100]")
+        filter_call = call.arg("filter")
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return R.ValCount(val=None, count=0)
+        st = stacked_bsi(field, shard_list)
+        filt = (self._eval_all(idx, filter_call, shard_list)
+                if filter_call is not None else st.exists_plane())
+        return _Deferred(S.bsi_kth(st.planes, filt, round(nth * 100)),
+                         self._value_finalizer(field))
 
     # -- TopN / TopK (reference: executor.go:2357/2535) ------------------------
 
@@ -266,8 +366,16 @@ class Executor:
             raise PQLError("GroupBy requires at least one Rows child")
         if any(c.name != "Rows" for c in call.children):
             raise PQLError("GroupBy children must be Rows calls")
-        if call.arg("aggregate") is not None:
-            raise not_ported("GroupBy aggregate")
+        agg_call = call.arg("aggregate")
+        agg_field = None
+        if agg_call is not None:
+            if (not isinstance(agg_call, Call)
+                    or agg_call.name not in ("Sum", "Count")):
+                raise PQLError(
+                    "GroupBy aggregate must be Sum(...) or Count(...)")
+            if agg_call.name == "Sum":
+                agg_field = idx.field(agg_call.arg("field")
+                                      or agg_call.arg("_field"))
         if len(call.children) > 2:
             raise not_ported("GroupBy over more than two fields")
         fields = [idx.field(self._field_name(c)) for c in call.children]
@@ -279,15 +387,19 @@ class Executor:
                for f in fields]
         if any(not st.row_ids for st in sts):
             return []
+        agg_st = (stacked_bsi(agg_field, shard_list)
+                  if agg_field is not None else None)
         cells = 1
         for st in sts:
             cells *= st.cap
+        if agg_st is not None:
+            cells *= agg_st.planes.shape[0]
         if cells > 1 << 24:  # the JAX package folds here instead
             raise not_ported("GroupBy over more than 2^24 dense cells")
         filter_call = call.arg("filter")
         filt = (self._eval_all(idx, filter_call, shard_list)
                 if filter_call is not None else None)
-        return self._groupby_dense(fields, sts, filt, limit)
+        return self._groupby_dense(fields, sts, filt, agg_st, limit)
 
     def _field_row(self, field: Field, row: int) -> R.FieldRow:
         if field.options.keys:
@@ -295,43 +407,75 @@ class Executor:
             return R.FieldRow(field=field.name, row_key=key)
         return R.FieldRow(field=field.name, row_id=row)
 
-    def _groupby_emit(self, fields, keyed_counts, limit) -> List[R.GroupCount]:
+    def _groupby_emit(self, fields, keyed, limit) -> List[R.GroupCount]:
         """GroupCounts of the nonzero groups in key order, cut at
-        ``limit`` before any row is translated."""
+        ``limit`` before any row is translated. ``keyed`` holds (key,
+        count, agg) with agg None when there is no Sum aggregate."""
         out = []
-        for key, count in keyed_counts:
+        for key, count, agg in keyed:
             if limit is not None and len(out) >= int(limit):
                 break
             if count == 0:
                 continue
             group = [self._field_row(f, r) for f, r in zip(fields, key)]
-            out.append(R.GroupCount(group=group, count=count))
+            out.append(R.GroupCount(group=group, count=count, agg=agg))
         return out
 
-    def _groupby_dense(self, fields, sts, filt, limit):
+    def _groupby_dense(self, fields, sts, filt, agg_st, limit):
         """1- and 2-field GroupBy: the whole result is a dense count
-        tensor, streamed per row block through the pair_counts kernel
-        (reference: executor.go:3176 per-pair container walk)."""
-        if len(sts) == 1:
-            counts = _concat([T.row_counts(blk, filt)
-                              for _, blk in sts[0].iter_blocks()])
+        tensor (plus per-plane signed counts with a Sum aggregate; ``agg``
+        is the raw stored sum, as in the JAX package), streamed per row
+        block through the pair_counts kernel (reference: executor.go:3176
+        per-pair container walk)."""
+        if agg_st is not None:
+            planes = agg_st.planes
+            exists, sign, mags = (planes[S.EXISTS], planes[S.SIGN],
+                                  planes[S.OFFSET:])
+            # the filter goes into the two sign classes once, not into
+            # every row block
+            pos_m = S.mask_filter(exists & ~sign, filt)
+            neg_m = S.mask_filter(exists & sign, filt)
 
-            def fin1(counts_np):
-                keyed = [((row,), int(counts_np[slot]))
+        if len(sts) == 1:
+            arrays = [_concat([T.row_counts(blk, filt)
+                               for _, blk in sts[0].iter_blocks()])]
+            if agg_st is not None:
+                # one launch per block: the block's rows against the
+                # magnitude planes of each (filtered) sign class
+                signed = torch.cat([mags & pos_m[None, :],
+                                    mags & neg_m[None, :]])
+                arrays.append(_concat([pair_counts(blk, signed)
+                                       for _, blk in sts[0].iter_blocks()]))
+
+            def fin1(counts_np, signed_np=None):
+                depth = None if signed_np is None else signed_np.shape[1] // 2
+                keyed = [((row,), int(counts_np[slot]),
+                          None if depth is None else S.assemble_sum(
+                              signed_np[slot, :depth],
+                              signed_np[slot, depth:]))
                          for slot, row in enumerate(sts[0].row_ids)]
                 return self._groupby_emit(fields, keyed, limit)
 
-            return _Deferred([counts], fin1)
+            return _Deferred(arrays, fin1)
 
-        count_rows = []
+        count_rows, p_rows, n_rows = [], [], []
         for _, a_blk in sts[0].iter_blocks():
-            count_rows.append(_concat(
-                [pair_counts(a_blk, b_blk) if filt is None
-                 else masked_pair_counts(a_blk, b_blk, filt)
-                 for _, b_blk in sts[1].iter_blocks()], dim=1))
-        counts = _concat(count_rows, dim=0)  # [capA, capB]
+            c_cols, p_cols, n_cols = [], [], []
+            for _, b_blk in sts[1].iter_blocks():
+                c_cols.append(masked_pair_counts(a_blk, b_blk, filt))
+                if agg_st is not None:
+                    p, ng = pair_sums(a_blk, b_blk, mags, pos_m, neg_m)
+                    p_cols.append(p)
+                    n_cols.append(ng)
+            count_rows.append(_concat(c_cols, dim=1))
+            if agg_st is not None:
+                p_rows.append(_concat(p_cols, dim=2))
+                n_rows.append(_concat(n_cols, dim=2))
+        arrays = [_concat(count_rows, dim=0)]  # [capA, capB]
+        if agg_st is not None:  # [D, capA, capB] each
+            arrays += [_concat(p_rows, dim=1), _concat(n_rows, dim=1)]
 
-        def fin2(counts_np):
+        def fin2(counts_np, p_np=None, n_np=None):
             ra, rb = len(sts[0].row_ids), len(sts[1].row_ids)
             # row-major nonzero order IS key order (slots follow sorted
             # row ids), so the limit cuts before any tuple is built
@@ -339,7 +483,10 @@ class Executor:
             if limit is not None:
                 gi, gj = gi[: int(limit)], gj[: int(limit)]
             keyed = [((sts[0].row_ids[i], sts[1].row_ids[j]),
-                      int(counts_np[i, j])) for i, j in zip(gi, gj)]
+                      int(counts_np[i, j]),
+                      None if p_np is None else S.assemble_sum(
+                          p_np[:, i, j], n_np[:, i, j]))
+                     for i, j in zip(gi, gj)]
             return self._groupby_emit(fields, keyed, limit)
 
-        return _Deferred([counts], fin2)
+        return _Deferred(arrays, fin2)

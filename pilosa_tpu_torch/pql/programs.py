@@ -9,10 +9,11 @@ leaf count, masked, width) in a bounded LRU, so query *families* share
 one checked program with different leaf planes.
 
 Lowering never re-stages data: leaves are rows of the budget-managed
-resident stacks (core/stacked.py). The port has no classic per-op path
-behind the tape: a malformed tree raises ``PQLError``, calls of later
-slices raise ``not ported yet``, and a BSI leaf bails (``None``) for the
-executor to report.
+resident stacks (core/stacked.py), and a Range row (a ``Condition``, or
+any row of an int-like field) is the output plane of one ``bsi_compare``
+launch, composed as a leaf. The port has no classic per-op path behind
+the tape: a malformed tree raises ``PQLError`` and calls of later slices
+raise ``not ported yet``.
 """
 
 from __future__ import annotations
@@ -30,11 +31,6 @@ from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.parallel import tape as T
 from pilosa_tpu_torch.pql.ast import Condition, ROW_OPTIONS
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
-
-
-class _Bail(Exception):
-    """Call tree holds a leaf the tape cannot express yet (a BSI range
-    row); the executor reports it as not ported."""
 
 
 _PROGRAMS_CAP = 64
@@ -89,8 +85,9 @@ def _lower_root(ex, idx, call, shard_list: List[int]):
             raise PQLError("Row requires a field argument")
         fname, value = fa
         field = idx.field(fname)
-        if isinstance(value, Condition):
-            raise _Bail  # BSI compare leaf: the BSI slice lowers it
+        if isinstance(value, Condition) or field.options.type.is_bsi:
+            # the compare kernel's output plane composes as a leaf
+            return leaf(ex._eval_bsi_row(field, value, shard_list))
         if c.arg("from") is not None or c.arg("to") is not None:
             raise not_ported("Row with from=/to= time ranges")
         row = ex._row_id(field, value)
@@ -155,14 +152,9 @@ def _lower_root(ex, idx, call, shard_list: List[int]):
 
 
 def run_count(ex, idx, call, shard_list: List[int],
-              mask: Optional[torch.Tensor] = None
-              ) -> Optional[torch.Tensor]:
-    """Device count scalar for ``Count(call)``: one tape_count launch;
-    None when lowering bailed."""
-    try:
-        tape, leaves = _lower_root(ex, idx, call, shard_list)
-    except _Bail:
-        return None
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Device count scalar for ``Count(call)``: one tape_count launch."""
+    tape, leaves = _lower_root(ex, idx, call, shard_list)
     total_words = len(shard_list) * WORDS_PER_SHARD
     masked = mask is not None
     fn = _program("count", tape, len(leaves), masked, total_words)
@@ -170,14 +162,9 @@ def run_count(ex, idx, call, shard_list: List[int],
 
 
 def run_plane(ex, idx, call, shard_list: List[int],
-              mask: Optional[torch.Tensor] = None
-              ) -> Optional[torch.Tensor]:
-    """Materialized (masked) plane for a bitmap call; None when
-    lowering bailed."""
-    try:
-        tape, leaves = _lower_root(ex, idx, call, shard_list)
-    except _Bail:
-        return None
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Materialized (masked) plane for a bitmap call."""
+    tape, leaves = _lower_root(ex, idx, call, shard_list)
     total_words = len(shard_list) * WORDS_PER_SHARD
     masked = mask is not None
     fn = _program("plane", tape, len(leaves), masked, total_words)

@@ -4,7 +4,7 @@ JSON-facing shapes mirror the reference's wire formats (reference:
 row.go:15 Row, executor Pair/PairsField cache.go:374-507, GroupCount
 executor.go groupBy types) so clients of the reference find the same
 response structure. Copied from ``pilosa_tpu/pql/result.py``: the result
-types this slice of the port returns.
+types the ported slices return.
 """
 
 from __future__ import annotations
@@ -23,6 +23,18 @@ class RowResult:
         if self.keys is not None:
             return {"keys": self.keys}
         return {"columns": self.columns}
+
+
+@dataclasses.dataclass
+class ValCount:
+    """Sum / Min / Max / Percentile result: ``val`` is the value (a float
+    for decimal fields, None when no column matched) and ``count`` the
+    columns it covers."""
+    val: Optional[float] = None
+    count: int = 0
+
+    def to_json(self) -> dict:
+        return {"value": self.val, "count": self.count}
 
 
 @dataclasses.dataclass

@@ -16,6 +16,7 @@ import torch
 
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.ops import bitmap as B
+from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import groupby as G
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops import scatter as SC
@@ -85,5 +86,72 @@ def test_api_on_the_card_matches_the_cpu(dev):
         api.create_field("i", "b", {"type": "mutex", "keys": True})
         api.import_bits("i", "a", rows=rows, cols=cols)
         api.import_bits("i", "b", cols=cols, row_keys=keys)
+        out.append(repr(api.query("i", q)))
+    assert out[0] == out[1]
+
+
+BSI_OPS = [S.EQ, S.NE, S.LT, S.LE, S.GT, S.GE, S.BETWEEN]
+
+
+@pytest.mark.parametrize("depth", [1, 20, 64])
+@pytest.mark.parametrize("w", [1, 7, 1000, 3 * 512 + 5])
+def test_bsi_compare_kernel(dev, depth, w):
+    """Random bit patterns in every plane; constants negative, zero,
+    positive and overflowing; BETWEEN pairs that straddle zero or are
+    reversed."""
+    rng = np.random.default_rng(depth * 10000 + w)
+    planes = words(rng, (S.OFFSET + depth, w), dev)
+    top = 1 << depth
+    mid = int(rng.integers(1, min(top, 1 << 62)))
+    consts = [(-mid, None), (0, None), (mid, None), (top, None),
+              (-top - 3, None)]
+    pairs = [(-mid, mid), (mid, -mid), (0, 0), (-top, top)]
+    before = KU.launches()["bsi_compare"]
+    n = 0
+    for op in BSI_OPS:
+        for c, c2 in (pairs if op == S.BETWEEN else consts):
+            got = S.bsi_compare(planes, op, c, c2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, S.bsi_compare_plain(planes, op, c, c2)), \
+                (op, c, c2)
+            n += 1
+    assert KU.launches()["bsi_compare"] == before + n
+
+
+def test_bsi_compare_rejects_what_the_kernel_cannot_take(dev):
+    with pytest.raises(ValueError, match="depth"):
+        S.bsi_compare(torch.zeros((S.OFFSET + 65, 8), dtype=torch.int32,
+                                  device=dev), S.GT, 1)
+    with pytest.raises(TypeError):
+        S.bsi_compare(torch.zeros((S.OFFSET + 3, 8), dtype=torch.int64,
+                                  device=dev), S.GT, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        S.bsi_compare(torch.zeros((8, S.OFFSET + 3), dtype=torch.int32,
+                                  device=dev).t(), S.GT, 1)
+
+
+def test_bsi_api_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(14)
+    n = 2 << 20
+    cols = np.arange(n, dtype=np.int64)
+    rows = rng.integers(0, 6, n)
+    vals = rng.integers(-70000, 70000, n)
+    q = ("Sum(Row(v > 100), field=v)Min(field=v)Max(Row(f=2), field=v)"
+         "Percentile(field=v, nth=50)Percentile(field=v, nth=1)"
+         "Count(Row(-500 <= v <= 500))Count(Row(v == -7))Row(v == 12)"
+         "Count(Intersect(Row(f=1), Row(v != 3)))"
+         "GroupBy(Rows(f), aggregate=Sum(field=v))"
+         "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v), limit=9)"
+         "TopN(f, Row(v > 0), n=3)")
+    out = []
+    for device in (None, "cpu"):
+        api = API(device=device)
+        api.create_index("i")
+        api.create_field("i", "f", {"type": "mutex"})
+        api.create_field("i", "g", {"type": "set"})
+        api.create_field("i", "v", {"type": "int", "base": -3})
+        api.import_bits("i", "f", rows=rows, cols=cols)
+        api.import_bits("i", "g", rows=rows[::3] % 4, cols=cols[::3])
+        api.import_values("i", "v", cols=cols, values=vals)
         out.append(repr(api.query("i", q)))
     assert out[0] == out[1]

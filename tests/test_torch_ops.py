@@ -20,6 +20,7 @@ from pilosa_tpu.ops import groupby as JG
 from pilosa_tpu.ops import scatter as JS
 from pilosa_tpu_torch import native
 from pilosa_tpu_torch.ops import bitmap as B
+from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import groupby as G
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops import scatter as SC
@@ -70,12 +71,17 @@ def test_pair_counts_all_ones_and_zeros(rng, fill):
                                   np.full((3, 3), WORDS * 32))
 
 
-def test_masked_pair_counts(rng):
+@pytest.mark.parametrize("filtered", [True, False])
+def test_masked_pair_counts(rng, filtered):
     a, b = rand_planes(rng, 5, WORDS), rand_planes(rng, 9, WORDS)
     f = rand_planes(rng, WORDS)
-    np.testing.assert_array_equal(
-        G.masked_pair_counts(t(a), t(b), t(f)).numpy(),
-        np.asarray(JG.masked_pair_counts(a, b, f)))
+    if filtered:
+        got = G.masked_pair_counts(t(a), t(b), t(f))
+        want = JG.masked_pair_counts(a, b, f)
+    else:
+        got = G.masked_pair_counts(t(a), t(b), None)
+        want = JG._pair_counts_traced(a, b, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_pair_counts_rejects_mismatched_words(rng):
@@ -274,8 +280,10 @@ def test_cpu_tensors_take_plain_version_without_launching(rng):
     flat = t(rand_planes(rng, WORDS))
     SC.scatter_merge_(flat, torch.tensor([1, 2], dtype=torch.int32),
                       torch.tensor([1, 2], dtype=torch.int32))
+    S.bsi_compare(t(rand_planes(rng, 5, WORDS)), S.GT, 3)
     assert KU.launches() == before
-    assert set(before) == {"tape_count", "pair_counts", "scatter_merge"}
+    assert set(before) == {"tape_count", "pair_counts", "scatter_merge",
+                           "bsi_compare"}
 
 
 def test_unsupported_device_raises():

@@ -102,8 +102,8 @@ def test_main_path_stacks_live_on_the_api_device(pair):
 
 def test_not_ported_calls_raise(pair):
     _, tapi = pair
-    for q in ("Rows(year)", "Sum(field=year)", "Set(1, year=2)",
-              "GroupBy(Rows(year), aggregate=Sum(field=year))",
+    for q in ("Rows(year)", "Distinct(field=year)", "Set(1, year=2)",
+              "GroupBy(Rows(year), Rows(brand), Rows(year))",
               "Count(Shift(Row(year=1)))"):
         with pytest.raises(PQLError, match="not ported yet"):
             tapi.query("ssb", q)
