@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py [--seed 3] [--shards 6]
 
+Run it with ``PILOSA_TPU_COMPRESS`` unset: path 3 checks what the auto
+compression rule, the one users run, makes resident.
+
 Phases, each printed on its own line:
 
 1. environment: torch version, the card's name and power limit
@@ -19,7 +22,8 @@ Phases, each printed on its own line:
    ``GroupBy(Rows(year), Rows(brand), limit=100)TopN(brand, n=10)`` and a
    set of ``Count`` trees, every answer checked against a numpy oracle
    built from the generator, the launch count of every kernel this path
-   runs checked above 0;
+   runs checked above 0; the first query's time (it builds the stacks)
+   and, on one dense brand block, the host time of the compress decision;
 5. main path 2: the BSI deployment (``BASELINE.json`` config 2: 10 shards
    x 2^20 columns, one ``int`` field ``amount`` of depth 20, a value in
    every column) imported through ``API.import_values`` and queried with
@@ -29,8 +33,24 @@ Phases, each printed on its own line:
    negative values, a base, a decimal field and GroupBy aggregates,
    whose stacks also hold bsi_compare and pair_counts against their
    plain versions at that index's shapes;
-6. one ``{"kernels": [...]}`` JSON line;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. main path 3, SSB SF-1 by order date: 6 shards x 2^20 lineorder
+   columns loaded sorted by order date (as public SSB setups load
+   lineorder, e.g. ClickHouse's ``ORDER BY (LO_ORDERDATE, LO_ORDERKEY)``),
+   a 2,406-row mutex ``orderdate`` (row id = the SSB ``d_datekey``), a
+   mutex ``year`` and the keyed mutex ``brand``, imported through
+   ``API.import_bits`` under the auto compression rule; ``orderdate``,
+   ``year`` and ``_exists`` become resident compressed (``ops/ctiles.py``)
+   while ``brand`` stays dense; TopN, GroupBy and Count queries against a
+   numpy oracle, ``ctile_count`` among the kernels the path must launch
+   and held against its plain version on each resident compressed block,
+   stored and dense bytes per stack, the budget's accounting, p50s and
+   the compressed count step against the dense one on the decoded blocks;
+7. a sparse BSI index (one shard, an ``int`` field set only on the
+   columns [0, 65536)), whose stack the auto rule compresses: Range
+   counts, Sum, Min and Max against numpy, and the active-tile compare
+   against the plain compare of the decoded stack for all seven ops;
+8. one ``{"kernels": [...]}`` JSON line;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -40,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -168,6 +189,7 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
 
     from pilosa_tpu_torch.ops import bitmap as B
     from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import ctiles as C
     from pilosa_tpu_torch.ops import groupby as G
     from pilosa_tpu_torch.ops import scatter as SC
     from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
@@ -333,6 +355,81 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
           f"(kernel alone {_fmt_ms(kern_ms)}, plain {plain_ms:.4f} ms, bytes "
           f"bound {by_bytes:.4f} ms, logic bound {by_ops:.4f} ms) "
           f"{report.label}")
+
+    # -- ctile_count --------------------------------------------------------
+    def entries(p, t, rows, n_tiles):
+        payload = _rand_words(rng, (p, t), device)
+        payload[0] = -1  # an all-ones tile
+        if p > 1:
+            payload[1] = 0  # an all-zero tile
+        prow_np = rng.integers(0, rows + 3, p).astype(np.int32)
+        prow_np[-1] = rows  # a padded entry points one past the last row
+        prow = torch.from_numpy(prow_np).to(device)
+        ptile = torch.from_numpy(
+            rng.integers(0, n_tiles, p).astype(np.int32)).to(device)
+        filt = _rand_words(rng, (n_tiles, t), device)
+        filt[0], filt[1] = -1, 0
+        pick = rng.integers(0, 4, (rows, n_tiles))
+        const = np.where(pick == 0, rng.integers(0, 1 << 32, pick.shape,
+                                                 dtype=np.uint32),
+                         np.where(pick == 1, 0xFFFFFFFF, 0)).astype(np.uint32)
+        const = torch.from_numpy(const.view(np.int32)).to(device)
+        return payload, prow, ptile, filt, const
+
+    for t in (8, 64, 512):
+        for p in (8, 1000, 4096):
+            payload, prow, ptile, filt, const = entries(p, t, 37, 11)
+            for f in (None, filt):
+                for k in (torch.zeros_like(const), const):
+                    report.err("ctile_count",
+                               C.ctile_count(payload, prow, ptile, k, f),
+                               C.ctile_count_plain(payload, prow, ptile, k, f))
+    # path 3's blocks: 256 rows x 384 tiles of 512 words, a payload padded
+    # to 512 entries (all valid here), constants mostly zero with a few
+    # all-ones runs, filtered TopN
+    rows, n_tiles, t, p = 256, 384, 512, 512
+    payload = _rand_words(rng, (p, t), device)
+    prow = torch.from_numpy(np.sort(rng.integers(0, rows, p)).astype(
+        np.int32)).to(device)
+    ptile_np = rng.integers(0, n_tiles, p).astype(np.int32)
+    ptile = torch.from_numpy(ptile_np).to(device)
+    filt = _rand_words(rng, (n_tiles, t), device)
+    runs = rng.random((rows, n_tiles)) < 0.01
+    const = torch.from_numpy(np.where(runs, -1, 0).astype(np.int32)).to(device)
+    for f in (None, filt):
+        report.err("ctile_count",
+                   C.ctile_count(payload, prow, ptile, const, f),
+                   C.ctile_count_plain(payload, prow, ptile, const, f))
+    ms = _time_ms(lambda: C.ctile_count(payload, prow, ptile, const, filt))
+    plain_ms = _time_ms(
+        lambda: C.ctile_count_plain(payload, prow, ptile, const, filt))
+    kern_ms = _device_ms(lambda: C.ctile_count(payload, prow, ptile, const,
+                                               filt), "ctile_count")
+    unf_ms = _time_ms(lambda: C.ctile_count(payload, prow, ptile, const))
+    # each input read once: the payload, the filter tiles that entries or
+    # runs name, the index arrays and the constants; the output written
+    # once. One __popc per payload word and per run-tile word.
+    used_tiles = np.unique(np.r_[ptile_np, np.nonzero(runs)[1]]).size
+    fixed = 8 * p + 4 * rows * n_tiles + 4 * rows
+    by_bytes = ((p + used_tiles) * t * 4 + fixed) / mem_rate * 1e3
+    by_ops = (p + int(runs.sum())) * t / popc_rate * 1e3
+    unf_bound = max((p * t * 4 + fixed) / mem_rate * 1e3,
+                    p * t / popc_rate * 1e3)
+    report.kernel("ctile_count", source="pilosa_tpu_torch/csrc/ctile_count.cu",
+                  replaces="pilosa_tpu/ops/ctiles.py:291", ms=ms,
+                  plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+                  bound_by="bytes" if by_bytes >= by_ops else "operations",
+                  library_ms=None,
+                  shape=f"{p} entries x {t} words + {rows} x {n_tiles} "
+                        f"constants, filtered, {rows} rows",
+                  kernel_ms=kern_ms, unfiltered_ms=unf_ms,
+                  unfiltered_bound_ms=unf_bound)
+    print(f"kernel ctile_count: {p}x{t} words + {rows}x{n_tiles} constants "
+          f"filtered into {rows} rows {ms:.4f} ms (kernel alone "
+          f"{_fmt_ms(kern_ms)}, plain "
+          f"{plain_ms:.4f} ms, bytes bound {by_bytes:.4f} ms, popc bound "
+          f"{by_ops:.4f} ms; unfiltered {unf_ms:.4f} ms, bound "
+          f"{unf_bound:.4f} ms) {report.label}")
     torch.cuda.synchronize()
     print("library_ms: null for every kernel: PyTorch has no popcount op "
           "and no bit-sliced compare, so no single PyTorch call computes "
@@ -389,7 +486,10 @@ def phase_main_path(report: Report, args) -> None:
                                    for b in range(40)) + "))":
             brand_of < 40,
     }
-    groups, top = api.query("ssb", q)
+    t0 = time.perf_counter()
+    groups, top = api.query("ssb", q)  # builds the year and brand stacks
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
     got_counts = {cq: api.query("ssb", cq)[0] for cq in counts_q}
     filtered_top = api.query("ssb", "TopN(brand, Row(year=3), n=5)")[0]
     torch.cuda.synchronize()
@@ -448,6 +548,12 @@ def phase_main_path(report: Report, args) -> None:
             T.row_counts(b)
 
     kern_ms = _time_ms(query_kernels, reps=3, trials=5)
+    decide_s, classify_s = _compress_decision_s(st._ensure_block(0))
+    print(f"main path: first query (builds the year and brand stacks) "
+          f"{first_s:.3f} s; on one {st.block_rows}-row brand block the "
+          f"compress decision (stays dense) takes {decide_s:.3f} s, a full "
+          f"classify with the payload gathered {classify_s:.3f} s "
+          f"{report.label}")
     print(f"main path: the GroupBy+TopN query's {2 * st.n_blocks} "
           f"pair_counts launches take {kern_ms:.3f} ms of device time, "
           f"{100 * kern_ms / p50:.1f}% of its p50 {report.label}")
@@ -459,6 +565,23 @@ def phase_main_path(report: Report, args) -> None:
     print(f"main path: p50 of the GroupBy+TopN query {p50:.3f} ms; p50 of "
           f"Count(Intersect) {count_p50:.3f} ms {report.label}")
     print("main path: every answer matches the numpy oracle")
+
+
+def _compress_decision_s(blk):
+    """Host seconds of the auto rule's decision on a dense resident
+    block (classification up to the ratio rule, which keeps it dense),
+    and of a full ``classify`` of it, payload gathered, for scale."""
+    from pilosa_tpu_torch import platform
+    from pilosa_tpu_torch.ops import ctiles as C
+
+    host = platform.d2h(blk)
+    t0 = time.perf_counter()
+    assert C.maybe_compress(host, blk.device) is None, \
+        "a dense resident block compresses under the auto rule"
+    decide_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    C.classify(host)
+    return decide_s, time.perf_counter() - t0
 
 
 def _percentile_oracle(sorted_vals, nth: float):
@@ -508,7 +631,10 @@ def phase_bsi_path(report: Report, args, shards: int = 10) -> None:
         f"Count(Row(amount != {v}))": amount != v,
         "Count(Row(amount < 100))": amount < 100,
     }
-    got_sum = api.query("b", sum_q)[0]
+    t0 = time.perf_counter()
+    got_sum = api.query("b", sum_q)[0]  # builds the BSI stack
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
     got_counts = {q: api.query("b", q)[0] for q in counts_q}
     got_min = api.query("b", "Min(field=amount)")[0]
     got_max = api.query("b", f"Max(Row(amount < {half}), field=amount)")[0]
@@ -551,6 +677,11 @@ def phase_bsi_path(report: Report, args, shards: int = 10) -> None:
 
     kern_ms = _time_ms(sum_kernels, reps=5, trials=7)
     busy_ms = _device_ms(lambda: api.query("b", sum_q), calls=11)
+    decide_s, classify_s = _compress_decision_s(st.planes)
+    print(f"bsi path: first query (builds the BSI stack) {first_s:.3f} s; "
+          f"the stack's compress decision (stays dense) takes "
+          f"{decide_s:.3f} s, a full classify with the payload gathered "
+          f"{classify_s:.3f} s {report.label}")
     print(f"bsi path: {n} columns, depth {st.depth}; import {import_s:.3f} s; "
           f"BSI stack bytes {st.planes.numel() * 4}; device bytes allocated "
           f"{torch.cuda.memory_allocated()} (earlier paths' stacks "
@@ -648,6 +779,273 @@ def _bsi_edge_cases(report: Report, API) -> None:
                        G.pair_counts_plain(a2, bk))
 
 
+#: TPC-H/SSB order dates: 1992-01-01 .. 1998-08-02 (ENDDATE - 151 days)
+FIRST_DATE, N_DATES = "1992-01-01", 2406
+
+
+def _datekeys():
+    """SSB ``d_datekey`` (YYYYMMDD) of every order date, in date order."""
+    import numpy as np
+
+    d = np.datetime64(FIRST_DATE) + np.arange(N_DATES)
+    y = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    dd = (d - d.astype("datetime64[M]")).astype(np.int64) + 1
+    return y * 10000 + m * 100 + dd
+
+
+def _want_top(counts_by_id: dict, k) -> list:
+    """(id, count) of the k highest counts, ties by id (the executor's
+    order), zero counts left out."""
+    ranked = sorted((-c, i) for i, c in counts_by_id.items() if c)
+    if k is not None:
+        ranked = ranked[:k]
+    return [(i, -c) for c, i in ranked]
+
+
+def phase_ssb_by_date(report: Report, args) -> None:
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.ops import topk as T
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    name, brands = "ssb_by_date", 1000
+    rng = np.random.default_rng(args.seed + 2)
+    shards = args.shards
+    n = shards * SHARD_WIDTH
+    keys = _datekeys()
+    day = np.sort(rng.integers(0, N_DATES, n))  # load order = date order
+    date = keys[day]
+    year = date // 10000
+    brand_of = rng.integers(0, brands, n)
+    names = np.array([f"MFGR#{1000 + b}" for b in range(brands)])
+    cols = np.arange(n, dtype=np.int64)
+
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    api = API()
+    api.create_index(name)
+    api.create_field(name, "orderdate", {"type": "mutex"})
+    api.create_field(name, "year", {"type": "mutex"})
+    api.create_field(name, "brand", {"type": "mutex", "keys": True})
+    api.import_bits(name, "orderdate", rows=date, cols=cols)
+    api.import_bits(name, "year", rows=year, cols=cols)
+    api.import_bits(name, "brand", cols=cols, row_keys=names[brand_of])
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+
+    top_q = "TopN(orderdate, n=10)"
+    ftop_q = 'TopN(orderdate, Row(brand="MFGR#1003"), n=10)'
+    t0 = time.perf_counter()
+    got = {top_q: api.query(name, top_q)[0]}  # builds and classifies
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    queries = [ftop_q, "TopN(orderdate, Row(year=1995), n=5)", "TopN(year)",
+               'TopN(year, Row(brand="MFGR#1500"), n=7)',
+               "GroupBy(Rows(year), Rows(brand), limit=100)",
+               "GroupBy(Rows(orderdate), filter=Row(year=1996), limit=50)",
+               'Count(Intersect(Row(year=1995), Row(brand="MFGR#1007")))',
+               "Count(Row(orderdate=19950314))", "Count(Not(Row(year=1992)))",
+               "Count(All())"]
+    for q in queries:
+        got[q] = api.query(name, q)[0]
+    torch.cuda.synchronize()
+    launched = KU.launches()
+
+    # -- oracle ---------------------------------------------------------------
+    by_date = dict(zip(keys.tolist(),
+                       np.bincount(day, minlength=N_DATES).tolist()))
+
+    def date_counts(sel):
+        return dict(zip(keys.tolist(), np.bincount(
+            day[sel], minlength=N_DATES).tolist()))
+
+    def year_counts(sel=slice(None)):
+        ys, cs = np.unique(year[sel], return_counts=True)
+        return dict(zip(ys.tolist(), cs.tolist()))
+
+    def pairs(r):
+        return [(p.id, p.count) for p in r.pairs]
+
+    assert pairs(got[top_q]) == _want_top(by_date, 10), top_q
+    assert pairs(got[ftop_q]) == _want_top(date_counts(brand_of == 3), 10), \
+        ftop_q
+    assert pairs(got["TopN(orderdate, Row(year=1995), n=5)"]) == _want_top(
+        date_counts(year == 1995), 5), "TopN(orderdate, Row(year=1995))"
+    assert pairs(got["TopN(year)"]) == _want_top(year_counts(), None), \
+        "TopN(year)"
+    assert pairs(got['TopN(year, Row(brand="MFGR#1500"), n=7)']) == \
+        _want_top(year_counts(brand_of == 500), 7), "TopN(year, brand)"
+    fb = api.holder.index(name).field("brand")
+    bid = {b: fb.translate.key_to_id[names[b]] for b in range(brands)}
+    table = np.bincount((year - 1992) * brands + brand_of,
+                        minlength=7 * brands).reshape(7, brands)
+    want_groups = sorted((1992 + y, bid[b], int(table[y, b]))
+                         for y in range(7) for b in range(brands)
+                         if table[y, b])[:100]
+    assert [(g.group[0].row_id, bid[int(g.group[1].row_key[5:]) - 1000],
+             g.count) for g in got["GroupBy(Rows(year), Rows(brand), "
+                                   "limit=100)"]] == want_groups, \
+        "GroupBy(year, brand)"
+    in_1996 = date_counts(year == 1996)
+    want_days = [(k, c) for k, c in sorted(in_1996.items()) if c][:50]
+    assert [(g.group[0].row_id, g.count) for g in got[
+        "GroupBy(Rows(orderdate), filter=Row(year=1996), limit=50)"]] == \
+        want_days, "GroupBy(orderdate, filter)"
+    for q, sel in (
+            ('Count(Intersect(Row(year=1995), Row(brand="MFGR#1007")))',
+             (year == 1995) & (brand_of == 7)),
+            ("Count(Row(orderdate=19950314))", date == 19950314),
+            ("Count(Not(Row(year=1992)))", year != 1992),
+            ("Count(All())", np.ones(n, dtype=bool))):
+        assert got[q] == int(sel.sum()), f"{q}: {got[q]}"
+
+    # -- residency -----------------------------------------------------------
+    idx = api.holder.index(name)
+    stacks = {f: STK.stacked_set(idx.field(f), list(range(shards)),
+                                 "standard")
+              for f in ("orderdate", "year", "_exists", "brand")}
+    STK.BUDGET.audit()
+    lines = []
+    for f, st in stacks.items():
+        blocks = [st._ensure_block(bi) for bi in range(st.n_blocks)]
+        compressed = [isinstance(b, C.CompressedBlock) for b in blocks]
+        if f == "brand":
+            assert not any(compressed), "brand should stay dense (ratio rule)"
+        else:
+            assert all(compressed), f"{f} is not resident compressed"
+            assert all(b.nbytes <= C.MAX_RATIO * b.dense_nbytes
+                       for b in blocks), f"{f} stored above 0.9 x dense"
+        for bi, b in enumerate(blocks):
+            assert STK.BUDGET._lru[(st.serial, bi)][0] == STK._nbytes(b), \
+                f"{f} block {bi} is charged other than its stored bytes"
+        dense_b = sum(b.dense_nbytes if c else STK._nbytes(b)
+                      for b, c in zip(blocks, compressed))
+        stored_b = sum(STK._nbytes(b) for b in blocks)
+        tiles = sum(b.n_payload for b, c in zip(blocks, compressed) if c)
+        lines.append(f"{f}: {st.n_blocks} x {st.block_rows} rows, dense "
+                     f"{dense_b} B, stored {stored_b} B, payload tiles "
+                     f"{tiles}, "
+                     f"{'compressed' if all(compressed) else 'dense'}")
+    report.launched(name, launched, ("ctile_count", "tape_count",
+                                     "pair_counts", "scatter_merge"))
+    # ctile_count on the path's own resident blocks (year, _exists and
+    # every orderdate block), filtered and unfiltered, against its plain
+    # version
+    filt = stacks["brand"].row_plane(bid[3])
+    n_held = 0
+    for f in ("orderdate", "year", "_exists"):
+        st = stacks[f]
+        for bi in range(st.n_blocks):
+            cb = st._ensure_block(bi)
+            ft = C._filt_tiles(filt, cb.n_tiles, cb.tile_words)
+            for fti in (None, ft):
+                operands = (cb.payload, cb.payload_row, cb.payload_tile,
+                         cb.const, fti)
+                report.err("ctile_count", C.ctile_count(*operands),
+                           C.ctile_count_plain(*operands))
+                n_held += 1
+    lines.append(f"ctile_count equals its plain version on the path's "
+                 f"{n_held // 2} resident compressed blocks, filtered and not")
+    for line in lines:
+        print(f"ssb_by_date path: {line} {report.label}")
+    print(f"ssb_by_date path: budget used {STK.BUDGET.used} B over "
+          f"{len(STK.BUDGET._lru)} resident entries (every path's stacks), "
+          f"audit holds {report.label}")
+
+    # -- times ---------------------------------------------------------------
+    p50 = {q: statistics.median(_wall_ms(lambda q=q: api.query(name, q))
+                                for _ in range(11)) for q in (ftop_q, top_q)}
+    busy = {q: _device_ms(lambda q=q: api.query(name, q), calls=11)
+            for q in (ftop_q, top_q)}
+    st = stacks["orderdate"]
+    decoded = [blk for _, blk in st.iter_blocks()]
+    for f in (None, filt):
+        assert torch.equal(st.row_counts(f), torch.cat(
+            [T.row_counts(b, f) for b in decoded])), "count step disagrees"
+    comp_ms = _time_ms(lambda: st.row_counts(filt), reps=3, trials=5)
+    dense_ms = _time_ms(lambda: [T.row_counts(b, filt) for b in decoded],
+                        reps=3, trials=5)
+    comp_dev = _device_ms(lambda: st.row_counts(filt), calls=5)
+    dense_dev = _device_ms(lambda: [T.row_counts(b, filt) for b in decoded],
+                           calls=5)
+    del decoded
+    torch.cuda.empty_cache()
+    print(f"ssb_by_date path: {n} columns by order date, {N_DATES} dates, "
+          f"{brands} brands; import {import_s:.3f} s; first query (builds "
+          f"and classifies the orderdate blocks) {first_s:.3f} s; launches "
+          f"{launched} {report.label}")
+    for q in (ftop_q, top_q):
+        print(f"ssb_by_date path: p50 of {q} {p50[q]:.3f} ms; device busy "
+              f"per query {_fmt_ms(busy[q])} {report.label}")
+    print(f"ssb_by_date path: count step over the {st.n_blocks} orderdate "
+          f"blocks, filtered: compressed (ctile_count) {comp_ms:.4f} ms "
+          f"call, {_fmt_ms(comp_dev)} device; dense pair_counts on the "
+          f"decoded blocks {dense_ms:.4f} ms call, {_fmt_ms(dense_dev)} "
+          f"device {report.label}")
+    print("ssb_by_date path: every answer matches the numpy oracle")
+
+
+def phase_sparse_bsi(report: Report, args) -> None:
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core.stacked import stacked_bsi
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    rng = np.random.default_rng(args.seed + 3)
+    n = 65536  # a clustered range of one shard
+    delay = rng.integers(0, 1000, n)
+    KU.reset_launches()
+    api = API()
+    api.create_index("sparse")
+    api.create_field("sparse", "delay", {"type": "int"})
+    api.import_values("sparse", "delay", cols=np.arange(n), values=delay)
+    checks = {
+        "Count(Row(delay > 100))": int((delay > 100).sum()),
+        "Count(Row(50 <= delay <= 60))":
+            int(((delay >= 50) & (delay <= 60)).sum()),
+    }
+    got = {q: api.query("sparse", q)[0] for q in checks}
+    small = delay[delay < 7]
+    aggs = {"Sum(Row(delay < 7), field=delay)": (int(small.sum()),
+                                                 small.size),
+            "Min(field=delay)": (int(delay.min()),
+                                 int((delay == delay.min()).sum())),
+            "Max(field=delay)": (int(delay.max()),
+                                 int((delay == delay.max()).sum()))}
+    got.update({q: api.query("sparse", q)[0] for q in aggs})
+    torch.cuda.synchronize()
+    launched = KU.launches()
+    for q, want in checks.items():
+        assert got[q] == want, f"{q}: {got[q]} != {want}"
+    for q, want in aggs.items():
+        assert (got[q].val, got[q].count) == want, f"{q}: {got[q]}"
+    st = stacked_bsi(api.holder.index("sparse").field("delay"), [0])
+    cb = st._entry()
+    assert isinstance(cb, C.CompressedBlock), "the sparse BSI stack is dense"
+    report.launched("sparse_bsi", launched, ("bsi_compare", "tape_count",
+                                             "pair_counts", "scatter_merge"))
+    dense = cb.decode()
+    for op, v, v2 in ((S.EQ, 500, None), (S.NE, 500, None), (S.LT, 7, None),
+                      (S.LE, 60, None), (S.GT, 100, None), (S.GE, 999, None),
+                      (S.BETWEEN, 50, 60)):
+        report.err("bsi_compare", C.bsi_compare_compressed(cb, op, v, v2),
+                   S.bsi_compare_plain(dense, op, v, v2))
+    print(f"sparse bsi: depth {st.depth}, stack dense {cb.dense_nbytes} B, "
+          f"stored {cb.nbytes} B, {cb.active_tiles.size} of {cb.n_tiles} "
+          f"tiles active; launches {launched}; every answer matches numpy "
+          f"{report.label}")
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -669,6 +1067,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if os.environ.get("PILOSA_TPU_COMPRESS") is not None:
+        print("chip_smoke: unset PILOSA_TPU_COMPRESS: path 3 checks what "
+              "the auto compression rule makes resident", file=sys.stderr)
         return 1
     from pilosa_tpu_torch.ops import kernel_util as KU
 
@@ -706,6 +1108,8 @@ def main() -> int:
           "bit")
     phase_main_path(report, args)
     phase_bsi_path(report, args)
+    phase_ssb_by_date(report, args)
+    phase_sparse_bsi(report, args)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -20,15 +20,23 @@ than the stack's snapshot raises :class:`StackStale`, and the executor
 retries the read on a fresh stack.
 
 **BSI stacks** (:class:`StackedBSI`) hold an int-like field's plane
-stacks across shards as one dense ``int32[2+depth, S*W]``; bit depth is
+stacks across shards as one ``int32[2+depth, S*W]``; bit depth is
 bounded, so they never page, but they are charged and evicted like any
 block.
+
+**Compressed residency.** A resident block (or BSI stack) is a dense
+tensor *or* an ``ops/ctiles.py`` :class:`~ctiles.CompressedBlock`, as the
+build's ``ctiles.maybe_compress`` decides (``PILOSA_TPU_COMPRESS``, the
+JAX package's rules). The budget is charged the stored bytes. Readers
+that need dense words (``iter_blocks``, ``planes``) get the block
+decoded on the device, uncached, so the budget sees all the residency;
+``row_plane`` decodes its one row, ``row_counts`` takes the
+tile-skipping scan and ``StackedBSI.compare`` the active-tile compare.
 
 Caches hang on the owning Field keyed by (kind, view) and shard tuple and
 are validated against the fragment version vector: a stack whose
 fragments changed is rebuilt. The JAX package's in-place advance paths
-(``_advance_set``, ``_advance_bsi``) and compressed blocks
-(``ops/ctiles.py``) wait for later slices.
+(``_advance_set``, ``_advance_bsi``) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import itertools
 import os
 import threading
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,10 +54,30 @@ import torch
 from pilosa_tpu_torch import platform
 from pilosa_tpu_torch.ops import bitmap as bitops
 from pilosa_tpu_torch.ops import bsi as bsiops
+from pilosa_tpu_torch.ops import ctiles
 from pilosa_tpu_torch.ops import topk as topkops
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
 _MIN_SLOTS = 8
+
+#: a resident entry: a dense device tensor or a compressed-tile block
+Block = Union[torch.Tensor, ctiles.CompressedBlock]
+
+
+def _dense(blk: Block) -> torch.Tensor:
+    """A resident entry as a dense device tensor (decoded when
+    compressed)."""
+    if isinstance(blk, ctiles.CompressedBlock):
+        return blk.decode()
+    return blk
+
+
+def _row(blk: Block, i: int) -> torch.Tensor:
+    """Row ``i`` of a resident entry (only that row decoded when
+    compressed)."""
+    if isinstance(blk, ctiles.CompressedBlock):
+        return blk.decode(rows=[i])[0]
+    return blk[i]
 
 
 class StackStale(RuntimeError):
@@ -147,8 +175,9 @@ _stack_serial = itertools.count()
 class StackedSet:
     """Union-row view of set fragments: ``int32[cap, S*W]`` in row blocks.
 
-    Unpaged stacks (cap fits one block) upload eagerly as one tensor;
-    paged stacks build blocks lazily and stream them."""
+    Unpaged stacks (cap fits one block) build eagerly; paged stacks build
+    blocks lazily and stream them. Each block is resident dense or
+    compressed."""
 
     def __init__(self, shards: Sequence[int], fragments,
                  device: torch.device, words: int = WORDS_PER_SHARD,
@@ -180,7 +209,7 @@ class StackedSet:
         self._fragments = list(fragments)
         self._built_vers = tuple(
             -1 if f is None else f.version for f in fragments)
-        self._blocks: List[Optional[torch.Tensor]] = (
+        self._blocks: List[Optional[Block]] = (
             [None] * (self.cap // self.block_rows))
         self._lock = threading.Lock()
         if not self.paged:
@@ -197,10 +226,11 @@ class StackedSet:
     def n_blocks(self) -> int:
         return len(self._blocks)
 
-    def _build_block_host(self, bi: int) -> torch.Tensor:
+    def _build_block_host(self, bi: int) -> Block:
         """Assemble block ``bi`` from the host fragment planes and upload
-        it. Caller has validated the version snapshot or holds the writer
-        lock through the build."""
+        it (compressed when the policy says so, dense otherwise). Caller
+        has validated the version snapshot or holds the writer lock
+        through the build."""
         lo_slot = bi * self.block_rows
         hi_slot = min(lo_slot + self.block_rows, len(self.row_ids))
         host = np.zeros((self.block_rows, self.total_words), dtype=np.uint32)
@@ -214,9 +244,12 @@ class StackedSet:
             if pairs:
                 dst, src = (list(x) for x in zip(*pairs))
                 host[dst, lo:lo + self.words] = frag.planes[src]
+        cb = ctiles.maybe_compress(host, self.device)
+        if cb is not None:
+            return cb
         return platform.h2d_copy(host, self.device)
 
-    def _ensure_block(self, bi: int) -> torch.Tensor:
+    def _ensure_block(self, bi: int) -> Block:
         blk = self._blocks[bi]
         if blk is not None:
             BUDGET.touch((self.serial, bi))
@@ -246,17 +279,19 @@ class StackedSet:
         self._blocks[bi] = None  # eviction: the next touch rebuilds
 
     def iter_blocks(self) -> Iterator[Tuple[int, torch.Tensor]]:
-        """(start_slot, device block) over all blocks, built on demand."""
+        """(start_slot, dense device block) over all blocks, built on
+        demand; compressed blocks decode on the device, one at a time."""
         for bi in range(self.n_blocks):
-            yield bi * self.block_rows, self._ensure_block(bi)
+            yield bi * self.block_rows, _dense(self._ensure_block(bi))
 
     @property
     def planes(self) -> torch.Tensor:
-        """The full ``[cap, S*W]`` tensor; only unpaged stacks have one."""
+        """The full dense ``[cap, S*W]`` tensor; only unpaged stacks have
+        one."""
         if self.paged:
             raise AssertionError(
                 "paged stack has no single tensor; use iter_blocks()")
-        return self._ensure_block(0)
+        return _dense(self._ensure_block(0))
 
     # -- reads ----------------------------------------------------------------
 
@@ -269,14 +304,21 @@ class StackedSet:
         slot = self.row_index.get(row)
         if slot is None:
             return self.zero_plane()
-        blk = self._ensure_block(slot // self.block_rows)
-        return blk[slot % self.block_rows]
+        return _row(self._ensure_block(slot // self.block_rows),
+                    slot % self.block_rows)
 
     def row_counts(self, filt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Device ``[cap]`` per-slot popcounts (optionally filtered),
-        streamed per block through the pair_counts kernel (reference:
-        fragment.go:1317 top counts)."""
-        parts = [topkops.row_counts(blk, filt) for _, blk in self.iter_blocks()]
+        streamed per block: a dense block through the pair_counts kernel,
+        a compressed one through the tile-skipping ctile_count scan
+        (reference: fragment.go:1317 top counts)."""
+        parts = []
+        for bi in range(self.n_blocks):
+            blk = self._ensure_block(bi)
+            if isinstance(blk, ctiles.CompressedBlock):
+                parts.append(blk.row_counts(filt))
+            else:
+                parts.append(topkops.row_counts(blk, filt))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -284,10 +326,11 @@ class StackedBSI:
     """BSI plane stacks across shards: ``int32[2+depth, S*W]`` on the device.
 
     Shards shallower than the deepest member are zero-padded (a zero
-    magnitude plane adds nothing to a compare or a sum). The tensor is
-    budget-charged and evictable: an evicted one rebuilds lazily on the
-    next touch with the same version check as a set block (a write since
-    the snapshot raises :class:`StackStale`)."""
+    magnitude plane adds nothing to a compare or a sum). The stack is
+    resident dense or compressed, budget-charged and evictable: an
+    evicted one rebuilds lazily on the next touch with the same version
+    check as a set block (a write since the snapshot raises
+    :class:`StackStale`)."""
 
     def __init__(self, shards: Sequence[int], fragments,
                  device: torch.device, words: int = WORDS_PER_SHARD,
@@ -304,16 +347,19 @@ class StackedBSI:
         self._lock = threading.Lock()
         self._fragments = list(fragments)
         self._built_vers = _versions(fragments)
-        self._planes: Optional[torch.Tensor] = self._build_host()
+        self._planes: Optional[Block] = self._build_host()
         self._charge()
 
-    def _build_host(self) -> torch.Tensor:
+    def _build_host(self) -> Block:
         host = np.zeros((bsiops.OFFSET + self.depth, self.total_words),
                         dtype=np.uint32)
         for si, frag in enumerate(self._fragments):
             if frag is not None:
                 lo = si * self.words
                 host[: frag.planes.shape[0], lo:lo + self.words] = frag.planes
+        cb = ctiles.maybe_compress(host, self.device)
+        if cb is not None:
+            return cb
         return platform.h2d_copy(host, self.device)
 
     def _charge(self) -> None:
@@ -326,10 +372,10 @@ class StackedBSI:
     def release_device(self) -> None:
         BUDGET.release((self.serial, 0))
 
-    @property
-    def planes(self) -> torch.Tensor:
-        """The resident ``[2+depth, S*W]`` tensor, rebuilt under the writer
-        lock with the version check when it was evicted."""
+    def _entry(self) -> Block:
+        """The resident entry (dense tensor or compressed block), rebuilt
+        under the writer lock with the version check when it was
+        evicted."""
         blk = self._planes
         if blk is not None:
             BUDGET.touch((self.serial, 0))
@@ -344,17 +390,31 @@ class StackedBSI:
         self._charge()
         return blk
 
+    @property
+    def planes(self) -> torch.Tensor:
+        """The dense ``[2+depth, S*W]`` tensor (decoded, uncached, when
+        the stack is resident compressed)."""
+        return _dense(self._entry())
+
     def compare(self, op: str, value: int,
                 value2: Optional[int] = None) -> torch.Tensor:
-        """Range compare over the stack (stored-space constants)."""
-        return bsiops.bsi_compare(self.planes, op, value, value2)
+        """Range compare over the stack (stored-space constants). A
+        compressed stack narrows the scan to its active tiles."""
+        blk = self._entry()
+        if isinstance(blk, ctiles.CompressedBlock):
+            return ctiles.bsi_compare_compressed(blk, op, value, value2)
+        return bsiops.bsi_compare(blk, op, value, value2)
 
     def exists_plane(self) -> torch.Tensor:
-        return self.planes[bsiops.EXISTS]
+        return _row(self._entry(), bsiops.EXISTS)
 
 
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+def _nbytes(blk: Block) -> int:
+    """Bytes a resident entry holds: the stored bytes of a compressed
+    block, never its decoded size."""
+    if isinstance(blk, ctiles.CompressedBlock):
+        return blk.nbytes
+    return blk.numel() * blk.element_size()
 
 
 def _versions(fragments) -> Tuple:

@@ -37,7 +37,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 #: kernel sources, one nvcc process each
 SOURCES = ("tape_count.cu", "pair_counts.cu", "scatter_merge.cu",
-           "bsi_compare.cu")
+           "bsi_compare.cu", "ctile_count.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -195,6 +195,8 @@ def lib() -> ctypes.CDLL:
         dll.pk_scatter_merge.restype = i
         dll.pk_bsi_compare.argtypes = [ctypes.POINTER(BsiDesc), vp]
         dll.pk_bsi_compare.restype = i
+        dll.pk_ctile_count.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp, vp]
+        dll.pk_ctile_count.restype = i
         dll.pk_error_string.argtypes = [i]
         dll.pk_error_string.restype = ctypes.c_char_p
         _lib = dll

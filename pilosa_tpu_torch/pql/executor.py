@@ -392,8 +392,8 @@ class Executor:
         cells = 1
         for st in sts:
             cells *= st.cap
-        if agg_st is not None:
-            cells *= agg_st.planes.shape[0]
+        if agg_st is not None:  # its plane count, without a decode
+            cells *= S.OFFSET + agg_st.depth
         if cells > 1 << 24:  # the JAX package folds here instead
             raise not_ported("GroupBy over more than 2^24 dense cells")
         filter_call = call.arg("filter")

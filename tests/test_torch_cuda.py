@@ -17,9 +17,11 @@ import torch
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import bsi as S
+from pilosa_tpu_torch.ops import ctiles as C
 from pilosa_tpu_torch.ops import groupby as G
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops import scatter as SC
+from pilosa_tpu_torch.ops import topk as T
 
 pytestmark = pytest.mark.cuda
 
@@ -155,3 +157,59 @@ def test_bsi_api_on_the_card_matches_the_cpu(dev):
         api.import_values("i", "v", cols=cols, values=vals)
         out.append(repr(api.query("i", q)))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("consts", [False, True])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("t", [8, 12, 64, 512])
+@pytest.mark.parametrize("p", [8, 1000])
+def test_ctile_count_kernel(dev, p, t, filtered, consts):
+    """Rows past the end (the padding) are dropped; all-ones and all-zero
+    tiles included; constants of 0, ~0 and other words; T = 12 takes the
+    kernel's scalar loop."""
+    rng = np.random.default_rng(p * 1000 + t * 4 + filtered * 2 + consts)
+    rows, n_tiles = 37, 11
+    payload = words(rng, (p, t), dev)
+    payload[0] = -1
+    payload[1] = 0
+    prow = torch.from_numpy(rng.integers(0, rows + 3, p).astype(np.int32)
+                            ).to(dev)
+    ptile = torch.from_numpy(rng.integers(0, n_tiles, p).astype(np.int32)
+                             ).to(dev)
+    filt = words(rng, (n_tiles, t), dev) if filtered else None
+    pick = rng.integers(0, 4, (rows, n_tiles)) if consts else np.full(
+        (rows, n_tiles), 3)
+    host = np.where(pick == 0, rng.integers(0, 1 << 32, (rows, n_tiles),
+                                            dtype=np.uint32),
+                    np.where(pick == 1, 0xFFFFFFFF, 0)).astype(np.uint32)
+    const = torch.from_numpy(host.view(np.int32)).to(dev)
+    before = KU.launches()["ctile_count"]
+    got = C.ctile_count(payload, prow, ptile, const, filt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, C.ctile_count_plain(payload, prow, ptile, const,
+                                                filt))
+    assert KU.launches()["ctile_count"] == before + 1
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_compressed_row_counts_on_the_card(dev, filtered):
+    """A clustered block compressed on the card counts as the dense
+    pair_counts path counts its decoded block."""
+    rng = np.random.default_rng(15)
+    rows, width = 64, 4 * 32768
+    bounds = np.sort(rng.choice(width * 32, rows - 1, replace=False))
+    host = np.zeros((rows, width), dtype=np.uint32)
+    for r, (lo, hi) in enumerate(zip(np.r_[0, bounds],
+                                     np.r_[bounds, width * 32])):
+        bits = np.zeros(width * 32, dtype=bool)
+        bits[lo:hi] = True
+        host[r] = np.packbits(bits, bitorder="little").view("<u4")
+    cb = C.maybe_compress(host, dev)
+    assert cb is not None and cb.payload.is_cuda
+    filt = words(rng, (width,), dev) if filtered else None
+    before = KU.launches()["ctile_count"]
+    got = cb.row_counts(filt)
+    assert KU.launches()["ctile_count"] == before + 1
+    dense = cb.decode()
+    assert np.array_equal(dense.cpu().numpy().view(np.uint32), host)
+    assert torch.equal(got, T.row_counts(dense, filt))

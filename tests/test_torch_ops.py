@@ -21,6 +21,7 @@ from pilosa_tpu.ops import scatter as JS
 from pilosa_tpu_torch import native
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import bsi as S
+from pilosa_tpu_torch.ops import ctiles as C
 from pilosa_tpu_torch.ops import groupby as G
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops import scatter as SC
@@ -281,9 +282,11 @@ def test_cpu_tensors_take_plain_version_without_launching(rng):
     SC.scatter_merge_(flat, torch.tensor([1, 2], dtype=torch.int32),
                       torch.tensor([1, 2], dtype=torch.int32))
     S.bsi_compare(t(rand_planes(rng, 5, WORDS)), S.GT, 3)
+    C.ctile_count(t(rand_planes(rng, 8, 8)), torch.arange(8, dtype=torch.int32),
+                  torch.zeros(8, dtype=torch.int32), t(rand_planes(rng, 8, 2)))
     assert KU.launches() == before
     assert set(before) == {"tape_count", "pair_counts", "scatter_merge",
-                           "bsi_compare"}
+                           "bsi_compare", "ctile_count"}
 
 
 def test_unsupported_device_raises():
