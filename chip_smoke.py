@@ -88,6 +88,9 @@ def _mem_rate(name: str) -> float:
 POPC_PER_CLOCK_PER_SM = 16
 #: 32-bit bitwise AND/OR/XOR results per clock per SM, same table
 LOP_PER_CLOCK_PER_SM = 64
+#: dense int8 tensor-core operations per second of an H100 SXM (NVIDIA's
+#: data sheet); pair_counts' bound counts 2 per bit pair
+INT8_OPS_PER_S = 1979e12
 
 
 def _time_ms(fn, reps: int = 10, trials: int = 9) -> float:
@@ -183,7 +186,8 @@ class Report:
 
 
 def phase_kernels(report: Report, rng, device, popc_rate: float,
-                  mem_rate: float, lop_rate: float) -> None:
+                  mem_rate: float, lop_rate: float,
+                  int8_rate: float) -> None:
     import numpy as np
     import torch
 
@@ -232,61 +236,86 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
           f"bound {max(by_bytes, by_ops):.4f} ms) {report.label}")
 
     # -- pair_counts --------------------------------------------------------
-    cases = [(1, 1, 1), (3, 5, 7), (37, 37, 512), (8, 256, 512),
-             (1, 256, main_w), (8, 256, main_w), (130, 300, 1000)]
-    for r1, r2, w in cases:
+    # every regime of the plan (one row of A; both sides of at most 32
+    # rows; more), each swapped, at every edge: widths below one 16-byte
+    # load, odd widths (scalar loads), a slice past 32,768 words and the
+    # main width
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else 132
+    variants = set()
+    for w in (1, 7, 1000, 32768 + 3, main_w):
+        for r1 in (1, 2, 3, 8, 9, 16, 130):
+            for r2 in (1, 20, 40, 127, 128, 129, 300):
+                a = _rand_words(rng, (r1, w), device)
+                b = _rand_words(rng, (r2, w), device)
+                variants.add(G._plan(r1, r2, w, True, sms).variant)
+                report.err("pair_counts", G.pair_counts(a, b),
+                           G.pair_counts_plain(a, b))
+    assert variants == {"row", "narrow", "wide"}, variants
+    # views 1-3 rows into a stack at odd widths: not 16-byte aligned
+    for off in (1, 2, 3):
+        for r1, r2, w in ((2, 20, 1001), (1, 129, 32768 + 3), (8, 40, 7),
+                          (40, 8, 1003), (2, 20, bsi_w + 1)):
+            sa = _rand_words(rng, (r1 + off, w), device)
+            sb = _rand_words(rng, (r2 + off, w), device)
+            report.err("pair_counts", G.pair_counts(sa[off:], sb[off:]),
+                       G.pair_counts_plain(sa[off:], sb[off:]))
+    # saturation: all-ones rows at the BSI path's width, 32 * w per count
+    for r1, r2 in ((2, 20), (1, 256), (8, 40), (40, 8)):
+        ones = torch.full((max(r1, r2), bsi_w), -1, dtype=torch.int32,
+                          device=device)
+        report.err("pair_counts", G.pair_counts(ones[:r1], ones[:r2]),
+                   torch.full((r1, r2), 32 * bsi_w, dtype=torch.int32,
+                              device=device))
+        del ones
+    zeros = torch.zeros((4, 512), dtype=torch.int32, device=device)
+    report.err("pair_counts", G.pair_counts(
+        torch.full((4, 512), -1, dtype=torch.int32, device=device), zeros),
+        torch.zeros((4, 4), dtype=torch.int32, device=device))
+    # the four main-path shapes: the kernel alone (profiler) and the call
+    # (wrapper included), beside the bound: the larger of the bytes at the
+    # memory rate and 2 ops per bit pair at the int8 tensor-core peak
+    shapes = {"GroupBy": (8, 256, main_w), "TopN": (1, 256, main_w),
+              "Sum": (2, 20, bsi_w), "GroupBy-Sum": (256, 40, main_w)}
+    pc = {}
+    for name, (r1, r2, w) in shapes.items():
         a = _rand_words(rng, (r1, w), device)
         b = _rand_words(rng, (r2, w), device)
+        if name == "Sum":  # the magnitude planes are a view of the stack
+            b = _rand_words(rng, (r2 + 2, w), device)[2:]
+        plan = G._plan(r1, r2, w, a.data_ptr() % 16 == 0
+                       and b.data_ptr() % 16 == 0, sms)
         report.err("pair_counts", G.pair_counts(a, b),
                    G.pair_counts_plain(a, b))
-    ones = torch.full((4, 512), -1, dtype=torch.int32, device=device)
-    zeros = torch.zeros((4, 512), dtype=torch.int32, device=device)
-    report.err("pair_counts", G.pair_counts(ones, ones),
-               torch.full((4, 4), 512 * 32, dtype=torch.int32, device=device))
-    report.err("pair_counts", G.pair_counts(ones, zeros),
-               torch.zeros((4, 4), dtype=torch.int32, device=device))
-    timings, kernel_alone = {}, {}
-    for r1 in (8, 1):  # GroupBy year x brand block; TopN filter x block
-        a = _rand_words(rng, (r1, main_w), device)
-        b = _rand_words(rng, (256, main_w), device)
         ms = _time_ms(lambda: G.pair_counts(a, b))
+        kern_ms = _device_ms(lambda: G.pair_counts(a, b), "pc_")
         plain_ms = _time_ms(lambda: G.pair_counts_plain(a, b), reps=2,
-                            trials=5)
-        kernel_alone[r1] = _device_ms(lambda: G.pair_counts(a, b),
-                                      "pair_counts")
-        by_bytes = ((r1 + 256) * main_w * 4 + r1 * 256 * 4) / mem_rate * 1e3
-        by_ops = r1 * 256 * main_w / popc_rate * 1e3
-        timings[r1] = (ms, plain_ms, by_bytes, by_ops)
-        print(f"kernel pair_counts: {r1}x256x{main_w} words {ms:.4f} ms "
-              f"(kernel alone {_fmt_ms(kernel_alone[r1])}, plain "
-              f"{plain_ms:.4f} ms, bytes bound {by_bytes:.4f} ms, "
-              f"popc bound {by_ops:.4f} ms) {report.label}")
-    # Sum on the BSI path: the two sign classes x the 20 magnitude planes
-    # (a view of the stack)
-    a = _rand_words(rng, (2, bsi_w), device)
-    stack = _rand_words(rng, (2 + 20, bsi_w), device)
-    report.err("pair_counts", G.pair_counts(a, stack[2:]),
-               G.pair_counts_plain(a, stack[2:]))
-    sum_ms = _time_ms(lambda: G.pair_counts(a, stack[2:]))
-    sum_kern_ms = _device_ms(lambda: G.pair_counts(a, stack[2:]),
-                             "pair_counts")
-    sum_bound = max((22 * bsi_w * 4 + 2 * 20 * 4) / mem_rate * 1e3,
-                    2 * 20 * bsi_w / popc_rate * 1e3)
-    print(f"kernel pair_counts: 2x20x{bsi_w} words (Sum) {sum_ms:.4f} ms "
-          f"(kernel alone {_fmt_ms(sum_kern_ms)}, bound {sum_bound:.4f} ms) "
-          f"{report.label}")
-    ms, plain_ms, by_bytes, by_ops = timings[8]
+                            trials=5) if name == "GroupBy" else None
+        by_bytes = ((r1 + r2) * w * 4 + r1 * r2 * 4) / mem_rate * 1e3
+        by_ops = 2 * r1 * r2 * w * 32 / int8_rate * 1e3
+        pc[name] = {"shape": f"{r1}x{r2}x{w}", "variant": plan.variant,
+                    "swap": plan.swap, "tile": f"{plan.ta}x{plan.tb}",
+                    "blocks": plan.blocks, "ms": ms, "kernel_ms": kern_ms,
+                    "bound_ms": max(by_bytes, by_ops),
+                    "bound_by": "bytes" if by_bytes >= by_ops
+                    else "operations"}
+        print(f"kernel pair_counts: {name} {r1}x{r2}x{w} words, variant "
+              f"{plan.variant}{' (swapped)' if plan.swap else ''}, tile "
+              f"{plan.ta}x{plan.tb}, {plan.blocks} blocks: call "
+              f"{ms:.4f} ms, kernel alone {_fmt_ms(kern_ms)}"
+              + (f", plain {plain_ms:.4f} ms" if plain_ms else "")
+              + f", bytes bound {by_bytes:.4f} ms, int8 bound "
+              f"{by_ops:.4f} ms {report.label}")
+        if plain_ms:
+            pc[name]["plain_ms"] = plain_ms
+    main = pc["GroupBy"]
     report.kernel("pair_counts",
                   source="pilosa_tpu_torch/csrc/pair_counts.cu",
-                  replaces="pilosa_tpu/ops/groupby.py:98", ms=ms,
-                  plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
-                  bound_by="bytes" if by_bytes >= by_ops else "operations",
-                  library_ms=None, shape=f"8x256x{main_w}",
-                  kernel_ms=kernel_alone[8], topn_kernel_ms=kernel_alone[1],
-                  topn_ms=timings[1][0],
-                  topn_bound_ms=max(timings[1][2], timings[1][3]),
-                  sum_ms=sum_ms, sum_kernel_ms=sum_kern_ms,
-                  sum_bound_ms=sum_bound)
+                  replaces="pilosa_tpu/ops/groupby.py:98", ms=main["ms"],
+                  plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                  bound_by=main["bound_by"], library_ms=None,
+                  shape=main["shape"], kernel_ms=main["kernel_ms"],
+                  variant=main["variant"], shapes=pc)
 
     # -- scatter_merge ------------------------------------------------------
     for n, m in ((512, 1), (1024, 300), (32768, 5000), (32768, 32768)):
@@ -548,6 +577,8 @@ def phase_main_path(report: Report, args) -> None:
             T.row_counts(b)
 
     kern_ms = _time_ms(query_kernels, reps=3, trials=5)
+    pc_ms = _device_ms(query_kernels, "pc_", calls=5)
+    busy_ms = _device_ms(lambda: api.query("ssb", q), calls=11)
     decide_s, classify_s = _compress_decision_s(st._ensure_block(0))
     print(f"main path: first query (builds the year and brand stacks) "
           f"{first_s:.3f} s; on one {st.block_rows}-row brand block the "
@@ -555,8 +586,10 @@ def phase_main_path(report: Report, args) -> None:
           f"classify with the payload gathered {classify_s:.3f} s "
           f"{report.label}")
     print(f"main path: the GroupBy+TopN query's {2 * st.n_blocks} "
-          f"pair_counts launches take {kern_ms:.3f} ms of device time, "
-          f"{100 * kern_ms / p50:.1f}% of its p50 {report.label}")
+          f"pair_counts launches take {kern_ms:.3f} ms back to back "
+          f"({100 * kern_ms / p50:.1f}% of its p50), "
+          f"{_fmt_ms(pc_ms)} of kernel time in a profiler trace; the query "
+          f"keeps the card busy {_fmt_ms(busy_ms)} {report.label}")
     print(f"main path: {n} columns, {years} years x {brands} brands; "
           f"import {import_s:.3f} s; brand blocks {st.n_blocks} of "
           f"{st.block_rows} rows; device bytes allocated "
@@ -1103,7 +1136,7 @@ def main() -> int:
     lop_rate = LOP_PER_CLOCK_PER_SM * props.multi_processor_count \
         * clock_mhz * 1e6
     phase_kernels(report, np.random.default_rng(args.seed + 1), device,
-                  popc_rate, mem_rate, lop_rate)
+                  popc_rate, mem_rate, lop_rate, INT8_OPS_PER_S)
     print("kernel parity: every kernel matches its plain version bit for "
           "bit")
     phase_main_path(report, args)

@@ -189,7 +189,8 @@ def lib() -> ctypes.CDLL:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         dll.pk_tape_count.argtypes = [ctypes.POINTER(TapeDesc), ll, vp, vp]
         dll.pk_tape_count.restype = i
-        dll.pk_pair_counts.argtypes = [vp, vp, i, i, ll, vp, vp]
+        dll.pk_pair_counts.argtypes = [vp, vp, i, i, ll, i, i, i, ll, ll,
+                                       ll, vp, vp]
         dll.pk_pair_counts.restype = i
         dll.pk_scatter_merge.argtypes = [vp, ll, vp, vp, ll, vp, vp]
         dll.pk_scatter_merge.restype = i
@@ -243,3 +244,15 @@ def check_words(kernel: str, name: str, t: torch.Tensor, ndim: int) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]

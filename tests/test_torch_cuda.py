@@ -38,15 +38,70 @@ def words(rng, shape, device):
     return torch.from_numpy(host.view(np.int32)).to(device)
 
 
-@pytest.mark.parametrize("r1,r2,w", [(1, 1, 1), (3, 5, 7), (37, 37, 512),
-                                     (8, 256, 512), (1, 300, 1000),
-                                     (130, 300, 1000)])
-def test_pair_counts_kernel(dev, r1, r2, w):
-    rng = np.random.default_rng(r1 * 1000 + r2)
-    a, b = words(rng, (r1, w), dev), words(rng, (r2, w), dev)
+#: shapes that reach every regime of ops/groupby.py _plan (one row of A;
+#: both sides of at most 32 rows; more) and each of these swapped
+PC_R1 = [1, 2, 3, 8, 9, 16, 130]
+PC_R2 = [1, 20, 40, 127, 128, 129, 300]
+
+
+def _pair_counts_once(a, b):
     before = KU.launches()["pair_counts"]
-    assert torch.equal(G.pair_counts(a, b), G.pair_counts_plain(a, b))
+    got = G.pair_counts(a, b)
+    torch.cuda.synchronize()
     assert KU.launches()["pair_counts"] == before + 1
+    return got
+
+
+@pytest.mark.parametrize("w", [1, 7, 1000, 32768 + 3])
+@pytest.mark.parametrize("r2", PC_R2)
+@pytest.mark.parametrize("r1", PC_R1)
+def test_pair_counts_kernel(dev, r1, r2, w):
+    rng = np.random.default_rng(r1 * 1000 + r2 + w)
+    a, b = words(rng, (r1, w), dev), words(rng, (r2, w), dev)
+    assert torch.equal(_pair_counts_once(a, b), G.pair_counts_plain(a, b))
+
+
+@pytest.mark.parametrize("r1,r2,w", [(8, 256, 6 * 32768), (1, 256, 6 * 32768),
+                                     (2, 20, 10 * 32768),
+                                     (256, 40, 6 * 32768),
+                                     (16, 256, 6 * 32768)])
+def test_pair_counts_kernel_main_path_shapes(dev, r1, r2, w):
+    """GroupBy, TopN, Sum, the one-field GroupBy-Sum and pair_sums at
+    their stacked widths."""
+    rng = np.random.default_rng(r1 + r2)
+    a, b = words(rng, (r1, w), dev), words(rng, (r2, w), dev)
+    assert torch.equal(_pair_counts_once(a, b), G.pair_counts_plain(a, b))
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("r1,r2,w", [(2, 20, 1001), (1, 129, 32768 + 3),
+                                     (8, 40, 7), (40, 8, 1003)])
+def test_pair_counts_kernel_on_misaligned_views(dev, r1, r2, w, off):
+    """Views that start 1-3 rows into a stack, as planes[OFFSET:] does:
+    at odd w their first word is not 16-byte aligned."""
+    rng = np.random.default_rng(off * 100 + r1)
+    sa = words(rng, (r1 + off, w), dev)
+    sb = words(rng, (r2 + off, w), dev)
+    a, b = sa[off:], sb[off:]
+    assert a.data_ptr() % 16 != 0 or w % 4 == 0
+    assert torch.equal(_pair_counts_once(a, b), G.pair_counts_plain(a, b))
+
+
+@pytest.mark.parametrize("r1,r2", [(2, 20), (1, 256), (8, 40), (40, 8)])
+def test_pair_counts_kernel_saturates_exactly(dev, r1, r2):
+    """All-ones rows at the BSI path's width: every count is 32 * w."""
+    w = 10 * 32768
+    a = torch.full((r1, w), -1, dtype=torch.int32, device=dev)
+    b = torch.full((r2, w), -1, dtype=torch.int32, device=dev)
+    assert torch.equal(_pair_counts_once(a, b),
+                       torch.full((r1, r2), 32 * w, dtype=torch.int32,
+                                  device=dev))
+
+
+def test_pair_counts_kernel_refuses_past_the_int32_bound(dev):
+    a = torch.zeros((1, 1 << 26), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        G.pair_counts(a, a)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -48,7 +48,9 @@ def rand_planes(rng, *shape):
 # pair_counts
 # ---------------------------------------------------------------------------
 
-EDGE_SHAPES = [(1, 1, 1), (3, 5, 7), (37, 37, 512), (8, 256, 512)]
+EDGE_SHAPES = [(1, 1, 1), (3, 5, 7), (37, 37, 512), (8, 256, 512),
+               # the narrow shapes: Sum, the one-field GroupBy-Sum, TopN
+               (2, 20, 300), (256, 40, 300), (1, 256, 300)]
 
 
 @pytest.mark.parametrize("r1,r2,w", EDGE_SHAPES)
@@ -88,6 +90,52 @@ def test_masked_pair_counts(rng, filtered):
 def test_pair_counts_rejects_mismatched_words(rng):
     with pytest.raises(ValueError):
         G.pair_counts(t(rand_planes(rng, 2, 4)), t(rand_planes(rng, 2, 5)))
+
+
+MAIN_W, BSI_W = 6 * 32768, 10 * 32768
+
+
+@pytest.mark.parametrize("r1,r2,w,variant,swap", [
+    (8, 256, MAIN_W, "wide", False),  # GroupBy: year block x brand block
+    (1, 256, MAIN_W, "row", False),  # TopN: filter row x brand block
+    (2, 20, BSI_W, "narrow", False),  # Sum: sign classes x magnitudes
+    (256, 40, MAIN_W, "wide", True),  # 1-field GroupBy-Sum, run as 40 x 256
+])
+def test_plan_of_the_main_path_shapes(r1, r2, w, variant, swap):
+    plan = G._plan(r1, r2, w)
+    assert (plan.variant, plan.swap, plan.vec) == (variant, swap, 4)
+    # enough blocks for every one of the 132 SMs
+    assert plan.blocks >= 132
+
+
+@pytest.mark.parametrize("r1", [1, 2, 3, 4, 5, 8, 9, 16, 40, 130, 256, 70000])
+def test_plan_grid_is_never_empty_and_fits(r1):
+    for r2 in (1, 2, 7, 20, 40, 129, 256, 300, 70000):
+        for w in (1, 3, 4, 7, 1000, 32768 + 3, MAIN_W, BSI_W, G.MAX_WORDS):
+            for aligned in (True, False):
+                p = G._plan(r1, r2, w, aligned)
+                n1, n2 = (r2, r1) if p.swap else (r1, r2)
+                assert n1 <= n2
+                # the tiles csrc/pair_counts.cu has kernels for
+                assert p.ta in range(8, 65, 8) and p.tb in (16, 32)
+                assert p.ta >= min(n1, 64)
+                assert (p.variant == "row") == (n1 == 1)
+                assert (p.variant == "narrow") == (1 < n1 and n2 <= 32)
+                slices = -(-w // p.slice)
+                assert p.slice % 256 == 0 and (slices - 1) * p.slice < w
+                assert p.blocks == (-(-n1 // p.ta) * -(-n2 // p.tb) * slices)
+                assert 1 <= p.blocks < 2 ** 31
+                assert p.vec == (4 if aligned and w % 4 == 0 else 1)
+                # the int32 counts cannot overflow
+                assert 32 * w < 2 ** 31
+
+
+def test_plan_refuses_past_the_int32_bound():
+    G._plan(1, 1, G.MAX_WORDS)
+    with pytest.raises(ValueError, match="int32"):
+        G._plan(1, 1, G.MAX_WORDS + 1)
+    with pytest.raises(ValueError, match="empty"):
+        G._plan(0, 3, 8)
 
 
 # ---------------------------------------------------------------------------
