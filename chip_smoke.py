@@ -10,12 +10,22 @@ Phases, each printed on its own line:
 1. environment: torch version, the card's name and power limit
    (``nvidia-smi``), the ``nvcc --version`` line;
 2. build: compiles the port's CUDA kernels from ``pilosa_tpu_torch/csrc``
-   into ``build/`` and prints the build time;
+   into ``build/``, and beside them the launch probe
+   (``pilosa_tpu_torch/probes/launch_probe.cu``), prints the build time
+   and ptxas's registers, stack frame and spills of the ``tape_count``
+   and ``ctile_count`` kernels (the one-op path of ``tape_count`` must
+   have no stack frame and no spills);
 3. kernel parity: every kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0: every result is an integer or a
    bitmap), at edge shapes and at the main path's shapes, timed with CUDA
    events (the call, host enqueue included) and with ``torch.profiler``
-   (the kernel alone) beside its bound;
+   (the kernel alone) beside its bound; ``tape_count`` on both of its
+   paths (one-op tapes over one and two leaves; 2-7 ops, 32 leaves and
+   64 ops; misaligned row views, widths 1-7 and 2^20 + 3) with its
+   device ops per call in a trace (exactly one)
+   and the launch floor (an empty kernel, the launch probe's fastest
+   count over the same bytes); ``ctile_count`` over stacks of 1 to 35
+   blocks (one launch per 16) at T = 8, 64 and 512;
 4. main path 1: the SSB scale-factor-1 deployment (6 shards x 2^20
    lineorder columns, a 7-row mutex ``year`` and a 1000-row keyed mutex
    ``brand``) imported through ``API.import_bits`` and queried with
@@ -42,9 +52,12 @@ Phases, each printed on its own line:
    ``year`` and ``_exists`` become resident compressed (``ops/ctiles.py``)
    while ``brand`` stays dense; TopN, GroupBy and Count queries against a
    numpy oracle, ``ctile_count`` among the kernels the path must launch
-   and held against its plain version on each resident compressed block,
-   stored and dense bytes per stack, the budget's accounting, p50s and
-   the compressed count step against the dense one on the decoded blocks;
+   and held against its plain version on each resident compressed block
+   and stack, one ``ctile_count`` launch per ``TopN(orderdate)`` query,
+   stored and dense bytes and the non-zero constant lists' bytes per
+   stack, the budget's accounting, p50s and the compressed count step
+   (call ms, device ms and device ops) against the dense one on the
+   decoded blocks;
 7. a sparse BSI index (one shard, an ``int`` field set only on the
    columns [0, 65536)), whose stack the auto rule compresses: Range
    counts, Sum, Min and Max against numpy, and the active-tile compare
@@ -114,12 +127,15 @@ def _time_ms(fn, reps: int = 10, trials: int = 9) -> float:
     return statistics.median(per)
 
 
-def _device_ms(fn, kernel: str = "", calls: int = 20):
+def _device_ms(fn, kernel: str = "", calls: int = 20, flush=None):
     """Mean device milliseconds per call of ``fn`` spent in kernels whose
     name contains ``kernel`` ("" = every device activity, copies
     included), from a ``torch.profiler`` trace of ``calls`` calls; None
     when the trace holds no device time for them. Unlike ``_time_ms``,
-    this excludes the host's time to enqueue each launch."""
+    this excludes the host's time to enqueue each launch. With
+    ``flush`` (a tensor larger than L2, zeroed before every call) the
+    operands come from device memory, not L2; name a kernel then, or the
+    zeroing counts too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,6 +144,8 @@ def _device_ms(fn, kernel: str = "", calls: int = 20):
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
+                if flush is not None:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
     except RuntimeError as e:  # no CUPTI tracing on this machine
@@ -136,6 +154,58 @@ def _device_ms(fn, kernel: str = "", calls: int = 20):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if kernel in e.key)
     return us / calls / 1e3 if us > 0 else None
+
+
+def _device_ops(fn, calls: int = 50):
+    """{device operation name: (events, mean ms per event)} over ``calls``
+    calls of ``fn`` in a ``torch.profiler`` trace (kernels, fills and
+    copies alike), taken after a discarded warm-up trace. A trace can
+    miss an event (99 of 100 launches seen on an H100), so an operation's
+    mean is taken over the events it holds, and :func:`_once_per_call`
+    checks the count against bounds, not for equality."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for n in (3, calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0]
+            k, us = seen.get(name, (0, 0.0))
+            seen[name] = (k + 1, us + e.time_range.elapsed_us())
+    return {name: (k, us / k / 1e3) for name, (k, us) in sorted(seen.items())}
+
+
+def _once_per_call(traced: dict, calls: int, names: int) -> None:
+    """Each of ``names`` device operations ran at most once a call: no
+    other operation appears in the trace (one that runs every call cannot
+    lose all its events), and none has more events than calls. Half the
+    calls' events is the least a trace is allowed to hold."""
+    assert len(traced) == names, f"{len(traced)} device ops: {traced}"
+    for name, (k, _) in traced.items():
+        assert calls // 2 <= k <= calls, f"{name}: {k} events, {calls} calls"
+
+
+def _random_tape(rng, n_leaves: int, n_ops: int):
+    """A seeded tape of ``n_ops`` ops over ``n_leaves`` leaves whose first
+    ops fold in every leaf."""
+    ops = ("and", "or", "xor", "andnot")
+    tape = []
+    for k in range(n_ops):
+        regs = n_leaves + k
+        if k < n_leaves - 1:
+            i, j = (0 if k == 0 else regs - 1), k + 1
+        else:
+            i, j = (int(x) for x in rng.integers(0, regs, 2))
+        tape.append((ops[int(rng.integers(0, 4))], i, j))
+    return tuple(tape)
 
 
 def _fmt_ms(ms) -> str:
@@ -187,11 +257,12 @@ class Report:
 
 def phase_kernels(report: Report, rng, device, popc_rate: float,
                   mem_rate: float, lop_rate: float,
-                  int8_rate: float) -> None:
+                  int8_rate: float, probe_lib) -> None:
     import numpy as np
     import torch
 
     from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.probes import launch_probe as LP
     from pilosa_tpu_torch.ops import bsi as S
     from pilosa_tpu_torch.ops import ctiles as C
     from pilosa_tpu_torch.ops import groupby as G
@@ -206,6 +277,8 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
         ((("or", 0, 0),), 1),  # the BSI aggregates' one-plane count
         ((("and", 0, 1),), 2),
         ((("andnot", 0, 1),), 2),  # the Percentile walk's low half
+        ((("andnot", 1, 0),), 2),  # operands passed in tape order
+        ((("xor", 1, 1),), 2),  # one leaf read twice
         ((("or", 0, 1), ("xor", 2, 0)), 2),
         ((("and", 0, 1), ("andnot", 3, 2)), 3),
         ((("and", 0, 1), ("or", 4, 2), ("andnot", 5, 3)), 4),
@@ -218,11 +291,47 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
             for m in (None, mask):
                 report.err("tape_count", B.tape_count(tape, leaves, m),
                            B.tape_count_plain(tape, leaves, m))
+    # every path of the kernel: one-op tapes over one and two leaves (the
+    # one-op path), 2-7 ops over 2 and 4 leaves and 32 leaves with 64 ops
+    # (the general path); aligned leaves, row views of one 2-D tensor
+    # (other offsets modulo 16 bytes at odd widths: 32-bit loads) and
+    # leaves one word into their tensors (a peeled head); one launch a
+    # count
+    n_paths = 0
+    for w in (1, 3, 4, 5, 7, (1 << 20) + 3):
+        for n_leaves, n_ops in ((1, 1), (2, 1), (2, 2), (4, 4), (2, 7),
+                                (32, 64)):
+            tape = _random_tape(rng, n_leaves, n_ops)
+            for layout in ("separate", "rows", "shifted"):
+                if layout == "rows":
+                    planes = list(_rand_words(rng, (n_leaves + 1, w), device))
+                elif layout == "shifted":
+                    planes = [_rand_words(rng, (w + 1,), device)[1:]
+                              for _ in range(n_leaves + 1)]
+                else:
+                    planes = [_rand_words(rng, (w,), device)
+                              for _ in range(n_leaves + 1)]
+                for m in (None, planes[-1]):
+                    before = B.tape_count_launches.n
+                    got = B.tape_count(tape, planes[:n_leaves], m)
+                    assert B.tape_count_launches.n == before + 1
+                    report.err("tape_count", got, B.tape_count_plain(
+                        tape, planes[:n_leaves], m))
+                    n_paths += 1
     leaves = [_rand_words(rng, (main_w,), device) for _ in range(2)]
     tape = (("and", 0, 1),)  # Count(Intersect(Row, Row)) on the main path
     ms = _time_ms(lambda: B.tape_count(tape, leaves))
     plain_ms = _time_ms(lambda: B.tape_count_plain(tape, leaves))
-    kern_ms = _device_ms(lambda: B.tape_count(tape, leaves), "tape_count")
+    kern_ms = _device_ms(lambda: B.tape_count(tape, leaves), "tape_")
+    traced = _device_ops(lambda: B.tape_count(tape, leaves), calls=100)
+    _once_per_call(traced, 100, 1)
+    ops = 1
+    (op_name, (op_events, _)), = traced.items()
+    flush = torch.empty(128 << 20, dtype=torch.int32, device=device)
+    cold_ms = _device_ms(lambda: B.tape_count(tape, leaves), "tape_",
+                         flush=flush)
+    fl = LP.floor(probe_lib, leaves[0], leaves[1], flush=flush)
+    del flush
     by_bytes = (2 * main_w * 4 + 4) / mem_rate * 1e3
     by_ops = main_w / popc_rate * 1e3
     report.kernel("tape_count", source="pilosa_tpu_torch/csrc/tape_count.cu",
@@ -230,9 +339,23 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations",
                   library_ms=None, shape=f"2 leaves x {main_w} words",
-                  kernel_ms=kern_ms)
+                  kernel_ms=kern_ms, kernel_ms_l2_flushed=cold_ms,
+                  device_ops_per_call=ops, trace_events_of_100=op_events,
+                  floor=fl)
+    print(f"floor: an empty kernel {_fmt_ms(fl['empty_kernel_ms'])} of "
+          f"device time; the launch probe's fastest count of popcount(a & b)"
+          f" over the same 2x{main_w} words ({fl['threads']} threads, "
+          f"{fl['vectors_per_thread']} vectors each, {fl['blocks']} blocks,"
+          f" {fl['finish']}) {_fmt_ms(fl['read_kernel_ms'])}, "
+          f"{_fmt_ms(fl['read_kernel_ms_l2_flushed'])} with L2 flushed "
+          f"{report.label}")
+    print(f"kernel tape_count: {n_paths} counts over the one-op path (16-byte"
+          f" and 32-bit) and the general path equal their plain versions, "
+          f"one launch each; {ops} device op per call ({op_name}: "
+          f"{op_events} events in a trace of 100 calls)")
     print(f"kernel tape_count: 2x{main_w} words {ms:.4f} ms "
-          f"(kernel alone {_fmt_ms(kern_ms)}, plain {plain_ms:.4f} ms, "
+          f"(kernel alone {_fmt_ms(kern_ms)}, "
+          f"{_fmt_ms(cold_ms)} with L2 flushed; plain {plain_ms:.4f} ms, "
           f"bound {max(by_bytes, by_ops):.4f} ms) {report.label}")
 
     # -- pair_counts --------------------------------------------------------
@@ -413,9 +536,34 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                     report.err("ctile_count",
                                C.ctile_count(payload, prow, ptile, k, f),
                                C.ctile_count_plain(payload, prow, ptile, k, f))
-    # path 3's blocks: 256 rows x 384 tiles of 512 words, a payload padded
-    # to 512 entries (all valid here), constants mostly zero with a few
-    # all-ones runs, filtered TopN
+    # the stack route: 1, 10 and more blocks than one launch takes, at
+    # T = 8, 64 and 512 (a ragged last tile), zero, all-ones and
+    # non-uniform constants, one launch per MAX_BLOCKS blocks
+    n_stacks = 0
+    for width in (8, 64, 3 * 512 + 100):
+        for n in (1, 10, C.MAX_BLOCKS + 1, 2 * C.MAX_BLOCKS + 3):
+            blocks = _compressed_blocks(rng, n, width, device)
+            filt = _rand_words(rng, (width,), device)
+            for f in (None, filt):
+                before = C.ctile_count_launches.n
+                got = C.ctile_count_blocks(blocks, f)
+                assert C.ctile_count_launches.n == before + -(
+                    -n // C.MAX_BLOCKS)
+                report.err("ctile_count", got,
+                           C.ctile_count_blocks_plain(blocks, f))
+                n_stacks += 1
+    # filter tiles one word into their tensor: the scalar loop
+    big = _rand_words(rng, (4 * 512 + 1,), device)
+    blocks = _compressed_blocks(rng, 3, 4 * 512, device)
+    report.err("ctile_count", C.ctile_count_blocks(blocks, big[1:]),
+               C.ctile_count_blocks_plain(blocks, big[1:]))
+    print(f"kernel ctile_count: {n_stacks + 1} stacks of 1 to "
+          f"{2 * C.MAX_BLOCKS + 3} compressed blocks equal their plain "
+          f"versions, one launch per {C.MAX_BLOCKS} blocks")
+    # path 3's blocks: 256 rows x 384 tiles of 512 words, 512 payload
+    # entries, constants mostly zero with a few all-ones runs, filtered
+    # TopN, through the stack route (the block's own list of non-zero
+    # constants)
     rows, n_tiles, t, p = 256, 384, 512, 512
     payload = _rand_words(rng, (p, t), device)
     prow = torch.from_numpy(np.sort(rng.integers(0, rows, p)).astype(
@@ -429,19 +577,25 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
         report.err("ctile_count",
                    C.ctile_count(payload, prow, ptile, const, f),
                    C.ctile_count_plain(payload, prow, ptile, const, f))
-    ms = _time_ms(lambda: C.ctile_count(payload, prow, ptile, const, filt))
+    blk = C.CompressedBlock.from_parts(payload, prow, ptile, const)
+    for f in (None, filt):
+        report.err("ctile_count", C.ctile_count_blocks([blk], f),
+                   C.ctile_count_plain(payload, prow, ptile, const, f))
+    ms = _time_ms(lambda: C.ctile_count_blocks([blk], filt))
     plain_ms = _time_ms(
         lambda: C.ctile_count_plain(payload, prow, ptile, const, filt))
-    kern_ms = _device_ms(lambda: C.ctile_count(payload, prow, ptile, const,
-                                               filt), "ctile_count")
-    unf_ms = _time_ms(lambda: C.ctile_count(payload, prow, ptile, const))
+    kern_ms = _device_ms(lambda: C.ctile_count_blocks([blk], filt),
+                         "ctile_count")
+    unf_ms = _time_ms(lambda: C.ctile_count_blocks([blk]))
     # each input read once: the payload, the filter tiles that entries or
-    # runs name, the index arrays and the constants; the output written
-    # once. One __popc per payload word and per run-tile word.
+    # runs name, the index arrays and the list of non-zero constants; the
+    # output written once. One __popc per payload word and per run-tile
+    # word.
+    n_runs = int(runs.sum())
     used_tiles = np.unique(np.r_[ptile_np, np.nonzero(runs)[1]]).size
-    fixed = 8 * p + 4 * rows * n_tiles + 4 * rows
+    fixed = 8 * p + 12 * n_runs + 4 * rows
     by_bytes = ((p + used_tiles) * t * 4 + fixed) / mem_rate * 1e3
-    by_ops = (p + int(runs.sum())) * t / popc_rate * 1e3
+    by_ops = (p + n_runs) * t / popc_rate * 1e3
     unf_bound = max((p * t * 4 + fixed) / mem_rate * 1e3,
                     p * t / popc_rate * 1e3)
     report.kernel("ctile_count", source="pilosa_tpu_torch/csrc/ctile_count.cu",
@@ -449,13 +603,13 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations",
                   library_ms=None,
-                  shape=f"{p} entries x {t} words + {rows} x {n_tiles} "
-                        f"constants, filtered, {rows} rows",
+                  shape=f"{p} entries x {t} words + {n_runs} non-zero of "
+                        f"{rows} x {n_tiles} constants, filtered, {rows} rows",
                   kernel_ms=kern_ms, unfiltered_ms=unf_ms,
                   unfiltered_bound_ms=unf_bound)
-    print(f"kernel ctile_count: {p}x{t} words + {rows}x{n_tiles} constants "
-          f"filtered into {rows} rows {ms:.4f} ms (kernel alone "
-          f"{_fmt_ms(kern_ms)}, plain "
+    print(f"kernel ctile_count: {p}x{t} words + {n_runs} non-zero of "
+          f"{rows}x{n_tiles} constants filtered into {rows} rows {ms:.4f} ms "
+          f"(kernel alone {_fmt_ms(kern_ms)}, plain "
           f"{plain_ms:.4f} ms, bytes bound {by_bytes:.4f} ms, popc bound "
           f"{by_ops:.4f} ms; unfiltered {unf_ms:.4f} ms, bound "
           f"{unf_bound:.4f} ms) {report.label}")
@@ -463,6 +617,39 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
     print("library_ms: null for every kernel: PyTorch has no popcount op "
           "and no bit-sliced compare, so no single PyTorch call computes "
           "any of these functions")
+
+
+def _compressed_blocks(rng, n: int, width: int, device, rows: int = 16):
+    """``n`` compressed blocks of ``width`` words, built as
+    ``ops/ctiles.py`` builds them under the auto rule: ``rows`` rows of
+    zero, all-ones and non-uniform constant tiles and a few dense tiles
+    of random bits, then zero rows up to the rule's least block size
+    (``MIN_BYTES``); the last block empty."""
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import ctiles as C
+
+    t = C.tile_words(width)
+    n_tiles = -(-width // t)
+    scale = max(1, -(-C.MIN_BYTES // (rows * width * 4)))
+    out = []
+    for k in range(n):
+        host = np.zeros((rows * scale, n_tiles * t), dtype=np.uint32)
+        pick = rng.integers(0, 12, (rows, n_tiles))
+        for r, j in zip(*np.nonzero(pick < 3)):
+            tile = host[r, j * t:(j + 1) * t]
+            if pick[r, j] == 0:
+                tile[:] = 0xFFFFFFFF
+            elif pick[r, j] == 1:
+                tile[:] = rng.integers(1, 1 << 32, dtype=np.uint32)
+            else:
+                tile[:] = rng.integers(0, 1 << 32, t, dtype=np.uint32)
+        if k == n - 1:
+            host[:] = 0
+        cb = C.maybe_compress(np.ascontiguousarray(host[:, :width]), device)
+        assert cb is not None, "a test block stayed dense"
+        out.append(cb)
+    return out
 
 
 def phase_main_path(report: Report, args) -> None:
@@ -959,10 +1146,14 @@ def phase_ssb_by_date(report: Report, args) -> None:
                 f"{f} block {bi} is charged other than its stored bytes"
         dense_b = sum(b.dense_nbytes if c else STK._nbytes(b)
                       for b, c in zip(blocks, compressed))
-        stored_b = sum(STK._nbytes(b) for b in blocks)
+        stored_b = sum(b.nbytes if c else STK._nbytes(b)
+                       for b, c in zip(blocks, compressed))
+        list_b = sum(b.nz_nbytes for b, c in zip(blocks, compressed) if c)
+        n_nz = sum(b.n_nz for b, c in zip(blocks, compressed) if c)
         tiles = sum(b.n_payload for b, c in zip(blocks, compressed) if c)
         lines.append(f"{f}: {st.n_blocks} x {st.block_rows} rows, dense "
-                     f"{dense_b} B, stored {stored_b} B, payload tiles "
+                     f"{dense_b} B, stored {stored_b} B, non-zero constant "
+                     f"list {list_b} B ({n_nz} constants), payload tiles "
                      f"{tiles}, "
                      f"{'compressed' if all(compressed) else 'dense'}")
     report.launched(name, launched, ("ctile_count", "tape_count",
@@ -983,8 +1174,21 @@ def phase_ssb_by_date(report: Report, args) -> None:
                 report.err("ctile_count", C.ctile_count(*operands),
                            C.ctile_count_plain(*operands))
                 n_held += 1
+        blocks = [st._ensure_block(bi) for bi in range(st.n_blocks)]
+        for fi in (None, filt):
+            report.err("ctile_count", C.ctile_count_blocks(blocks, fi),
+                       C.ctile_count_blocks_plain(blocks, fi))
     lines.append(f"ctile_count equals its plain version on the path's "
-                 f"{n_held // 2} resident compressed blocks, filtered and not")
+                 f"{n_held // 2} resident compressed blocks, one by one and "
+                 f"stack by stack, filtered and not")
+    # one TopN over the 10 orderdate blocks: one ctile_count launch
+    KU.reset_launches()
+    api.query(name, top_q)
+    api.query(name, ftop_q)
+    per_query = KU.launches()["ctile_count"] / 2
+    assert per_query == 1, f"{per_query} ctile_count launches per TopN"
+    lines.append(f"ctile_count launches per TopN(orderdate) query: "
+                 f"{per_query:g} over {stacks['orderdate'].n_blocks} blocks")
     for line in lines:
         print(f"ssb_by_date path: {line} {report.label}")
     print(f"ssb_by_date path: budget used {STK.BUDGET.used} B over "
@@ -1004,7 +1208,13 @@ def phase_ssb_by_date(report: Report, args) -> None:
     comp_ms = _time_ms(lambda: st.row_counts(filt), reps=3, trials=5)
     dense_ms = _time_ms(lambda: [T.row_counts(b, filt) for b in decoded],
                         reps=3, trials=5)
-    comp_dev = _device_ms(lambda: st.row_counts(filt), calls=5)
+    step_calls = 20
+    step = _device_ops(lambda: st.row_counts(filt), calls=step_calls)
+    # a fill and one ctile_count launch a call
+    _once_per_call(step, step_calls, 2)
+    assert any("ctile_count" in k for k in step), step
+    comp_dev = sum(ms for _, ms in step.values())
+    comp_ops = sum(k for k, _ in step.values()) / step_calls
     dense_dev = _device_ms(lambda: [T.row_counts(b, filt) for b in decoded],
                            calls=5)
     del decoded
@@ -1018,9 +1228,16 @@ def phase_ssb_by_date(report: Report, args) -> None:
               f"per query {_fmt_ms(busy[q])} {report.label}")
     print(f"ssb_by_date path: count step over the {st.n_blocks} orderdate "
           f"blocks, filtered: compressed (ctile_count) {comp_ms:.4f} ms "
-          f"call, {_fmt_ms(comp_dev)} device; dense pair_counts on the "
+          f"call, {_fmt_ms(comp_dev)} device in 2 device ops (events in a "
+          f"trace of {step_calls} calls: " + ", ".join(
+              f"{k} x {name} at {ms:.4f} ms" for name, (k, ms) in step.items())
+          + f"); dense pair_counts on the "
           f"decoded blocks {dense_ms:.4f} ms call, {_fmt_ms(dense_dev)} "
           f"device {report.label}")
+    report.kernel("ctile_count", count_step={
+        "blocks": st.n_blocks, "call_ms": comp_ms, "device_ms": comp_dev,
+        "device_ops": 2, "trace_events_per_call": comp_ops,
+        "launches_per_topn": per_query})
     print("ssb_by_date path: every answer matches the numpy oracle")
 
 
@@ -1079,6 +1296,28 @@ def phase_sparse_bsi(report: Report, args) -> None:
           f"{report.label}")
 
 
+def _print_ptxas(info: str) -> None:
+    """ptxas's report on the tape_count and ctile_count kernels; the
+    one-op path of tape_count must keep no stack frame and spill
+    nothing."""
+    lines = info.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        name = line.split("'")[1]
+        if "tape_" not in name and "ctile_count" not in name:
+            continue
+        props = next((x.strip() for x in lines[i + 1:i + 4]
+                      if "stack frame" in x), "")
+        regs = next((x.split(":", 1)[1].strip() for x in lines[i + 1:i + 4]
+                     if "registers" in x), "")
+        print(f"ptxas: {name}: {props}; {regs}")
+        if "tape_one_op" in name:
+            assert props.startswith("0 bytes stack frame, 0 bytes spill "
+                                    "stores, 0 bytes spill loads"), \
+                f"{name} uses local memory: {props}"
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -1116,10 +1355,15 @@ def main() -> int:
     print(name_power)
     print(f"environment: {nvcc_line}")
 
+    from pilosa_tpu_torch.probes import launch_probe as LP
+
     t0 = time.perf_counter()
+    probe_build = LP.start_build()  # beside the kernels
     KU.lib()
-    print(f"build: kernels built and loaded in "
+    probe_lib = LP.load(*probe_build, verbose=False)
+    print(f"build: kernels and the launch probe built and loaded in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {KU.BUILD_SECONDS:.2f} s)")
+    _print_ptxas(KU.ptxas_info())
 
     props = torch.cuda.get_device_properties(0)
     clock = _smi("clocks.max.sm").split()
@@ -1136,7 +1380,7 @@ def main() -> int:
     lop_rate = LOP_PER_CLOCK_PER_SM * props.multi_processor_count \
         * clock_mhz * 1e6
     phase_kernels(report, np.random.default_rng(args.seed + 1), device,
-                  popc_rate, mem_rate, lop_rate, INT8_OPS_PER_S)
+                  popc_rate, mem_rate, lop_rate, INT8_OPS_PER_S, probe_lib)
     print("kernel parity: every kernel matches its plain version bit for "
           "bit")
     phase_main_path(report, args)

@@ -31,7 +31,8 @@ JAX package's rules). The budget is charged the stored bytes. Readers
 that need dense words (``iter_blocks``, ``planes``) get the block
 decoded on the device, uncached, so the budget sees all the residency;
 ``row_plane`` decodes its one row, ``row_counts`` takes the
-tile-skipping scan and ``StackedBSI.compare`` the active-tile compare.
+tile-skipping scan (one launch for a stack's compressed blocks) and
+``StackedBSI.compare`` the active-tile compare.
 
 Caches hang on the owning Field keyed by (kind, view) and shard tuple and
 are validated against the fragment version vector: a stack whose
@@ -310,16 +311,48 @@ class StackedSet:
     def row_counts(self, filt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Device ``[cap]`` per-slot popcounts (optionally filtered),
         streamed per block: a dense block through the pair_counts kernel,
-        a compressed one through the tile-skipping ctile_count scan
-        (reference: fragment.go:1317 top counts)."""
-        parts = []
+        the compressed ones through the tile-skipping ctile_count scan
+        (reference: fragment.go:1317 top counts).
+
+        Compressed blocks are gathered and counted together into one
+        zeroed output by one ``ctiles.ctile_count_blocks`` call, which
+        splits them into launches. Building a block may evict an earlier
+        one of this stack from the budget; the gathered group, which
+        still holds it, is then counted first, so no evicted block stays
+        alive past the next count."""
+        out: Optional[torch.Tensor] = None
+        group: List[ctiles.CompressedBlock] = []
+        slots: List[int] = []  # the group's block indices
+        dense: List[Tuple[int, torch.Tensor]] = []
+
+        def launch() -> None:
+            nonlocal out
+            if not group:
+                return
+            if out is None:
+                out = torch.zeros(self.cap, dtype=torch.int32,
+                                  device=self.device)
+            ctiles.ctile_count_blocks(
+                group, filt, out, [bi * self.block_rows for bi in slots])
+            group.clear()
+            slots.clear()
+
         for bi in range(self.n_blocks):
             blk = self._ensure_block(bi)
+            if any(self._blocks[gi] is not g for gi, g in zip(slots, group)):
+                launch()  # a gathered block was evicted meanwhile
             if isinstance(blk, ctiles.CompressedBlock):
-                parts.append(blk.row_counts(filt))
+                group.append(blk)
+                slots.append(bi)
             else:
-                parts.append(topkops.row_counts(blk, filt))
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+                dense.append((bi, topkops.row_counts(blk, filt)))
+        launch()
+        if out is None:  # every block dense
+            parts = [c for _, c in dense]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        for bi, counts in dense:
+            out[bi * self.block_rows:(bi + 1) * self.block_rows] = counts
+        return out
 
 
 class StackedBSI:
@@ -411,9 +444,10 @@ class StackedBSI:
 
 def _nbytes(blk: Block) -> int:
     """Bytes a resident entry holds: the stored bytes of a compressed
-    block, never its decoded size."""
+    block (the JAX package's ``nbytes``) plus its list of non-zero
+    constants, never its decoded size."""
     if isinstance(blk, ctiles.CompressedBlock):
-        return blk.nbytes
+        return blk.nbytes + blk.nz_nbytes
     return blk.numel() * blk.element_size()
 
 

@@ -1,131 +1,220 @@
-// ctile_count: per-row popcounts of a compressed block, in one launch.
+// ctile_count: per-row popcounts of up to CT_MAX_BLOCKS compressed blocks
+// of one stack, in one launch.
 //
 // Replaces pilosa_tpu/ops/ctiles.py:291 _ctile_count_body and :301
 // _ctile_counts_pallas, with the XLA steps around them fused in: the
 // filter mask (:342 _mask_payload) before the popcount, the per-row
 // scatter-add (:348 _scatter_counts, mode="drop") after it, and the
 // constant tiles' counts (:355 _const_counts_unfiltered, :362
-// _const_counts_filtered) beside it. For a block of `rows` rows:
+// _const_counts_filtered) beside it. For each block, with `rows` rows
+// written at out[out_off ...]:
 //
-//     out[row[p]] += popcount(payload[p, :] & filt[tile[p], :])   p < P
-//     out[r]      += popcount(const[r, j] & filt[j, :])  (const[r, j] != 0)
+//     out[row[p]] += popcount(payload[p, :] & filt[tile[p], :])   p < n_payload
+//     out[r]      += popcount(c & filt[j, :])       (r, j, c) in the non-zero list
 //
 // Without a filter the payload counts alone, and a constant word c
-// counts popcount(c) * T. Payload entries whose row is outside [0, rows)
-// -- the padded entries point at row `rows` -- or, under a filter, whose
-// tile is outside [0, n_tiles), are dropped. On the TPU the kernel wrote
-// one count per payload entry, broadcast across the 128 lanes of an
-// (8, 128) output block for Mosaic's layout, and XLA did the rest in
-// separate passes; on the H100 every step in PyTorch would be another
-// launch (about a dozen per block with the SWAR popcounts), and the host's
-// launch rate, not the card, set the time. So one launch does it all.
+// counts popcount(c) * T. Payload entries whose row is outside [0, rows),
+// or, under a filter, whose tile is outside [0, n_tiles), are dropped.
+// On the TPU the kernel wrote one count per payload entry, broadcast
+// across the 128 lanes of an (8, 128) output block for Mosaic's layout,
+// and XLA did the rest in separate passes, block by block.
 //
-// Bound on the H100: bytes. Each payload entry reads T words (and T of
-// filter) once with one __popc per word; the constants are R x NT words,
-// read once; a non-zero constant under a filter reads its filter tile.
-// At the main path's sizes (a few hundred entries of 512 words and a
-// 256 x 384 constant table per block) that is ~1-2 MB, well under the
-// launch latency.
+// Bound on the H100: bytes. Each payload entry reads T words of payload
+// and, under a filter, T words of its filter tile, with one __popc per
+// word; each non-zero constant under a filter reads its filter tile. At
+// the main path's sizes (2,789 entries of 512 words over the 10 blocks of
+// a 2,406-row stack) that is about 6 MB, ~2 us at 3.35 TB/s, so the
+// launch and the round trips to memory set the time. The design:
 //
-// Design: one warp per work item, grid-stride. Items [0, P) are payload
-// entries: the warp reads the entry's tile with 16-byte loads (neighbouring
-// lanes on neighbouring addresses), ANDs the filter tile read the same
-// way, sums __popc per lane, reduces with __shfl_xor_sync and adds the
-// total with one atomicAdd into the zeroed output. Items past P each take
-// 32 consecutive constants (one coalesced load); zero constants, most of
-// them, cost nothing more; the lanes holding non-zero ones add popc * T
-// unfiltered, or, under a filter, the warp walks them one by one
-// (__ballot_sync) and counts each against its filter tile like a payload
-// entry. Integer atomics make the result exact in any order. Any T is
-// taken: a scalar loop runs when T is not a multiple of 4 or a pointer is
-// not 16-byte aligned; T = 8 leaves most lanes of a payload warp idle.
+// - One launch for a stack's blocks: the wrapper passes each block's
+//   pointers, sizes and output offset by value (CtBatch), and every warp
+//   finds its block from the work items' running totals.
+// - Only real entries get work: a block is passed its n_payload, not its
+//   padded capacity.
+// - One round trip before the data: a warp takes one entry and issues
+//   its payload vectors, whose addresses need no index, beside the load
+//   of the entry's row and tile; then the filter vectors. For T = 512 (ops/ctiles.TILE_WORDS) an unrolled instance
+//   keeps a lane's 4 payload and 4 filter vectors in flight; other T
+//   multiples of 4 loop over 16-byte loads, and a scalar loop takes the
+//   rest and misaligned pointers.
+// - Constants: zero constants cost nothing. The wrapper passes the list
+//   of non-zero ones (row, tile, word), built with the block on the host;
+//   under a filter each is a warp's work item like a payload entry,
+//   without one 32 lanes of a warp take one each.
+// - A warp sums its entry's count across its lanes and adds it to the
+//   row with one atomicAdd; integer atomics make the result exact in any
+//   order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#define CT_MAX_BLOCKS 16
+#define CT_THREADS 256
+#define FULL 0xffffffffu
+
+struct CtBlock {
+    const uint32_t* payload;  // [>= n_payload, t]
+    const int* prow;          // [>= n_payload]
+    const int* ptile;         // [>= n_payload]
+    const int* nz;            // [3, n_nz]: rows, tiles, words
+    long long n_payload;
+    long long n_nz;
+    int rows;
+    int out_off;
+};
+
+struct CtBatch {
+    CtBlock blk[CT_MAX_BLOCKS];
+    long long item_end[CT_MAX_BLOCKS];  // work items through block b
+    const uint32_t* filt;  // [n_tiles, t] or nullptr
+    int n_blocks;
+    int t;
+    int n_tiles;
+};
 
 __device__ __forceinline__ int popc4(uint4 v) {
     return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
 }
 
-// popcount(src[0..t) & mask[0..t)) over the warp, src/mask 16-byte
-// aligned when VEC; mask may be a constant word instead (c != 0 => src is
-// the filter tile and c the word). Every lane returns its partial sum.
-template <bool VEC>
-__device__ __forceinline__ int tile_and_count(const uint32_t* src,
-                                              const uint32_t* mask,
-                                              uint32_t c, int t, int lane) {
-    int s = 0;
-    if (VEC) {
-        const uint4* s4 = reinterpret_cast<const uint4*>(src);
-        const uint4* m4 = reinterpret_cast<const uint4*>(mask);
-        for (int i = lane; i < (t >> 2); i += 32) {
-            uint4 v = __ldg(s4 + i);
-            if (m4 != nullptr) {
-                const uint4 m = __ldg(m4 + i);
-                v.x &= m.x; v.y &= m.y; v.z &= m.z; v.w &= m.w;
-            } else {
-                v.x &= c; v.y &= c; v.z &= c; v.w &= c;
-            }
-            s += popc4(v);
-        }
-    } else {
-        for (int i = lane; i < t; i += 32)
-            s += __popc(__ldg(src + i) & (mask != nullptr ? __ldg(mask + i) : c));
-    }
-    return s;
+__device__ __forceinline__ uint4 and4(uint4 v, uint4 m) {
+    return make_uint4(v.x & m.x, v.y & m.y, v.z & m.z, v.w & m.w);
 }
 
 __device__ __forceinline__ int warp_sum(int s) {
     for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
+        s += __shfl_xor_sync(FULL, s, off);
     return s;
 }
 
-template <bool VEC, bool FILTERED>
-__global__ void ctile_count_kernel(const uint32_t* __restrict__ payload,
-                                   const int* __restrict__ prow,
-                                   const int* __restrict__ ptile,
-                                   const uint32_t* __restrict__ filt,
-                                   const uint32_t* __restrict__ konst,
-                                   long long n_entries, int t, int n_tiles,
-                                   int rows, int* __restrict__ out) {
+// Adds a warp's count for `row` (warp-uniform).
+__device__ __forceinline__ void flush(int acc, int row, int* o, int lane) {
+    const int s = warp_sum(acc);
+    if (lane == 0 && s != 0) atomicAdd(o + row, s);
+}
+
+// A lane's part of popcount(x & f) over a tile of t words, where x is the
+// tile at `src` or, when src is nullptr, the constant word c; f is the
+// filter tile or nullptr (all ones). MODE 2: t == 512, 16-byte aligned;
+// 1: t % 4 == 0, 16-byte aligned; 0: anything.
+template <int MODE>
+__device__ __forceinline__ int tile_count(const uint32_t* src, uint32_t c,
+                                          const uint32_t* f, int t,
+                                          int lane) {
+    int s = 0;
+    if (MODE == 2) {
+        uint4 v[4], m[4];
+        const uint4* s4 = reinterpret_cast<const uint4*>(src);
+        const uint4* f4 = reinterpret_cast<const uint4*>(f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            v[i] = src != nullptr ? __ldg(s4 + lane + 32 * i)
+                                  : make_uint4(c, c, c, c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            m[i] = f != nullptr ? __ldg(f4 + lane + 32 * i)
+                                : make_uint4(FULL, FULL, FULL, FULL);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s += popc4(and4(v[i], m[i]));
+    } else if (MODE == 1) {
+        const uint4* s4 = reinterpret_cast<const uint4*>(src);
+        const uint4* f4 = reinterpret_cast<const uint4*>(f);
+        for (int i = lane; i < (t >> 2); i += 32) {
+            const uint4 v = src != nullptr ? __ldg(s4 + i) : make_uint4(c, c, c, c);
+            const uint4 m = f != nullptr ? __ldg(f4 + i)
+                                         : make_uint4(FULL, FULL, FULL, FULL);
+            s += popc4(and4(v, m));
+        }
+    } else {
+        for (int i = lane; i < t; i += 32)
+            s += __popc((src != nullptr ? __ldg(src + i) : c)
+                        & (f != nullptr ? __ldg(f + i) : FULL));
+    }
+    return s;
+}
+
+// Payload entry e.
+template <int MODE, bool FILTERED>
+__device__ __forceinline__ void payload_item(const CtBatch& b,
+                                             const CtBlock& B, long long e,
+                                             int* o, int lane) {
+    const uint32_t* src = B.payload + e * (long long)b.t;
+    uint4 v[4];
+    if (MODE == 2) {
+        // the payload's vectors first: their addresses need no index, so
+        // they fly beside the index loads
+        const uint4* s4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = __ldg(s4 + lane + 32 * i);
+    }
+    const int row = __ldg(B.prow + e);
+    const int tile = FILTERED ? __ldg(B.ptile + e) : 0;
+    if (row < 0 || row >= B.rows) return;
+    if (FILTERED && (tile < 0 || tile >= b.n_tiles)) return;
+    int acc = 0;
+    if (MODE == 2) {
+        if (FILTERED) {
+            const uint4* f4 = reinterpret_cast<const uint4*>(
+                b.filt + (long long)tile * 512);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                v[i] = and4(v[i], __ldg(f4 + lane + 32 * i));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc += popc4(v[i]);
+    } else {
+        acc = tile_count<MODE>(
+            src, 0u, FILTERED ? b.filt + (long long)tile * b.t : nullptr,
+            b.t, lane);
+    }
+    flush(acc, row, o, lane);
+}
+
+// Non-zero constant e, counted against its filter tile.
+template <int MODE>
+__device__ __forceinline__ void const_item_filtered(const CtBatch& b,
+                                                    const CtBlock& B,
+                                                    long long e, int* o,
+                                                    int lane) {
+    const int row = __ldg(B.nz + e);
+    const int tile = __ldg(B.nz + B.n_nz + e);
+    const uint32_t c = (uint32_t)__ldg(B.nz + 2 * B.n_nz + e);
+    if (row < 0 || row >= B.rows || tile < 0 || tile >= b.n_tiles) return;
+    flush(tile_count<MODE>(nullptr, c, b.filt + (long long)tile * b.t, b.t,
+                           lane), row, o, lane);
+}
+
+// 32 non-zero constants from e0, one per lane: popcount(c) * T.
+__device__ __forceinline__ void const_item_plain(const CtBatch& b,
+                                                 const CtBlock& B,
+                                                 long long e0, int* o,
+                                                 int lane) {
+    const long long e = e0 + lane;
+    if (e >= B.n_nz) return;
+    const int row = __ldg(B.nz + e);
+    const uint32_t c = (uint32_t)__ldg(B.nz + 2 * B.n_nz + e);
+    if (row >= 0 && row < B.rows && c != 0)
+        atomicAdd(o + row, __popc(c) * b.t);
+}
+
+template <int MODE, bool FILTERED>
+__global__ void __launch_bounds__(CT_THREADS) ctile_count_kernel(
+        const __grid_constant__ CtBatch b, int* __restrict__ out) {
     const int lane = threadIdx.x & 31;
-    const long long n_const = (long long)rows * n_tiles;
-    const long long items = n_entries + (n_const + 31) / 32;
-    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-    for (long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-         w < items; w += warps) {
-        if (w < n_entries) {  // a payload entry; every branch warp-uniform
-            const int row = __ldg(prow + w);
-            if (row < 0 || row >= rows) continue;
-            const uint32_t* f = nullptr;
-            if (FILTERED) {
-                const int tile = __ldg(ptile + w);
-                if (tile < 0 || tile >= n_tiles) continue;
-                f = filt + (long long)tile * t;
-            }
-            const int s = warp_sum(tile_and_count<VEC>(
-                payload + w * (long long)t, f, 0xffffffffu, t, lane));
-            if (lane == 0 && s != 0) atomicAdd(out + row, s);
-            continue;
-        }
-        // 32 constants of the row-major [rows, n_tiles] table
-        const long long e = (w - n_entries) * 32 + lane;
-        const uint32_t c = e < n_const ? __ldg(konst + e) : 0u;
-        if (!FILTERED) {
-            if (c != 0) atomicAdd(out + e / n_tiles, __popc(c) * t);
-            continue;
-        }
-        unsigned live = __ballot_sync(0xffffffffu, c != 0);
-        while (live != 0) {
-            const int k = __ffs(live) - 1;
-            live &= live - 1;
-            const long long ek = (w - n_entries) * 32 + k;
-            const uint32_t ck = __shfl_sync(0xffffffffu, c, k);
-            const int s = warp_sum(tile_and_count<VEC>(
-                filt + (ek % n_tiles) * t, nullptr, ck, t, lane));
-            if (lane == 0 && s != 0) atomicAdd(out + ek / n_tiles, s);
-        }
+    const long long n_warps = (long long)gridDim.x * (CT_THREADS / 32);
+    const long long total = b.item_end[b.n_blocks - 1];
+    for (long long it = ((long long)blockIdx.x * CT_THREADS + threadIdx.x) >> 5;
+         it < total; it += n_warps) {
+        int k = 0;  // the item's block; every branch below is warp-uniform
+        while (it >= b.item_end[k]) ++k;
+        const CtBlock& B = b.blk[k];
+        const long long local = it - (k > 0 ? b.item_end[k - 1] : 0);
+        int* o = out + B.out_off;
+        if (local < B.n_payload)
+            payload_item<MODE, FILTERED>(b, B, local, o, lane);
+        else if (FILTERED)
+            const_item_filtered<MODE>(b, B, local - B.n_payload, o, lane);
+        else
+            const_item_plain(b, B, (local - B.n_payload) * 32, o, lane);
     }
 }
 
@@ -140,46 +229,74 @@ static int sm_count() {
     return n;
 }
 
-template <bool VEC, bool FILTERED>
-static void launch(const uint32_t* payload, const int* prow, const int* ptile,
-                   const uint32_t* filt, const uint32_t* konst,
-                   long long n_entries, int t, int n_tiles, int rows, int* out,
-                   cudaStream_t stream) {
-    const int threads = 256;  // 8 warps, one work item each per step
-    const long long n_const = (long long)rows * n_tiles;
-    const long long items = n_entries + (n_const + 31) / 32;
-    long long blocks = (items * 32 + threads - 1) / threads;
-    const long long cap = 16LL * sm_count();
-    if (blocks > cap) blocks = cap;
-    if (blocks < 1) blocks = 1;
-    ctile_count_kernel<VEC, FILTERED><<<(unsigned)blocks, threads, 0, stream>>>(
-        payload, prow, ptile, filt, konst, n_entries, t, n_tiles, rows, out);
+template <int MODE, bool FILTERED>
+static void launch(const CtBatch& b, unsigned blocks, int* out,
+                   cudaStream_t s) {
+    ctile_count_kernel<MODE, FILTERED><<<blocks, CT_THREADS, 0, s>>>(b, out);
 }
 
 extern "C" {
 
-// payload int32[P, T] (bit patterns), prow/ptile int32[P], filt
-// int32[n_tiles, T] or nullptr, konst int32[rows, n_tiles], out
-// int32[rows] zeroed by the caller. Returns cudaGetLastError() after
-// the launch.
-int pk_ctile_count(const void* payload, const int* prow, const int* ptile,
-                   const void* filt, const void* konst, int n_entries, int t,
-                   int n_tiles, int rows, int* out, void* stream) {
-    const uint32_t* pl = static_cast<const uint32_t*>(payload);
-    const uint32_t* fl = static_cast<const uint32_t*>(filt);
-    const uint32_t* kl = static_cast<const uint32_t*>(konst);
-    const bool vec = (t % 4 == 0)
-        && ((uintptr_t)pl % 16 == 0)
-        && (fl == nullptr || (uintptr_t)fl % 16 == 0);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (fl != nullptr) {
-        if (vec) launch<true, true>(pl, prow, ptile, fl, kl, n_entries, t, n_tiles, rows, out, s);
-        else launch<false, true>(pl, prow, ptile, fl, kl, n_entries, t, n_tiles, rows, out, s);
-    } else {
-        if (vec) launch<true, false>(pl, prow, ptile, fl, kl, n_entries, t, n_tiles, rows, out, s);
-        else launch<false, false>(pl, prow, ptile, fl, kl, n_entries, t, n_tiles, rows, out, s);
+// blocks: n_blocks x 8 int64 on the host, per block the device pointers
+// payload, prow, ptile and nz, then n_payload, n_nz, rows and out_off.
+// filt: int32[n_tiles, t] on the device or nullptr. out: int32 on the
+// device, zeroed by the caller, out_off + rows long for every block.
+// Launches on `stream` of `device` and returns cudaGetLastError().
+int pk_ctile_count(const long long* blocks, int n_blocks, const void* filt,
+                   int t, int n_tiles, int* out, int device, void* stream) {
+    if (n_blocks < 1 || n_blocks > CT_MAX_BLOCKS || t < 1)
+        return (int)cudaErrorInvalidValue;
+    int cur = device;
+    cudaGetDevice(&cur);
+    if (cur != device) cudaSetDevice(device);
+    const bool filtered = filt != nullptr;
+    CtBatch b;
+    b.filt = static_cast<const uint32_t*>(filt);
+    b.n_blocks = n_blocks;
+    b.t = t;
+    b.n_tiles = n_tiles;
+    bool aligned = t % 4 == 0 && (uintptr_t)filt % 16 == 0;
+    for (int k = 0; k < n_blocks; ++k) {
+        const long long* d = blocks + 8 * k;
+        CtBlock& B = b.blk[k];
+        B.payload = reinterpret_cast<const uint32_t*>(d[0]);
+        B.prow = reinterpret_cast<const int*>(d[1]);
+        B.ptile = reinterpret_cast<const int*>(d[2]);
+        B.nz = reinterpret_cast<const int*>(d[3]);
+        B.n_payload = d[4];
+        B.n_nz = d[5];
+        B.rows = (int)d[6];
+        B.out_off = (int)d[7];
+        aligned = aligned && (uintptr_t)B.payload % 16 == 0;
     }
-    return (int)cudaGetLastError();
+    // a warp item: one payload entry, one filtered non-zero constant, or
+    // 32 unfiltered ones
+    long long items = 0;
+    for (int k = 0; k < n_blocks; ++k) {
+        const CtBlock& B = b.blk[k];
+        items += B.n_payload + (filtered ? B.n_nz : (B.n_nz + 31) / 32);
+        b.item_end[k] = items;
+    }
+    for (int k = n_blocks; k < CT_MAX_BLOCKS; ++k) b.item_end[k] = items;
+    long long grid = (items + CT_THREADS / 32 - 1) / (CT_THREADS / 32);
+    const long long cap = 8LL * sm_count();
+    if (grid > cap) grid = cap;
+    if (grid < 1) grid = 1;
+    const int mode = !aligned ? 0 : t == 512 ? 2 : 1;
+    cudaStream_t s = (cudaStream_t)stream;
+    const unsigned g = (unsigned)grid;
+    if (filtered) {
+        if (mode == 2) launch<2, true>(b, g, out, s);
+        else if (mode == 1) launch<1, true>(b, g, out, s);
+        else launch<0, true>(b, g, out, s);
+    } else {
+        if (mode == 2) launch<2, false>(b, g, out, s);
+        else if (mode == 1) launch<1, false>(b, g, out, s);
+        else launch<0, false>(b, g, out, s);
+    }
+    const int rc = (int)cudaGetLastError();
+    if (cur != device) cudaSetDevice(cur);
+    return rc;
 }
 
 }  // extern "C"

@@ -14,6 +14,7 @@ CUDA tensor, its plain PyTorch version below on a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
@@ -185,12 +186,12 @@ def tape_registers(tape: Sequence[Tuple[str, int, int]], leaves) -> list:
 
 
 def tape_fits(tape, n_leaves: int) -> bool:
-    """Whether a tape is within the kernel's size limits (TapeDesc)."""
+    """Whether a tape is within the kernel's size limits (TapeOps)."""
     return 1 <= n_leaves <= KU.MAX_LEAVES and len(tape) <= KU.MAX_OPS
 
 
 def check_tape(tape, n_leaves: int) -> None:
-    """Reject tapes the kernel cannot take (limits of TapeDesc)."""
+    """Reject tapes the kernel cannot take (limits of TapeOps)."""
     if not tape:
         raise ValueError("tape must hold at least one op")
     if not 1 <= n_leaves <= KU.MAX_LEAVES:
@@ -203,6 +204,20 @@ def check_tape(tape, n_leaves: int) -> None:
             raise ValueError(f"unknown tape op {op!r}")
         if not (0 <= i < n_leaves + k and 0 <= j < n_leaves + k):
             raise ValueError(f"tape op {k} reads an unwritten register")
+
+
+@functools.lru_cache(maxsize=4096)
+def encode_tape(tape, n_leaves: int) -> "KU.TapeOps":
+    """The op list as the kernel reads it, checked by :func:`check_tape`
+    and encoded once per (tape, leaf count); a tape is a tuple of (op, i,
+    j) tuples. The kernel sends a one-op tape down its one-op path, any
+    other down its general path."""
+    check_tape(tape, n_leaves)
+    ops = KU.TapeOps()
+    ops.n_leaves, ops.n_ops = n_leaves, len(tape)
+    for k, (op, i, j) in enumerate(tape):
+        ops.op[k], ops.a[k], ops.b[k] = _OPCODES[op], i, j
+    return ops
 
 
 tape_count_launches = KU.LaunchCounter("tape_count")
@@ -223,10 +238,11 @@ def tape_count(tape, leaves: Sequence[torch.Tensor],
     """``popcount(tape(leaves) [& mask])`` as a 0-d int32 tensor.
 
     CUDA tensors: one launch of csrc/tape_count.cu, which replaces
-    pilosa_tpu/ops/bitmap.py:209/:224 with the tape fused in. CPU
+    pilosa_tpu/ops/bitmap.py:209/:224 with the tape fused in, and no
+    other device operation (the output is not zeroed first). CPU
     tensors: :func:`tape_count_plain`."""
-    check_tape(tape, len(leaves))
-    operands = list(leaves) + ([mask] if mask is not None else [])
+    ops = encode_tape(tape, len(leaves))
+    operands = list(leaves) if mask is None else [*leaves, mask]
     if not KU.on_card("tape_count", *operands):
         return tape_count_plain(tape, leaves, mask)
     n = operands[0].numel()
@@ -234,18 +250,14 @@ def tape_count(tape, leaves: Sequence[torch.Tensor],
         KU.check_words("tape_count", "leaf", t, 1)
         if t.numel() != n:
             raise ValueError("tape_count: leaves differ in length")
-    desc = KU.TapeDesc()
-    for i, t in enumerate(leaves):
-        desc.leaves[i] = t.data_ptr()
-    desc.mask = mask.data_ptr() if mask is not None else None
-    desc.n_leaves = len(leaves)
-    desc.n_ops = len(tape)
-    for k, (op, i, j) in enumerate(tape):
-        desc.op[k], desc.a[k], desc.b[k] = _OPCODES[op], i, j
-    out = torch.zeros(1, dtype=torch.int32, device=operands[0].device)
-    with torch.cuda.device(out.device):
-        rc = KU.lib().pk_tape_count(ctypes.byref(desc), n, out.data_ptr(),
-                                    KU.stream(out))
+    dev = operands[0].device
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves])
+    stream = KU.stream(out)
+    rc = KU.lib().pk_tape_count(
+        ctypes.byref(ops), ptrs, None if mask is None else mask.data_ptr(),
+        n, out.data_ptr(), KU.tape_scratch(dev, stream), dev.index,
+        stream)
     KU.check(rc, "tape_count")
     tape_count_launches.bump()
-    return out[0]
+    return out

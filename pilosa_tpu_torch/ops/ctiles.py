@@ -19,12 +19,14 @@ tensors with the host arrays' bit patterns::
     const        [R, NT]   the constant word of zero/run tiles
     payload_row  [P]       owning row of each payload entry (pads: R)
     payload_tile [P]       tile column of each payload entry
+    nz           [3, Z]    the non-zero constants: row, tile, word
 
 ``payload_row``/``payload_tile`` are the skip index: a per-row count
-touches exactly the P dense tiles, and the constant tiles count by a
-closed form, in one launch of the hand-written kernel in
-``csrc/ctile_count.cu`` on a CUDA tensor (its plain PyTorch version on a
-CPU tensor).
+touches exactly the P dense tiles, and the Z non-zero constant tiles
+count by a closed form (zero tiles cost nothing), in one launch of the
+hand-written kernel in ``csrc/ctile_count.cu`` for up to
+:data:`MAX_BLOCKS` blocks of a stack on a CUDA tensor
+(:func:`ctile_count_blocks`; its plain PyTorch version on a CPU tensor).
 Decode is a gather on the device, plain PyTorch, as the JAX package left
 it to XLA.
 
@@ -40,6 +42,7 @@ rule is dropped (the port runs on one card) and so are its metric ticks.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -110,7 +113,8 @@ class CompressedBlock:
     __slots__ = ("rows", "words", "tile_words", "n_tiles", "payload",
                  "slot", "const", "payload_row", "payload_tile",
                  "n_payload", "nbytes", "dense_nbytes", "zero_tiles",
-                 "run_tiles", "dense_tiles", "active_tiles", "device")
+                 "run_tiles", "dense_tiles", "active_tiles", "device",
+                 "nz", "n_nz", "nz_nbytes", "kernel_desc")
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -126,16 +130,39 @@ class CompressedBlock:
         return _decode(self.payload, self.slot[idx], self.const[idx],
                        self.words)
 
+    @classmethod
+    def from_parts(cls, payload: torch.Tensor, payload_row: torch.Tensor,
+                   payload_tile: torch.Tensor, const: torch.Tensor
+                   ) -> "CompressedBlock":
+        """A block to count over given parts (``payload [P, T]``, its skip
+        index and the constant table ``[R, NT]``): every one of the P
+        entries is counted, and the non-zero constants are listed on the
+        device (which waits for it: the length depends on the data)."""
+        cb = cls()
+        cb.rows, cb.n_tiles = const.shape
+        cb.tile_words = payload.shape[1]
+        cb.words = cb.n_tiles * cb.tile_words
+        cb.payload, cb.payload_row, cb.payload_tile = (
+            payload, payload_row, payload_tile)
+        cb.const = const
+        cb.n_payload = payload.shape[0]
+        cb.nz = _nonzero_list(const)
+        cb.n_nz = cb.nz.shape[1]
+        cb.nz_nbytes = cb.n_nz * 12
+        cb.device = payload.device
+        cb.kernel_desc = (payload.data_ptr(), payload_row.data_ptr(),
+                          payload_tile.data_ptr(), cb.nz.data_ptr(),
+                          cb.n_payload, cb.n_nz, cb.rows)
+        return cb
+
     def row_counts(self, filt: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
         """``int32[R]`` per-row popcounts (of ``row & filt`` when given)
         that touch only the dense payload tiles plus a closed form for
-        the constant tiles, in one ``ctile_count`` launch, whatever the
-        constant words. Equal to ``topk.row_counts(self.decode(), filt)``."""
-        ft = (None if filt is None
-              else _filt_tiles(filt, self.n_tiles, self.tile_words))
-        return ctile_count(self.payload, self.payload_row, self.payload_tile,
-                           self.const, ft)
+        the non-zero constant tiles, in one ``ctile_count`` launch,
+        whatever the constant words. Equal to
+        ``topk.row_counts(self.decode(), filt)``."""
+        return ctile_count_blocks([self], filt)
 
 
 def _tag(host: np.ndarray, t: int):
@@ -178,6 +205,16 @@ def classify(host: np.ndarray, t: Optional[int] = None):
     run = int(np.count_nonzero(const_ok) - zero)
     return (payload, slot, const, payload_row, payload_tile,
             t, const.shape[1], zero, run, int(payload_row.size))
+
+
+def nonzero_constants(const: np.ndarray) -> np.ndarray:
+    """``uint32[3, Z]``: row, tile and word of each non-zero constant of
+    a ``[R, NT]`` constant table, row-major (``np.nonzero`` order). Dense
+    tiles hold 0 in the table, so these are the non-zero run tiles."""
+    r, j = np.nonzero(const)
+    out = np.empty((3, r.size), dtype=np.uint32)
+    out[0], out[1], out[2] = r, j, const[r, j]
+    return out
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -233,6 +270,15 @@ def maybe_compress(host: np.ndarray, device: torch.device
     ptile[:n_payload] = payload_tile
     cb.payload_row = platform.h2d_copy(prow, device)
     cb.payload_tile = platform.h2d_copy(ptile, device)
+    # the kernel's constant list, charged to the budget beside nbytes
+    # (core/stacked.py _nbytes); nbytes keeps the JAX package's formula
+    nz = nonzero_constants(const)
+    cb.nz = platform.h2d_copy(nz, device)
+    cb.n_nz = nz.shape[1]
+    cb.nz_nbytes = nz.nbytes
+    cb.kernel_desc = (cb.payload.data_ptr(), cb.payload_row.data_ptr(),
+                      cb.payload_tile.data_ptr(), cb.nz.data_ptr(),
+                      n_payload, cb.n_nz, rows)
     return cb
 
 
@@ -255,36 +301,78 @@ def _decode(payload: torch.Tensor, slot: torch.Tensor, const: torch.Tensor,
 
 ctile_count_launches = KU.LaunchCounter("ctile_count")
 
+#: compressed blocks one launch counts (csrc/ctile_count.cu CT_MAX_BLOCKS)
+MAX_BLOCKS = 16
 
-def ctile_count_plain(payload: torch.Tensor, payload_row: torch.Tensor,
-                      payload_tile: torch.Tensor, const: torch.Tensor,
-                      filt_tiles: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: mask each payload entry with
-    its filter tile, popcount and sum it, ``index_add_`` the sums into
-    their rows, then the same for the non-zero constants (a constant word
-    ``c`` counts ``popcount(c) * T`` unfiltered, ``popcount(c & filter
-    tile)`` filtered). Payload entries whose row is outside ``[0, R)``
-    (the padding), or whose tile is outside ``[0, NT)`` under a filter,
-    are dropped."""
-    rows, n_tiles = const.shape
-    keep = (payload_row >= 0) & (payload_row < rows)
-    x = payload
-    if filt_tiles is not None:
-        keep &= (payload_tile >= 0) & (payload_tile < n_tiles)
-        x = payload & filt_tiles[payload_tile.clamp(0, n_tiles - 1).long()]
-    out = torch.zeros(rows, dtype=torch.int32, device=payload.device)
-    out.index_add_(0, payload_row[keep].long(),
-                   popcount(x).sum(dim=1, dtype=torch.int32)[keep])
+
+def _nonzero_list(const: torch.Tensor) -> torch.Tensor:
+    """The device form of :func:`nonzero_constants` for a constant table
+    given as a tensor (a host sync: the length depends on the data)."""
     r, j = torch.nonzero(const, as_tuple=True)
-    c = const[r, j]
+    return torch.stack([r.to(torch.int32), j.to(torch.int32), const[r, j]])
+
+
+def _counts_plain(payload: torch.Tensor, payload_row: torch.Tensor,
+                  payload_tile: torch.Tensor, n_payload: int,
+                  nz: torch.Tensor, rows: int,
+                  filt_tiles: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of the kernel for one block: mask each of
+    the first ``n_payload`` entries with its filter tile, popcount and
+    sum it, ``index_add_`` the sums into their rows, then the same for
+    the non-zero constants ``nz`` (a word ``c`` counts ``popcount(c) *
+    T`` unfiltered, ``popcount(c & filter tile)`` filtered). Entries
+    whose row is outside ``[0, rows)``, or whose tile is outside ``[0,
+    NT)`` under a filter, are dropped."""
+    t = payload.shape[1]
+    prow = payload_row[:n_payload]
+    keep = (prow >= 0) & (prow < rows)
+    x = payload[:n_payload]
+    if filt_tiles is not None:
+        n_tiles = filt_tiles.shape[0]
+        ptile = payload_tile[:n_payload]
+        keep &= (ptile >= 0) & (ptile < n_tiles)
+        x = x & filt_tiles[ptile.clamp(0, n_tiles - 1).long()]
+    out = torch.zeros(rows, dtype=torch.int32, device=payload.device)
+    out.index_add_(0, prow[keep].long(),
+                   popcount(x).sum(dim=1, dtype=torch.int32)[keep])
+    r, j, c = nz[0].long(), nz[1].long(), nz[2]
     if filt_tiles is None:
-        per_const = popcount(c) * payload.shape[1]
+        per_const = popcount(c) * t
     else:
         per_const = popcount(filt_tiles[j] & c[:, None]).sum(
             dim=1, dtype=torch.int32)
     out.index_add_(0, r, per_const)
     return out
+
+
+def ctile_count_plain(payload: torch.Tensor, payload_row: torch.Tensor,
+                      payload_tile: torch.Tensor, const: torch.Tensor,
+                      filt_tiles: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ctile_count`: every payload entry
+    and the non-zero constants of ``const``, as :func:`_counts_plain`
+    counts them."""
+    return _counts_plain(payload, payload_row, payload_tile,
+                         payload.shape[0], _nonzero_list(const),
+                         const.shape[0], filt_tiles)
+
+
+def _launch(descs, offsets, filt_tiles: Optional[torch.Tensor], t: int,
+            n_tiles: int, out: torch.Tensor) -> None:
+    """One kernel launch over at most MAX_BLOCKS blocks, each given as
+    (payload, payload_row, payload_tile, nz pointers, n_payload, n_nz,
+    rows) and counted into ``out`` from its offset."""
+    flat = []
+    for d, off in zip(descs, offsets):
+        flat.extend(d)
+        flat.append(off)
+    dev = out.device
+    rc = KU.lib().pk_ctile_count(
+        (ctypes.c_longlong * len(flat))(*flat), len(descs),
+        None if filt_tiles is None else filt_tiles.data_ptr(), t, n_tiles,
+        out.data_ptr(), dev.index, KU.stream(out))
+    KU.check(rc, "ctile_count")
+    ctile_count_launches.bump()
 
 
 def ctile_count(payload: torch.Tensor, payload_row: torch.Tensor,
@@ -305,10 +393,13 @@ def ctile_count(payload: torch.Tensor, payload_row: torch.Tensor,
     ``[0, R)`` (the padding), or whose tile is outside ``[0, NT)`` under
     a filter, are dropped.
 
-    CUDA tensors: one launch of csrc/ctile_count.cu, which replaces
-    pilosa_tpu/ops/ctiles.py:291/:301 with the mask (:342), the
-    scatter-add (:348) and the constant tiles' counts (:355/:362) fused
-    in. CPU tensors: :func:`ctile_count_plain`."""
+    CUDA tensors: the one-block case of :func:`ctile_count_blocks`' kernel
+    (csrc/ctile_count.cu, which replaces pilosa_tpu/ops/ctiles.py:291/:301
+    with the mask (:342), the scatter-add (:348) and the constant tiles'
+    counts (:355/:362) fused in), over all P entries of
+    :meth:`CompressedBlock.from_parts` (whose constant list waits for the
+    card; the stack path passes lists built with the blocks). CPU
+    tensors: :func:`ctile_count_plain`."""
     if payload.dim() != 2 or const.dim() != 2:
         raise ValueError(f"ctile_count: payload {tuple(payload.shape)} and "
                          f"constants {tuple(const.shape)} must be 2-D")
@@ -331,18 +422,94 @@ def ctile_count(payload: torch.Tensor, payload_row: torch.Tensor,
     KU.check_words("ctile_count", "const", const, 2)
     if filt_tiles is not None:
         KU.check_words("ctile_count", "filt_tiles", filt_tiles, 2)
-    out = torch.zeros(rows, dtype=torch.int32, device=payload.device)
     if t == 0 or rows == 0:
-        return out
-    with torch.cuda.device(payload.device):
-        rc = KU.lib().pk_ctile_count(
-            payload.data_ptr(), payload_row.data_ptr(),
-            payload_tile.data_ptr(),
-            filt_tiles.data_ptr() if filt_tiles is not None else None,
-            const.data_ptr(), p, t, n_tiles, rows, out.data_ptr(),
-            KU.stream(payload))
-    KU.check(rc, "ctile_count")
-    ctile_count_launches.bump()
+        return torch.zeros(rows, dtype=torch.int32, device=payload.device)
+    return ctile_count_blocks(
+        [CompressedBlock.from_parts(payload, payload_row, payload_tile,
+                                    const)], filt_tiles)
+
+
+def _blocks_args(blocks: Sequence[CompressedBlock],
+                 filt: Optional[torch.Tensor],
+                 out: Optional[torch.Tensor], offsets):
+    """Checked (out, offsets, filter tiles) of a many-block count."""
+    if not blocks:
+        raise ValueError("ctile_count_blocks: no blocks")
+    first = blocks[0]
+    shape = (first.words, first.tile_words, first.n_tiles)
+    for cb in blocks:
+        if (cb.words, cb.tile_words, cb.n_tiles) != shape:
+            raise ValueError("ctile_count_blocks: blocks of one width and "
+                             "tile size only")
+    if out is None:
+        offsets, total = [], 0
+        for cb in blocks:
+            offsets.append(total)
+            total += cb.rows
+        out = torch.zeros(total, dtype=torch.int32, device=first.device)
+    else:
+        if offsets is None or len(offsets) != len(blocks):
+            raise ValueError("ctile_count_blocks: one offset per block")
+        KU.check_words("ctile_count_blocks", "out", out, 1)
+        for cb, off in zip(blocks, offsets):
+            if off < 0 or off + cb.rows > out.numel():
+                raise ValueError(f"ctile_count_blocks: rows [{off}, "
+                                 f"{off + cb.rows}) outside the output")
+    ft = filt
+    if filt is not None and filt.dim() == 1:
+        ft = _filt_tiles(filt, first.n_tiles, first.tile_words)
+    if ft is not None and tuple(ft.shape) != (first.n_tiles,
+                                              first.tile_words):
+        raise ValueError(f"ctile_count_blocks: filter tiles "
+                         f"{tuple(ft.shape)} are not {first.n_tiles} tiles "
+                         f"of {first.tile_words} words")
+    return out, offsets, ft
+
+
+def ctile_count_blocks_plain(blocks: Sequence[CompressedBlock],
+                             filt: Optional[torch.Tensor] = None,
+                             out: Optional[torch.Tensor] = None,
+                             offsets: Optional[Sequence[int]] = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ctile_count_blocks`, block by
+    block."""
+    out, offsets, ft = _blocks_args(blocks, filt, out, offsets)
+    for cb, off in zip(blocks, offsets):
+        out[off:off + cb.rows] += _counts_plain(
+            cb.payload, cb.payload_row, cb.payload_tile, cb.n_payload,
+            cb.nz, cb.rows, ft)
+    return out
+
+
+def ctile_count_blocks(blocks: Sequence[CompressedBlock],
+                       filt: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None,
+                       offsets: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
+    """Per-row popcounts of compressed blocks of one width (the blocks of
+    a stack), each as :meth:`CompressedBlock.row_counts` counts it.
+
+    ``filt`` is a filter plane ``[words]`` (cut into tiles once here) or
+    its tiles ``[NT, T]``. Without ``out`` the counts come back
+    concatenated, ``int32[sum of rows]``; with it, block ``i``'s rows are
+    added into ``out[offsets[i]:]``, which the caller zeroed.
+
+    CUDA tensors: one launch of csrc/ctile_count.cu per
+    :data:`MAX_BLOCKS` blocks, over each block's real payload entries
+    and its list of non-zero constants. CPU tensors:
+    :func:`ctile_count_blocks_plain`."""
+    out, offsets, ft = _blocks_args(blocks, filt, out, offsets)
+    first = blocks[0]
+    if not KU.on_card("ctile_count", first.payload, out,
+                      *([] if ft is None else [ft])):
+        return ctile_count_blocks_plain(blocks, ft, out, offsets)
+    if ft is not None:
+        KU.check_words("ctile_count", "filt_tiles", ft, 2)
+    for lo in range(0, len(blocks), MAX_BLOCKS):
+        group = blocks[lo:lo + MAX_BLOCKS]
+        _launch([cb.kernel_desc for cb in group],
+                offsets[lo:lo + MAX_BLOCKS], ft, first.tile_words,
+                first.n_tiles, out)
     return out
 
 

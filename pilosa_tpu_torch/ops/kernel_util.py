@@ -26,7 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,17 +42,18 @@ SOURCES = ("tape_count.cu", "pair_counts.cu", "scatter_merge.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+#: compile-only flags: ptxas reports each kernel's registers, stack frame
+#: and spills, kept beside the library (:func:`ptxas_info`)
+COMPILE_FLAGS = ("-Xptxas", "-v")
+
 #: leaf and op limits of one tape launch (csrc/tape_count.cu TapeDesc)
 MAX_LEAVES = 32
 MAX_OPS = 64
 
-
-class TapeDesc(ctypes.Structure):
-    """Mirror of ``struct TapeDesc`` in csrc/tape_count.cu, passed to the
-    kernel by value."""
+class TapeOps(ctypes.Structure):
+    """Mirror of ``struct TapeOps`` in csrc/tape_count.cu: a tape's op
+    list, encoded once per tape and passed by pointer."""
     _fields_ = [
-        ("leaves", ctypes.c_void_p * MAX_LEAVES),
-        ("mask", ctypes.c_void_p),
         ("n_leaves", ctypes.c_int),
         ("n_ops", ctypes.c_int),
         ("op", ctypes.c_uint8 * MAX_OPS),
@@ -136,7 +137,7 @@ def _sources() -> List[str]:
 def build() -> str:
     """Compile the kernels (when their hash is new) and return the .so."""
     global BUILD_SECONDS
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(f.read())
@@ -154,17 +155,20 @@ def build() -> str:
         obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [exe, *NVCC_FLAGS, "-c", src, "-o", obj],
+            [exe, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE))
     tmp = so + f".tmp{tag}"
     try:
-        errors = []
+        errors, info = [], []
         for src, p in zip(SOURCES, procs):
             _, err = p.communicate()
             if p.returncode != 0:
                 errors.append(f"{src}: {err.decode(errors='replace')}")
+            info.append(err.decode(errors="replace"))
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        with open(so + ".ptxas", "w") as f:
+            f.write("".join(info))
         r = subprocess.run([exe, "-shared", *NVCC_FLAGS[:2], "-o", tmp,
                             *objs], capture_output=True)
     finally:
@@ -179,6 +183,13 @@ def build() -> str:
     return so
 
 
+def ptxas_info() -> str:
+    """What ptxas reported for every kernel when the library was built
+    (registers, stack frame, spills)."""
+    with open(build() + ".ptxas") as f:
+        return f.read()
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
@@ -187,7 +198,9 @@ def lib() -> ctypes.CDLL:
             return _lib
         dll = ctypes.CDLL(build())
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        dll.pk_tape_count.argtypes = [ctypes.POINTER(TapeDesc), ll, vp, vp]
+        dll.pk_tape_count.argtypes = [ctypes.POINTER(TapeOps),
+                                      ctypes.POINTER(vp), vp, ll, vp, vp, i,
+                                      vp]
         dll.pk_tape_count.restype = i
         dll.pk_pair_counts.argtypes = [vp, vp, i, i, ll, i, i, i, ll, ll,
                                        ll, vp, vp]
@@ -196,7 +209,8 @@ def lib() -> ctypes.CDLL:
         dll.pk_scatter_merge.restype = i
         dll.pk_bsi_compare.argtypes = [ctypes.POINTER(BsiDesc), vp]
         dll.pk_bsi_compare.restype = i
-        dll.pk_ctile_count.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp, vp]
+        dll.pk_ctile_count.argtypes = [ctypes.POINTER(ll), i, vp, i, i, vp,
+                                       i, vp]
         dll.pk_ctile_count.restype = i
         dll.pk_error_string.argtypes = [i]
         dll.pk_error_string.restype = ctypes.c_char_p
@@ -220,6 +234,11 @@ def on_card(kernel: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor is on one CUDA device (launch the kernel),
     False when every tensor is on the CPU (plain version). Anything else
     raises."""
+    first = tensors[0]
+    if first.is_cuda:  # the launch path: one attribute read per tensor
+        idx = first.get_device()
+        if all(t.is_cuda and t.get_device() == idx for t in tensors):
+            return True
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{kernel}: tensors on several devices {devs}")
@@ -243,7 +262,24 @@ def check_words(kernel: str, name: str, t: torch.Tensor, ndim: int) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The ``cudaStream_t`` of the current stream on ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+
+
+def tape_scratch(device: torch.device, stream_handle: int) -> int:
+    """Device pointer of the ``tape_count`` accumulator for one stream:
+    one 64-bit word (a ticket and a running sum), zero between launches,
+    since each launch leaves it so. Launches on one stream run in order,
+    so they share it; it is zeroed once, when first made."""
+    key = (device.index, stream_handle)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        t = torch.zeros(1, dtype=torch.int64, device=device)
+        hit = _SCRATCH.setdefault(key, (t, t.data_ptr()))
+    return hit[1]
 
 
 _SMS: Dict[int, int] = {}

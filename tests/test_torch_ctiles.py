@@ -411,6 +411,118 @@ def test_ctile_count_rejects_mismatched_shapes():
 
 
 # ---------------------------------------------------------------------------
+# the stack route: ctile_count_blocks and the non-zero constant list
+# ---------------------------------------------------------------------------
+
+
+def stack_blocks(rng, rows, width):
+    """Blocks of one width as a stack holds them: clustered runs, sparse
+    bits, whole-tile runs of non-uniform words (which the JAX package
+    decodes under a filter), all-ones rows and an empty block."""
+    nonuniform = np.zeros((rows, width), dtype=np.uint32)
+    t = C.tile_words(width)
+    for r in range(rows):
+        for j in range(-(-width // t)):
+            if (r + j) % 3 == 0:
+                nonuniform[r, j * t:(j + 1) * t] = rng.integers(
+                    1, 2 ** 32, dtype=np.uint32)
+    nonuniform[min(1, rows - 1), min(3, width - 1)] ^= 7  # one dense tile
+    ones = np.zeros((rows, width), dtype=np.uint32)
+    ones[::2] = 0xFFFFFFFF
+    return [clustered_block(rng, rows, width),
+            sparse_block(rng, rows, width, n_bits=60), nonuniform, ones,
+            np.zeros((rows, width), dtype=np.uint32)]
+
+
+@pytest.mark.parametrize("pallas", ["1", "0"])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("width", [1100, 4096])
+def test_ctile_count_blocks_matches_jax(forced, monkeypatch, pallas,
+                                        filtered, width):
+    """The port's many-block count (CPU tensors: its plain version)
+    against the JAX package's _compressed_row_counts, block by block and
+    concatenated; padded entries (every payload count here is below its
+    power-of-two cap), non-uniform constants under a filter (decoded by
+    the JAX package, counted exactly by the port) and a width that is not
+    a whole number of tiles (1100) included."""
+    monkeypatch.setenv("PILOSA_TPU_PALLAS", pallas)
+    rng = np.random.default_rng(width + filtered)
+    hosts = stack_blocks(rng, 8, width)
+    pairs = [both(h) for h in hosts]
+    assert any(tcb.n_payload < tcb.payload.shape[0] for _, tcb in pairs)
+    assert any(not jcb.const_uniform for jcb, _ in pairs)
+    filt = (rng.integers(0, 2 ** 32, width, dtype=np.uint32)
+            if filtered else None)
+    jf = None if filt is None else jnp.asarray(filt)
+    want = [np.asarray(JC._compressed_row_counts(jcb, jf))
+            for jcb, _ in pairs]
+    blocks = [tcb for _, tcb in pairs]
+    before = KU.launches()
+    got = C.ctile_count_blocks(blocks, None if filt is None else tt(filt))
+    assert KU.launches() == before  # CPU tensors launch nothing
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(want))
+    for tcb, w in zip(blocks, want):
+        one = C.ctile_count_blocks([tcb], None if filt is None else tt(filt))
+        np.testing.assert_array_equal(one.numpy(), w)
+    # into a zeroed stack output at given offsets, as core/stacked.py does
+    out = torch.zeros(8 * len(blocks) + 8, dtype=torch.int32)
+    offs = [8 * (len(blocks) - k) for k in range(len(blocks))]
+    C.ctile_count_blocks(blocks, None if filt is None else tt(filt), out,
+                         offs)
+    for off, w in zip(offs, want):
+        np.testing.assert_array_equal(out[off:off + 8].numpy(), w)
+    assert not out[:8].any()
+
+
+def test_ctile_count_blocks_rejects_mixed_widths_and_short_outputs(forced):
+    rng = np.random.default_rng(5)
+    a = C.maybe_compress(sparse_block(rng, 4, 1024), CPU)
+    b = C.maybe_compress(sparse_block(rng, 4, 2048), CPU)
+    with pytest.raises(ValueError, match="one width"):
+        C.ctile_count_blocks([a, b])
+    with pytest.raises(ValueError, match="outside the output"):
+        C.ctile_count_blocks([a], out=torch.zeros(6, dtype=torch.int32),
+                             offsets=[3])
+    with pytest.raises(ValueError, match="no blocks"):
+        C.ctile_count_blocks([])
+
+
+@pytest.mark.parametrize("kind", ["sparse", "clustered", "nonuniform"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_nonzero_constant_list_matches_jax_classify(forced, kind, shape):
+    """The kernel's list of non-zero constants is np.nonzero of the JAX
+    package's constant table (row-major), with the words at those
+    places, on the host and as the block holds it."""
+    rng = np.random.default_rng(shape[0] + shape[1])
+    if kind == "nonuniform":
+        host = stack_blocks(rng, shape[0], shape[1])[2]
+    elif kind == "clustered" and shape[1] * 32 >= shape[0]:
+        host = clustered_block(rng, *shape)
+    else:
+        host = sparse_block(rng, *shape)
+    const = JC.classify(host)[2]
+    r, j = np.nonzero(const)
+    got = C.nonzero_constants(np.asarray(const))
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, np.stack([r, j, const[r, j]]))
+    tcb = C.maybe_compress(host, CPU)
+    np.testing.assert_array_equal(u(tcb.nz), got)
+    assert tcb.n_nz == r.size and tcb.nz_nbytes == 12 * r.size
+
+
+def test_nbytes_is_unchanged_and_the_budget_charges_the_list(forced):
+    from pilosa_tpu_torch.core import stacked as tstacked
+
+    rng = np.random.default_rng(8)
+    for host in stack_blocks(rng, 8, 4096):
+        jcb, tcb = both(host)
+        assert tcb.nbytes == jcb.nbytes
+        assert tstacked._nbytes(tcb) == tcb.nbytes + 12 * tcb.n_nz
+    assert any(tcb.n_nz for tcb in (C.maybe_compress(h, CPU) for h in
+                                    stack_blocks(rng, 8, 4096)))
+
+
+# ---------------------------------------------------------------------------
 # compressed BSI compare
 # ---------------------------------------------------------------------------
 

@@ -116,6 +116,156 @@ def test_tape_count_kernel(dev, masked):
     assert KU.launches()["tape_count"] == before + 1
 
 
+def random_tape(rng, n_leaves, n_ops):
+    """A seeded tape of ``n_ops`` ops over ``n_leaves`` leaves; the first
+    ops fold in every leaf, so each is read."""
+    ops = ["and", "or", "xor", "andnot"]
+    tape = []
+    for k in range(n_ops):
+        regs = n_leaves + k
+        if k < n_leaves - 1:
+            i, j = (k if k == 0 else regs - 1), k + 1
+        else:
+            i, j = (int(x) for x in rng.integers(0, regs, 2))
+        tape.append((ops[int(rng.integers(0, 4))], i, j))
+    return tuple(tape)
+
+
+#: (leaves, ops): one plane's count and a two-row Count (the one-op
+#: path); 2, 6 and 7 ops over two leaves and 4 over four (the general
+#: path); 32 leaves and 64 ops (the kernel's limits)
+TAPE_SIZES = {"one-leaf": (1, 1), "one-op": (2, 1), "ops-2": (2, 2),
+              "ops-6": (2, 6), "ops-7": (2, 7), "wide-4": (4, 4),
+              "limits": (32, 64)}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("layout", ["separate", "rows", "shifted"])
+@pytest.mark.parametrize("size", sorted(TAPE_SIZES))
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 7, (1 << 20) + 3])
+def test_tape_count_kernel_shapes(dev, w, size, layout, masked):
+    """Every path of the kernel against its plain version, one launch a
+    count: ``separate`` leaves are 16-byte aligned; ``rows`` are row views
+    of one 2-D tensor, at different offsets modulo 16 bytes when w is odd
+    (the 32-bit path); ``shifted`` leaves all start one word into their
+    tensor (a peeled head)."""
+    n_leaves, n_ops = TAPE_SIZES[size]
+    rng = np.random.default_rng(w * 100 + n_ops)
+    tape = random_tape(rng, n_leaves, n_ops)
+    if n_leaves == 1:
+        tape = (("or", 0, 0),)
+    n = n_leaves + masked
+    if layout == "rows":
+        planes = list(words(rng, (n, w), dev))
+    elif layout == "shifted":
+        planes = [words(rng, (w + 1,), dev)[1:] for _ in range(n)]
+    else:
+        planes = [words(rng, (w,), dev) for _ in range(n)]
+    leaves, mask = planes[:n_leaves], (planes[-1] if masked else None)
+    before = KU.launches()["tape_count"]
+    got = B.tape_count(tape, leaves, mask)
+    torch.cuda.synchronize()
+    assert KU.launches()["tape_count"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == ()
+    assert int(got) == int(B.tape_count_plain(tape, leaves, mask))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("op", ["and", "or", "xor", "andnot"])
+@pytest.mark.parametrize("a,b", [(0, 1), (1, 0), (1, 1), (4, 2)])
+def test_tape_count_one_op_operands(dev, a, b, op, masked):
+    """A one-op tape is passed its operands in tape order (one leaf when
+    both name it), whichever of its leaves they are."""
+    rng = np.random.default_rng(a * 10 + b)
+    leaves = [words(rng, (6 * 32768 + 3,), dev) for _ in range(max(a, b) + 1)]
+    mask = words(rng, (6 * 32768 + 3,), dev) if masked else None
+    tape = ((op, a, b),)
+    assert int(B.tape_count(tape, leaves, mask)) == int(
+        B.tape_count_plain(tape, leaves, mask))
+
+
+def test_tape_count_is_one_device_op(dev):
+    """No fill before the kernel: a count is one device operation, and
+    back-to-back counts on one stream agree (each launch leaves its
+    accumulator zero for the next)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(21)
+    a, b = words(rng, (6 * 32768,), dev), words(rng, (6 * 32768,), dev)
+    want = int(B.tape_count_plain((("and", 0, 1),), [a, b]))
+    B.tape_count((("and", 0, 1),), [a, b])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [B.tape_count((("and", 0, 1),), [a, b]) for _ in range(10)]
+        torch.cuda.synchronize()
+    # one kernel and no other op; a trace can miss an event now and then
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len({e.name for e in ops}) == 1 and 5 <= len(ops) <= 10, \
+        sorted({e.name for e in ops})
+    assert [int(o) for o in outs] == [want] * 10
+
+
+def _compressed_blocks(monkeypatch, rng, n, width, device, rows=16):
+    """``n`` forced-compressed blocks of ``rows`` x ``width``: zero,
+    all-ones and non-uniform constant tiles, dense tiles of random bits,
+    and one all-zero block."""
+    monkeypatch.setenv("PILOSA_TPU_COMPRESS", "1")
+    t = C.tile_words(width)
+    n_tiles = -(-width // t)
+    out = []
+    for k in range(n):
+        pick = rng.integers(0, 5, (rows, n_tiles))
+        host = np.zeros((rows, n_tiles * t), dtype=np.uint32)
+        for r, j in zip(*np.nonzero(pick)):
+            kind = pick[r, j]
+            tile = host[r, j * t:(j + 1) * t]
+            if kind == 1:
+                tile[:] = 0xFFFFFFFF
+            elif kind == 2:
+                tile[:] = rng.integers(1, 1 << 32, dtype=np.uint32)
+            elif kind == 3:
+                tile[:] = rng.integers(0, 1 << 32, t, dtype=np.uint32)
+        if k == n - 1:
+            host[:] = 0
+        cb = C.maybe_compress(np.ascontiguousarray(host[:, :width]), device)
+        assert cb is not None
+        out.append(cb)
+    return out
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("width", [8, 64, 3 * 512 + 100])
+@pytest.mark.parametrize("n", [1, 10, 17, 35])
+def test_ctile_count_blocks_kernel(dev, monkeypatch, n, width, filtered):
+    """Stacks of 1, 10 and more blocks than one launch takes, at T = 8,
+    64 and 512 (a ragged last tile), with non-uniform constants: one
+    launch per MAX_BLOCKS blocks, equal to the plain version and to the
+    dense counts of the decoded blocks."""
+    rng = np.random.default_rng(n * 1000 + width + filtered)
+    blocks = _compressed_blocks(monkeypatch, rng, n, width, dev)
+    filt = words(rng, (width,), dev) if filtered else None
+    before = KU.launches()["ctile_count"]
+    got = C.ctile_count_blocks(blocks, filt)
+    torch.cuda.synchronize()
+    assert KU.launches()["ctile_count"] == before + -(-n // C.MAX_BLOCKS)
+    assert torch.equal(got, C.ctile_count_blocks_plain(blocks, filt))
+    assert torch.equal(got, torch.cat([T.row_counts(cb.decode(), filt)
+                                       for cb in blocks]))
+
+
+def test_ctile_count_blocks_kernel_misaligned_filter(dev, monkeypatch):
+    """Filter tiles that start one word into their tensor take the
+    scalar loop."""
+    rng = np.random.default_rng(22)
+    blocks = _compressed_blocks(monkeypatch, rng, 3, 4 * 512, dev)
+    big = words(rng, (4 * 512 + 1,), dev)
+    ft = big[1:].reshape(4, 512)
+    assert ft.is_contiguous() and ft.data_ptr() % 16 != 0
+    got = C.ctile_count_blocks(blocks, ft)
+    assert torch.equal(got, C.ctile_count_blocks_plain(blocks, ft))
+
+
 def test_scatter_merge_kernel(dev):
     rng = np.random.default_rng(12)
     flat = words(rng, (4096,), dev)

@@ -191,6 +191,45 @@ def test_tape_count_rejects_bad_tapes(tape, n_leaves):
         B.check_tape(tape, n_leaves)
 
 
+def test_encode_tape_caches_one_encoding_per_tape():
+    """The wrapper checks and encodes a tape once: the same (tape, leaf
+    count) returns the same encoding, an equal tape built anew too, and
+    distinct tapes or leaf counts get distinct encodings."""
+    tape = (("and", 0, 1), ("or", 2, 0))
+    first = B.encode_tape(tape, 2)
+    assert B.encode_tape(tape, 2) is first
+    assert B.encode_tape(tuple(tuple(op) for op in tape), 2) is first
+    assert (first.n_leaves, first.n_ops) == (2, 2)
+    assert [(first.op[k], first.a[k], first.b[k]) for k in range(2)] == [
+        (0, 0, 1), (1, 2, 0)]
+    seen = {id(first): bytes(first)}
+    for other, n in (((("and", 0, 1), ("or", 2, 1)), 2), (tape, 3),
+                     ((("xor", 0, 1),), 2), ((("andnot", 0, 1),), 2)):
+        enc = B.encode_tape(other, n)
+        assert enc is B.encode_tape(other, n)
+        assert id(enc) not in seen and bytes(enc) not in seen.values()
+        seen[id(enc)] = bytes(enc)
+    with pytest.raises(ValueError):  # checked before it is cached
+        B.encode_tape((("and", 0, 5),), 2)
+
+
+@pytest.mark.parametrize("n_leaves,n_ops", [
+    (1, 1), (2, 1), (4, 1), (2, 2), (2, 6), (4, 4), (2, 7), (8, 1),
+    (32, 64)])
+def test_tape_count_matches_jax_on_one_op_and_longer_tapes(rng, n_leaves,
+                                                           n_ops):
+    """One-op tapes (the kernel's one-op path, passed the op's two
+    operands whichever leaves they are) and longer ones (its general
+    path) count what the JAX package counts."""
+    tape = tuple(("and" if k % 2 else "or", k if k < n_leaves else 0,
+                  n_leaves + k - 1) for k in range(n_ops))
+    assert B.encode_tape(tape, n_leaves).n_ops == n_ops
+    leaves = [rand_planes(rng, WORDS) for _ in range(n_leaves)]
+    want = int(JB.plane_count_pallas_traced(
+        jnp.asarray(_np_tape(tape, leaves)), True))
+    assert int(B.tape_count(tape, [t(x) for x in leaves])) == want
+
+
 # ---------------------------------------------------------------------------
 # scatter_merge + the chunked bulk import
 # ---------------------------------------------------------------------------

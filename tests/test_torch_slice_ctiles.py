@@ -215,13 +215,17 @@ def test_budget_charges_stored_bytes_and_eviction_rebuilds(auto_run):
     st = port_stack(tapi, "orderdate")
     cb = st._blocks[0]
     assert isinstance(cb, C.CompressedBlock)
-    assert tstacked.BUDGET._lru[(st.serial, 0)][0] == cb.nbytes
+    # stored bytes (the JAX package's formula) plus the kernel's list of
+    # non-zero constants, 12 bytes each
+    assert tstacked.BUDGET._lru[(st.serial, 0)][0] == \
+        cb.nbytes + 12 * cb.n_nz
     before = st.row_counts()
     st._drop_block(0)  # what a budget eviction does
     assert torch.equal(st.row_counts(), before)  # rebuilt, compressed
     again = st._blocks[0]
     assert isinstance(again, C.CompressedBlock) and again is not cb
-    assert tstacked.BUDGET._lru[(st.serial, 0)][0] == again.nbytes
+    assert tstacked.BUDGET._lru[(st.serial, 0)][0] == \
+        again.nbytes + 12 * again.n_nz
     tstacked.BUDGET.audit()
 
 
@@ -266,3 +270,64 @@ def test_small_budget_evicts_compressed_blocks(monkeypatch):
     assert plain(tapi.query("s", "TopN(f, n=3)")) == want  # rebuilt
     assert isinstance(st_f._blocks[0], C.CompressedBlock)
     tstacked.BUDGET.audit()
+
+
+def _paged_runs_stack(monkeypatch, budget_bytes, n_rows=64):
+    """A one-shard field of ``n_rows`` rows, each a run of 512 columns,
+    paged into compressed blocks of 4 rows under a budget of
+    ``budget_bytes``; the counts of ``row_counts`` are recorded one list
+    of blocks per ``ctile_count_blocks`` call."""
+    monkeypatch.setenv("PILOSA_TPU_COMPRESS", "1")
+    monkeypatch.setattr(tstacked, "_BLOCK_BYTES", 1 << 20)
+    monkeypatch.setattr(tstacked, "BUDGET",
+                        tstacked.DeviceBudget(budget_bytes))
+    calls = []
+    real = C.ctile_count_blocks
+
+    def recording(blocks, *args, **kw):
+        calls.append(list(blocks))
+        return real(blocks, *args, **kw)
+
+    monkeypatch.setattr(C, "ctile_count_blocks", recording)
+    tapi = TorchAPI(device="cpu")
+    tapi.create_index("p")
+    tapi.create_field("p", "f", {"type": "mutex"})
+    cols = np.arange(n_rows * 512, dtype=np.int64)
+    tapi.import_bits("p", "f", rows=cols // 512, cols=cols)
+    field = tapi.holder.index("p").field("f")
+    st = tstacked.stacked_set(field, [0], "standard")
+    assert st.paged and (st.n_blocks, st.block_rows) == (n_rows // 4, 4)
+    return st, calls
+
+
+@pytest.mark.parametrize("tight", [False, True])
+def test_row_counts_gathering_stops_at_an_eviction(monkeypatch, tight):
+    """With room for every block, one call counts the stack's 16
+    compressed blocks (one launch on the card). Under a budget that holds
+    one block, building the next block evicts the gathered one: the
+    group is counted before the gathering goes on, so no evicted block is
+    held past it, and the counts are the same."""
+    st, calls = _paged_runs_stack(monkeypatch, 25_000 if tight else 1 << 30)
+    got = st.row_counts()
+    assert got.tolist() == [512] * 64
+    if tight:
+        assert [len(c) for c in calls] == [1] * 16
+        assert tstacked.BUDGET.used <= 25_000
+    else:
+        assert [len(c) for c in calls] == [16]
+    tstacked.BUDGET.audit()
+    filt = torch.from_numpy(np.tile(np.array([0xFF], dtype=np.uint32),
+                                    st.total_words).view(np.int32))
+    calls.clear()
+    assert st.row_counts(filt).tolist() == [8 * 16] * 64
+    assert [len(c) for c in calls] == ([1] * 16 if tight else [16])
+
+
+def test_row_counts_gathers_past_one_launch(monkeypatch):
+    """The stack gathers every compressed block it holds into one
+    ``ctile_count_blocks`` call, more than one launch takes; splitting
+    them into launches is that function's concern."""
+    st, calls = _paged_runs_stack(monkeypatch, 1 << 30, n_rows=96)
+    assert st.n_blocks > C.MAX_BLOCKS
+    assert st.row_counts().tolist() == [512] * 96
+    assert [len(c) for c in calls] == [st.n_blocks]
