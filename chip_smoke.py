@@ -12,9 +12,10 @@ Phases, each printed on its own line:
 2. build: compiles the port's CUDA kernels from ``pilosa_tpu_torch/csrc``
    into ``build/``, and beside them the launch probe
    (``pilosa_tpu_torch/probes/launch_probe.cu``), prints the build time
-   and ptxas's registers, stack frame and spills of the ``tape_count``
-   and ``ctile_count`` kernels (the one-op path of ``tape_count`` must
-   have no stack frame and no spills);
+   and ptxas's registers, stack frame and spills of the ``tape_count``,
+   ``ctile_count`` and ``scatter_merge`` kernels (the one-op path of
+   ``tape_count`` and both ``scatter_merge`` kernels must have no stack
+   frame and no spills);
 3. kernel parity: every kernel against its plain PyTorch version on the
    card, bit for bit (tolerance 0: every result is an integer or a
    bitmap), at edge shapes and at the main path's shapes, timed with CUDA
@@ -25,7 +26,10 @@ Phases, each printed on its own line:
    device ops per call in a trace (exactly one)
    and the launch floor (an empty kernel, the launch probe's fastest
    count over the same bytes); ``ctile_count`` over stacks of 1 to 35
-   blocks (one launch per 16) at T = 8, 64 and 512;
+   blocks (one launch per 16) at T = 8, 64 and 512; ``scatter_merge``
+   at edge shapes, at the old 32,768-word shape and at config 1's shape
+   (a ``city`` batch on its packed tiles) with its device ops per call
+   (exactly one) and its PCIe bound at the measured pinned copy rates;
 4. main path 1: the SSB scale-factor-1 deployment (6 shards x 2^20
    lineorder columns, a 7-row mutex ``year`` and a 1000-row keyed mutex
    ``brand``) imported through ``API.import_bits`` and queried with
@@ -62,8 +66,20 @@ Phases, each printed on its own line:
    columns [0, 65536)), whose stack the auto rule compresses: Range
    counts, Sum, Min and Max against numpy, and the active-tile compare
    against the plain compare of the decoded stack for all seven ops;
-8. one ``{"kernels": [...]}`` JSON line;
-9. the last line: ``{"ok": true, "device": {...}}``.
+8. main path 5, ``BASELINE.json`` config 1 at full size, as
+   ``bench.py`` ``bench_config1`` builds it: 1,000,000 records in shard 0
+   from seed 1, set fields ``city`` (1000 rows) and ``device`` (10 rows),
+   existence on, imported through ``API.import_bits`` in 8 batches of
+   131,072 records (``pilosa_tpu_torch/probes/import_probe.py``): every
+   row's popcount and the changed counts against numpy, one
+   ``scatter_merge`` launch per ``set_many`` call, then
+   ``Count(Intersect(Row(city=7), Row(device=3)))`` and five other pairs;
+   the import's seconds by field and by stage, a traced import's device
+   ops per launch (no fill, pinned copies only) and PCIe bytes each way
+   (at most 400 MB), the first query's time, the Count's p50 and card
+   busy share, and the stacks' dense and stored bytes;
+9. one ``{"kernels": [...]}`` JSON line;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -267,6 +283,7 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
     from pilosa_tpu_torch.ops import ctiles as C
     from pilosa_tpu_torch.ops import groupby as G
     from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.probes import import_probe as IP
     from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
     main_w = 6 * WORDS_PER_SHARD  # the SSB path's stacked width
@@ -441,25 +458,67 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                   variant=main["variant"], shapes=pc)
 
     # -- scatter_merge ------------------------------------------------------
+    # edges: one update, ragged heads and tails (views 1-3 updates into
+    # their tensors), addresses and masks at different offsets modulo 16
+    # bytes (32-bit loads), addresses outside the flat (dropped)
     for n, m in ((512, 1), (1024, 300), (32768, 5000), (32768, 32768)):
-        flat = _rand_words(rng, (n,), device)
-        addr_np = np.sort(rng.choice(n, size=m, replace=False)).astype(
-            np.int32)
-        addr = torch.from_numpy(addr_np).to(device)
-        masks = _rand_words(rng, (m,), device)
-        f_k, f_p = flat.clone(), flat.clone()
-        report.err("scatter_merge", SC.scatter_merge_(f_k, addr, masks),
-                   SC.scatter_merge_plain(f_p, addr, masks))
-        report.err("scatter_merge", f_k, f_p)
-    # the main path's chunk: one shard's _exists row, every word touched
+        for off_a, off_k in ((0, 0), (1, 1), (3, 3), (1, 2)):
+            flat = _rand_words(rng, (n,), device)
+            addr_np = np.sort(rng.choice(n, size=m, replace=False)).astype(
+                np.int32)
+            if m > 8:
+                addr_np[-2:] = (n, -5)  # dropped
+            addr = torch.from_numpy(np.r_[np.zeros(off_a, np.int32),
+                                          addr_np]).to(device)[off_a:]
+            masks = _rand_words(rng, (m + off_k,), device)[off_k:]
+            f_k, f_p = flat.clone(), flat.clone()
+            before = SC.scatter_merge_launches.n
+            report.err("scatter_merge", SC.scatter_merge_(f_k, addr, masks),
+                       SC.scatter_merge_plain(f_p, addr, masks))
+            assert SC.scatter_merge_launches.n == before + 1
+            report.err("scatter_merge", f_k, f_p)
+    # the old shape: one shard's _exists row, every word touched
     n = m = WORDS_PER_SHARD
     flat = torch.zeros(n, dtype=torch.int32, device=device)
     addr = torch.arange(n, dtype=torch.int32, device=device)
     masks = torch.full((n,), -1, dtype=torch.int32, device=device)
+    old_ms = _time_ms(lambda: SC.scatter_merge_(flat, addr, masks))
+    old_kern = _device_ms(lambda: SC.scatter_merge_(flat, addr, masks),
+                          "scatter_merge")
+    old_bound = (16 * m + 4) / mem_rate * 1e3
+    old = {"shape": f"{m} updates into {n} words", "ms": old_ms,
+           "kernel_ms": old_kern, "bound_ms": old_bound}
+    print(f"kernel scatter_merge: the old shape, {m} updates into {n} words "
+          f"{old_ms:.4f} ms (kernel alone {_fmt_ms(old_kern)}, bytes bound "
+          f"{old_bound:.4f} ms) {report.label}")
+    # config 1's shape: the first city batch of BASELINE.json config 1 on
+    # its packed flat of touched tiles, as ops/scatter.py stages it
+    city, _ = IP.config1_data()
+    rows, cols = city[:IP.C1_BATCH], np.arange(IP.C1_BATCH)
+    a64, masks_np = SC.sort_updates(rows, cols, WORDS_PER_SHARD)
+    t = SC._tile_words(1024 * WORDS_PER_SHARD)
+    which, packed, _ = SC.pack_tiles(a64, t)
+    n, m = which.size * t, a64.size
+    flat = _rand_words(rng, (n,), device)
+    addr = torch.from_numpy(packed.astype(np.int32)).to(device)
+    masks = torch.from_numpy(masks_np.view(np.int32)).to(device)
+    f_k, f_p = flat.clone(), flat.clone()
+    report.err("scatter_merge", SC.scatter_merge_(f_k, addr, masks),
+               SC.scatter_merge_plain(f_p, addr, masks))
+    report.err("scatter_merge", f_k, f_p)
     ms = _time_ms(lambda: SC.scatter_merge_(flat, addr, masks))
     plain_ms = _time_ms(lambda: SC.scatter_merge_plain(flat, addr, masks))
     kern_ms = _device_ms(lambda: SC.scatter_merge_(flat, addr, masks),
                          "scatter_merge")
+    traced = _device_ops(lambda: SC.scatter_merge_(flat, addr, masks),
+                         calls=100)
+    _once_per_call(traced, 100, 1)
+    (op_name, (op_events, _)), = traced.items()
+    rates = IP.copy_rates(device)
+    up = (n + 4 + 2 * (-(-m // 4) * 4)) * 4  # the staged tiles and updates
+    down = (n + 1) * 4  # the merged tiles and the count
+    pcie_ms = up / rates[f"h2d pinned {16 << 20}"]["GB_per_s"] / 1e6 \
+        + down / rates[f"d2h pinned {16 << 20}"]["GB_per_s"] / 1e6
     by_bytes = (16 * m + 4) / mem_rate * 1e3
     by_ops = m / popc_rate * 1e3
     report.kernel("scatter_merge",
@@ -467,11 +526,23 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
                   replaces="pilosa_tpu/ops/scatter.py:91", ms=ms,
                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                   bound_by="bytes" if by_bytes >= by_ops else "operations",
-                  library_ms=None, shape=f"{m} updates into {n} words",
-                  kernel_ms=kern_ms)
-    print(f"kernel scatter_merge: {m} updates into {n} words {ms:.4f} ms "
-          f"(kernel alone {_fmt_ms(kern_ms)}, plain {plain_ms:.4f} ms, "
-          f"bound {max(by_bytes, by_ops):.4f} ms) {report.label}")
+                  library_ms=None,
+                  shape=f"config-1 city batch: {m} updates into {which.size} "
+                        f"packed tiles of {t} words",
+                  kernel_ms=kern_ms, device_ops_per_call=1,
+                  trace_events_of_100=op_events, pcie_bytes_up=up,
+                  pcie_bytes_down=down, pcie_bound_ms=pcie_ms,
+                  pinned_rates_gb_s={k: v["GB_per_s"]
+                                     for k, v in rates.items()},
+                  old_shape=old)
+    print(f"kernel scatter_merge: config-1 city batch, {m} updates into "
+          f"{which.size} packed tiles of {t} words ({n} words): {ms:.4f} ms "
+          f"(kernel alone {_fmt_ms(kern_ms)}, one device op per call: "
+          f"{op_name} {op_events} events in a trace of 100 calls; plain "
+          f"{plain_ms:.4f} ms); bound on the card {max(by_bytes, by_ops):.4f}"
+          f" ms ({16 * m + 4} B at {mem_rate / 1e12:.2f} TB/s); over PCIe "
+          f"{up} B up and {down} B down at the measured pinned rates "
+          f"{pcie_ms:.4f} ms {report.label}")
 
     # -- bsi_compare --------------------------------------------------------
     for depth in (1, 20, 64):
@@ -614,9 +685,10 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
           f"{by_ops:.4f} ms; unfiltered {unf_ms:.4f} ms, bound "
           f"{unf_bound:.4f} ms) {report.label}")
     torch.cuda.synchronize()
-    print("library_ms: null for every kernel: PyTorch has no popcount op "
-          "and no bit-sliced compare, so no single PyTorch call computes "
-          "any of these functions")
+    print("library_ms: null for every kernel: PyTorch has no popcount op, "
+          "no bit-sliced compare and no scatter that ORs (scatter_reduce "
+          "takes sum, prod, mean, amax or amin), so no single PyTorch call "
+          "computes any of these functions")
 
 
 def _compressed_blocks(rng, n: int, width: int, device, rows: int = 16):
@@ -1296,23 +1368,124 @@ def phase_sparse_bsi(report: Report, args) -> None:
           f"{report.label}")
 
 
+def phase_config1(report: Report, args) -> None:
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.probes import import_probe as IP
+
+    city, dev = IP.config1_data()
+    n = city.size
+    KU.reset_launches()
+    api = API()
+    changed, import_s, field_s = IP.timed_import(api, city, dev)
+    q = "Count(Intersect(Row(city=7), Row(device=3)))"
+    t0 = time.perf_counter()
+    got = {q: api.query("taxi", q)[0]}  # builds the city and device stacks
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pairs = [(7, 3), (0, 0), (999, 9), (500, 5), (123, 1), (42, 8)]
+    for c, d in pairs[1:]:
+        pq = f"Count(Intersect(Row(city={c}), Row(device={d})))"
+        got[pq] = api.query("taxi", pq)[0]
+    torch.cuda.synchronize()
+    launched = KU.launches()
+
+    # -- oracle ---------------------------------------------------------------
+    # timed_import checked every row's popcount of city, device and _exists
+    # against np.bincount, and the changed counts against the records
+    for c, d in pairs:
+        pq = f"Count(Intersect(Row(city={c}), Row(device={d})))"
+        assert got[pq] == int(((city == c) & (dev == d)).sum()), pq
+    assert sum(ch for _, ch in changed) == 2 * n, "changed counts"
+    # one launch per set_many: each import_bits call and its _exists mark
+    assert launched["scatter_merge"] == 2 * len(changed), launched
+    report.launched("config1", launched, ("scatter_merge", "tape_count"))
+
+    split = IP.split_import(API(), city, dev)
+    trace_path = os.path.abspath(os.path.join("build", "config1_trace.json"))
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    tr = IP.traced_import(API(), city, dev, trace_path)
+    kernels = [k for k in tr["ops"] if "Memcpy" not in k]
+    assert all("scatter_merge" in k for k in kernels), \
+        f"device ops besides the kernel and the copies: {tr['ops']}"
+    assert all("Pinned" in k for k in tr["ops"] if "Memcpy" in k), \
+        f"a pageable copy: {tr['ops']}"
+    launches = tr["scatter_merge_launches"]
+    assert tr["kernel_events_per_launch"] <= 1 \
+        and tr["events"] <= 3 * launches, tr
+    staged = split["staged_bytes"]
+    pcie = max(tr["bytes"]["h2d"] + tr["bytes"]["d2h"],
+               staged.get("h2d", 0) + staged.get("d2h", 0))
+    assert pcie <= 400e6, f"{pcie} B over PCIe"
+
+    p50 = statistics.median(_wall_ms(lambda: api.query("taxi", q))
+                            for _ in range(11))
+    busy = _device_ms(lambda: api.query("taxi", q), calls=11)
+    idx = api.holder.index("taxi")
+    lines = []
+    for f in ("city", "device", "_exists"):
+        st = STK.stacked_set(idx.field(f), [0], "standard")
+        blocks = [st._ensure_block(bi) for bi in range(st.n_blocks)]
+        dense_b = sum(b.dense_nbytes if isinstance(b, C.CompressedBlock)
+                      else STK._nbytes(b) for b in blocks)
+        stored_b = sum(STK._nbytes(b) for b in blocks)
+        kinds = sorted({"compressed" if isinstance(b, C.CompressedBlock)
+                        else "dense" for b in blocks})
+        lines.append(f"{f}: {st.n_blocks} x {st.block_rows} rows, dense "
+                     f"{dense_b} B, stored {stored_b} B ({', '.join(kinds)})")
+    print(f"config1 path: {n} records in batches of {IP.C1_BATCH}; import "
+          f"{import_s:.3f} s (" + ", ".join(
+              f"{k} {v:.3f} s" for k, v in field_s.items())
+          + f"); first query (builds the stacks) {first_s:.3f} s; launches "
+          f"{launched} {report.label}")
+    print(f"config1 path: import split ({split['import_s']:.3f} s with a sync "
+          f"around every stage call): " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in split["stages_s"].items())
+          + f"; PCIe bytes as staged {staged.get('h2d', 0)} up, "
+          f"{staged.get('d2h', 0)} down {report.label}")
+    print(f"config1 path: traced import: {launches} scatter_merge launches, "
+          f"{tr['device_ops_per_launch']:.2f} device ops and "
+          f"{tr['kernel_events_per_launch']:.2f} kernel events per launch; "
+          f"PCIe {tr['bytes']['h2d']} B up, {tr['bytes']['d2h']} B down; "
+          + ", ".join(f"{k} x{v['events']} {v['device_ms']:.3f} ms"
+                      for k, v in tr["ops"].items()) + f" {report.label}")
+    for line in lines:
+        print(f"config1 path: {line} {report.label}")
+    print(f"config1 path: p50 of {q} {p50:.3f} ms; device busy per query "
+          f"{_fmt_ms(busy)}"
+          + (f" ({100 * busy / p50:.1f}% of the p50)" if busy else "")
+          + f" {report.label}")
+    report.kernel("scatter_merge", config1_import={
+        "import_s": import_s, "field_s": field_s, "split": split["stages_s"],
+        "launches": launches, "device_ops_per_launch":
+            tr["device_ops_per_launch"], "pcie_bytes_traced": tr["bytes"],
+        "pcie_bytes_staged": staged})
+    print("config1 path: every answer matches numpy")
+
+
 def _print_ptxas(info: str) -> None:
-    """ptxas's report on the tape_count and ctile_count kernels; the
-    one-op path of tape_count must keep no stack frame and spill
-    nothing."""
+    """ptxas's report on the tape_count, ctile_count and scatter_merge
+    kernels; the one-op path of tape_count and both scatter_merge kernels
+    must keep no stack frame and spill nothing."""
     lines = info.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line:
             continue
         name = line.split("'")[1]
-        if "tape_" not in name and "ctile_count" not in name:
+        if not any(k in name for k in ("tape_", "ctile_count",
+                                        "scatter_merge")):
             continue
         props = next((x.strip() for x in lines[i + 1:i + 4]
                       if "stack frame" in x), "")
         regs = next((x.split(":", 1)[1].strip() for x in lines[i + 1:i + 4]
                      if "registers" in x), "")
         print(f"ptxas: {name}: {props}; {regs}")
-        if "tape_one_op" in name:
+        if "tape_one_op" in name or "scatter_merge" in name:
             assert props.startswith("0 bytes stack frame, 0 bytes spill "
                                     "stores, 0 bytes spill loads"), \
                 f"{name} uses local memory: {props}"
@@ -1387,6 +1560,7 @@ def main() -> int:
     phase_bsi_path(report, args)
     phase_ssb_by_date(report, args)
     phase_sparse_bsi(report, args)
+    phase_config1(report, args)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -31,14 +31,16 @@
 //   boundary and a scalar tail (0-3 words) past the last vector. Leaves
 //   at different offsets (row views of a 2-D stack at odd widths) take
 //   the same one-op path on 32-bit words.
-// - One pass across blocks with no zeroed output: each block adds its
-//   sum and a ticket to one 64-bit word in one atomic, and the block that
-//   draws the last ticket writes the total and zeroes the word for the
-//   next launch on the stream. The caller's output is uninitialised
-//   memory, so a count is one device operation.
+// - One pass across blocks with no zeroed output (count_finish.cuh):
+//   each block adds its sum and a ticket to one 64-bit word in one
+//   atomic, and the block that draws the last ticket writes the total and
+//   zeroes the word for the next launch on the stream. The caller's
+//   output is uninitialised memory, so a count is one device operation.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "count_finish.cuh"
 
 #define PK_MAX_LEAVES 32
 #define PK_MAX_OPS 64
@@ -147,42 +149,6 @@ __device__ __forceinline__ int count_one_op(const TapeDesc& t,
     return s;
 }
 
-// -- the reduction across blocks -----------------------------------------------
-
-__device__ __forceinline__ int block_sum(int v) {
-    __shared__ int warp_sums[THREADS / 32];
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();  // an earlier call may still read warp_sums
-    if (lane == 0) warp_sums[warp] = v;
-    __syncthreads();
-    v = lane < THREADS / 32 ? warp_sums[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
-
-// acc: one 64-bit word, zero between launches. Each block adds its sum
-// and a ticket of 1 << 40 in one atomic; the block that draws the last
-// ticket holds the grand total in the returned word plus its own sum,
-// writes it and zeroes acc for the next launch on the stream. No partial
-// goes through memory, so no fence and no second read are needed.
-__device__ __forceinline__ void finish(int local,
-                                       unsigned long long* __restrict__ acc,
-                                       int* __restrict__ out) {
-    const int s = block_sum(local);
-    if (threadIdx.x == 0) {
-        constexpr unsigned long long TICKET = 1ull << 40;
-        const unsigned long long old =
-            atomicAdd(acc, TICKET | (unsigned long long)(unsigned)s);
-        if ((old >> 40) == gridDim.x - 1u) {
-            *out = (int)((old & (TICKET - 1)) + (unsigned)s);
-            *acc = 0;
-        }
-    }
-}
-
 // -- the one-op path ----------------------------------------------------------
 
 // popcount of the masked one-op tape over elements [0, n) of type V from
@@ -222,7 +188,7 @@ __global__ void __launch_bounds__(THREADS) tape_one_op_kernel(
     } else {
         local = one_op_range<uint32_t>(t, 0, n_words);
     }
-    finish(local, acc, out);
+    finish<THREADS>(local, acc, out);
 }
 
 // -- the general path ----------------------------------------------------------
@@ -245,18 +211,7 @@ __global__ void __launch_bounds__(THREADS) tape_general_kernel(
     for (long long w = (long long)blockIdx.x * THREADS + threadIdx.x;
          w < n_words; w += stride)
         local += __popc(tape_word(t, w));
-    finish(local, acc, out);
-}
-
-static int sm_count() {
-    static int n = 0;
-    if (n == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-        if (n <= 0) n = 132;
-    }
-    return n;
+    finish<THREADS>(local, acc, out);
 }
 
 // Blocks for `elems` elements at two per thread: at most four per SM

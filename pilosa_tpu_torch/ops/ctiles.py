@@ -82,15 +82,24 @@ def forced() -> bool:
     return _env() in _ON
 
 
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
 def tile_words(width: int) -> int:
-    """Tile size for a block of ``width`` words: :data:`TILE_WORDS`,
-    shrunk (power of two, floor 8) for blocks narrower than one tile."""
-    if width >= TILE_WORDS:
-        return TILE_WORDS
+    """Tile size for a block of ``width`` words: :data:`TILE_WORDS` (or
+    ``PILOSA_TPU_COMPRESS_TILE_WORDS``), shrunk (power of two, floor 8)
+    for blocks narrower than one tile."""
+    t = _env_int("PILOSA_TPU_COMPRESS_TILE_WORDS", TILE_WORDS)
+    if width >= t:
+        return t
     p = 8
     while p < width:
         p <<= 1
-    return p
+    return min(p, t)
 
 
 def why_not_compress(dense_nbytes: int) -> Optional[str]:
@@ -101,7 +110,7 @@ def why_not_compress(dense_nbytes: int) -> Optional[str]:
         return "disabled"
     if forced():
         return None
-    if MIN_BYTES > dense_nbytes:
+    if _env_int("PILOSA_TPU_COMPRESS_MIN_BYTES", MIN_BYTES) > dense_nbytes:
         return "small"
     return None
 

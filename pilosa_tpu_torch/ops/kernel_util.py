@@ -134,11 +134,17 @@ def _sources() -> List[str]:
     return [os.path.join(_CSRC, s) for s in SOURCES]
 
 
+def _headers() -> List[str]:
+    """Headers the sources include: part of the library's hash."""
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith(".cuh"))
+
+
 def build() -> str:
     """Compile the kernels (when their hash is new) and return the .so."""
     global BUILD_SECONDS
     h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         with open(src, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(BUILD_DIR, "kernels")
@@ -205,7 +211,7 @@ def lib() -> ctypes.CDLL:
         dll.pk_pair_counts.argtypes = [vp, vp, i, i, ll, i, i, i, ll, ll,
                                        ll, vp, vp]
         dll.pk_pair_counts.restype = i
-        dll.pk_scatter_merge.argtypes = [vp, ll, vp, vp, ll, vp, vp]
+        dll.pk_scatter_merge.argtypes = [vp, ll, vp, vp, ll, vp, vp, i, vp]
         dll.pk_scatter_merge.restype = i
         dll.pk_bsi_compare.argtypes = [ctypes.POINTER(BsiDesc), vp]
         dll.pk_bsi_compare.restype = i
@@ -270,8 +276,9 @@ _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
 
 
 def tape_scratch(device: torch.device, stream_handle: int) -> int:
-    """Device pointer of the ``tape_count`` accumulator for one stream:
-    one 64-bit word (a ticket and a running sum), zero between launches,
+    """Device pointer of the count accumulator for one stream, shared by
+    ``tape_count`` and ``scatter_merge`` (csrc/count_finish.cuh): one
+    64-bit word (a ticket and a running sum), zero between launches,
     since each launch leaves it so. Launches on one stream run in order,
     so they share it; it is zeroed once, when first made."""
     key = (device.index, stream_handle)

@@ -206,6 +206,35 @@ def test_tile_words_and_policy_match(monkeypatch):
     assert C.why_not_compress(C.MIN_BYTES) is None
 
 
+SETTINGS = [("PILOSA_TPU_COMPRESS_TILE_WORDS", "64"),
+            ("PILOSA_TPU_COMPRESS_TILE_WORDS", "24"),
+            ("PILOSA_TPU_COMPRESS_TILE_WORDS", "not a number"),
+            ("PILOSA_TPU_COMPRESS_MIN_BYTES", "1"),
+            ("PILOSA_TPU_COMPRESS_MIN_BYTES", str(1 << 30))]
+
+
+@pytest.mark.parametrize("mode", ["", "1"])
+@pytest.mark.parametrize("name,value", SETTINGS)
+def test_compress_settings_match(single_device_mesh, monkeypatch, name,
+                                 value, mode):
+    """The tile and least-size settings give the JAX package's tiling,
+    decisions and stored bytes, under the auto rule and forced."""
+    monkeypatch.setenv("PILOSA_TPU_COMPRESS", mode)
+    monkeypatch.setenv(name, value)
+    for width in (1, 5, 8, 9, 20, 24, 63, 64, 65, 100, 512, 513, 4096):
+        assert C.tile_words(width) == JC.tile_words(width), width
+    for nbytes in (0, 1, C.MIN_BYTES - 1, C.MIN_BYTES, 1 << 20, 1 << 30):
+        assert C.why_not_compress(nbytes) == JC.why_not_compress(nbytes)
+    rng = np.random.default_rng(len(name) + len(value))
+    for host in (sparse_block(rng, 16, 4096), clustered_block(rng, 16, 8192),
+                 sparse_block(rng, 2, 100), np.zeros((8, 32), np.uint32)):
+        jcb, tcb = both(host)
+        assert (jcb is None) == (tcb is None)
+        if tcb is not None:
+            assert _block_attrs(tcb) == _block_attrs(jcb)
+            assert np.array_equal(u(tcb.payload), np.asarray(jcb.payload))
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------

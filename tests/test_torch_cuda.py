@@ -278,6 +278,110 @@ def test_scatter_merge_kernel(dev):
     assert torch.equal(f1, f2)
 
 
+@pytest.mark.parametrize("off_a,off_k", [(0, 0), (1, 1), (2, 2), (3, 3),
+                                         (1, 2), (0, 3)])
+@pytest.mark.parametrize("n,m", [(8, 1), (512, 3), (512, 7), (4096, 900),
+                                 (32768, 32768)])
+def test_scatter_merge_kernel_edges(dev, n, m, off_a, off_k):
+    """Updates 0-3 into their tensors (a scalar head and tail around the
+    16-byte body), addresses and masks at different offsets modulo 16
+    bytes (32-bit loads), and addresses outside the flat (dropped)."""
+    rng = np.random.default_rng(n + m + 10 * off_a + off_k)
+    flat = words(rng, (n,), dev)
+    addr_np = np.sort(rng.choice(n, m, replace=False)).astype(np.int32)
+    if m > 4:
+        addr_np[-2:] = (n, -1)
+    addr = torch.from_numpy(np.r_[np.zeros(off_a, np.int32), addr_np]
+                            ).to(dev)[off_a:]
+    masks = words(rng, (m + off_k,), dev)[off_k:]
+    f1, f2 = flat.clone(), flat.clone()
+    before = SC.scatter_merge_launches.n
+    got = SC.scatter_merge_(f1, addr, masks)
+    assert SC.scatter_merge_launches.n == before + 1
+    assert torch.equal(got, SC.scatter_merge_plain(f2, addr, masks))
+    assert torch.equal(f1, f2)
+
+
+def _config1_batch(t):
+    """The first city batch of BASELINE.json config 1 as the bulk path
+    stages it: (packed flat size, addresses, masks)."""
+    from pilosa_tpu_torch.probes import import_probe as IP
+
+    city, _ = IP.config1_data(IP.C1_BATCH)
+    addr, masks = SC.sort_updates(city, np.arange(city.size), 32768)
+    which, packed, _ = SC.pack_tiles(addr, t)
+    return which.size * t, packed.astype(np.int32), masks.view(np.int32)
+
+
+@pytest.mark.parametrize("t", [8, 32, 512])
+def test_scatter_merge_kernel_config1_batch(dev, t):
+    n, addr, masks = _config1_batch(t)
+    rng = np.random.default_rng(t)
+    flat = words(rng, (n,), dev)
+    a, k = torch.from_numpy(addr).to(dev), torch.from_numpy(masks).to(dev)
+    f1, f2 = flat.clone(), flat.clone()
+    assert torch.equal(SC.scatter_merge_(f1, a, k),
+                       SC.scatter_merge_plain(f2, a, k))
+    assert torch.equal(f1, f2)
+    assert int(SC.scatter_merge_(f1, a, k)) == 0  # nothing new
+
+
+def test_scatter_merge_is_one_device_op(dev):
+    """No fill before the kernel: a call is one device operation, and
+    back-to-back calls on one stream agree with the plain version (each
+    launch leaves the shared accumulator zero), interleaved with
+    tape_count, which shares it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n, addr, masks = _config1_batch(32)
+    rng = np.random.default_rng(23)
+    flats = [words(rng, (n,), dev) for _ in range(10)]
+    want = [int(SC.scatter_merge_plain(f.clone(), torch.from_numpy(addr)
+                                       .to(dev), torch.from_numpy(masks)
+                                       .to(dev))) for f in flats]
+    a, k = torch.from_numpy(addr).to(dev), torch.from_numpy(masks).to(dev)
+    SC.scatter_merge_(flats[0].clone(), a, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [SC.scatter_merge_(f, a, k) for f in flats]
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len({e.name for e in ops}) == 1 and 5 <= len(ops) <= 10, \
+        sorted({e.name for e in ops})
+    assert [int(o) for o in outs] == want
+    x, y = words(rng, (4096,), dev), words(rng, (4096,), dev)
+    counts = [(B.tape_count((("and", 0, 1),), [x, y]),
+               SC.scatter_merge_(words(rng, (n,), dev), a, k))
+              for _ in range(3)]
+    for c, _ in counts:
+        assert int(c) == int(B.tape_count_plain((("and", 0, 1),), [x, y]))
+
+
+@pytest.mark.parametrize("cap", [64 << 20, 4096])
+@pytest.mark.parametrize("t", [8, 32, 512])
+def test_scatter_new_bits_bulk_on_the_card_matches_the_cpu(dev, monkeypatch,
+                                                           t, cap):
+    """The staged path (pinned buffer, one H2D, one launch, one D2H per
+    chunk) against the CPU's, planes word for word, in one chunk and in
+    many."""
+    monkeypatch.setattr(SC, "TILE_WORDS", t)
+    monkeypatch.setattr(SC, "MAX_STAGED_BYTES", cap)
+    rng = np.random.default_rng(t + cap)
+    base = rng.integers(0, 1 << 32, (40, 32768), dtype=np.uint32) \
+        & rng.integers(0, 1 << 32, (40, 32768), dtype=np.uint32)
+    slots = rng.integers(0, 37, 20000)
+    cols = rng.integers(0, 1 << 20, 20000)
+    on_card, on_cpu = base.copy(), base.copy()
+    before = SC.scatter_merge_launches.n
+    got = SC.scatter_new_bits_bulk(on_card, slots, cols, dev)
+    assert got == SC.scatter_new_bits_bulk(on_cpu, slots, cols,
+                                           torch.device("cpu")) > 0
+    assert np.array_equal(on_card, on_cpu)
+    if cap > 1 << 20:
+        assert SC.scatter_merge_launches.n == before + 1
+
+
 def test_api_on_the_card_matches_the_cpu(dev):
     rng = np.random.default_rng(13)
     cols = np.arange(1 << 20, dtype=np.int64)

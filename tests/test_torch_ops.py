@@ -259,8 +259,10 @@ def test_scatter_merge_vs_pallas_and_xla(rng, n, m):
     assert int(count) == int(pc) == int(xc)
 
 
-def test_scatter_new_bits_bulk_multi_chunk_vs_jax(rng):
-    words = 4096  # 8 rows per 32768-word chunk: 20 rows -> 3 chunks
+def test_scatter_new_bits_bulk_multi_chunk_vs_jax(rng, monkeypatch):
+    words = 4096  # 8 rows per 32768-word JAX chunk: 20 rows -> 3 chunks
+    # and a staging cap that splits the port's call into several chunks
+    monkeypatch.setattr(SC, "MAX_STAGED_BYTES", 1 << 14)
     base = rand_planes(rng, 24, words) & rand_planes(rng, 24, words)
     slots = rng.integers(0, 20, size=3000)
     cols = rng.integers(0, words * 32, size=3000)
