@@ -78,8 +78,26 @@ Phases, each printed on its own line:
    ops per launch (no fill, pinned copies only) and PCIe bytes each way
    (at most 400 MB), the first query's time, the Count's p50 and card
    busy share, and the stacks' dense and stored bytes;
-9. one ``{"kernels": [...]}`` JSON line;
-10. the last line: ``{"ok": true, "device": {...}}``.
+9. main path 6, writes between reads, on the indexes of paths 5, 3 and
+   2: (6a) config 1 takes 64 rounds of ``Set(c, city=3)Set(c, device=7)``
+   on new records, each followed by
+   ``Count(Intersect(Row(city=3), Row(device=7)))``, 32 Clears, a
+   new city row, 16 imports of 1,024 new records, 11 replays of a
+   65,536-record batch, 11 reads after ``release_field_cache``, then
+   ``Store``, ``ClearRow`` and ``Delete``; (6b) SSB by order date takes
+   32 mutex writes of ``orderdate`` and ``brand`` (one new brand key),
+   then TopN, GroupBy and a Count; (6c) config 2 takes 64 ``Set`` and 16
+   ``Clear`` of ``amount``, each followed by a Sum and a Range Count, then
+   a value that grows the depth. Every answer against numpy; the
+   advances, builds and stack uploads of every segment exactly as the
+   JAX package's write-delta rules predict (``_LogModel``); every
+   advanced stack equal to a rebuild from the host planes; which
+   ``orderdate`` blocks decayed to dense; the mask bytes a write moves;
+   write->visible medians beside the forced and the 65,536-batch
+   rebuilds; all five kernels launched, and each held against its plain
+   version on the advanced stacks;
+10. one ``{"kernels": [...]}`` JSON line;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -888,7 +906,7 @@ def _percentile_oracle(sorted_vals, nth: float):
     return v, int((sorted_vals == v).sum())
 
 
-def phase_bsi_path(report: Report, args, shards: int = 10) -> None:
+def phase_bsi_path(report: Report, args, shards: int = 10) -> dict:
     import numpy as np
     import torch
 
@@ -984,6 +1002,7 @@ def phase_bsi_path(report: Report, args, shards: int = 10) -> None:
           f"in a profiler trace {_fmt_ms(busy_ms)} {report.label}")
     _bsi_edge_cases(report, API)
     print("bsi path: every answer matches the numpy oracle")
+    return {"api": api, "amount": amount, "shards": shards}
 
 
 def _bsi_edge_cases(report: Report, API) -> None:
@@ -1095,7 +1114,7 @@ def _want_top(counts_by_id: dict, k) -> list:
     return [(i, -c) for c, i in ranked]
 
 
-def phase_ssb_by_date(report: Report, args) -> None:
+def phase_ssb_by_date(report: Report, args) -> dict:
     import numpy as np
     import torch
 
@@ -1311,6 +1330,8 @@ def phase_ssb_by_date(report: Report, args) -> None:
         "device_ops": 2, "trace_events_per_call": comp_ops,
         "launches_per_topn": per_query})
     print("ssb_by_date path: every answer matches the numpy oracle")
+    return {"api": api, "date": date, "year": year, "brand_of": brand_of,
+            "names": names, "keys": keys, "bid": bid}
 
 
 def phase_sparse_bsi(report: Report, args) -> None:
@@ -1368,7 +1389,7 @@ def phase_sparse_bsi(report: Report, args) -> None:
           f"{report.label}")
 
 
-def phase_config1(report: Report, args) -> None:
+def phase_config1(report: Report, args) -> dict:
     import numpy as np
     import torch
 
@@ -1466,6 +1487,646 @@ def phase_config1(report: Report, args) -> None:
             tr["device_ops_per_launch"], "pcie_bytes_traced": tr["bytes"],
         "pcie_bytes_staged": staged})
     print("config1 path: every answer matches numpy")
+    return {"api": api, "city": city, "device": dev}
+
+
+# ---------------------------------------------------------------------------
+# Path 6: writes between reads
+# ---------------------------------------------------------------------------
+
+
+class _LogModel:
+    """The write-delta log rules of the JAX package
+    (``pilosa_tpu/core/fragment.py:75-136``) for the fragments of one
+    stack, kept beside the port's to predict whether the next read
+    advances the stack or rebuilds it: a log holds at most 512 ops and
+    4,096 columns of replay cost, a bulk import of more than 4,096 pairs
+    or a structural write resets it, and a reset since the stack's build
+    means a rebuild."""
+
+    MAX_OPS, MAX_COLS = 512, 4096
+
+    def __init__(self):
+        self.ops = self.cost = 0
+        self.dirty = self.broken = False
+
+    def record(self, cost: int = 1) -> bool:
+        self.dirty = True
+        if self.ops >= self.MAX_OPS or self.cost + cost > self.MAX_COLS:
+            self.reset()
+            return False
+        self.ops += 1
+        self.cost += cost
+        return True
+
+    def reset(self) -> None:
+        self.ops = self.cost = 0
+        self.dirty = self.broken = True
+
+    def bulk(self, rows, cols) -> None:
+        """``SetFragment.set_many``: one payload per row, in row order,
+        costing its distinct columns; none past a reset."""
+        import numpy as np
+
+        self.dirty = True
+        if cols.size > self.MAX_COLS:
+            self.reset()
+            return
+        for r in np.unique(rows):
+            if not self.record(np.unique(cols[rows == r]).size):
+                break
+
+
+class _Expect:
+    """Advances, builds and stack uploads predicted for a segment's reads
+    from the log models, held against the port's counters
+    (``ADVANCE_STATS``, ``UPLOAD_STATS``) when the segment ends."""
+
+    def __init__(self, stk):
+        self.stk = stk
+        self.begin()
+
+    def begin(self) -> None:
+        self.want = {"advanced": 0, "built": 0, "uploads": 0}
+        self.adv0 = dict(self.stk.ADVANCE_STATS)
+        self.up0 = dict(self.stk.UPLOAD_STATS)
+
+    def read(self, model: _LogModel, blocks: int = 1,
+             published: bool = True) -> None:
+        """A read that stacks the model's field (``blocks`` blocks built
+        if it rebuilds); a stack of a write request is not published, so
+        the model keeps its state for the next read."""
+        if not model.dirty:
+            return  # versions unchanged: a cache hit
+        if model.broken:
+            self.want["built"] += 1
+            self.want["uploads"] += blocks
+        else:
+            self.want["advanced"] += 1
+        if published:
+            model.dirty = model.broken = False
+
+    def check(self, segment: str) -> dict:
+        got = {k: self.stk.ADVANCE_STATS[k] - self.adv0[k]
+               for k in ("advanced", "built")}
+        got["uploads"] = self.stk.UPLOAD_STATS["count"] - self.up0["count"]
+        assert got == self.want, f"{segment}: {got}, predicted {self.want}"
+        got["upload_bytes"] = (self.stk.UPLOAD_STATS["bytes"]
+                               - self.up0["bytes"])
+        got["mask_bytes"] = (self.stk.ADVANCE_STATS["mask_bytes"]
+                             - self.adv0["mask_bytes"])
+        got["scatters"] = (self.stk.ADVANCE_STATS["scatters"]
+                           - self.adv0["scatters"])
+        self.begin()
+        return got
+
+
+def _same_as_rebuild(st) -> None:
+    """Every resident block of a set stack (or a BSI stack) equals what a
+    rebuild from the host planes would hold, slot for slot."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core import stacked as STK
+
+    if isinstance(st, STK.StackedBSI):
+        pairs = [(st._planes, st._assemble_host)]
+    else:
+        pairs = [(b, lambda bi=bi: st._assemble_host(bi))
+                 for bi, b in enumerate(st._blocks) if b is not None]
+    for blk, host in pairs:
+        got = STK._dense(blk).cpu().numpy().view(np.uint32)
+        assert np.array_equal(got, host()), "advanced planes != a rebuild"
+
+
+def _writes_config1(c1: dict) -> dict:
+    """6a: config 7's write-invalidated traffic on config 1's index."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch import platform
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    api, city, dev = c1["api"], c1["city"], c1["device"]
+    n = city.size
+    idx = api.holder.index("taxi")
+    f_city, f_dev = idx.field("city"), idx.field("device")
+    # the oracle: the rows the checks read, as bitmaps over shard 0
+    c3, d7, d9 = (np.zeros(SHARD_WIDTH, bool) for _ in range(3))
+    c3[:n], d7[:n], d9[:n] = city == 3, dev == 7, dev == 9
+    exists = np.zeros(SHARD_WIDTH, bool)
+    exists[:n] = True
+    c1000 = np.zeros(SHARD_WIDTH, bool)
+    m = {f: _LogModel() for f in ("city", "device", "_exists")}
+    ex = _Expect(STK)
+    q = "Count(Intersect(Row(city=3), Row(device=7)))"
+    out = {}
+
+    def read():
+        got = api.query("taxi", q)[0]
+        ex.read(m["city"])
+        ex.read(m["device"])
+        return got
+
+    def check(got):
+        assert got == int((c3 & d7).sum()), f"{q}: {got}"
+
+    def timed(write, reps):
+        """write->visible: the write call to the read's answer (the
+        oracle's bookkeeping in ``write`` is a few scalar stores)."""
+        times = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            write(i)
+            got = read()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(got)
+        return times
+
+    def check_stacks(segment):
+        for f in (f_city, f_dev):
+            _same_as_rebuild(STK.stacked_set(f, [0], "standard"))
+        out[segment] = ex.check(segment)
+
+    check(read())  # the stacks are current after path 5
+    ex.check("6a start")
+
+    # rounds of Set(c, city=3)Set(c, device=7) on new records
+    def round_(i):
+        c = n + i
+        api.query("taxi", f"Set({c}, city=3)Set({c}, device=7)")
+        c3[c] = d7[c] = exists[c] = True
+        m["city"].record()
+        m["device"].record()
+        m["_exists"].record()
+
+    out["rounds_ms"] = timed(round_, 64)
+    check_stacks("6a rounds")
+
+    # 11 more rounds split in three: the write request, the advance of
+    # both stacks (synced), the read on the advanced stacks; then the
+    # device busy time of 11 whole rounds in a profiler trace
+    split = {"write": [], "advance": [], "read": []}
+    for i in range(64, 75):
+        t0 = time.perf_counter()
+        round_(i)
+        t1 = time.perf_counter()
+        STK.stacked_set(f_city, [0], "standard")
+        STK.stacked_set(f_dev, [0], "standard")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = read()
+        t3 = time.perf_counter()
+        check(got)
+        for k, (a, b) in zip(split, ((t0, t1), (t1, t2), (t2, t3))):
+            split[k].append((b - a) * 1e3)
+    out["split_ms"] = {k: statistics.median(v) for k, v in split.items()}
+    nxt = iter(range(75, 128))
+    out["round_busy_ms"] = _device_ms(lambda: (round_(next(nxt)), read()),
+                                      calls=11)
+    check(read())
+    check_stacks("6a split rounds")
+
+    # 32 clears of city=3 on existing records, then a new row in place
+    clear_cols = np.flatnonzero(city == 3)[:32]
+
+    def clear(i):
+        api.query("taxi", f"Clear({int(clear_cols[i])}, city=3)")
+        c3[clear_cols[i]] = False
+        m["city"].record()
+
+    out["clears_ms"] = timed(clear, 32)
+    api.query("taxi", "Set(5, city=1000)")
+    c1000[5] = True
+    m["city"].record()
+    check(read())
+    assert api.query("taxi", "Count(Row(city=1000))")[0] == 1
+    st = STK.stacked_set(f_city, [0], "standard")
+    assert (st.cap, len(st.row_ids), st.paged) == (1024, 1001, False), \
+        (st.cap, len(st.row_ids))
+    check(read())
+    check_stacks("6a clears and a new row")
+
+    # 16 imports of 1,024 new records each (config 1's fields)
+    rng = np.random.default_rng(7)
+    lo = n + 128
+    for b in range(16):
+        cols = np.arange(lo + b * 1024, lo + (b + 1) * 1024, dtype=np.int64)
+        rc, rd = rng.integers(0, 1000, cols.size), rng.integers(0, 10,
+                                                                cols.size)
+        api.import_bits("taxi", "city", rows=rc, cols=cols)
+        api.import_bits("taxi", "device", rows=rd, cols=cols)
+        c3[cols], d7[cols], d9[cols] = rc == 3, rd == 7, rd == 9
+        exists[cols] = True
+        m["city"].bulk(rc, cols)
+        m["device"].bulk(rd, cols)
+        for _ in range(2):  # each import_bits call marks _exists
+            m["_exists"].bulk(np.zeros(cols.size, dtype=np.int64), cols)
+        check(read())
+    check_stacks("6a imports of 1,024")
+
+    # 11 replays of a 65,536-record batch of the original import (the
+    # default batch of the JAX package's ingester, delivered again): it
+    # sets back only the city=3 bits cleared above, and each resets the
+    # log, so the next read rebuilds city
+    replay_ms = []
+    for b in range(11):
+        cols = np.arange(b * 65536, (b + 1) * 65536, dtype=np.int64)
+        back = (city[cols] == 3) & ~c3[cols]
+        assert api.import_bits("taxi", "city", rows=city[cols],
+                               cols=cols) == int(back.sum())
+        c3[cols] |= back
+        m["city"].bulk(city[cols], cols)
+        m["_exists"].bulk(np.zeros(cols.size, dtype=np.int64), cols)
+        t0 = time.perf_counter()
+        got = read()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        check(got)
+    out["replay_read_ms"] = replay_ms
+    check_stacks("6a replays of 65,536")
+
+    # the same read after release_field_cache: a forced rebuild of both
+    forced_ms = []
+    for _ in range(11):
+        STK.release_field_cache(f_city)
+        STK.release_field_cache(f_dev)
+        t0 = time.perf_counter()
+        got = api.query("taxi", q)[0]
+        forced_ms.append((time.perf_counter() - t0) * 1e3)
+        assert got == int((c3 & d7).sum())
+        ex.want["built"] += 2
+        ex.want["uploads"] += 2
+    out["forced_ms"] = forced_ms
+    check_stacks("6a forced rebuilds")
+    # a city rebuild in three parts (median of 3): host assembly, the
+    # compress decision, the upload
+    st = STK.stacked_set(f_city, [0], "standard")
+    parts = {"assemble": [], "compress decision": [], "h2d": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = st._assemble_host(0)
+        t1 = time.perf_counter()
+        assert C.maybe_compress(host, st.device) is None  # city stays dense
+        t2 = time.perf_counter()
+        platform.h2d_copy(host, st.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3))):
+            parts[k].append((b - a) * 1e3)
+    out["rebuild_parts_ms"] = {k: statistics.median(v)
+                               for k, v in parts.items()}
+    del host
+
+    # Store, ClearRow, Delete
+    assert api.query("taxi", "Store(Intersect(Row(city=3), Row(device=7)), "
+                             "city=1001)") == [True]
+    m["city"].reset()
+    want_1001 = int((c3 & d7).sum())
+    assert api.query("taxi", "Count(Row(city=1001))") == [want_1001]
+    ex.read(m["city"])
+    assert api.query("taxi", "ClearRow(city=1001)") == [True]
+    m["city"].reset()
+    assert api.query("taxi", "Count(Row(city=1001))") == [0]
+    ex.read(m["city"])
+    got = api.query("taxi", "Delete(Row(device=9))")[0]
+    ex.read(m["_exists"], published=False)  # inside the write request
+    assert got == int((d9 & exists).sum()), f"Delete: {got}"
+    for f in m.values():
+        f.reset()
+    c3 &= ~d9
+    d7 &= ~d9
+    c1000 &= ~d9
+    exists &= ~d9
+    d9[:] = False
+    assert api.query("taxi", "Count(All())Count(Row(device=9))"
+                             "Count(Row(city=1000))") == [
+        int(exists.sum()), 0, int(c1000.sum())]
+    ex.read(m["_exists"])
+    ex.read(m["device"])
+    ex.read(m["city"])
+    check(read())
+    st_ex = STK.stacked_set(idx.field("_exists"), [0], "standard")
+    got_ex = st_ex.row_plane(0).cpu().numpy().view(np.uint32)
+    assert np.array_equal(got_ex, np.packbits(exists, bitorder="little")
+                          .view(np.uint32)), "existence row"
+    check_stacks("6a Store, ClearRow, Delete")
+    st = STK.stacked_set(f_city, [0], "standard")
+    out["city_bytes"] = sum(STK._nbytes(b) for b in st._blocks)
+    return out
+
+
+def _writes_ssb(ssb: dict) -> dict:
+    """6b: mutex writes into SSB by order date: a touched compressed block
+    decays to dense, the untouched stay compressed, a new brand key
+    appends a slot to the paged brand stack."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import ctiles as C
+
+    api = ssb["api"]
+    date, year, brand_of = ssb["date"].copy(), ssb["year"], \
+        ssb["brand_of"].copy()
+    keys, bid = ssb["keys"], dict(ssb["bid"])
+    names = list(ssb["names"]) + ["MFGR#2000"]  # one new key
+    brands = len(names)
+    n = date.size
+    name = "ssb_by_date"
+    idx = api.holder.index(name)
+    shards = sorted(idx.shards())
+    od = STK.stacked_set(idx.field("orderdate"), shards, "standard")
+    br = STK.stacked_set(idx.field("brand"), shards, "standard")
+    before = {"od": list(od._blocks), "br": list(br._blocks)}
+    used0 = STK.BUDGET.used
+    slot_of = {int(k): i for i, k in enumerate(od.row_ids)}
+    # corrections to orders of the first dates: columns and new dates
+    # both in the first 200 order dates, so the writes stay in the
+    # orderdate stack's first block
+    rng = np.random.default_rng(11)
+    early = int(np.searchsorted(date, keys[200]))
+    cols = rng.choice(early, 32, replace=False)
+    new_dates = keys[rng.integers(0, 200, 32)]
+    new_brands = rng.integers(0, brands - 1, 32)
+    new_brands[5] = brands - 1  # the new key
+    m = {f: _LogModel() for f in ("orderdate", "brand")}
+    touched = set()
+    ex = _Expect(STK)
+    for c, d, b in zip(cols, new_dates, new_brands):
+        api.query(name, f"Set({int(c)}, orderdate={int(d)})"
+                        f'Set({int(c)}, brand="{names[b]}")')
+        if date[c] != d:
+            touched.update({slot_of[int(date[c])] // od.block_rows,
+                            slot_of[int(d)] // od.block_rows})
+            m["orderdate"].record()  # clear_column: the old row
+            m["orderdate"].record()  # set_bit
+            date[c] = d
+        if brand_of[c] != b:
+            m["brand"].record()
+            m["brand"].record()
+            brand_of[c] = b
+    bid[brands - 1] = idx.field("brand").translate.key_to_id[names[-1]]
+    t0 = time.perf_counter()
+    got_top = api.query(name, "TopN(orderdate, n=10)")[0]
+    first_read_ms = (time.perf_counter() - t0) * 1e3
+    ex.read(m["orderdate"])
+    got_gb = api.query(name, "GroupBy(Rows(year), Rows(brand), limit=100)")[0]
+    ex.read(m["brand"])
+    cq = f'Count(Intersect(Row(year=1992), Row(brand="{names[-1]}")))'
+    got_count = api.query(name, cq)[0]
+    used1 = STK.BUDGET.used
+    STK.BUDGET.audit()
+
+    # -- oracle ---------------------------------------------------------------
+    by_date = dict(zip(*np.unique(date, return_counts=True)))
+    assert [(p.id, p.count) for p in got_top.pairs] == _want_top(
+        {int(k): int(v) for k, v in by_date.items()}, 10), "TopN(orderdate)"
+    table = np.bincount((year - 1992) * brands + brand_of,
+                        minlength=7 * brands).reshape(7, brands)
+    want_groups = sorted((1992 + y, bid[b], int(table[y, b]))
+                         for y in range(7) for b in range(brands)
+                         if table[y, b])[:100]
+    key_id = {k: bid[i] for i, k in enumerate(names)}
+    assert [(g.group[0].row_id, key_id[g.group[1].row_key], g.count)
+            for g in got_gb] == want_groups, "GroupBy(year, brand)"
+    assert got_count == int(((year == 1992) & (brand_of == brands - 1))
+                            .sum()), cq
+    seg = ex.check("6b")
+    od = STK.stacked_set(idx.field("orderdate"), shards, "standard")
+    br = STK.stacked_set(idx.field("brand"), shards, "standard")
+    kinds = ["compressed" if isinstance(b, C.CompressedBlock) else "dense"
+             for b in od._blocks]
+    decayed = sorted(bi for bi, k in enumerate(kinds) if k == "dense")
+    assert decayed == sorted(touched), (decayed, touched)
+    for bi, b in enumerate(od._blocks):
+        if bi not in touched:
+            assert b is before["od"][bi], f"untouched block {bi} changed"
+    assert len(br.row_ids) == 1001 and br.n_blocks == 4 and br.paged
+    _same_as_rebuild(od)
+    _same_as_rebuild(br)
+    return {"seg": seg, "decayed": decayed, "kinds": kinds,
+            "used": (used0, used1), "first_read_ms": first_read_ms,
+            "od": od, "br": br}
+
+
+def _writes_bsi(bsi: dict) -> dict:
+    """6c: Set and Clear of values on config 2's BSI field, then a value
+    that grows the depth."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+
+    api, amount, shards = bsi["api"], bsi["amount"].copy(), bsi["shards"]
+    has = np.ones(amount.size, bool)
+    half = 524288
+    sum_q = f"Sum(Row(amount > {half}), field=amount)"
+    range_q = "Count(Row(1000 <= amount <= 200000))"
+    m = _LogModel()
+    ex = _Expect(STK)
+    rng = np.random.default_rng(13)
+    cols = rng.choice(amount.size, 103, replace=False)
+    vals = rng.integers(0, 1 << 20, 103)
+
+    def check(got):
+        big = has & (amount > half)
+        want_range = int((has & (amount >= 1000) & (amount <= 200000)).sum())
+        assert (got[0].val, got[0].count, got[1]) == (
+            int(amount[big].sum()), int(big.sum()), want_range), got
+
+    times = []
+    for i, (c, v) in enumerate(zip(cols[:80], vals[:80])):
+        t0 = time.perf_counter()
+        if i < 64:
+            wrote = api.query("b", f"Set({int(c)}, amount={int(v)})")
+        else:
+            wrote = api.query("b", f"Clear({int(c)}, amount={int(v)})")
+        got = api.query("b", sum_q + range_q)
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert wrote == [True]
+        if i < 64:
+            amount[c] = v
+        else:
+            has[c] = False
+        m.record(2 + 20)
+        ex.read(m)
+        check(got)
+    field = api.holder.index("b").field("amount")
+
+    def set_value(i):
+        api.query("b", f"Set({int(cols[i])}, amount={int(vals[i])})")
+        amount[cols[i]] = vals[i]
+        m.record(2 + 20)
+
+    # 11 more Sets split in three as in 6a, then the device busy time of
+    # 11 whole rounds in a profiler trace
+    split = {"write": [], "advance": [], "read": []}
+    for i in range(80, 91):
+        t0 = time.perf_counter()
+        set_value(i)
+        t1 = time.perf_counter()
+        STK.stacked_bsi(field, list(range(shards)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = api.query("b", sum_q + range_q)
+        t3 = time.perf_counter()
+        ex.read(m)
+        check(got)
+        for k, (a, b) in zip(split, ((t0, t1), (t1, t2), (t2, t3))):
+            split[k].append((b - a) * 1e3)
+    nxt = iter(range(91, 103))
+
+    def round_():
+        set_value(next(nxt))
+        got = api.query("b", sum_q + range_q)
+        ex.read(m)
+        return got
+
+    busy = _device_ms(round_, calls=11)
+    check(api.query("b", sum_q + range_q))
+    st = STK.stacked_bsi(field, list(range(shards)))
+    _same_as_rebuild(st)
+    seg = ex.check("6c")
+    api.query("b", f"Set(77, amount={1 << 21})")  # depth 22: a rebuild
+    amount[77], has[77] = 1 << 21, True
+    m.reset()
+    check(api.query("b", sum_q + range_q))
+    ex.read(m)
+    st = STK.stacked_bsi(api.holder.index("b").field("amount"),
+                         list(range(shards)))
+    assert st.depth == 22
+    _same_as_rebuild(st)
+    grow = ex.check("6c depth growth")
+    return {"seg": seg, "grow": grow, "write_visible_ms": times, "st": st,
+            "half": half,
+            "split_ms": {k: statistics.median(v) for k, v in split.items()},
+            "round_busy_ms": busy}
+
+
+def phase_writes(report: Report, c1: dict, ssb: dict, bsi: dict) -> None:
+    """Path 6: writes between reads on paths 5, 3 and 2's indexes."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.ops import topk as T
+
+    KU.reset_launches()
+    a = _writes_config1(c1)
+    b = _writes_ssb(ssb)
+    c = _writes_bsi(bsi)
+    torch.cuda.synchronize()
+    launched = KU.launches()
+    report.launched("writes", launched, ("scatter_merge", "tape_count",
+                                         "pair_counts", "bsi_compare",
+                                         "ctile_count"))
+    # each kernel of the path against its plain version on path 6's
+    # advanced stacks (these launches are not counted)
+    idx = c1["api"].holder.index("taxi")
+    city = STK.stacked_set(idx.field("city"), [0], "standard")
+    dev = STK.stacked_set(idx.field("device"), [0], "standard")
+    leaves = [city.row_plane(3), dev.row_plane(7)]
+    tape = (("and", 0, 1),)
+    report.err("tape_count", B.tape_count(tape, leaves),
+               B.tape_count_plain(tape, leaves))
+    od, br = b["od"], b["br"]
+    filt = br.row_plane(br.row_ids[-1])
+    for bi in b["decayed"]:
+        blk = od._blocks[bi]
+        report.err("pair_counts", T.row_counts(blk, filt),
+                   G.pair_counts_plain(filt.reshape(1, -1), blk)[0])
+    packed = [blk for blk in od._blocks if isinstance(blk, C.CompressedBlock)]
+    report.err("ctile_count", C.ctile_count_blocks(packed, filt),
+               C.ctile_count_blocks_plain(packed, filt))
+    report.err("bsi_compare", S.bsi_compare(c["st"].planes, S.GT, c["half"]),
+               S.bsi_compare_plain(c["st"].planes, S.GT, c["half"]))
+    rng = np.random.default_rng(17)
+    addr, masks = SC.sort_updates(rng.integers(0, city.cap, 1024),
+                                  rng.integers(0, city.words * 32, 1024),
+                                  city.words)
+    flat = city.planes.reshape(-1)
+    ours, plain = flat.clone(), flat.clone()
+    addr_t = torch.from_numpy(addr.astype(np.int32)).to(flat.device)
+    masks_t = torch.from_numpy(masks.view(np.int32)).to(flat.device)
+    report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+               SC.scatter_merge_plain(plain, addr_t, masks_t))
+    report.err("scatter_merge", ours, plain)
+    del ours, plain
+
+    lab = report.label
+    ra = a["6a rounds"]
+    print(f"writes path 6a: 64 rounds of Set(c, city=3)Set(c, device=7) "
+          f"then {ra['advanced']} advances, {ra['built']} builds, "
+          f"{ra['uploads']} stack uploads; {ra['scatters']} mask scatters "
+          f"moved {ra['mask_bytes']} B ({ra['mask_bytes'] / 64:.0f} B a "
+          f"round) against {a['city_bytes']} B of city {lab}")
+    for seg in ("6a split rounds", "6a clears and a new row",
+                "6a imports of 1,024",
+                "6a replays of 65,536", "6a forced rebuilds",
+                "6a Store, ClearRow, Delete"):
+        g = a[seg]
+        print(f"writes path {seg}: {g['advanced']} advances, {g['built']} "
+              f"builds, {g['uploads']} uploads of {g['upload_bytes']} B, "
+              f"{g['mask_bytes']} mask B (as the JAX package's rules "
+              f"predict) {lab}")
+    med = {k: statistics.median(v) for k, v in (
+        ("write_visible_ms", a["rounds_ms"]),
+        ("clear_visible_ms", a["clears_ms"]),
+        ("forced_rebuild_ms", a["forced_ms"]),
+        ("replay_rebuild_ms", a["replay_read_ms"]),
+        ("bsi_write_visible_ms", c["write_visible_ms"]))}
+    print(f"writes path 6a: write->visible median "
+          f"{med['write_visible_ms']:.3f} ms (Set+Set, then the Count; 64 "
+          f"rounds), {med['clear_visible_ms']:.3f} ms (Clear, then the "
+          f"Count; 32); the Count after release_field_cache (rebuilds city "
+          f"and device) {med['forced_rebuild_ms']:.3f} ms; the Count after "
+          f"a 65,536-record replay (rebuilds city) "
+          f"{med['replay_rebuild_ms']:.3f} ms (median of 11 each) {lab}")
+    sp, rp = a["split_ms"], a["rebuild_parts_ms"]
+    busy = a["round_busy_ms"]
+    print(f"writes path 6a: a round split (median of 11): write request "
+          f"{sp['write']:.3f} ms, advance of both stacks (synced) "
+          f"{sp['advance']:.3f} ms, the Count on them {sp['read']:.3f} ms; "
+          f"device busy per whole round {_fmt_ms(busy)}; a city rebuild "
+          f"(median of 3): host assembly {rp['assemble']:.3f} ms, compress "
+          f"decision {rp['compress decision']:.3f} ms, H2D {rp['h2d']:.3f}"
+          f" ms {lab}")
+    g = b["seg"]
+    print(f"writes path 6b: 32 mutex writes of orderdate and brand, then "
+          f"TopN/GroupBy/Count: {g['advanced']} advances, {g['built']} "
+          f"builds, {g['uploads']} uploads, {g['mask_bytes']} mask B; "
+          f"orderdate blocks {b['kinds']} (decayed {b['decayed']}); brand "
+          f"4 x 256 rows with the new key appended; budget used "
+          f"{b['used'][0]} -> {b['used'][1]} B; the first read after the "
+          f"writes {b['first_read_ms']:.3f} ms {lab}")
+    g, gg = c["seg"], c["grow"]
+    cs = c["split_ms"]
+    print(f"writes path 6c: 64 Set and 16 Clear of amount, each then "
+          f"Sum+Count, and 23 more Sets: {g['advanced']} advances, "
+          f"{g['built']} builds, {g['uploads']} uploads, {g['mask_bytes']} "
+          f"mask B; write->visible median "
+          f"{med['bsi_write_visible_ms']:.3f} ms (80 rounds); a round "
+          f"split (median of 11): write request {cs['write']:.3f} ms, "
+          f"advance (synced) {cs['advance']:.3f} ms, Sum+Count "
+          f"{cs['read']:.3f} ms; device busy per round "
+          f"{_fmt_ms(c['round_busy_ms'])}; a value of 2^21: "
+          f"{gg['built']} rebuild, {gg['uploads']} upload of "
+          f"{gg['upload_bytes']} B, depth 22 {lab}")
+    print(f"writes path: launches {launched} {lab}")
+    summary = {**med, "mask_bytes_per_round": ra["mask_bytes"] / 64,
+               "city_bytes": a["city_bytes"], "round_split_ms": sp,
+               "round_busy_ms": busy, "rebuild_parts_ms": rp,
+               "bsi_round_split_ms": cs,
+               "bsi_round_busy_ms": c["round_busy_ms"],
+               "ssb_first_read_ms": b["first_read_ms"]}
+    print("writes path: " + json.dumps(summary))
+    print("writes path: every answer matches numpy")
 
 
 def _print_ptxas(info: str) -> None:
@@ -1557,10 +2218,11 @@ def main() -> int:
     print("kernel parity: every kernel matches its plain version bit for "
           "bit")
     phase_main_path(report, args)
-    phase_bsi_path(report, args)
-    phase_ssb_by_date(report, args)
+    bsi = phase_bsi_path(report, args)
+    by_date = phase_ssb_by_date(report, args)
     phase_sparse_bsi(report, args)
-    phase_config1(report, args)
+    config1 = phase_config1(report, args)
+    phase_writes(report, config1, by_date, bsi)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

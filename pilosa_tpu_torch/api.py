@@ -3,9 +3,11 @@
 Port of the core of ``pilosa_tpu/api.py`` (reference: api.go:209): create
 indexes and fields (set, mutex, bool, int, decimal, timestamp), bulk-import
 bits (by row id or row key) and BSI values (by column id or key), keeping
-the ``_exists`` field up to date, and run PQL reads. ``API()`` runs on
-the card, ``cuda:0``; ``API(device="cpu")`` runs every kernel's plain
-PyTorch version on the CPU. Without a card, ``API()`` raises.
+the ``_exists`` field up to date, and run PQL reads and writes (a query
+with write calls runs as one write request, ``storage/txn.py``).
+``API()`` runs on the card, ``cuda:0``; ``API(device="cpu")`` runs every
+kernel's plain PyTorch version on the CPU. Without a card, ``API()``
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.core.schema import FieldOptions, FieldType, IndexOptions
 from pilosa_tpu_torch.core.translate import bulk_translate_ids
-from pilosa_tpu_torch.pql.executor import Executor
+from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
+from pilosa_tpu_torch.pql.parser import parse
+from pilosa_tpu_torch.storage.txn import write_qcx
 
 
 class API:
@@ -59,7 +63,15 @@ class API:
 
     def query(self, index: str, pql: str,
               shards: Optional[Sequence[int]] = None) -> List[Any]:
-        return self.executor.execute(index, pql, shards=shards)
+        """Run a PQL query. One with write calls is a write request: it
+        holds the holder's write lock, and the stacks it builds or
+        advances are not published to lock-free readers; reads take no
+        lock."""
+        parsed = parse(pql) if isinstance(pql, str) else pql
+        if has_write_calls(parsed):
+            with write_qcx(self.holder):
+                return self.executor.execute(index, parsed, shards=shards)
+        return self.executor.execute(index, parsed, shards=shards)
 
     # -- bulk import (reference: api.go:1438 Import) -------------------------
 

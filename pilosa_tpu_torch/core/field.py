@@ -5,8 +5,10 @@ and timestamp fields: a field owns views (the standard view so far), each
 holding one fragment per shard, plus the row-key store when ``keys`` is
 on (reference: field.go:73, :449). Int-like fields store one BSI fragment
 per shard and map external values to stored integers through their base,
-decimal scale or time unit (reference: field.go bsiGroup). Time views and
-the WAL wait for later slices.
+decimal scale or time unit (reference: field.go bsiGroup). The write
+calls (set and clear a bit, set and clear a value, write, clear or zero a
+row plane, clear columns) are in-memory. Time views and the WAL wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.fragment import (BSIFragment, SetFragment,
                                             group_sorted)
-from pilosa_tpu_torch.core.schema import FieldOptions, FieldType
+from pilosa_tpu_torch.core.schema import (BOOL_FALSE_ROW, BOOL_TRUE_ROW,
+                                          FieldOptions, FieldType)
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP
 
@@ -147,6 +150,71 @@ class Field:
             changed |= frag.clear_column(pos, except_row=row)
         changed |= frag.set_bit(row, pos)
         return changed
+
+    def clear_bit(self, row: int, col: int) -> bool:
+        """Clear (row, col) in every view (reference: fragment clearBit
+        per view)."""
+        shard, pos = divmod(col, SHARD_WIDTH)
+        changed = False
+        for view in list(self.views):
+            frag = self.fragment(shard, view)
+            if frag is not None:
+                changed |= frag.clear_bit(row, pos)
+        return changed
+
+    def set_bool(self, col: int, value: bool) -> bool:
+        return self.set_bit(BOOL_TRUE_ROW if value else BOOL_FALSE_ROW, col)
+
+    def set_value(self, col: int, value) -> None:
+        self.set_values([col], [value])
+
+    def clear_value(self, col: int) -> bool:
+        shard, pos = divmod(col, SHARD_WIDTH)
+        frag = self.bsi_fragment(shard)
+        return frag.clear_value(pos) if frag else False
+
+    def write_row_plane(self, shard: int, row: int, plane,
+                        clear: bool = False,
+                        view: str = timeq.VIEW_STANDARD) -> None:
+        """Merge (OR) or replace one row plane (the Store path;
+        reference: fragment.go:2038 importRoaring, executor.go
+        executeSetRow)."""
+        frag = self.fragment(shard, view, create=True)
+        frag.import_row_plane(row, plane, clear=clear)
+
+    def clear_row_plane_bits(self, shard: int, row: int, plane,
+                             view: str = timeq.VIEW_STANDARD) -> bool:
+        """Clear the bits of ``plane`` from one row (reference:
+        fragment.go:2053 ImportRoaringClearAndSet)."""
+        frag = self.fragment(shard, view)
+        if frag is None:
+            return False
+        return frag.clear_row_plane_bits(row, plane)
+
+    def clear_row(self, row: int) -> bool:
+        """Zero a row across all views and shards (reference:
+        executor.go executeClearRow)."""
+        changed = False
+        for view in list(self.views):
+            for frag in self.views[view].values():
+                if frag.has_row(row):
+                    frag.import_row_plane(
+                        row, np.zeros(frag.words, dtype=np.uint32),
+                        clear=True)
+                    changed = True
+        return changed
+
+    def clear_columns(self, shard: int, plane) -> None:
+        """Clear the columns of ``plane`` from every view fragment and
+        the BSI planes of this shard (record deletion, reference:
+        executor.go:9050 executeDeleteRecords)."""
+        for view_frags in self.views.values():
+            frag = view_frags.get(shard)
+            if frag is not None:
+                frag.clear_plane(plane)
+        bsi = self.bsi.get(shard)
+        if bsi is not None:
+            bsi.clear_plane(plane)
 
     def import_bits(self, rows: Iterable[int], cols: Iterable[int]) -> int:
         """Bulk (row, col) import with IDs already translated (reference:

@@ -5,14 +5,18 @@ Port of ``SetFragment`` and ``BSIFragment`` from
 ``np.uint32[capacity, WORDS]`` plane matrix plus a row-id -> plane-slot
 map; a BSI fragment is the ``np.uint32[2+depth, WORDS]`` bit-plane stack
 of an int-like field. Every write lands here and bumps ``version``.
-Device views are built from the host planes by core/stacked.py, which
-rebuilds a stack whose fragments changed. Row capacity grows in powers
-of two, BSI depth as values need it. The write-delta log that feeds the
-stack advance paths, and BSI clears (PQL writes), wait for later slices.
+Row capacity grows in powers of two, BSI depth as values need it.
+
+Device views are built from the host planes by core/stacked.py. Each
+fragment keeps a write-delta log (:class:`_DeltaLog`) of its small
+writes since a version, so core/stacked.py can advance a cached stack by
+a masked scatter instead of rebuilding it; a bulk or structural write
+resets the log, and the next read rebuilds.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -25,6 +29,62 @@ from pilosa_tpu_torch.ops.bitmap import bits_to_plane
 from pilosa_tpu_torch.shardwidth import BITS_PER_WORD, WORDS_PER_SHARD
 
 _MIN_CAPACITY = 8
+
+# Write-delta log bounds: more pending ops (or more columns of replay)
+# than this and a full re-stack is cheaper than scattering, so the log
+# resets and the next stack build re-uploads (reference: the RBF WAL ->
+# checkpoint transition, rbf/db.go:149-230).
+_DELTA_MAX_OPS = 512
+_DELTA_MAX_COLS = 4096
+
+
+class _DeltaLog:
+    """Ordered log of representable writes since a fragment version.
+
+    An op is *representable* when it can be replayed onto a stacked
+    device tensor as per-(row, word) OR/ANDNOT masks: no bulk plane
+    replacement, no BSI depth growth. ``base`` is the version the log is
+    complete since; a stack built at version v can advance iff
+    ``v >= base``."""
+
+    def __init__(self):
+        self.base = 0
+        self.head = 0  # version after the last logged or reset write
+        self.cost = 0  # replay cost (columns) of the pending ops
+        self.ops: deque = deque()
+
+    def record(self, version: int, payload, cost: int = 1) -> None:
+        # a version gap means a write bumped the version without logging:
+        # the log cannot bridge it. version == head continues the current
+        # bump (set_many logs one payload per row under one version)
+        if version not in (self.head, self.head + 1):
+            self.reset(version)
+            return
+        if (len(self.ops) >= _DELTA_MAX_OPS
+                or self.cost + cost > _DELTA_MAX_COLS):
+            self.reset(version)
+            return
+        self.ops.append((version, payload))
+        self.head = version
+        self.cost += cost
+
+    def reset(self, version: int) -> None:
+        """A non-representable write (or overflow): no stack built before
+        ``version`` can advance past it."""
+        self.ops.clear()
+        self.base = version
+        self.head = version
+        self.cost = 0
+
+    def since(self, base_version: int, current_version: int):
+        """Payloads after ``base_version``, or None when the log cannot
+        bridge from there: a base before the log's, a base past its head
+        (a stack of another fragment object), or a current version past
+        its head (an unlogged bump)."""
+        if (base_version < self.base or base_version > self.head
+                or current_version > self.head):
+            return None
+        return [p for v, p in self.ops if v > base_version]
 
 
 def group_sorted(keys: np.ndarray, *arrays: np.ndarray):
@@ -63,6 +123,8 @@ class SetFragment:
         self.row_ids: List[int] = []  # plane slot -> row id
         self.planes = np.zeros((0, words), dtype=np.uint32)
         self.version = 0
+        # (row, set_cols, clear_cols) payloads for the stack advance
+        self.deltas = _DeltaLog()
 
     # -- host write path ---------------------------------------------------
 
@@ -76,7 +138,8 @@ class SetFragment:
         return s
 
     def set_bit(self, row: int, col: int) -> bool:
-        """Set bit; returns True if it changed."""
+        """Set bit; returns True if it changed. A new row is
+        representable too: the stack advance appends its slot."""
         s = self._slot(row)
         w, b = divmod(col, BITS_PER_WORD)
         mask = np.uint32(1) << np.uint32(b)
@@ -85,11 +148,26 @@ class SetFragment:
             return False
         self.planes[s, w] = old | mask
         self.version += 1
+        self.deltas.record(self.version, (row, (col,), ()))
+        return True
+
+    def clear_bit(self, row: int, col: int) -> bool:
+        s = self.row_index.get(row)
+        if s is None:
+            return False
+        w, b = divmod(col, BITS_PER_WORD)
+        mask = np.uint32(1) << np.uint32(b)
+        old = self.planes[s, w]
+        if not (old & mask):
+            return False
+        self.planes[s, w] = old & ~mask
+        self.version += 1
+        self.deltas.record(self.version, (row, (), (col,)))
         return True
 
     def clear_column(self, col: int, except_row=None) -> bool:
         """Clear a column across all rows (mutex semantics, reference:
-        fragment.go:1787)."""
+        fragment.go:1787), logging a clear for each row it left."""
         if not self.row_ids:
             return False
         w, b = divmod(col, BITS_PER_WORD)
@@ -102,12 +180,16 @@ class SetFragment:
             return False
         col_words[to_clear] &= ~mask
         self.version += 1
+        for slot in np.nonzero(to_clear)[0]:
+            self.deltas.record(self.version, (self.row_ids[slot], (), (col,)))
         return True
 
     def set_many(self, rows: Sequence[int], cols: Sequence[int]) -> int:
         """Bulk import of (row, col) pairs through the scatter-merge kernel
         on ``self.device`` (reference: fragment.go:1498 bulkImport).
-        Returns the number of changed bits."""
+        Returns the number of changed bits. An import of at most
+        ``_DELTA_MAX_COLS`` pairs logs one payload per row; a larger one
+        resets the log."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         if rows.size == 0:
@@ -124,13 +206,24 @@ class SetFragment:
             self.planes, np.repeat(slots, sizes),
             np.concatenate([sel for _, (sel,) in groups]), self.device)
         self.version += 1
+        if cols.size > _DELTA_MAX_COLS:
+            self.deltas.reset(self.version)
+            return changed
+        for row, (sel,) in groups:
+            p = (row, tuple(int(c) for c in np.unique(sel)), ())
+            self.deltas.record(self.version, p, cost=len(p[1]))
+            if self.deltas.base == self.version and not self.deltas.ops:
+                # record() overflowed and reset: the rest of this import
+                # can never be replayed, so it must not fill the new log
+                break
         return changed
 
     def set_mutex_many(self, rows: np.ndarray, cols: np.ndarray) -> int:
         """Bulk mutex/bool import: each column ends up in exactly its new
         row, cleared from every other (reference: fragment.go:1787
         bulkImportMutex). Inputs are deduped last-wins per column by the
-        caller. Returns the bits newly set in their target row."""
+        caller. Returns the bits newly set in their target row. A bulk
+        write of many rows: the log resets."""
         touched = bits_to_plane(cols, self.words)
         n = len(self.row_ids)
         old = self.planes[:n] & touched[None, :] if n else None
@@ -146,7 +239,55 @@ class SetFragment:
                 changed += int(sel.size)
             self.planes[s] |= plane
         self.version += 1
+        self.deltas.reset(self.version)
         return changed
+
+    def import_row_plane(self, row: int, plane: np.ndarray,
+                         clear: bool = False) -> None:
+        """Merge (OR) or replace a whole row plane (reference:
+        fragment.go:2038 importRoaring, :2053 ImportRoaringClearAndSet)."""
+        s = self._slot(row)
+        if clear:
+            self.planes[s] = plane
+        else:
+            self.planes[s] |= plane
+        self.version += 1
+        self.deltas.reset(self.version)
+
+    def clear_row_plane_bits(self, row: int, plane: np.ndarray) -> bool:
+        """Clear the bits of ``plane`` from a row; a no-op (no slot) when
+        the row does not exist."""
+        s = self.row_index.get(row)
+        if s is None:
+            return False
+        self.planes[s] &= ~plane
+        self.version += 1
+        self.deltas.reset(self.version)
+        return True
+
+    def clear_plane(self, plane: np.ndarray) -> None:
+        """Clear the columns of ``plane`` from every row (record
+        deletion, reference: executor.go:9050 executeDeleteRecords)."""
+        n = len(self.row_ids)
+        if n == 0:
+            return
+        self.planes[:n] &= ~plane
+        self.version += 1
+        self.deltas.reset(self.version)
+
+    # -- host read path ----------------------------------------------------
+
+    def row_plane(self, row: int) -> np.ndarray:
+        s = self.row_index.get(row)
+        if s is None:
+            return np.zeros(self.words, dtype=np.uint32)
+        return self.planes[s]
+
+    def has_row(self, row: int) -> bool:
+        return row in self.row_index
+
+    def existing_rows(self) -> List[int]:
+        return sorted(self.row_index)
 
 
 class BSIFragment:
@@ -162,6 +303,9 @@ class BSIFragment:
         self.depth = depth
         self.planes = np.zeros((bsiops.OFFSET + depth, words), dtype=np.uint32)
         self.version = 0
+        # ("set", cols, values) / ("clear", col) payloads for the stack
+        # advance; depth growth resets (the plane count changed)
+        self.deltas = _DeltaLog()
 
     def _ensure_depth(self, depth: int) -> None:
         if depth <= self.depth:
@@ -171,10 +315,15 @@ class BSIFragment:
         self.planes = out
         self.depth = depth
 
+    def set_value(self, col: int, value: int) -> None:
+        self.set_values([col], [value])
+
     def set_values(self, cols: Sequence[int], values: Sequence[int]) -> None:
         """Write (col, stored value) pairs; later duplicates win and a
         written column is cleared before it is set (reference:
-        fragment.go:1947 importValue)."""
+        fragment.go:1947 importValue). Logged unless the depth grew or
+        the replay cost ``cols x (OFFSET + depth)`` passes
+        ``_DELTA_MAX_COLS``."""
         cols = np.asarray(cols, dtype=np.int64)
         values = np.asarray(values, dtype=np.int64)
         if cols.size == 0:
@@ -182,12 +331,34 @@ class BSIFragment:
         _, last = np.unique(cols[::-1], return_index=True)
         idx = cols.size - 1 - last
         cols, values = cols[idx], values[idx]
-        self._ensure_depth(max(bsiops.bits_needed(int(values.min())),
-                               bsiops.bits_needed(int(values.max()))))
+        need = max(bsiops.bits_needed(int(values.min())),
+                   bsiops.bits_needed(int(values.max())))
+        grew = need > self.depth
+        self._ensure_depth(need)
         self.planes &= ~bits_to_plane(cols, self.words)[None, :]
         self.planes |= bsiops.encode_values(cols, values, self.depth,
                                             self.words)
         self.version += 1
+        cost = cols.size * (bsiops.OFFSET + self.depth)
+        if grew or cost > _DELTA_MAX_COLS:
+            self.deltas.reset(self.version)
+        else:
+            self.deltas.record(
+                self.version,
+                ("set", tuple(int(c) for c in cols),
+                 tuple(int(v) for v in values)),
+                cost=cost)
+
+    def clear_value(self, col: int) -> bool:
+        w, b = divmod(col, BITS_PER_WORD)
+        mask = np.uint32(1) << np.uint32(b)
+        if not (self.planes[bsiops.EXISTS, w] & mask):
+            return False
+        self.planes[:, w] &= ~mask
+        self.version += 1
+        self.deltas.record(self.version, ("clear", col),
+                           cost=bsiops.OFFSET + self.depth)
+        return True
 
     def value(self, col: int) -> Optional[int]:
         """Point read (host): the stored value of a column, or None."""
@@ -203,3 +374,10 @@ class BSIFragment:
 
     def exists_plane(self) -> np.ndarray:
         return self.planes[bsiops.EXISTS]
+
+    def clear_plane(self, plane: np.ndarray) -> None:
+        """Clear the columns of ``plane`` from every BSI plane (record
+        deletion, reference: executor.go:9050 executeDeleteRecords)."""
+        self.planes &= ~plane[None, :]
+        self.version += 1
+        self.deltas.reset(self.version)

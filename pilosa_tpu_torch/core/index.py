@@ -2,8 +2,8 @@
 
 Port of ``pilosa_tpu/core/index.py``: maintains the existence field
 ``_exists`` (reference: index.go:384) so Not/All have a universe to
-complement against, and the partitioned record-key store when
-``keys=True``.
+complement against, deletes records from every field, and keeps the
+partitioned record-key store when ``keys=True``.
 """
 
 from __future__ import annotations
@@ -62,6 +62,29 @@ class Index:
     @property
     def existence(self) -> Optional[Field]:
         return self.fields.get(EXISTENCE_FIELD)
+
+    def add_exists(self, col: int) -> None:
+        """Record that a column exists (every write, when the index
+        tracks existence)."""
+        if self.options.track_existence:
+            self.fields[EXISTENCE_FIELD].set_bit(EXISTENCE_ROW, col)
+
+    def delete_columns(self, shard: int, plane) -> None:
+        """Delete records: clear the columns of ``plane`` from every
+        field of this shard, every view and the BSI planes included
+        (reference: executor.go:9050 executeDeleteRecords)."""
+        for field in self.fields.values():
+            field.clear_columns(shard, plane)
+
+    def existence_plane(self, shard: int):
+        """The existence row of a shard (host), or None if untracked."""
+        ex = self.existence
+        if ex is None:
+            return None
+        frag = ex.fragment(shard)
+        if frag is None:
+            return None
+        return frag.row_plane(EXISTENCE_ROW)
 
     def shards(self) -> Set[int]:
         """All shards holding data in any field (reference: field.go:454

@@ -35,9 +35,18 @@ tile-skipping scan (one launch for a stack's compressed blocks) and
 ``StackedBSI.compare`` the active-tile compare.
 
 Caches hang on the owning Field keyed by (kind, view) and shard tuple and
-are validated against the fragment version vector: a stack whose
-fragments changed is rebuilt. The JAX package's in-place advance paths
-(``_advance_set``, ``_advance_bsi``) wait for a later slice.
+are validated against the fragment version vector. A stack whose
+fragments changed **advances** when their write-delta logs
+(``core/fragment.py`` ``_DeltaLog``) bridge the change: bit flips
+collapse on the host into per-(slot, word) OR/ANDNOT masks that one
+scatter applies to a copy of each touched block (16 bytes per touched
+(slot, word) cross PCIe, not the stack), and new rows append slots in
+place. A
+touched compressed block decays to dense on the device. Otherwise the
+stack is **rebuilt** from the host planes. ``UPLOAD_STATS`` counts every
+stack upload, ``ADVANCE_STATS`` the advances, builds and mask bytes.
+Stacks built or advanced inside a write request are not published
+(``storage/txn.py``).
 """
 
 from __future__ import annotations
@@ -57,9 +66,17 @@ from pilosa_tpu_torch.ops import bitmap as bitops
 from pilosa_tpu_torch.ops import bsi as bsiops
 from pilosa_tpu_torch.ops import ctiles
 from pilosa_tpu_torch.ops import topk as topkops
-from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+from pilosa_tpu_torch.shardwidth import BITS_PER_WORD, WORDS_PER_SHARD
+from pilosa_tpu_torch.storage.txn import in_write_qcx
 
 _MIN_SLOTS = 8
+
+#: host -> device uploads of whole stacks or blocks (count, bytes); the
+#: advance path must not bump these
+UPLOAD_STATS = {"count": 0, "bytes": 0}
+#: version misses served by an advance or by a (re)build, and the mask
+#: scatters of the advances with the bytes they moved to the device
+ADVANCE_STATS = {"advanced": 0, "built": 0, "scatters": 0, "mask_bytes": 0}
 
 #: a resident entry: a dense device tensor or a compressed-tile block
 Block = Union[torch.Tensor, ctiles.CompressedBlock]
@@ -79,6 +96,17 @@ def _row(blk: Block, i: int) -> torch.Tensor:
     if isinstance(blk, ctiles.CompressedBlock):
         return blk.decode(rows=[i])[0]
     return blk[i]
+
+
+def _upload(host: np.ndarray, device: torch.device) -> Block:
+    """Upload an assembled block, compressed when the policy says so,
+    counted in ``UPLOAD_STATS`` (the stored bytes of a compressed one)."""
+    blk = ctiles.maybe_compress(host, device)
+    if blk is None:
+        blk = platform.h2d_copy(host, device)
+    UPLOAD_STATS["count"] += 1
+    UPLOAD_STATS["bytes"] += _nbytes(blk)
+    return blk
 
 
 class StackStale(RuntimeError):
@@ -213,6 +241,9 @@ class StackedSet:
         self._blocks: List[Optional[Block]] = (
             [None] * (self.cap // self.block_rows))
         self._lock = threading.Lock()
+        # a stack of a write request is never published: it charges no
+        # budget entry (storage/txn.py)
+        self.ephemeral = False
         if not self.paged:
             # the single block is resident and charged like any block; an
             # evicted block 0 rebuilds lazily with the version check
@@ -232,6 +263,11 @@ class StackedSet:
         it (compressed when the policy says so, dense otherwise). Caller
         has validated the version snapshot or holds the writer lock
         through the build."""
+        return _upload(self._assemble_host(bi), self.device)
+
+    def _assemble_host(self, bi: int) -> np.ndarray:
+        """Block ``bi`` as the host fragment planes hold it now, in this
+        stack's slot order: what a rebuild would upload."""
         lo_slot = bi * self.block_rows
         hi_slot = min(lo_slot + self.block_rows, len(self.row_ids))
         host = np.zeros((self.block_rows, self.total_words), dtype=np.uint32)
@@ -245,10 +281,7 @@ class StackedSet:
             if pairs:
                 dst, src = (list(x) for x in zip(*pairs))
                 host[dst, lo:lo + self.words] = frag.planes[src]
-        cb = ctiles.maybe_compress(host, self.device)
-        if cb is not None:
-            return cb
-        return platform.h2d_copy(host, self.device)
+        return host
 
     def _ensure_block(self, bi: int) -> Block:
         blk = self._blocks[bi]
@@ -267,8 +300,9 @@ class StackedSet:
                         "fragment advanced past the stack snapshot")
             blk = self._build_block_host(bi)
             self._blocks[bi] = blk
-        BUDGET.charge((self.serial, bi), _nbytes(blk),
-                      lambda s=self, i=bi: s._drop_block(i))
+        if not self.ephemeral:
+            BUDGET.charge((self.serial, bi), _nbytes(blk),
+                          lambda s=self, i=bi: s._drop_block(i))
         return blk
 
     def release_device(self) -> None:
@@ -378,26 +412,30 @@ class StackedBSI:
         self._write_lock = (write_lock if write_lock is not None
                             else contextlib.nullcontext())
         self._lock = threading.Lock()
+        self.ephemeral = False
         self._fragments = list(fragments)
         self._built_vers = _versions(fragments)
         self._planes: Optional[Block] = self._build_host()
         self._charge()
 
     def _build_host(self) -> Block:
+        return _upload(self._assemble_host(), self.device)
+
+    def _assemble_host(self) -> np.ndarray:
+        """The stack as the host fragment planes hold it now."""
         host = np.zeros((bsiops.OFFSET + self.depth, self.total_words),
                         dtype=np.uint32)
         for si, frag in enumerate(self._fragments):
             if frag is not None:
                 lo = si * self.words
                 host[: frag.planes.shape[0], lo:lo + self.words] = frag.planes
-        cb = ctiles.maybe_compress(host, self.device)
-        if cb is not None:
-            return cb
-        return platform.h2d_copy(host, self.device)
+        return host
 
     def _charge(self) -> None:
-        BUDGET.charge((self.serial, 0), _nbytes(self._planes),
-                      lambda s=self: s._drop())
+        blk = self._planes
+        if blk is not None and not self.ephemeral:
+            BUDGET.charge((self.serial, 0), _nbytes(blk),
+                          lambda s=self: s._drop())
 
     def _drop(self) -> None:
         self._planes = None
@@ -477,7 +515,23 @@ def _cache_get(field, group, subset, vers):
         return None
 
 
+def _cache_peek(field, group, subset):
+    """The latest (versions, stack) of a subset whatever its versions:
+    the base an advance replays the write deltas onto."""
+    with _LOCK:
+        inner = getattr(field, "_stacked_cache", {}).get(group)
+        return None if inner is None else inner.get(subset)
+
+
 def _cache_put(field, group, subset, vers, built) -> None:
+    if in_write_qcx():
+        # built or advanced inside a write request: not published, or a
+        # lock-free reader could see the request's intermediate state.
+        # The stack dies with the request, so it gives back its budget
+        # entries and charges no more
+        built.ephemeral = True
+        built.release_device()
+        return
     dropped = []
     with _LOCK:
         cache = getattr(field, "_stacked_cache", None)
@@ -495,17 +549,305 @@ def _cache_put(field, group, subset, vers, built) -> None:
         stack.release_device()
 
 
+def release_field_cache(field) -> None:
+    """Drop a field's cached stacks and their budget entries (the next
+    read rebuilds from the host planes)."""
+    with _LOCK:
+        cache = getattr(field, "_stacked_cache", None)
+        field._stacked_cache = {}
+    for inner in (cache or {}).values():
+        for _, stack in inner.values():
+            stack.release_device()
+
+
+# ---------------------------------------------------------------------------
+# The advance: replay the fragments' write deltas onto a cached stack
+# (reference: SURVEY.md section 7, "Mutability on device").
+# ---------------------------------------------------------------------------
+
+
+def _apply_bit_deltas(planes: torch.Tensor, slots: torch.Tensor,
+                      words: torch.Tensor, orm: torch.Tensor,
+                      anm: torch.Tensor, fresh: bool = False
+                      ) -> torch.Tensor:
+    """``planes[slots, words] = (cur & ~anm) | orm`` on a **new** tensor:
+    a lock-free reader may still hold the old stack, whose tensor must
+    keep its answers. ``fresh`` says ``planes`` is already a private copy
+    (decoded or grown) and may be written. Index and mask tensors are
+    ``int32`` (masks with the host ``uint32`` bit patterns), on the
+    planes' device; each (slot, word) appears once."""
+    out = planes if fresh else planes.clone()
+    cur = out[slots, words]
+    out.index_put_((slots, words), (cur & ~anm) | orm)
+    return out
+
+
+def _grow_rows_device(planes: torch.Tensor, new_rows: int) -> torch.Tensor:
+    """``planes`` with ``new_rows`` zero slots appended, on the device."""
+    return torch.nn.functional.pad(planes, (0, 0, 0, new_rows))
+
+
+class _MaskAccum:
+    """Ordered collapse of bit writes into per-(slot, word) masks: a set
+    then a clear of one bit leaves it clear, and the reverse set."""
+
+    def __init__(self):
+        self.masks: Dict[Tuple[int, int], List[int]] = {}
+
+    def set(self, slot: int, word: int, bit: int) -> None:
+        e = self.masks.setdefault((slot, word), [0, 0])
+        m = 1 << bit
+        e[0] |= m
+        e[1] &= ~m
+
+    def clear(self, slot: int, word: int, bit: int) -> None:
+        e = self.masks.setdefault((slot, word), [0, 0])
+        m = 1 << bit
+        e[1] |= m
+        e[0] &= ~m
+
+    def touches(self, lo_slot: int, hi_slot: int) -> bool:
+        return any(lo_slot <= k[0] < hi_slot for k in self.masks)
+
+    def apply(self, planes: torch.Tensor, lo_slot: int = 0,
+              hi_slot: Optional[int] = None, fresh: bool = False
+              ) -> torch.Tensor:
+        """Scatter the masks whose slot lies in [lo_slot, hi_slot) onto
+        ``planes`` (slots rebased by lo_slot): one H2D copy of the packed
+        slots, words and masks, then :func:`_apply_bit_deltas`.
+        ``planes`` itself comes back when no mask falls in the range."""
+        if hi_slot is None:
+            hi_slot = lo_slot + planes.shape[0]
+        keys = [k for k in self.masks if lo_slot <= k[0] < hi_slot]
+        if not keys:
+            return planes
+        packed = np.empty((4, len(keys)), dtype=np.uint32)
+        for i, k in enumerate(keys):
+            packed[0, i] = k[0] - lo_slot
+            packed[1, i] = k[1]
+            packed[2, i], packed[3, i] = self.masks[k]
+        dev = platform.h2d_copy(packed, planes.device)
+        ADVANCE_STATS["scatters"] += 1
+        ADVANCE_STATS["mask_bytes"] += packed.nbytes
+        return _apply_bit_deltas(planes, dev[0], dev[1], dev[2], dev[3],
+                                 fresh=fresh)
+
+
+def _restamp(stack, fragments) -> None:
+    """The versions moved with no net delta: take the new versions as
+    the stack's snapshot (caller holds the writer lock), so a lazy
+    rebuild of an evicted block raises no spurious StackStale."""
+    stack._fragments = list(fragments)
+    stack._built_vers = _versions(fragments)
+
+
+def _advance_set(stack: StackedSet, fragments, built_vers
+                 ) -> Optional[StackedSet]:
+    """Replay the pending writes onto a cached StackedSet; None means
+    rebuild. Caller holds the writer lock (fragment versions are still)."""
+    acc = _MaskAccum()
+    new_rows: List[int] = []
+    new_index: Dict[int, int] = {}
+
+    def slot_of(row: int) -> int:
+        s = stack.row_index.get(row)
+        if s is None:
+            s = new_index.get(row)
+        if s is None:  # an appended row takes the next slot in place
+            s = new_index[row] = len(stack.row_ids) + len(new_rows)
+            new_rows.append(row)
+        return s
+
+    for si, (frag, built_v) in enumerate(zip(fragments, built_vers)):
+        if frag is None:
+            if built_v != -1:
+                return None  # the fragment vanished
+            continue
+        if built_v == frag.version:
+            continue
+        if built_v < 0:
+            return None  # the fragment appeared after the build
+        ops = frag.deltas.since(built_v, frag.version)
+        if ops is None:
+            return None
+        lo = si * stack.words
+        for row, set_cols, clear_cols in ops:
+            slot = slot_of(row)
+            for col in set_cols:
+                w, b = divmod(col, BITS_PER_WORD)
+                acc.set(slot, lo + w, b)
+            for col in clear_cols:
+                w, b = divmod(col, BITS_PER_WORD)
+                acc.clear(slot, lo + w, b)
+    if not acc.masks and not new_rows:
+        _restamp(stack, fragments)
+        return stack
+    new = StackedSet.__new__(StackedSet)
+    new.shards, new.words, new.device = stack.shards, stack.words, stack.device
+    new.total_words = stack.total_words
+    new.serial = next(_stack_serial)
+    new.block_rows = stack.block_rows
+    new._lock = threading.Lock()
+    new._write_lock = stack._write_lock
+    new.ephemeral = False
+    _restamp(new, fragments)
+    new.row_ids = stack.row_ids + new_rows if new_rows else stack.row_ids
+    new.row_index = stack.row_index
+    if new_rows:
+        new.row_index = dict(stack.row_index)
+        new.row_index.update(new_index)
+    if not stack.paged:
+        # grow the one block on the device while it fits; outgrowing it
+        # means a rebuild in paged form
+        need = _pow2(len(new.row_ids))
+        if need * stack.total_words * 4 > _BLOCK_BYTES:
+            return None
+        new.block_rows = max(stack.block_rows, need)
+        new.cap = new.block_rows
+        new.paged = False
+        blk = stack._blocks[0]
+        if blk is None:
+            return None  # evicted: rebuild from the host
+        # a written compressed block decays to dense (decoded on the
+        # device, a fresh tensor); the next rebuild recompresses
+        fresh = isinstance(blk, ctiles.CompressedBlock)
+        blk = _dense(blk)
+        if new.cap > stack.cap:
+            blk = _grow_rows_device(blk, new.cap - stack.cap)
+            fresh = True
+        blk = acc.apply(blk, 0, new.cap, fresh=fresh)
+        # assign before the charge: an eviction cascade may call new's
+        # own callback, which reads _blocks
+        new._blocks = [blk]
+        BUDGET.charge((new.serial, 0), _nbytes(blk),
+                      lambda s=new: s._drop_block(0))
+        return new
+    # paged: block_rows is fixed and appends extend the lazy block list.
+    # Only resident blocks take the masks: a block built later reads the
+    # host planes at new's versions
+    new.cap = max(stack.cap, -(-len(new.row_ids) // stack.block_rows)
+                  * stack.block_rows)
+    new.paged = True
+    blocks = list(stack._blocks)
+    blocks.extend([None] * (new.cap // new.block_rows - len(blocks)))
+    for bi, blk in enumerate(blocks):
+        if blk is None:
+            continue
+        lo_slot = bi * new.block_rows
+        hi_slot = lo_slot + new.block_rows
+        fresh = False
+        if isinstance(blk, ctiles.CompressedBlock):
+            if not acc.touches(lo_slot, hi_slot):
+                continue  # untouched: stays compressed
+            blk, fresh = blk.decode(), True  # touched: decays to dense
+        blocks[bi] = acc.apply(blk, lo_slot, hi_slot, fresh=fresh)
+    new._blocks = blocks  # before any charge, as above
+    for bi, blk in enumerate(blocks):
+        if blk is not None:
+            BUDGET.charge((new.serial, bi), _nbytes(blk),
+                          lambda s=new, i=bi: s._drop_block(i))
+    return new
+
+
+def _advance_bsi(stack: StackedBSI, fragments, built_vers
+                 ) -> Optional[StackedBSI]:
+    """Replay the pending BSI writes onto a cached StackedBSI; None means
+    rebuild. A set clears every plane of its column, then sets EXISTS,
+    SIGN and the magnitude bits; a clear clears every plane."""
+    # the raw entry: ``planes`` would rebuild an evicted one at the old
+    # snapshot and raise StackStale; evicted means rebuild
+    base = stack._planes
+    if base is None:
+        return None
+    n_planes = bsiops.OFFSET + stack.depth
+    acc = _MaskAccum()
+    for si, (frag, built_v) in enumerate(zip(fragments, built_vers)):
+        if frag is None:
+            if built_v != -1:
+                return None
+            continue
+        if built_v == frag.version:
+            continue
+        if built_v < 0:
+            return None
+        if frag.planes.shape[0] > n_planes:
+            return None  # deeper than the stack: a rebuild widens it
+        ops = frag.deltas.since(built_v, frag.version)
+        if ops is None:
+            return None
+        lo = si * stack.words
+        for op in ops:
+            if op[0] == "set":
+                _, cols, values = op
+            else:
+                cols, values = (op[1],), (None,)
+            for col, val in zip(cols, values):
+                w, b = divmod(col, BITS_PER_WORD)
+                for p in range(n_planes):  # the old value, cleared
+                    acc.clear(p, lo + w, b)
+                if val is None:
+                    continue
+                acc.set(bsiops.EXISTS, lo + w, b)
+                if val < 0:
+                    acc.set(bsiops.SIGN, lo + w, b)
+                mag, k = abs(val), 0
+                while mag:
+                    if mag & 1:
+                        acc.set(bsiops.OFFSET + k, lo + w, b)
+                    mag >>= 1
+                    k += 1
+    if not acc.masks:
+        _restamp(stack, fragments)
+        return stack
+    new = StackedBSI.__new__(StackedBSI)
+    new.shards, new.words, new.device = stack.shards, stack.words, stack.device
+    new.total_words = stack.total_words
+    new.depth = stack.depth
+    new.serial = next(_stack_serial)
+    new._write_lock = stack._write_lock
+    new._lock = threading.Lock()
+    new.ephemeral = False
+    _restamp(new, fragments)
+    # a compressed stack decays to dense: decoded on the device, fresh
+    fresh = isinstance(base, ctiles.CompressedBlock)
+    new._planes = acc.apply(_dense(base), fresh=fresh)
+    new._charge()
+    return new
+
+
 def _writer_lock(field):
     lock = getattr(field, "write_lock", None)
     return lock if lock is not None else contextlib.nullcontext()
 
 
+def _advance_or_rebuild(field, group, subset, vers, fragments, advance,
+                        rebuild):
+    """On a version miss: replay the write deltas onto the latest cached
+    stack of the subset, else build it from the host planes. Caller
+    holds the writer lock."""
+    stale = _cache_peek(field, group, subset)
+    built = None
+    if stale is not None:
+        built = advance(stale[1], fragments, stale[0])
+        if built is stale[1] and in_write_qcx():
+            ADVANCE_STATS["advanced"] += 1
+            return built  # re-stamped, and still the published stack
+    if built is None:
+        built = rebuild()
+        ADVANCE_STATS["built"] += 1
+    else:
+        ADVANCE_STATS["advanced"] += 1
+    _cache_put(field, group, subset, vers, built)
+    return built
+
+
 def stacked_set(field, shards: Sequence[int], view: str) -> StackedSet:
-    """Build-or-reuse the stacked view of ``field``'s ``view`` fragments.
+    """Build, advance or reuse the stacked view of ``field``'s ``view``
+    fragments.
 
     A cache hit is lock-free (a cached stack is never written); a miss
-    walks live host planes, so the fetch, version snapshot and build run
-    under the writer lock."""
+    walks live host planes, so the fetch, version snapshot and advance or
+    build run under the writer lock."""
     group, subset = ("set", view), tuple(shards)
     fragments = [field.fragment(s, view) for s in shards]
     hit = _cache_get(field, group, subset, _versions(fragments))
@@ -516,16 +858,18 @@ def stacked_set(field, shards: Sequence[int], view: str) -> StackedSet:
         vers = _versions(fragments)
         hit = _cache_get(field, group, subset, vers)
         if hit is None:
-            hit = StackedSet(shards, fragments, field.device,
-                             write_lock=_writer_lock(field))
-            _cache_put(field, group, subset, vers, hit)
+            hit = _advance_or_rebuild(
+                field, group, subset, vers, fragments, _advance_set,
+                lambda: StackedSet(shards, fragments, field.device,
+                                   write_lock=_writer_lock(field)))
     return hit
 
 
 def stacked_bsi(field, shards: Sequence[int]) -> StackedBSI:
-    """Build-or-reuse the BSI stack of ``field`` over ``shards``, cached
-    like :func:`stacked_set` (a field without BSI fragments stacks as one
-    all-zero plane of depth 1, as in the JAX package)."""
+    """Build, advance or reuse the BSI stack of ``field`` over
+    ``shards``, cached like :func:`stacked_set` (a field without BSI
+    fragments stacks as one all-zero plane of depth 1, as in the JAX
+    package)."""
     group, subset = ("bsi",), tuple(shards)
     fragments = [field.bsi_fragment(s) for s in shards]
     hit = _cache_get(field, group, subset, _versions(fragments))
@@ -536,7 +880,8 @@ def stacked_bsi(field, shards: Sequence[int]) -> StackedBSI:
         vers = _versions(fragments)
         hit = _cache_get(field, group, subset, vers)
         if hit is None:
-            hit = StackedBSI(shards, fragments, field.device,
-                             write_lock=_writer_lock(field))
-            _cache_put(field, group, subset, vers, hit)
+            hit = _advance_or_rebuild(
+                field, group, subset, vers, fragments, _advance_bsi,
+                lambda: StackedBSI(shards, fragments, field.device,
+                                   write_lock=_writer_lock(field)))
     return hit

@@ -7,8 +7,11 @@ calls Row / Intersect / Union / Difference / Xor / Not / All (with Range
 rows of int-like fields), ``Sum`` / ``Min`` / ``Max`` / ``Percentile``,
 ``TopN`` without ``from``/``to``, ``GroupBy`` over one or two ``Rows``
 with an optional ``filter=`` and ``aggregate=Sum(...)`` or ``Count(...)``,
-``Options(shards=)``, and the ``StackStale`` retry. Every other call
-raises ``PQLError("not ported yet: ...")``.
+``Options(shards=)``, and the ``StackStale`` retry; and the write calls
+``Set`` / ``Clear`` / ``ClearRow`` / ``Store`` / ``Delete``, run once
+under the holder's write lock (reference: executor.go executeSet /
+executeClear / executeClearRow / executeSetRow / executeDeleteRecords).
+Every other call raises ``PQLError("not ported yet: ...")``.
 
 Key translation happens host-side around the kernels (reference:
 executor.go:6814 preTranslate, :7519 translateResults).
@@ -50,7 +53,7 @@ _WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "Delete"}
 #: calls of the JAX executor that later slices port
 _LATER_CALLS = {"Rows", "ConstRow", "UnionRows", "Shift", "Distinct",
                 "Limit", "IncludesColumn", "Extract", "Apply", "Arrow",
-                "Sort", "FieldValue", "ExternalLookup"} | _WRITE_CALLS
+                "Sort", "FieldValue", "ExternalLookup"}
 
 _COND_TO_BSI = {"==": S.EQ, "!=": S.NE, "<": S.LT, "<=": S.LE,
                 ">": S.GT, ">=": S.GE, "between": S.BETWEEN}
@@ -106,7 +109,11 @@ class Executor:
         if isinstance(query, Call):
             query = Query([query])
         if has_write_calls(query):
-            raise not_ported("PQL write calls (use API.import_bits)")
+            # once, with no StackStale retry: re-running a Set would
+            # change its changed-flags, and the lock excludes other
+            # writers, so no lazy build can go stale
+            with self.holder.write_lock:
+                return self._execute_query(idx, query, shards)
         # Paged stacks build blocks lazily; a write landing mid-stream
         # makes the remaining builds StackStale. Reads are pure, so retry
         # on a fresh stack; the last attempt runs under the writer lock.
@@ -130,6 +137,8 @@ class Executor:
             if call.arg("shards") is not None:
                 shards = [int(s) for s in call.arg("shards")]
             return self._execute_call(idx, call.children[0], shards)
+        if name in _WRITE_CALLS:
+            return self._execute_write(idx, call, shards)
         if name == "Count":
             return self._execute_count(idx, call, shards)
         if name in ("Sum", "Min", "Max"):
@@ -164,7 +173,8 @@ class Executor:
 
     # -- row key resolution ----------------------------------------------------
 
-    def _row_id(self, field: Field, value) -> Optional[int]:
+    def _row_id(self, field: Field, value, create: bool = False
+                ) -> Optional[int]:
         if field.options.type == FieldType.BOOL:
             if isinstance(value, bool):
                 return 1 if value else 0
@@ -173,9 +183,21 @@ class Executor:
             if not field.options.keys:
                 raise PQLError(
                     f"field {field.name!r} does not use string keys")
+            if create:
+                return field.translate.create_keys([value])[value]
             return field.translate.find_keys([value]).get(value)
         if isinstance(value, bool):
             raise PQLError(f"field {field.name!r} is not bool")
+        return int(value)
+
+    def _col_id(self, idx: Index, value, create: bool = False
+                ) -> Optional[int]:
+        if isinstance(value, str):
+            if not idx.options.keys:
+                raise PQLError(f"index {idx.name!r} does not use string keys")
+            if create:
+                return idx.translate.create_keys([value])[value]
+            return idx.translate.find_keys([value]).get(value)
         return int(value)
 
     # -- bitmap evaluation -------------------------------------------------------
@@ -490,3 +512,124 @@ class Executor:
             return self._groupby_emit(fields, keyed, limit)
 
         return _Deferred(arrays, fin2)
+
+    # -- writes (reference: executor.go executeSet/Clear/Store) ----------------
+
+    def _execute_write(self, idx: Index, call: Call, shards=None) -> Any:
+        name = call.name
+        if name == "Set":
+            return self._execute_set(idx, call)
+        if name == "Clear":
+            return self._execute_clear(idx, call)
+        if name == "ClearRow":
+            return self._execute_clear_row(idx, call, shards)
+        if name == "Store":
+            return self._execute_store(idx, call, shards)
+        return self._execute_delete(idx, call, shards)
+
+    def _host_planes(self, plane: torch.Tensor, n_shards: int) -> np.ndarray:
+        """A device plane over the stacked shards as host ``uint32[S, W]``."""
+        return plane.cpu().numpy().view(np.uint32).reshape(n_shards,
+                                                           WORDS_PER_SHARD)
+
+    def _execute_delete(self, idx: Index, call: Call, shards=None) -> int:
+        """Delete the records the child bitmap selects that exist: clear
+        their columns from every fragment of every field, existence and
+        BSI planes included (reference: executor.go:9050
+        executeDeleteRecords). Returns the number deleted."""
+        if not call.children:
+            raise PQLError("Delete requires a bitmap child")
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return 0
+        plane = self._eval_all(idx, call.children[0], shard_list)
+        if idx.existence is not None:
+            plane = B.plane_and(plane, self._existence_all(idx, shard_list))
+        deleted = 0
+        for shard, shard_plane in zip(
+                shard_list, self._host_planes(plane, len(shard_list))):
+            n = int(B.plane_to_bits(shard_plane).size)
+            if n:
+                deleted += n
+                idx.delete_columns(shard, shard_plane)
+        return deleted
+
+    def _execute_set(self, idx: Index, call: Call) -> bool:
+        col = call.arg("_col")
+        if col is None:
+            raise PQLError("Set requires a column")
+        col = self._col_id(idx, col, create=True)
+        fa = call.field_arg()
+        if fa is None:
+            raise PQLError("Set requires field=value")
+        fname, value = fa
+        field = idx.field(fname)
+        if field.options.type.is_bsi:
+            field.set_value(col, value)
+            idx.add_exists(col)
+            return True
+        if call.arg("_timestamp") is not None:
+            raise not_ported("Set with a timestamp (time views)")
+        row = self._row_id(field, value, create=True)
+        changed = field.set_bit(row, col)
+        idx.add_exists(col)
+        return changed
+
+    def _execute_clear(self, idx: Index, call: Call) -> bool:
+        col = self._col_id(idx, call.arg("_col"))
+        if col is None:
+            return False
+        fa = call.field_arg()
+        if fa is None:
+            raise PQLError("Clear requires field=value")
+        fname, value = fa
+        field = idx.field(fname)
+        if field.options.type.is_bsi:
+            return field.clear_value(col)
+        row = self._row_id(field, value)
+        if row is None:
+            return False
+        return field.clear_bit(row, col)
+
+    def _execute_clear_row(self, idx: Index, call: Call, shards=None) -> bool:
+        fa = call.field_arg()
+        if fa is None:
+            raise PQLError("ClearRow requires field=row")
+        fname, value = fa
+        field = idx.field(fname)
+        row = self._row_id(field, value)
+        if row is None:
+            return False
+        if shards is None:
+            return field.clear_row(row)
+        changed = False
+        for shard in sorted(set(shards) & field.shards()):
+            for view in list(field.views):
+                frag = field.fragment(shard, view)
+                if frag is not None and frag.has_row(row):
+                    field.write_row_plane(
+                        shard, row, np.zeros(frag.words, dtype=np.uint32),
+                        clear=True, view=view)
+                    changed = True
+        return changed
+
+    def _execute_store(self, idx: Index, call: Call, shards=None) -> bool:
+        """Store(bitmap, field=row): write the result as a row (reference:
+        executor.go executeSetRow)."""
+        fa = call.field_arg()
+        if fa is None:
+            raise PQLError("Store requires field=row")
+        fname, value = fa
+        field = idx.field(fname)
+        if field.options.type.is_bsi:
+            raise PQLError("Store targets a set field row")
+        row = self._row_id(field, value, create=True)
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return True
+        planes = self._host_planes(
+            self._eval_all(idx, call.children[0], shard_list),
+            len(shard_list))
+        for shard, plane in zip(shard_list, planes):
+            field.write_row_plane(shard, row, plane, clear=True)
+        return True

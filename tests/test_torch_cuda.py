@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from pilosa_tpu_torch.api import API
+from pilosa_tpu_torch.core import stacked as STK
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import ctiles as C
@@ -522,3 +523,58 @@ def test_compressed_row_counts_on_the_card(dev, filtered):
     dense = cb.decode()
     assert np.array_equal(dense.cpu().numpy().view(np.uint32), host)
     assert torch.equal(got, T.row_counts(dense, filt))
+
+
+@pytest.mark.parametrize("fresh", [False, True])
+@pytest.mark.parametrize("n", [1, 37, 4096])
+def test_apply_bit_deltas_on_the_card_matches_the_cpu(dev, n, fresh):
+    """The advance's mask scatter on a CUDA block equals the same call on
+    CPU tensors bit for bit, and writes a copy unless told the block is
+    fresh."""
+    rng = np.random.default_rng(n)
+    rows, width = 16, 3 * 32768
+    block = words(rng, (rows, width), torch.device("cpu"))
+    flat = rng.choice(rows * width, n, replace=False)
+    args = [torch.from_numpy(a.astype(np.uint32).view(np.int32))
+            for a in (flat // width, flat % width,
+                      rng.integers(0, 1 << 32, n, dtype=np.uint32),
+                      rng.integers(0, 1 << 32, n, dtype=np.uint32))]
+    want = STK._apply_bit_deltas(block, *args)
+    on_card = block.to(dev)
+    got = STK._apply_bit_deltas(on_card, *[a.to(dev) for a in args],
+                                fresh=fresh)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert (got is on_card) == fresh
+    if not fresh:
+        assert torch.equal(on_card.cpu(), block)
+
+
+def test_writes_between_reads_on_the_card_match_the_cpu(dev):
+    """PQL writes between reads advance the stacks on the card with no
+    upload, and answer as the CPU does."""
+    rng = np.random.default_rng(16)
+    rows, cols = rng.integers(0, 50, 20000), rng.integers(0, 2 << 20, 20000)
+    values = rng.integers(0, 1000, 5000)
+    apis = [API(), API(device="cpu")]
+    for api in apis:
+        api.create_index("w")
+        api.create_field("w", "f")
+        api.create_field("w", "n", {"type": "int"})
+        api.import_bits("w", "f", rows=rows, cols=cols)
+        api.import_values("w", "n", cols=cols[:5000], values=values)
+    reads = "Count(Row(f=3))TopN(f, n=5)Sum(Row(n > 3), field=n)"
+    answers = [[api.query("w", reads)] for api in apis]
+    writes = ["Set(5, f=3)", "Set(6, f=77)", "Clear(5, f=3)", "Set(9, n=12)",
+              "Clear(9, n=0)", f"Set({(1 << 20) + 3}, f=3)"]
+    for w in writes:
+        for api, out in zip(apis, answers):
+            before = STK.UPLOAD_STATS["count"]
+            api.query("w", w)
+            out.append(api.query("w", reads))
+            assert STK.UPLOAD_STATS["count"] == before, w
+    assert answers[0] == answers[1]
+    st = STK.stacked_set(apis[0].holder.index("w").field("f"), [0, 1],
+                         "standard")
+    assert st.planes.is_cuda
+    assert np.array_equal(st.planes.cpu().numpy().view(np.uint32),
+                          st._assemble_host(0))

@@ -1,11 +1,11 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 Checked two ways: a subprocess with a clean environment imports
-``pilosa_tpu_torch`` and answers a query on the CPU, then reports what
-``sys.modules`` holds (this test process cannot tell: tests/conftest.py
-loads JAX in every worker); and an AST scan of every module of the port
-and of ``chip_smoke.py``. The port also refuses to fall back to the CPU
-by itself.
+``pilosa_tpu_torch``, answers a query and a write on the CPU, then
+reports what ``sys.modules`` holds (this test process cannot tell:
+tests/conftest.py loads JAX in every worker); and an AST scan of every
+module of the port and of ``chip_smoke.py``. The port also refuses to
+fall back to the CPU by itself.
 """
 
 import ast
@@ -31,8 +31,9 @@ api.create_index("i")
 api.create_field("i", "f", {"type": "mutex", "keys": True})
 api.import_bits("i", "f", cols=np.arange(600), row_keys=["a", "b"] * 300)
 got = api.query("i", 'Count(Intersect(Row(f="a"), All()))TopN(f, n=1)')
+wrote = api.query("i", 'Set(600, f="c")Clear(1, f="b")Count(Row(f="c"))')
 print(json.dumps({"count": got[0], "top": got[1].pairs[0].count,
-                  "modules": sorted(sys.modules)}))
+                  "wrote": wrote, "modules": sorted(sys.modules)}))
 """
 
 
@@ -50,6 +51,7 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
 
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["count"] == 300 and out["top"] == 300
+    assert out["wrote"] == [True, True, 1]
     bad = [m for m in out["modules"] if _forbidden(m)]
     assert not bad, f"port loaded {bad}"
 

@@ -102,7 +102,8 @@ def test_main_path_stacks_live_on_the_api_device(pair):
 
 def test_not_ported_calls_raise(pair):
     _, tapi = pair
-    for q in ("Rows(year)", "Distinct(field=year)", "Set(1, year=2)",
+    for q in ("Rows(year)", "Distinct(field=year)",
+              "Set(1, year=2, 2010-01-02T03:04)",
               "GroupBy(Rows(year), Rows(brand), Rows(year))",
               "Count(Shift(Row(year=1)))"):
         with pytest.raises(PQLError, match="not ported yet"):
