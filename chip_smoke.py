@@ -96,8 +96,28 @@ Phases, each printed on its own line:
    write->visible medians beside the forced and the 65,536-batch
    rebuilds; all five kernels launched, and each held against its plain
    version on the advanced stacks;
-10. one ``{"kernels": [...]}`` JSON line;
-11. the last line: ``{"ok": true, "device": {...}}``.
+10. main path 7, ``BASELINE.json`` config 4 at full size, as
+    ``bench.py`` ``bench_config4`` builds it: 256 shards, a ``time`` field
+    ``cab`` of quantum YMD with 4 rows and 12 monthly views of random
+    planes (seed 4, 1,610,612,736 B of view stacks once all are
+    resident), written through ``Field.write_row_plane``; the ranged
+    ``Count(Row(cab=1, from='2010-03-01T00:00', to='2010-07-01T00:00'))``
+    (a zero leaf and 4 month views in one ``tape_count`` launch), a ranged
+    TopN (the views merged per row, then ``pair_counts`` at 1 x 4), the
+    full-year TopN (the year view), two half-years (all 12 views), ranged
+    Rows, ``Count(UnionRows)``, ``Count(Shift)`` (no carry across shard
+    boundaries) and IncludesColumn, each against numpy with its first
+    time, p50 and device busy time, no stack built or evicted inside a
+    timed loop; a small index for ConstRow, Limit/offset, Distinct (set,
+    and BSI under a ``bsi_compare`` filter), ``Rows(column=, previous=,
+    in=)``; 32 rounds of a timestamped ``Set`` each followed by the ranged
+    Count (every round one advance and no upload, as the JAX package's
+    log rules predict; every advanced stack equal to a rebuild), then a
+    range from mid-March that builds the new day views and the year
+    view's first read; ``tape_count`` at 5 and 13 leaves and
+    ``pair_counts`` at 1 x 4 against their plain versions and bounds;
+11. one ``{"kernels": [...]}`` JSON line;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -2129,6 +2149,464 @@ def phase_writes(report: Report, c1: dict, ssb: dict, bsi: dict) -> None:
     print("writes path: every answer matches numpy")
 
 
+# ---------------------------------------------------------------------------
+# Path 7: time-quantum fields and the row-set calls (config 4)
+# ---------------------------------------------------------------------------
+
+C4_SHARDS, C4_ROWS = 256, 4
+C4_MONTHS = [f"standard_2010{m:02d}" for m in range(1, 13)]
+C4_RANGE = "from='2010-03-01T00:00', to='2010-07-01T00:00'"
+C4_HALVES = ("from='2010-01-01T00:00', to='2010-07-01T00:00'",
+             "from='2010-07-01T00:00', to='2011-01-01T00:00'")
+
+
+def _popcount(a) -> int:
+    """Set bits of a uint32 array (numpy has ``bitwise_count`` from 2.0)."""
+    import numpy as np
+
+    if hasattr(np, "bitwise_count"):
+        return int(np.bitwise_count(a).sum(dtype=np.int64))
+    table = np.array([bin(i).count("1") for i in range(1 << 16)], np.int64)
+    return int(table[a & 0xFFFF].sum() + table[a >> 16].sum())
+
+
+def _has_bit(plane, col: int) -> bool:
+    return bool((int(plane[col // 32]) >> (col % 32)) & 1)
+
+
+def _config4_build():
+    """``BASELINE.json`` config 4 as ``bench.py`` ``bench_config4``
+    builds it: seed 4, 256 shards, a ``time`` field ``cab`` of quantum
+    YMD, 4 rows, 12 monthly views of random planes, written through the
+    port's ``Field.write_row_plane``. Returns the API and the numpy
+    planes (the oracle), ``{view: uint32[4, 256 * 32768]}``."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD as W
+
+    rng = np.random.default_rng(4)
+    api = API()
+    api.create_index("t")
+    api.create_field("t", "cab", {"type": "time", "timeQuantum": "YMD"})
+    f = api.holder.index("t").field("cab")
+    host = {}
+    for view in C4_MONTHS:
+        planes = rng.integers(0, 1 << 32, size=(C4_ROWS, C4_SHARDS * W),
+                              dtype=np.uint32)
+        host[view] = planes
+        for s in range(C4_SHARDS):
+            for r in range(C4_ROWS):
+                f.write_row_plane(s, r, planes[r, s * W:(s + 1) * W],
+                                  view=view)
+    return api, host
+
+
+def _c4_oracle(host):
+    """The oracle's answers on config 4's planes as built."""
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+
+    months = ["standard_201003", "standard_201004", "standard_201005",
+              "standard_201006"]
+
+    def ranged(row, views=months):
+        acc = host[views[0]][row].copy()
+        for v in views[1:]:
+            acc |= host[v][row]
+        return acc
+
+    counts = [_popcount(ranged(r)) for r in range(C4_ROWS)]
+    top = sorted(((r, c) for r, c in enumerate(counts) if c),
+                 key=lambda rc: (-rc[1], rc[0]))
+    row1 = ranged(1)
+    union = row1.copy()
+    for r in (0, 2, 3):
+        union |= ranged(r)
+    shaped = row1.reshape(C4_SHARDS, WORDS_PER_SHARD)
+    carry = np.zeros_like(shaped)
+    carry[:, 1:] = shaped[:, :-1] >> np.uint32(31)
+    shifted = (shaped << np.uint32(1)) | carry
+    year_all = ranged(1, C4_MONTHS)
+    year_union = ranged(0, C4_MONTHS)
+    for r in (1, 2, 3):
+        year_union |= ranged(r, C4_MONTHS)
+    probes = [int(np.flatnonzero(row1[:64])[0]) * 32,  # a word with bits
+              SHARD_WIDTH - 1, (C4_SHARDS // 3) * SHARD_WIDTH + 12345,
+              C4_SHARDS * SHARD_WIDTH - 1]
+    return {
+        "count": counts[1], "top": top, "rows": sorted(r for r, _ in top),
+        "union": _popcount(union), "shift": _popcount(shifted),
+        "year_count": _popcount(year_all),
+        # the YMD cover of 2010 is the year view, which the build lacks
+        "year_union": _popcount(year_union), "year_top": [],
+        "includes": {c: bool((int(row1[c // 32]) >> (c % 32)) & 1)
+                     for c in probes}}
+
+
+def _c4_queries(o):
+    """(name, PQL, expected answer) of path 7's timed queries."""
+    def pairs(ranked):
+        return [(r, c) for r, c in ranked]
+
+    incl = [(f"IncludesColumn(Row(cab=1, {C4_RANGE}), column={c})", want)
+            for c, want in o["includes"].items()]
+    return [
+        ("ranged Count", f"Count(Row(cab=1, {C4_RANGE}))", o["count"]),
+        ("ranged TopN", f"TopN(cab, n=4, {C4_RANGE})", pairs(o["top"])),
+        ("full-year TopN", "TopN(cab, from='2010-01-01T00:00', "
+         "to='2011-01-01T00:00')", pairs(o["year_top"])),
+        ("two half-years Count", "Count(Union(Row(cab=1, %s), "
+         "Row(cab=1, %s)))" % C4_HALVES, o["year_count"]),
+        ("two half-years UnionRows", "Count(UnionRows(Rows(cab, %s), "
+         "Rows(cab, %s)))" % C4_HALVES, o["year_union"]),
+        ("ranged Rows", f"Rows(cab, {C4_RANGE})", o["rows"]),
+        ("Count(UnionRows)", f"Count(UnionRows(Rows(cab, {C4_RANGE})))",
+         o["union"]),
+        ("Count(Shift)", f"Count(Shift(Row(cab=1, {C4_RANGE}), n=1))",
+         o["shift"]),
+    ] + [(f"IncludesColumn #{i}", q, want)
+         for i, (q, want) in enumerate(incl)]
+
+
+def _answer(res):
+    """A result as the oracle states it."""
+    if hasattr(res, "pairs"):
+        return [(p.id, p.count) for p in res.pairs]
+    return res
+
+
+def _c4_small() -> dict:
+    """Path 7's small index: the row-set calls that do not scale (a keyed
+    ``time`` field, a set field, an ``int`` field with negatives, three
+    shards) against a Python oracle."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.pql import result as R
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as SW
+
+    rng = np.random.default_rng(41)
+    api = API()
+    api.create_index("s")
+    api.create_field("s", "t", {"type": "time", "timeQuantum": "YMD",
+                                "keys": True})
+    api.create_field("s", "s")
+    api.create_field("s", "v", {"type": "int"})
+    t_bits = {}  # key -> {view: set of cols}
+    cols = rng.integers(0, 3 * SW, 60)
+    for k, c in enumerate(cols):
+        key, month = f"k{k % 5}", 3 + k % 4
+        api.query("s", f'Set({int(c)}, t="{key}", '
+                       f"2010-{month:02d}-{1 + k % 27:02d}T08:00)")
+        t_bits.setdefault(key, {}).setdefault(month, set()).add(int(c))
+    s_rows, s_cols = rng.integers(0, 6, 3000), rng.integers(0, 3 * SW, 3000)
+    api.import_bits("s", "s", rows=s_rows, cols=s_cols)
+    v_cols = np.unique(rng.integers(0, 3 * SW, 500))
+    v_vals = rng.integers(-300, 300, v_cols.size)
+    api.import_values("s", "v", cols=v_cols, values=v_vals)
+    s1 = sorted({int(c) for r, c in zip(s_rows, s_cols) if r == 1})
+    got = {}
+
+    def check(pql, want):
+        res = api.query("s", pql)[0]
+        if isinstance(res, R.RowResult):
+            res = res.columns
+        assert res == want, f"{pql}: {res!r} != {want!r}"
+        got[pql] = res
+
+    const = [3, SW + 9, 2 * SW - 1, 5 * SW]  # the last is on no shard
+    check(f"ConstRow(columns={const})", const[:3])
+    check("Limit(Row(s=1), limit=5, offset=3)", s1[3:8])
+    check("Limit(Row(s=1), limit=4)", s1[:4])
+    check("Distinct(field=s)", sorted(set(int(r) for r in s_rows)))
+    check("Distinct(Row(v > 100), field=v)",
+          sorted({int(v) for v in v_vals if v > 100}))
+    check("Count(Distinct(field=v))", len(set(int(v) for v in v_vals)))
+    s2 = {int(c) for r, c in zip(s_rows, s_cols) if r == 2}
+    check("Distinct(Row(s=2), field=v)",
+          sorted({int(v) for c, v in zip(v_cols, v_vals) if int(c) in s2}))
+    col = int(cols[7])
+    check(f"Rows(t, column={col})", sorted(
+        k for k, by in t_bits.items() if any(col in s for s in by.values())))
+    check("Rows(s, previous=2)", [3, 4, 5])
+    check('Rows(t, in=["k1", "zz", "k3"])', ["k1", "k3"])
+    check('Rows(t, previous="k2", limit=1)', ["k3"])
+    check("Rows(t, from='2010-05-01T00:00', to='2010-07-01T00:00')",
+          sorted(k for k, by in t_bits.items() if {5, 6} & set(by)))
+    k1 = sorted(set().union(*[s for m, s in t_bits["k1"].items()
+                              if m in (3, 4)]))
+    check("Row(t=\"k1\", from='2010-03-01T00:00', to='2010-05-01T00:00')",
+          k1)
+    return {"api": api, "answers": got}
+
+
+def _c4_kernels(report, api, rates) -> dict:
+    """tape_count at the ranged Count's 5 leaves and at 13 (a zero leaf
+    and the 12 month views), pair_counts at the ranged TopN's 1 x 4, and
+    the TopN's merge, on the resident view stacks: each against its plain
+    version, timed, beside its bound (these launches are not counted)."""
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.pql import programs as P
+    from pilosa_tpu_torch.pql.parser import parse
+
+    mem_rate, popc_rate, lop_rate = rates
+    idx = api.holder.index("t")
+    f = idx.field("cab")
+    shards = list(range(C4_SHARDS))
+    out = {}
+    tape5, leaves5 = P._lower_root(
+        api.executor, idx, parse(f"Count(Row(cab=1, {C4_RANGE}))")
+        .calls[0].children[0], shards)
+    assert len(leaves5) == 5 and len(tape5) == 4, (tape5, len(leaves5))
+    w = leaves5[0].numel()
+    leaves13 = [B.device_zeros(w, leaves5[0].device)] + [
+        STK.stacked_set(f, shards, v).row_plane(1) for v in C4_MONTHS]
+    tape13 = tuple(("or", 0 if k == 0 else 12 + k, k + 1)
+                   for k in range(12))
+    for name, tape, leaves in (("5 leaves", tape5, leaves5),
+                               ("13 leaves", tape13, leaves13)):
+        report.err("tape_count", B.tape_count(tape, leaves),
+                   B.tape_count_plain(tape, leaves))
+        n_ops = len(tape)
+        by_bytes = (len(leaves) * w * 4 + 4) / mem_rate * 1e3
+        by_ops = (n_ops * w / lop_rate + w / popc_rate) * 1e3
+        out[f"tape_count {name}"] = {
+            "shape": f"{len(leaves)} leaves x {w} words, {n_ops} ORs",
+            "ms": _time_ms(lambda: B.tape_count(tape, leaves)),
+            "kernel_ms": _device_ms(lambda: B.tape_count(tape, leaves),
+                                    "tape_"),
+            "plain_ms": _time_ms(lambda: B.tape_count_plain(tape, leaves),
+                                 reps=2, trials=3),
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    months = [STK.stacked_set(f, shards, v) for v in C4_MONTHS[2:6]]
+    rows = list(range(C4_ROWS))
+
+    def merge():
+        merged = months[0].take_rows(rows)
+        for s in months[1:]:
+            merged.bitwise_or_(s.take_rows(rows))
+        return merged
+
+    merged = merge()
+    ones = B.device_ones(w, merged.device).reshape(1, -1)
+    report.err("pair_counts", G.pair_counts(ones, merged),
+               G.pair_counts_plain(ones, merged))
+    by_bytes = (5 * w * 4 + 16) / mem_rate * 1e3
+    by_ops = 2 * 4 * w * 32 / INT8_OPS_PER_S * 1e3
+    out["pair_counts 1 x 4"] = {
+        "shape": f"1 x 4 x {w} words",
+        "ms": _time_ms(lambda: G.pair_counts(ones, merged)),
+        "kernel_ms": _device_ms(lambda: G.pair_counts(ones, merged),
+                                "pc_"),
+        "plain_ms": _time_ms(lambda: G.pair_counts_plain(ones, merged),
+                             reps=2, trials=3),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    # the merge reads 4 views x 4 rows and writes 4 rows (4 gathers and
+    # 3 in-place ORs, plain PyTorch as XLA in the JAX package)
+    out["merge 4 views x 4 rows"] = {
+        "ms": _time_ms(merge, reps=3, trials=5),
+        "device_ms": _device_ms(merge, calls=5),
+        "bound_ms": (4 * 4 * w * 4 + 4 * w * 4 + 3 * 2 * 4 * w * 4)
+        / mem_rate * 1e3}
+    del merged
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_time(report: Report, args, rates) -> None:
+    """Path 7: ``BASELINE.json`` config 4 at full size (time-quantum
+    Row+Count across 256 shards), its ranged reads and writes, and the
+    row-set calls on a small index."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as SW
+
+    lab = report.label
+    t0 = time.perf_counter()
+    api, host = _config4_build()
+    build_s = time.perf_counter() - t0
+    f = api.holder.index("t").field("cab")
+    shards = list(range(C4_SHARDS))
+    queries = _c4_queries(_c4_oracle(host))
+    q_count = queries[0][1]
+
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    got = api.query("t", q_count)[0]  # builds the four month stacks
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    assert got == queries[0][2], (got, queries[0][2])
+    first = {}
+    for name, q, want in queries:
+        t0 = time.perf_counter()
+        got = _answer(api.query("t", q)[0])
+        torch.cuda.synchronize()
+        first[name] = (time.perf_counter() - t0) * 1e3
+        assert got == want, f"{name}: {got} != {want}"
+    stacks = [STK.stacked_set(f, shards, v) for v in C4_MONTHS]
+    assert all(st.n_blocks == 1 and isinstance(st._blocks[0], torch.Tensor)
+               for st in stacks), "a month view is paged or compressed"
+    resident = sum(STK._nbytes(st._blocks[0]) for st in stacks)
+    # 12 x 4 rows x 256 shards x 32,768 words x 4 B = 1,610,612,736 B
+    assert resident == 12 * stacks[0].cap * C4_SHARDS * 32768 * 4, resident
+    del stacks
+
+    # p50s on resident stacks: no stack may be built or evicted inside a
+    # timed loop (the budget's entries stay the same)
+    p50, busy = {}, {}
+    for name, q, want in queries:
+        keys = set(STK.BUDGET._lru)
+        p50[name] = statistics.median(
+            _wall_ms(lambda: api.query("t", q)) for _ in range(11))
+        busy[name] = _device_ms(lambda: api.query("t", q), calls=11)
+        assert set(STK.BUDGET._lru) == keys, \
+            f"{name}: a stack was built or evicted inside the timed loop"
+        assert _answer(api.query("t", q)[0]) == want, name
+    # the device ops of a ranged Count, TopN (its merge) and UnionRows
+    ops = {name: _device_ops(lambda: api.query("t", q), calls=11)
+           for name, q, _ in queries if name in (
+               "ranged Count", "ranged TopN", "Count(UnionRows)")}
+
+    small = _c4_small()
+
+    # writes: 32 rounds of Set(c, cab=r, 2010-0M-DDTHH:MM) into March to
+    # June, each followed by the ranged Count. A bit new to its month
+    # view advances that view's stack and uploads none.
+    read_months = C4_MONTHS[2:6]
+    models = {v: _LogModel() for v in C4_MONTHS}
+    ex = _Expect(STK)
+    extra = {}  # year and day view -> row -> columns written
+    row1 = host[read_months[0]][1].copy()
+    for v in read_months[1:]:
+        row1 |= host[v][1]
+    count = _popcount(row1)
+    rng = np.random.default_rng(44)
+    write_ms = []
+    for i in range(32):
+        month, day = 3 + i % 4, 1 + (i * 5) % 28
+        view = f"standard_2010{month:02d}"
+        r = int(rng.integers(0, C4_ROWS))
+        while True:  # a column whose bit is new to the month view
+            c = int(rng.integers(0, C4_SHARDS * SW))
+            if not _has_bit(host[view][r], c):
+                break
+        stamp = f"2010-{month:02d}-{day:02d}T{i % 24:02d}:{i % 60:02d}"
+        t0 = time.perf_counter()
+        api.query("t", f"Set({c}, cab={r}, {stamp})")
+        got = api.query("t", q_count)[0]
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+        host[view][r, c // 32] |= np.uint32(1 << (c % 32))
+        if r == 1 and not _has_bit(row1, c):
+            row1[c // 32] |= np.uint32(1 << (c % 32))
+            count += 1
+        assert got == count, f"round {i}: {got} != {count}"
+        models[view].record()
+        for v in read_months:
+            ex.read(models[v])
+        for v in ("standard_2010", f"standard_2010{month:02d}{day:02d}"):
+            extra.setdefault(v, {}).setdefault(r, set()).add(c)
+    rounds = ex.check("7 write rounds")
+    assert rounds["advanced"] == 32 and rounds["uploads"] == 0, rounds
+    for v in read_months:
+        _same_as_rebuild(STK.stacked_set(f, shards, v))
+
+    # a range that starts mid-March reads the day views the writes made
+    # (each a build) beside the advanced April-June stacks (hits)
+    q_days = ("Count(Row(cab=1, from='2010-03-15T00:00', "
+              "to='2010-07-01T00:00'))")
+    days = sorted(v for v in extra if v.startswith("standard_201003")
+                  and len(v) == 17 and int(v[-2:]) >= 15)
+    for v in days:
+        fresh = _LogModel()
+        fresh.reset()  # never built: the first read builds it
+        ex.read(fresh)
+    for v in read_months[1:]:
+        ex.read(models[v])
+    plane = host[read_months[1]][1].copy()
+    for v in read_months[2:]:
+        plane |= host[v][1]
+    in_days = set().union(*[extra[v].get(1, set()) for v in days]) \
+        if days else set()
+    want = _popcount(plane) + sum(1 for c in in_days
+                                  if not _has_bit(plane, c))
+    t0 = time.perf_counter()
+    got = api.query("t", q_days)[0]
+    days_ms = (time.perf_counter() - t0) * 1e3
+    assert got == want, (got, want)
+    day_seg = ex.check("7 day views")
+    assert day_seg["built"] == len(days) >= 1, (day_seg, days)
+    # the year view holds only what the writes put there: a build
+    year = extra["standard_2010"]
+    want_top = sorted(((r, len(cs)) for r, cs in year.items()),
+                      key=lambda rc: (-rc[1], rc[0]))
+    fresh = _LogModel()
+    fresh.reset()
+    ex.read(fresh)
+    got = _answer(api.query("t", queries[2][1])[0])
+    assert got == want_top, (got, want_top)
+    year_seg = ex.check("7 year view")
+    torch.cuda.synchronize()
+    launched = KU.launches()
+    report.launched("time", launched, ("tape_count", "pair_counts",
+                                       "bsi_compare"))
+
+    # each kernel of the path against its plain version (not counted)
+    kern = _c4_kernels(report, api, rates)
+    st = STK.stacked_bsi(small["api"].holder.index("s").field("v"),
+                         [0, 1, 2])
+    report.err("bsi_compare", S.bsi_compare(st.planes, S.GT, 100),
+               S.bsi_compare_plain(st.planes, S.GT, 100))
+    report.kernel("tape_count", config4={
+        k: v for k, v in kern.items() if k.startswith("tape_count")})
+    report.kernel("pair_counts", config4=kern["pair_counts 1 x 4"])
+
+    print(f"time path: config 4 built ({C4_SHARDS} shards, {C4_ROWS} rows, "
+          f"12 month views through Field.write_row_plane) in {build_s:.3f} "
+          f"s; first query {first_s:.3f} s (builds 4 month stacks); "
+          f"resident month stacks {resident} B {lab}")
+    for name, q, _ in queries:
+        b = busy[name]
+        print(f"time path: {name}: first {first[name]:.3f} ms, p50 "
+              f"{p50[name]:.3f} ms, device busy {_fmt_ms(b)}"
+              + (f" ({100 * b / p50[name]:.1f}%)" if b else "")
+              + f" -- {q} {lab}")
+    for name, table in ops.items():
+        print(f"time path: {name} device ops per query: " + ", ".join(
+            f"{k} x{n / 11:.2f} {ms:.4f} ms" for k, (n, ms) in
+            table.items()) + f" {lab}")
+    for name, k in kern.items():
+        print(f"time path: {name}: " + ", ".join(
+            f"{a} {_fmt_ms(b) if isinstance(b, float) or b is None else b}"
+            for a, b in k.items()) + f" {lab}")
+    print(f"time path: 32 write rounds (Set with a timestamp, then the "
+          f"ranged Count): {rounds['advanced']} advances, {rounds['built']} "
+          f"builds, {rounds['uploads']} uploads, {rounds['mask_bytes']} mask "
+          f"B; write->visible median {statistics.median(write_ms):.3f} ms; "
+          f"the range from 03-15 built {day_seg['built']} day views "
+          f"({day_seg['uploads']} uploads) in {days_ms:.3f} ms; the year "
+          f"view: {year_seg['built']} build {lab}")
+    print(f"time path: small index: {len(small['answers'])} row-set "
+          f"queries match; launches {launched} {lab}")
+    print("time path: " + json.dumps({
+        "build_s": build_s, "first_query_s": first_s,
+        "resident_bytes": resident, "p50_ms": p50, "busy_ms": busy,
+        "write_visible_ms": statistics.median(write_ms),
+        "kernels": kern}))
+    print("time path: every answer matches numpy")
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -2223,6 +2701,7 @@ def main() -> int:
     phase_sparse_bsi(report, args)
     config1 = phase_config1(report, args)
     phase_writes(report, config1, by_date, bsi)
+    phase_time(report, args, (mem_rate, popc_rate, lop_rate))
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """API facade: the programmatic surface over holder + executor.
 
 Port of the core of ``pilosa_tpu/api.py`` (reference: api.go:209): create
-indexes and fields (set, mutex, bool, int, decimal, timestamp), bulk-import
-bits (by row id or row key) and BSI values (by column id or key), keeping
+indexes and fields (set, mutex, bool, time, int, decimal, timestamp; a
+``time`` field's ``timeQuantum`` is validated as in the JAX package),
+bulk-import bits (by row id or row key) and BSI values (by column id or
+key), keeping
 the ``_exists`` field up to date, and run PQL reads and writes (a query
 with write calls runs as one write request, ``storage/txn.py``).
 ``API()`` runs on the card, ``cuda:0``; ``API(device="cpu")`` runs every
@@ -52,6 +54,7 @@ class API:
             base=int(o.pop("base", 0)),
             scale=int(o.pop("scale", 0)),
             time_unit=o.pop("timeUnit", "s"),
+            time_quantum=o.pop("timeQuantum", ""),
             cache_type=o.pop("cacheType", "ranked"),
             cache_size=int(o.pop("cacheSize", 50000)),
         )

@@ -14,14 +14,18 @@ imports that package):
             "row_keys": {"MFGR#1000": 1, ...},        # keyed fields only
             "shards": {0: {"row_ids": [1, 2, ...],
                            "planes": np.uint32[n_rows, WORDS_PER_SHARD]}},
+            "views": {"standard_2010": {0: {"row_ids": [...],  # time
+                                            "planes": ...}}},
             "bsi": {0: np.uint32[2 + depth, WORDS_PER_SHARD]},  # int-like
         }, ...],
     }, ...]}
 
-Row ``i`` of ``planes`` holds the bits of ``row_ids[i]`` in the standard
-view; a ``bsi`` stack is an int-like field's [exists, sign, magnitude
-bits LSB-first] planes of one shard (both keys may be absent). After
-loading, the port answers what the source answered.
+Row ``i`` of ``planes`` holds the bits of ``row_ids[i]``: ``shards``
+holds the standard view, and ``views`` any other view by name (a
+``time`` field's quantum views), shard by shard in the same form. A
+``bsi`` stack is an int-like field's [exists, sign, magnitude bits
+LSB-first] planes of one shard. Any of the three keys may be absent.
+After loading, the port answers what the source answered.
 """
 
 from __future__ import annotations
@@ -59,16 +63,22 @@ def load_state(api, state: dict) -> None:
                 frag.planes = planes.copy()
                 frag.depth = planes.shape[0] - OFFSET
                 frag.version += 1
-            for shard, sh in f_state.get("shards", {}).items():
-                row_ids = [int(r) for r in sh["row_ids"]]
-                planes = np.asarray(sh["planes"], dtype=np.uint32)
-                if planes.shape != (len(row_ids), WORDS_PER_SHARD):
-                    raise ValueError(
-                        f"{name} shard {shard}: planes {planes.shape} do "
-                        f"not match {len(row_ids)} rows")
-                frag = fld.fragment(int(shard), timeq.VIEW_STANDARD,
-                                    create=True)
-                frag.planes = _grow_rows(planes.copy(), len(row_ids))
-                frag.row_ids = row_ids
-                frag.row_index = {r: i for i, r in enumerate(row_ids)}
-                frag.version += 1
+            views = dict(f_state.get("views", {}))
+            if "shards" in f_state:
+                views[timeq.VIEW_STANDARD] = f_state["shards"]
+            for view, shards in views.items():
+                for shard, sh in shards.items():
+                    _load_rows(fld, name, view, int(shard), sh)
+
+
+def _load_rows(fld, name: str, view: str, shard: int, sh: dict) -> None:
+    row_ids = [int(r) for r in sh["row_ids"]]
+    planes = np.asarray(sh["planes"], dtype=np.uint32)
+    if planes.shape != (len(row_ids), WORDS_PER_SHARD):
+        raise ValueError(f"{name} view {view} shard {shard}: planes "
+                         f"{planes.shape} do not match {len(row_ids)} rows")
+    frag = fld.fragment(shard, view, create=True)
+    frag.planes = _grow_rows(planes.copy(), len(row_ids))
+    frag.row_ids = row_ids
+    frag.row_index = {r: i for i, r in enumerate(row_ids)}
+    frag.version += 1

@@ -1,20 +1,22 @@
 """Field: a typed attribute of an index.
 
-Port of ``pilosa_tpu/core/field.py`` for set, mutex, bool, int, decimal
-and timestamp fields: a field owns views (the standard view so far), each
+Port of ``pilosa_tpu/core/field.py`` for set, mutex, bool, time, int,
+decimal and timestamp fields: a field owns views (the standard view plus
+a ``time`` field's time-quantum views, reference: view.go:26-33), each
 holding one fragment per shard, plus the row-key store when ``keys`` is
 on (reference: field.go:73, :449). Int-like fields store one BSI fragment
 per shard and map external values to stored integers through their base,
 decimal scale or time unit (reference: field.go bsiGroup). The write
 calls (set and clear a bit, set and clear a value, write, clear or zero a
-row plane, clear columns) are in-memory. Time views and the WAL wait for
-later slices.
+row plane, clear columns) are in-memory; a timestamped set lands in the
+standard view and one view per unit of the quantum. The WAL waits for a
+later slice.
 """
 
 from __future__ import annotations
 
 import datetime as dt
-from typing import Dict, Iterable, Optional, Set
+from typing import Dict, Iterable, List, Optional, Set
 
 import numpy as np
 import torch
@@ -28,7 +30,7 @@ from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP
 
 _PORTED_TYPES = (FieldType.SET, FieldType.MUTEX, FieldType.BOOL,
-                 FieldType.INT, FieldType.DECIMAL, FieldType.TIMESTAMP)
+                 FieldType.TIME, FieldType.INT, FieldType.DECIMAL, FieldType.TIMESTAMP)
 
 _TIME_UNITS_PER_S = {"s": 1, "ms": 1000, "us": 1_000_000, "ns": 1_000_000_000}
 
@@ -45,6 +47,8 @@ class Field:
         if options.type not in _PORTED_TYPES:
             raise NotImplementedError(
                 f"not ported yet: {options.type.value} fields")
+        if options.type == FieldType.TIME:
+            timeq.validate_quantum(options.time_quantum)
         self.name = name
         self.options = options
         self.device = device
@@ -138,17 +142,36 @@ class Field:
             out.update(frags)
         return out
 
+    def view_names(self) -> List[str]:
+        return sorted(self.views)
+
     # -- write path ----------------------------------------------------------
 
-    def set_bit(self, row: int, col: int) -> bool:
-        """Set (row, col); mutex/bool clear the column's other rows first
-        (reference: fragment.go setBit + fragment.go:1787)."""
+    def _write_views(self, timestamp: Optional[dt.datetime]) -> List[str]:
+        """The views a write lands in: the standard view, and with a
+        timestamp one view per unit of the quantum (reference: time.go:143
+        viewsByTime)."""
+        views = [timeq.VIEW_STANDARD]
+        if timestamp is not None:
+            if self.options.type != FieldType.TIME:
+                raise ValueError(
+                    f"field {self.name} does not support timestamps")
+            views += timeq.views_by_time(timestamp, self.options.time_quantum)
+        return views
+
+    def set_bit(self, row: int, col: int,
+                timestamp: Optional[dt.datetime] = None) -> bool:
+        """Set (row, col) in every view of the write; mutex/bool clear the
+        column's other rows first (reference: fragment.go setBit +
+        fragment.go:1787)."""
+        views = self._write_views(timestamp)
         shard, pos = divmod(col, SHARD_WIDTH)
-        frag = self.fragment(shard, create=True)
         changed = False
-        if self.options.type in (FieldType.MUTEX, FieldType.BOOL):
-            changed |= frag.clear_column(pos, except_row=row)
-        changed |= frag.set_bit(row, pos)
+        for view in views:
+            frag = self.fragment(shard, view, create=True)
+            if self.options.type in (FieldType.MUTEX, FieldType.BOOL):
+                changed |= frag.clear_column(pos, except_row=row)
+            changed |= frag.set_bit(row, pos)
         return changed
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -265,3 +288,24 @@ class Field:
         frag = self.bsi_fragment(shard)
         stored = frag.value(pos) if frag is not None else None
         return None if stored is None else self.from_stored(stored)
+
+    # -- read helpers ----------------------------------------------------------
+
+    def range_views(self, from_t: Optional[dt.datetime],
+                    to_t: Optional[dt.datetime]) -> List[str]:
+        """The views holding data that cover a time range (reference:
+        field.go:1001 viewsByTimeRange dispatch); no bounds means the
+        standard view."""
+        if from_t is None and to_t is None:
+            return [timeq.VIEW_STANDARD]
+        if self.options.type != FieldType.TIME:
+            raise ValueError(f"field {self.name} is not a time field")
+        # an open side takes the other side's tzinfo: comparing a naive
+        # with an aware time raises in the cover recursion
+        tz = (from_t or to_t).tzinfo
+        lo = from_t or dt.datetime(1, 1, 1, tzinfo=tz)
+        hi = to_t or dt.datetime(9999, 1, 1, tzinfo=tz)
+        views = timeq.views_by_time_range(lo, hi, self.options.time_quantum)
+        # an open range names millennia of views; only views that exist
+        # can hold bits
+        return [v for v in views if v in self.views]

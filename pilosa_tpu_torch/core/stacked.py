@@ -34,6 +34,13 @@ decoded on the device, uncached, so the budget sees all the residency;
 tile-skipping scan (one launch for a stack's compressed blocks) and
 ``StackedBSI.compare`` the active-tile compare.
 
+Ranged reads gather rows across a time field's view stacks:
+``take_rows`` (zero planes for absent rows) and ``rows_plane`` (an OR
+over selected rows), block by block. The JAX package blocks on each
+block's part on the CPU (``sync_part``, a workaround for XLA's CPU
+collectives); PyTorch has no such hazard, so the port has no
+counterpart and issues no sync.
+
 Caches hang on the owning Field keyed by (kind, view) and shard tuple and
 are validated against the fragment version vector. A stack whose
 fragments changed **advances** when their write-delta logs
@@ -96,6 +103,16 @@ def _row(blk: Block, i: int) -> torch.Tensor:
     if isinstance(blk, ctiles.CompressedBlock):
         return blk.decode(rows=[i])[0]
     return blk[i]
+
+
+def _take(blk: Block, slots: Sequence[int]) -> torch.Tensor:
+    """Rows ``slots`` of a resident entry as a new dense ``[len, S*W]``
+    tensor (only those rows decoded when compressed)."""
+    if isinstance(blk, ctiles.CompressedBlock):
+        return blk.decode(rows=slots)
+    idx = torch.as_tensor(np.asarray(slots, dtype=np.int64),
+                          device=blk.device)
+    return blk.index_select(0, idx)
 
 
 def _upload(host: np.ndarray, device: torch.device) -> Block:
@@ -341,6 +358,46 @@ class StackedSet:
             return self.zero_plane()
         return _row(self._ensure_block(slot // self.block_rows),
                     slot % self.block_rows)
+
+    def take_rows(self, rows: Sequence[int]) -> torch.Tensor:
+        """Device ``[len(rows), S*W]`` gather of the given row ids (zero
+        planes for absent rows), assembled block by block."""
+        by_block: Dict[int, Tuple[List[int], List[int]]] = {}
+        missing = False
+        for i, r in enumerate(rows):
+            slot = self.row_index.get(r)
+            if slot is None:
+                missing = True
+                continue
+            dst, src = by_block.setdefault(slot // self.block_rows, ([], []))
+            dst.append(i)
+            src.append(slot % self.block_rows)
+        if len(by_block) == 1 and not missing:
+            bi, (dst, src) = next(iter(by_block.items()))
+            order = np.argsort(dst)
+            return _take(self._ensure_block(bi), np.asarray(src)[order])
+        out = torch.zeros((len(rows), self.total_words), dtype=torch.int32,
+                          device=self.device)
+        for bi, (dst, src) in by_block.items():
+            idx = torch.as_tensor(np.asarray(dst, dtype=np.int64),
+                                  device=self.device)
+            out.index_copy_(0, idx, _take(self._ensure_block(bi), src))
+        return out
+
+    def rows_plane(self, rows: Sequence[int]) -> torch.Tensor:
+        """OR of several rows' planes (UnionRows), streamed per block;
+        rows without a slot add nothing."""
+        by_block: Dict[int, List[int]] = {}
+        for r in rows:
+            slot = self.row_index.get(r)
+            if slot is not None:
+                by_block.setdefault(slot // self.block_rows, []).append(
+                    slot % self.block_rows)
+        acc = None
+        for bi, slots in sorted(by_block.items()):
+            part = bitops.rows_or(_take(self._ensure_block(bi), slots))
+            acc = part if acc is None else acc | part
+        return self.zero_plane() if acc is None else acc
 
     def row_counts(self, filt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Device ``[cap]`` per-slot popcounts (optionally filtered),

@@ -117,13 +117,27 @@ def plane_not(a, existence):
 
 
 def plane_shift(a: torch.Tensor) -> torch.Tensor:
-    """Shift all columns by +1 (reference: roaring/roaring.go:1629 Shift).
-    The top bit of each word carries into the next word; the bit shifted
-    past the end is dropped. ``>> 31`` on int32 fills with the sign, so
-    the carry is masked to one bit."""
-    carry = torch.cat([torch.zeros(1, dtype=a.dtype, device=a.device),
-                       (a[:-1] >> 31) & 1])
+    """Shift all columns by +1 along the last axis (reference:
+    roaring/roaring.go:1629 Shift). The top bit of each word carries into
+    the next word; the bit shifted past the end of a row is dropped, so
+    ``[S, W]`` shifts each shard on its own, as the JAX package's
+    ``vmap`` does. ``>> 31`` on int32 fills with the sign, so the carry
+    is masked to one bit."""
+    zero = torch.zeros(a.shape[:-1] + (1,), dtype=a.dtype, device=a.device)
+    carry = torch.cat([zero, (a[..., :-1] >> 31) & 1], dim=-1)
     return (a << 1) | carry
+
+
+def rows_or(planes: torch.Tensor) -> torch.Tensor:
+    """OR of the rows of ``[R, W]`` (R >= 1) into one ``[W]`` plane: a
+    fold in halves, ceil(log2 R) ops (torch has no OR reduction)."""
+    while planes.shape[0] > 1:
+        half = planes.shape[0] // 2
+        folded = planes[:half] | planes[half:2 * half]
+        if planes.shape[0] % 2:
+            folded[0] |= planes[-1]
+        planes = folded
+    return planes[0]
 
 
 # ---------------------------------------------------------------------------

@@ -4,14 +4,17 @@ tensors, with one device->host copy per result.
 Port of the read path of ``pilosa_tpu/pql/executor.py`` (reference:
 executor.go, dispatch :679-841): ``Count`` over bitmap trees, the bitmap
 calls Row / Intersect / Union / Difference / Xor / Not / All (with Range
-rows of int-like fields), ``Sum`` / ``Min`` / ``Max`` / ``Percentile``,
-``TopN`` without ``from``/``to``, ``GroupBy`` over one or two ``Rows``
-with an optional ``filter=`` and ``aggregate=Sum(...)`` or ``Count(...)``,
-``Options(shards=)``, and the ``StackStale`` retry; and the write calls
-``Set`` / ``Clear`` / ``ClearRow`` / ``Store`` / ``Delete``, run once
-under the holder's write lock (reference: executor.go executeSet /
-executeClear / executeClearRow / executeSetRow / executeDeleteRecords).
-Every other call raises ``PQLError("not ported yet: ...")``.
+rows of int-like fields, and ``from=``/``to=`` time ranges over a
+``time`` field's quantum views), the row-set calls ConstRow / UnionRows /
+Shift / Limit / Distinct / Rows / IncludesColumn, ``Sum`` / ``Min`` /
+``Max`` / ``Percentile``, ``TopN`` (ranged too), ``GroupBy`` over one or
+two ``Rows`` with an optional ``filter=`` and ``aggregate=Sum(...)`` or
+``Count(...)``, ``Options(shards=)``, and the ``StackStale`` retry; and
+the write calls ``Set`` (with a timestamp too) / ``Clear`` /
+``ClearRow`` / ``Store`` / ``Delete``, run once under the holder's write
+lock (reference: executor.go executeSet / executeClear / executeClearRow
+/ executeSetRow / executeDeleteRecords). Every other call raises
+``PQLError("not ported yet: ...")``.
 
 Key translation happens host-side around the kernels (reference:
 executor.go:6814 preTranslate, :7519 translateResults).
@@ -19,11 +22,13 @@ executor.go:6814 preTranslate, :7519 translateResults).
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+import datetime as dt
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import platform
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import Field
 from pilosa_tpu_torch.core.holder import Holder
@@ -46,14 +51,13 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
 __all__ = ["Executor", "PQLError", "has_write_calls"]
 
 _BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
-                 "All"}
+                 "All", "ConstRow", "UnionRows", "Shift", "Distinct", "Limit"}
 
 _WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "Delete"}
 
 #: calls of the JAX executor that later slices port
-_LATER_CALLS = {"Rows", "ConstRow", "UnionRows", "Shift", "Distinct",
-                "Limit", "IncludesColumn", "Extract", "Apply", "Arrow",
-                "Sort", "FieldValue", "ExternalLookup"}
+_LATER_CALLS = {"Extract", "Apply", "Arrow", "Sort", "FieldValue",
+                "ExternalLookup"}
 
 _COND_TO_BSI = {"==": S.EQ, "!=": S.NE, "<": S.LT, "<=": S.LE,
                 ">": S.GT, ">=": S.GE, "between": S.BETWEEN}
@@ -69,6 +73,12 @@ def has_write_calls(query) -> bool:
 
     calls = query.calls if isinstance(query, Query) else [query]
     return any(walk(c) for c in calls)
+
+
+def _parse_ts(v) -> dt.datetime:
+    if isinstance(v, dt.datetime):
+        return v
+    return dt.datetime.fromisoformat(str(v).replace("Z", "+00:00"))
 
 
 class _Deferred:
@@ -147,10 +157,14 @@ class Executor:
             return self._execute_percentile(idx, call, shards)
         if name in ("TopN", "TopK"):
             return self._execute_topn(idx, call, shards)
+        if name == "Rows":
+            return self._execute_rows(idx, call, shards)
         if name == "GroupBy":
             return self._execute_groupby(idx, call, shards)
         if name in _BITMAP_CALLS:
             return self._materialize_row(idx, call, shards)
+        if name == "IncludesColumn":
+            return self._execute_includes_column(idx, call)
         if name in _LATER_CALLS:
             raise not_ported(name)
         raise PQLError(f"unknown call {name!r}")
@@ -228,7 +242,91 @@ class Executor:
             raise PQLError("== null is not supported; use Not(Row(f != null))")
         return st.compare(op, field.to_stored(value.value))
 
+    @staticmethod
+    def _range_views(field: Field, call: Call) -> Optional[List[str]]:
+        """The views covering a call's ``from=``/``to=`` range, or None
+        when it has neither (reference: field.go:1001)."""
+        from_a, to_a = call.arg("from"), call.arg("to")
+        if from_a is None and to_a is None:
+            return None
+        return field.range_views(
+            _parse_ts(from_a) if from_a is not None else None,
+            _parse_ts(to_a) if to_a is not None else None)
+
+    def _eval_row_set(self, idx: Index, call: Call, shard_list: List[int]
+                      ) -> torch.Tensor:
+        """The device plane of ConstRow, UnionRows or Shift, which the
+        lowering composes as a leaf (reference: executor.go
+        executeConstRow, executeUnionRows, executeShiftShard)."""
+        name = call.name
+        if name == "ConstRow":
+            plane = np.zeros((len(shard_list), WORDS_PER_SHARD),
+                             dtype=np.uint32)
+            pos = {s: i for i, s in enumerate(shard_list)}
+            by_shard: Dict[int, List[int]] = {}
+            for value in call.arg("columns", []):
+                c = self._col_id(idx, value)
+                if c is None:
+                    continue
+                si = pos.get(c // SHARD_WIDTH)
+                if si is not None:
+                    by_shard.setdefault(si, []).append(c % SHARD_WIDTH)
+            for si, cols in by_shard.items():
+                plane[si] = B.bits_to_plane(cols)
+            return platform.h2d_copy(plane.reshape(-1), idx.device)
+        if name == "UnionRows":
+            return self._union_rows(idx, call, shard_list)
+        if len(call.children) != 1:
+            raise PQLError("Shift requires exactly one child")
+        shaped = self._eval_all(idx, call.children[0], shard_list).reshape(
+            len(shard_list), WORDS_PER_SHARD)
+        for _ in range(int(call.arg("n", 1))):
+            # carries stop at shard boundaries, as the reference's
+            # per-shard executeShiftShard
+            shaped = B.plane_shift(shaped)
+        return shaped.reshape(-1)
+
+    def _union_rows(self, idx: Index, call: Call, shard_list: List[int]
+                    ) -> torch.Tensor:
+        """OR of the rows each ``Rows`` child selects; a ranged child ORs
+        them across its covering time views (the lowering of SQL
+        ``rangeq()``)."""
+        out = None
+        for c in call.children:
+            if c.name != "Rows":
+                raise PQLError("UnionRows children must be Rows calls")
+            field = idx.field(self._field_name(c))
+            in_a = c.arg("in")
+            restricted = (c.arg("limit") is not None
+                          or c.arg("previous") is not None
+                          or c.arg("column") is not None)
+            if restricted:  # honors from/to with the other options
+                rows = self._rows_list(idx, c, shard_list)
+            elif in_a is not None:  # a bare in= list needs no device trip
+                rows = self._in_row_ids(field, in_a)
+            else:
+                rows = None
+            views = self._range_views(field, c)
+            for v in views if views is not None else [timeq.VIEW_STANDARD]:
+                st = stacked_set(field, shard_list, v)
+                part = st.rows_plane(st.row_ids if rows is None else rows)
+                # out of place: a part may be the shared zeros plane
+                out = part if out is None else out | part
+        if out is None:
+            return B.device_zeros(len(shard_list) * WORDS_PER_SHARD,
+                                  idx.device)
+        return out
+
     def _materialize_row(self, idx: Index, call: Call, shards) -> Any:
+        limit, offset = None, 0
+        if call.name == "Limit":
+            if len(call.children) != 1:
+                raise PQLError("Limit requires exactly one child")
+            limit = call.arg("limit")
+            offset = int(call.arg("offset", 0))
+            call = call.children[0]
+        if call.name == "Distinct":
+            return self._execute_distinct(idx, call, shards)
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return self._row_result(idx, [])
@@ -241,6 +339,10 @@ class Executor:
             for si, shard in enumerate(shard_list):
                 base = shard * SHARD_WIDTH
                 cols.extend(int(base + c) for c in B.plane_to_bits(shaped[si]))
+            if offset:
+                cols = cols[offset:]
+            if limit is not None:
+                cols = cols[: int(limit)]
             return self._row_result(idx, cols)
 
         return _Deferred([plane], finalize)
@@ -257,11 +359,17 @@ class Executor:
     def _execute_count(self, idx: Index, call: Call, shards) -> Any:
         if len(call.children) != 1:
             raise PQLError("Count requires a single child call")
+        child = call.children[0]
+        if child.name == "Distinct":
+            res = _resolve(self._execute_distinct(idx, child, shards))
+            if isinstance(res, R.RowResult):
+                return len(res.columns or res.keys or [])
+            return len(res)
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return 0
         # ops + popcount in ONE tape_count launch over resident planes
-        count = programs.run_count(self, idx, call.children[0], shard_list)
+        count = programs.run_count(self, idx, child, shard_list)
         return _Deferred([count], lambda c: int(c))
 
     # -- BSI aggregates (reference: executor.go executeSum/Min/Max) -----------
@@ -348,19 +456,16 @@ class Executor:
 
     def _execute_topn(self, idx: Index, call: Call, shards) -> Any:
         field = idx.field(self._field_name(call))
-        if call.arg("from") is not None or call.arg("to") is not None:
-            raise not_ported(f"{call.name} with from=/to= time ranges")
         n = call.arg("n") or call.arg("k")
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return self._pairs_field(field, [])
         filt = (self._eval_all(idx, call.children[0], shard_list)
                 if call.children else None)
-        st = stacked_set(field, shard_list, timeq.VIEW_STANDARD)
-        if not st.row_ids:
+        row_ids, counts = self._ranged_row_counts(field, call, shard_list,
+                                                  filt)
+        if not row_ids:
             return self._pairs_field(field, [])
-        row_ids = st.row_ids
-        counts = st.row_counts(filt)
 
         def finalize(counts_np: np.ndarray):
             ranked = [(row, int(counts_np[slot]))
@@ -372,6 +477,38 @@ class Executor:
 
         return _Deferred([counts], finalize)
 
+    #: union-row chunk of a multi-view merge: bounds the transient
+    #: ``[chunk, S*W]`` merged tensor as row blocks bound stacks
+    _MERGE_CHUNK = 1024
+
+    def _ranged_row_counts(self, field: Field, call: Call,
+                           shard_list: List[int], filt):
+        """(row_ids, device per-row counts) honoring the call's from/to
+        range: each row's bits in the covering time views are OR-merged
+        before they are counted, one chunk of rows at a time, as the
+        reference's per-view union (executor.go executeTopNShard). None
+        counts with no row ids."""
+        views = self._range_views(field, call)
+        if views is None:
+            st = stacked_set(field, shard_list, timeq.VIEW_STANDARD)
+            return st.row_ids, st.row_counts(filt)
+        stacks = [stacked_set(field, shard_list, v) for v in views]
+        stacks = [s for s in stacks if s.row_ids]
+        if not stacks:
+            return [], None
+        if len(stacks) == 1:
+            return stacks[0].row_ids, stacks[0].row_counts(filt)
+        row_ids = sorted(set().union(*[s.row_index for s in stacks]))
+        parts = []
+        for lo in range(0, len(row_ids), self._MERGE_CHUNK):
+            chunk = row_ids[lo:lo + self._MERGE_CHUNK]
+            merged = None
+            for s in stacks:
+                sel = s.take_rows(chunk)  # a new tensor: OR in place
+                merged = sel if merged is None else merged.bitwise_or_(sel)
+            parts.append(T.row_counts(merged, filt))
+        return row_ids, _concat(parts)
+
     def _pairs_field(self, field: Field, ranked) -> R.PairsField:
         if field.options.keys:
             keys = field.translate.translate_ids([r for r, _ in ranked])
@@ -380,6 +517,141 @@ class Executor:
         else:
             pairs = [R.Pair(id=r, key=None, count=c) for r, c in ranked]
         return R.PairsField(pairs=pairs, field=field.name)
+
+    # -- Rows (reference: executor.go executeRows) -----------------------------
+
+    def _in_row_ids(self, field: Field, values) -> List[int]:
+        """Row ids of a ``Rows(f, in=[...])`` selection; string members go
+        through the field's translator in one batch, and unknown keys drop
+        out (as ``Row(f="missing")`` is empty)."""
+        strs = [v for v in values if isinstance(v, str)]
+        if strs and not field.options.keys:
+            raise PQLError(f"field {field.name!r} does not use string keys")
+        found = field.translate.find_keys(strs) if strs else {}
+        out = set()
+        for v in values:
+            if isinstance(v, str):
+                r = found.get(v)
+                if r is not None:
+                    out.add(r)
+            elif isinstance(v, bool):
+                out.add(1 if v else 0)
+            else:
+                out.add(int(v))
+        return sorted(out)
+
+    def _rows_list(self, idx: Index, call: Call, shards=None) -> List[int]:
+        field = idx.field(self._field_name(call))
+        col = call.arg("column")
+        shard_list = self._shards(idx, shards)
+        rows: set = set()
+        if col is not None:
+            # point lookup on the host planes of the standard view
+            c = self._col_id(idx, col)
+            if c is not None and c // SHARD_WIDTH in shard_list:
+                frag = field.fragment(c // SHARD_WIDTH)
+                if frag is not None:
+                    pos = c % SHARD_WIDTH
+                    bit = np.uint32(1) << np.uint32(pos % 32)
+                    for row in frag.existing_rows():
+                        if frag.row_plane(row)[pos // 32] & bit:
+                            rows.add(row)
+        elif shard_list:
+            # honors from/to (reference: executor.go:4108)
+            row_ids, counts = self._ranged_row_counts(field, call,
+                                                      shard_list, None)
+            if row_ids:
+                counts = counts.cpu().numpy()
+                rows = {row for slot, row in enumerate(row_ids)
+                        if counts[slot]}
+        out = sorted(rows)
+        in_a = call.arg("in")
+        if in_a is not None:
+            want = set(self._in_row_ids(field, in_a))
+            out = [r for r in out if r in want]
+        prev = call.arg("previous")
+        if prev is not None:
+            prev_id = self._row_id(field, prev)
+            out = [r for r in out if prev_id is None or r > prev_id]
+        limit = call.arg("limit")
+        if limit is not None:
+            out = out[: int(limit)]
+        return out
+
+    def _execute_rows(self, idx: Index, call: Call, shards) -> List[Any]:
+        field = idx.field(self._field_name(call))
+        rows = self._rows_list(idx, call, shards)
+        if field.options.keys:
+            m = field.translate.translate_ids(rows)
+            return [m.get(r, str(r)) for r in rows]
+        return rows
+
+    # -- Distinct (reference: executor.go:1952-2153) ---------------------------
+
+    def _execute_distinct(self, idx: Index, call: Call, shards):
+        field = idx.field(self._field_name(call))
+        if not field.options.type.is_bsi:
+            # set-like: the distinct values are the row ids present
+            rows = self._rows_list(idx, call, shards)
+            if field.options.keys:
+                m = field.translate.translate_ids(rows)
+                return R.RowResult(columns=[],
+                                   keys=[m.get(r, str(r)) for r in rows])
+            return R.RowResult(columns=rows)
+        shard_list = self._shards(idx, shards)
+        filt_np = None
+        if call.children and shard_list:
+            filt_np = self._host_planes(
+                self._eval_all(idx, call.children[0], shard_list),
+                len(shard_list))
+        vals: set = set()
+        for si, shard in enumerate(shard_list):
+            frag = field.bsi_fragment(shard)
+            if frag is not None:
+                vals.update(self._decode_distinct(
+                    frag, filt_np[si] if filt_np is not None else None))
+        return sorted(field.from_stored(v) for v in vals)
+
+    @staticmethod
+    def _decode_distinct(frag, filt: Optional[np.ndarray]) -> set:
+        """The unique stored values of a BSI fragment, decoded on the host
+        (the pivot analog, reference: bsi.go:18 PivotDescending)."""
+        exists = frag.planes[S.EXISTS]
+        if filt is not None:
+            exists = exists & filt
+        cols = B.plane_to_bits(exists)
+        if cols.size == 0:
+            return set()
+        w = (cols // 32).astype(np.int64)
+        b = (cols % 32).astype(np.uint32)
+        vals = np.zeros(cols.size, dtype=np.int64)
+        for k in range(frag.depth):
+            bits = (frag.planes[S.OFFSET + k][w] >> b) & 1
+            vals |= bits.astype(np.int64) << k
+        sign = ((frag.planes[S.SIGN][w] >> b) & 1).astype(bool)
+        vals[sign] = -vals[sign]
+        return set(int(v) for v in vals)
+
+    # -- IncludesColumn (reference: executor.go executeIncludesColumnCall) -----
+
+    def _execute_includes_column(self, idx: Index, call: Call) -> bool:
+        col = call.arg("column")
+        if col is None:
+            raise PQLError("IncludesColumn requires column=")
+        if len(call.children) != 1:
+            raise PQLError("IncludesColumn requires a bitmap child")
+        c = self._col_id(idx, col)
+        if c is None:
+            return False
+        shard, pos = divmod(c, SHARD_WIDTH)
+        # over the full shard list, so the probe reuses the stacks every
+        # other query caches (one-shard stacks would churn the subset LRU)
+        shard_list = self._shards(idx, None)
+        if shard not in shard_list:
+            return False
+        word = shard_list.index(shard) * WORDS_PER_SHARD + pos // 32
+        plane = self._eval_all(idx, call.children[0], shard_list)
+        return bool((int(plane[word]) >> (pos % 32)) & 1)
 
     # -- GroupBy (reference: executor.go:3918 executeGroupByShard) -------------
 
@@ -568,10 +840,10 @@ class Executor:
             field.set_value(col, value)
             idx.add_exists(col)
             return True
-        if call.arg("_timestamp") is not None:
-            raise not_ported("Set with a timestamp (time views)")
         row = self._row_id(field, value, create=True)
-        changed = field.set_bit(row, col)
+        ts = call.arg("_timestamp")
+        changed = field.set_bit(row, col,
+                                timestamp=_parse_ts(ts) if ts else None)
         idx.add_exists(col)
         return changed
 

@@ -11,9 +11,13 @@ one checked program with different leaf planes.
 Lowering never re-stages data: leaves are rows of the budget-managed
 resident stacks (core/stacked.py), and a Range row (a ``Condition``, or
 any row of an int-like field) is the output plane of one ``bsi_compare``
-launch, composed as a leaf. The port has no classic per-op path behind
-the tape: a malformed tree raises ``PQLError`` and calls of later slices
-raise ``not ported yet``.
+launch, composed as a leaf. A ``Row`` with ``from=``/``to=`` lowers, as
+in the JAX package, to a zero leaf OR-chained with the row's plane in
+each covering time view. ``ConstRow``, ``UnionRows`` and ``Shift``, which
+the JAX package leaves to its per-op path, are evaluated by the executor
+into one plane each and composed as a leaf, so a ``Count`` over them is
+still one ``tape_count`` launch. The port has no classic per-op path
+behind the tape: a malformed tree raises ``PQLError``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.stacked import stacked_set
-from pilosa_tpu_torch.errors import PQLError, not_ported
+from pilosa_tpu_torch.errors import PQLError
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.parallel import tape as T
 from pilosa_tpu_torch.pql.ast import Condition, ROW_OPTIONS
@@ -88,11 +92,17 @@ def _lower_root(ex, idx, call, shard_list: List[int]):
         if isinstance(value, Condition) or field.options.type.is_bsi:
             # the compare kernel's output plane composes as a leaf
             return leaf(ex._eval_bsi_row(field, value, shard_list))
-        if c.arg("from") is not None or c.arg("to") is not None:
-            raise not_ported("Row with from=/to= time ranges")
         row = ex._row_id(field, value)
         if row is None:  # unknown key -> empty row
             return leaf(B.device_zeros(total_words, device))
+        views = ex._range_views(field, c)
+        if views is not None:
+            # the row's planes in the covering time views, OR-chained
+            out = leaf(B.device_zeros(total_words, device))
+            for v in views:
+                st = stacked_set(field, shard_list, v)
+                out = emit("or", out, leaf(st.row_plane(row)))
+            return out
         st = stacked_set(field, shard_list, timeq.VIEW_STANDARD)
         return leaf(st.row_plane(row))
 
@@ -131,8 +141,12 @@ def _lower_root(ex, idx, call, shard_list: List[int]):
             return emit("andnot", ex_ref, lower(c.children[0]))
         if name == "All":
             return leaf(ex._existence_all(idx, shard_list))
-        if name in ("ConstRow", "UnionRows", "Shift", "Distinct", "Limit"):
-            raise not_ported(f"{name} inside a bitmap call")
+        if name in ("ConstRow", "UnionRows", "Shift"):
+            return leaf(ex._eval_row_set(idx, c, shard_list))
+        if name == "Distinct":
+            raise PQLError("Distinct cannot be nested inside bitmap calls yet")
+        if name == "Limit":
+            raise PQLError("Limit is only valid at the top level of a query")
         raise PQLError(f"call {name!r} does not return a bitmap")
 
     root = lower(call)

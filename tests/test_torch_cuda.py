@@ -578,3 +578,79 @@ def test_writes_between_reads_on_the_card_match_the_cpu(dev):
     assert st.planes.is_cuda
     assert np.array_equal(st.planes.cpu().numpy().view(np.uint32),
                           st._assemble_host(0))
+
+
+def _ranged_tape(n_views):
+    """The lowering of a ranged Row: a zero leaf OR-chained with one leaf
+    per covering view (``pql/programs.py``)."""
+    tape, out = [], 0
+    for v in range(n_views):
+        tape.append(("or", out, v + 1))
+        out = n_views + 1 + v
+    return tuple(tape)
+
+
+@pytest.mark.parametrize("n_views", [4, 12])
+@pytest.mark.parametrize("shards", [1, 8, 64])
+def test_tape_count_kernel_ranged_tapes(dev, n_views, shards):
+    """The 5- and 13-leaf tapes of a ranged Count (a zero leaf and 4 or
+    12 month views), rows of one view stack each, against the plain
+    version, one launch a count."""
+    rng = np.random.default_rng(n_views * 100 + shards)
+    w = shards * 32768
+    stack = words(rng, (n_views, w), dev)
+    leaves = [B.device_zeros(w, dev)] + [stack[v] for v in range(n_views)]
+    tape = _ranged_tape(n_views)
+    assert len(leaves) == n_views + 1 and len(tape) == n_views
+    before = KU.launches()["tape_count"]
+    got = B.tape_count(tape, leaves)
+    torch.cuda.synchronize()
+    assert KU.launches()["tape_count"] == before + 1
+    assert int(got) == int(B.tape_count_plain(tape, leaves))
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("shards", [1, 8, 64])
+def test_pair_counts_kernel_ranged_topn_shape(dev, filtered, shards):
+    """A ranged TopN's count step: A = one filter (or all-ones) row, B =
+    the 4 rows merged across the covering views."""
+    rng = np.random.default_rng(shards + 7 * filtered)
+    w = shards * 32768
+    merged = words(rng, (4, w), dev)
+    filt = words(rng, (w,), dev) if filtered else None
+    f = filt if filtered else B.device_ones(w, dev)
+    want = G.pair_counts_plain(f.reshape(1, -1), merged)[0]
+    before = KU.launches()["pair_counts"]
+    got = T.row_counts(merged, filt)
+    torch.cuda.synchronize()
+    assert KU.launches()["pair_counts"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_time_ranges_on_the_card_match_the_cpu(dev):
+    """A time field written with timestamps, then ranged reads, row-set
+    calls and timestamped writes between reads, on the card and on the
+    CPU alike; the writes into cached month views upload no stack."""
+    rng = np.random.default_rng(18)
+    apis = [API(), API(device="cpu")]
+    cols = rng.integers(0, 3 << 20, 300)
+    for api in apis:
+        api.create_index("t")
+        api.create_field("t", "cab", {"type": "time", "timeQuantum": "YMD"})
+        for k, c in enumerate(cols):
+            api.query("t", f"Set({int(c)}, cab={k % 4}, "
+                           f"2010-{1 + k % 12:02d}-{1 + k % 28:02d}T00:00)")
+    rng_ = "from='2010-03-01T00:00', to='2010-07-01T00:00'"
+    reads = (f"Count(Row(cab=1, {rng_}))TopN(cab, n=4, {rng_})"
+             f"Rows(cab, {rng_})Count(UnionRows(Rows(cab, {rng_})))"
+             f"Count(Shift(Row(cab=1, {rng_}), n=1))"
+             f"IncludesColumn(Row(cab=1, {rng_}), column={int(cols[1])})")
+    answers = [[api.query("t", reads)] for api in apis]
+    for k in range(6):
+        w = f"Set({k + 11}, cab={k % 4}, 2010-0{3 + k % 4}-1{k}T05:00)"
+        for api, out in zip(apis, answers):
+            before = STK.UPLOAD_STATS["count"]
+            api.query("t", w)
+            out.append(api.query("t", reads))
+            assert STK.UPLOAD_STATS["count"] == before, w
+    assert answers[0] == answers[1]
