@@ -42,11 +42,14 @@ Phases, each printed on its own line:
    x 2^20 columns, one ``int`` field ``amount`` of depth 20, a value in
    every column) imported through ``API.import_values`` and queried with
    ``Sum(Row(amount > 524288), field=amount)`` plus Range counts, Min,
-   Max and Percentile, each against a numpy oracle, with all four
-   kernels' launch counts checked above 0; then a small index with
-   negative values, a base, a decimal field and GroupBy aggregates,
-   whose stacks also hold bsi_compare and pair_counts against their
-   plain versions at that index's shapes;
+   Max, Percentile, ``Sort(Row(amount > 1048000), field=amount,
+   limit=10)`` and ``FieldValue``, each against a numpy oracle, with all
+   four kernels' launch counts checked above 0; then a small index with
+   negative values, a base, a decimal field, a set field and GroupBy Sum
+   aggregates over one, two and three fields (the last folds), Sort
+   (ascending, descending, limited) over filtered ranges, Extract and
+   FieldValue, whose stacks also hold bsi_compare and pair_counts against
+   their plain versions at that index's shapes;
 6. main path 3, SSB SF-1 by order date: 6 shards x 2^20 lineorder
    columns loaded sorted by order date (as public SSB setups load
    lineorder, e.g. ClickHouse's ``ORDER BY (LO_ORDERDATE, LO_ORDERKEY)``),
@@ -55,7 +58,12 @@ Phases, each printed on its own line:
    ``API.import_bits`` under the auto compression rule; ``orderdate``,
    ``year`` and ``_exists`` become resident compressed (``ops/ctiles.py``)
    while ``brand`` stays dense; TopN, GroupBy and Count queries against a
-   numpy oracle, ``ctile_count`` among the kernels the path must launch
+   numpy oracle, and ``GroupBy(Rows(year), Rows(brand), Rows(orderdate),
+   filter=Row(brand="MFGR#1003"))``, a 3-field fold with one
+   ``pair_counts`` launch per level and row block, against ``np.unique``
+   of the triples, and ``pair_counts`` at the fold's shapes against its
+   plain version, timed beside its bound; ``ctile_count`` among the
+   kernels the path must launch
    and held against its plain version on each resident compressed block
    and stack, one ``ctile_count`` launch per ``TopN(orderdate)`` query,
    stored and dense bytes and the non-zero constant lists' bytes per
@@ -116,8 +124,17 @@ Phases, each printed on its own line:
     range from mid-March that builds the new day views and the year
     view's first read; ``tape_count`` at 5 and 13 leaves and
     ``pair_counts`` at 1 x 4 against their plain versions and bounds;
-11. one ``{"kernels": [...]}`` JSON line;
-12. the last line: ``{"ok": true, "device": {...}}``.
+11. main path 8, ``BASELINE.json`` config 5 at full size, as ``bench.py``
+    ``bench_config5`` builds it: 64 shards x 2^20 rows of float32
+    ``fare`` and ``dist`` from seed 5, one ``API.import_dataframe`` per
+    shard (603,979,776 B resident on the card once Apply stacks them);
+    ``Apply("sum(fare + dist * 2)")`` against a float64 numpy sum (rel
+    1e-4), its mean (rel 1e-4), min, max and count (exact), a filtered
+    sum, a vector Apply and an ``Arrow`` over a 4,096-column ``ConstRow``,
+    with the import seconds, the first query, p50s, and the Sum's device
+    ops and busy time beside its bytes bound;
+12. one ``{"kernels": [...]}`` JSON line;
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -551,7 +568,9 @@ def phase_kernels(report: Report, rng, device, popc_rate: float,
     traced = _device_ops(lambda: SC.scatter_merge_(flat, addr, masks),
                          calls=100)
     _once_per_call(traced, 100, 1)
-    (op_name, (op_events, _)), = traced.items()
+    (op_name, (op_events, op_ms)), = traced.items()
+    if kern_ms is None:  # the summary lost it: the trace's own events
+        kern_ms = op_ms
     rates = IP.copy_rates(device)
     up = (n + 4 + 2 * (-(-m // 4) * 4)) * 4  # the staged tiles and updates
     down = (n + 1) * 4  # the merged tiles and the count
@@ -970,6 +989,11 @@ def phase_bsi_path(report: Report, args, shards: int = 10) -> dict:
     got_max = api.query("b", f"Max(Row(amount < {half}), field=amount)")[0]
     got_pct = {nth: api.query("b", f"Percentile(field=amount, nth={nth})")[0]
                for nth in (50, 99)}
+    sort_q = "Sort(Row(amount > 1048000), field=amount, limit=10)"
+    got_sort = api.query("b", sort_q)[0]
+    probe = [12345, n - 1, n + 5]  # the last is past every shard
+    got_fv = [api.query("b", f"FieldValue(field=amount, column={c})")[0]
+              for c in probe]
     torch.cuda.synchronize()
     launched = KU.launches()
 
@@ -990,6 +1014,13 @@ def phase_bsi_path(report: Report, args, shards: int = 10) -> dict:
     for nth, got in got_pct.items():
         assert (got.val, got.count) == _percentile_oracle(ordered, nth), \
             f"Percentile nth={nth} disagrees"
+    top = np.nonzero(amount > 1048000)[0]
+    top = top[np.lexsort((top, amount[top]))][:10]
+    assert (got_sort.columns, got_sort.values) == (
+        top.tolist(), amount[top].tolist()), f"{sort_q} disagrees"
+    assert [(r.val, r.count) for r in got_fv] == [
+        (int(amount[12345]), 1), (int(amount[n - 1]), 1), (None, 0)], \
+        "FieldValue disagrees"
 
     field = api.holder.index("b").field("amount")
     st = stacked_bsi(field, list(range(shards)))
@@ -1027,16 +1058,19 @@ def phase_bsi_path(report: Report, args, shards: int = 10) -> dict:
 
 def _bsi_edge_cases(report: Report, API) -> None:
     """One shard: negative values with a base, a decimal field, GroupBy
-    Sum aggregates over one and two fields, against numpy; then the
-    kernels at this index's shapes against their plain versions."""
+    Sum aggregates over one, two and three fields (the last folds),
+    Sort, Extract and FieldValue, against numpy; then the kernels at this
+    index's shapes against their plain versions."""
     import numpy as np
     import torch
 
     from pilosa_tpu_torch.core.stacked import stacked_bsi, stacked_set
     from pilosa_tpu_torch.ops import bsi as S
     from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import kernel_util as KU
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
+    KU.reset_launches()
     rng = np.random.default_rng(17)
     n = SHARD_WIDTH
     cols = np.arange(n, dtype=np.int64)
@@ -1055,6 +1089,15 @@ def _bsi_edge_cases(report: Report, API) -> None:
     api.import_bits("e", "g", rows=g, cols=cols)
     api.import_values("e", "v", cols=cols, values=v)
     api.import_values("e", "d", cols=cols, values=d_stored / 100)
+    # a set field: one of 4 rows on most columns, a second on some
+    t_rows = np.zeros((4, n), dtype=bool)
+    first = rng.random(n) < 0.9
+    t_rows[rng.integers(0, 4, n)[first], cols[first]] = True
+    second = rng.random(n) < 0.2
+    t_rows[rng.integers(0, 4, n)[second], cols[second]] = True
+    tr, tc = np.nonzero(t_rows)
+    api.create_field("e", "t")
+    api.import_bits("e", "t", rows=tr, cols=tc)
 
     stored = v - base  # GroupBy's agg is the raw stored sum
     got = api.query("e", "GroupBy(Rows(m), aggregate=Sum(field=v))")[0]
@@ -1068,6 +1111,50 @@ def _bsi_edge_cases(report: Report, API) -> None:
             for a in range(5) for b in range(3)]
     assert [(x.group[0].row_id, x.group[1].row_id, x.count, x.agg)
             for x in got] == want, "2-field GroupBy Sum disagrees"
+    before = KU.launches()["pair_counts"]
+    got = api.query("e", "GroupBy(Rows(m), Rows(g), Rows(t), "
+                         "aggregate=Sum(field=v))")[0]
+    assert KU.launches()["pair_counts"] - before >= 3, "the fold's launches"
+    want = []
+    for a in range(5):
+        for b in range(3):
+            for r in range(4):
+                sel = (m == a) & (g == b) & t_rows[r]
+                if sel.any():
+                    want.append((a, b, r, int(sel.sum()),
+                                 int(stored[sel].sum())))
+    assert [(x.group[0].row_id, x.group[1].row_id, x.group[2].row_id,
+             x.count, x.agg) for x in got] == want, "3-field GroupBy Sum"
+    assert any(w[4] < 0 for w in want), "no negative group sum"
+
+    def order(sel, key, desc=False, limit=None):
+        ids = np.nonzero(sel)[0]
+        ids = ids[np.lexsort((ids, key[ids]))]
+        return (ids[::-1] if desc else ids)[:limit]
+
+    d_val = d_stored / 100
+    for q, ids, vals in (
+            ("Sort(Row(v > 29000), field=v)", order(v > 29000, v), v),
+            ("Sort(Row(v > 29000), field=v, sort-desc=true, limit=100)",
+             order(v > 29000, v, desc=True, limit=100), v),
+            ("Sort(Row(-100 <= v <= 100), field=d, limit=50)",
+             order((v >= -100) & (v <= 100), d_stored, limit=50), d_val)):
+        r = api.query("e", q)[0]
+        assert (r.columns, r.values) == (ids.tolist(),
+                                         vals[ids].tolist()), q
+    ext = api.query("e", "Extract(Row(v > 29900), Rows(v), Rows(d), "
+                         "Rows(t), Rows(m))")[0]
+    ids = np.nonzero(v > 29900)[0]
+    assert [(c.column, c.rows) for c in ext.columns] == [
+        (int(c), [int(v[c]), float(d_val[c]),
+                  np.nonzero(t_rows[:, c])[0].tolist(), [int(m[c])]])
+        for c in ids], "Extract disagrees"
+    for c, want in ((77, (int(v[77]), 1)), (n + 3, (None, 0))):
+        r = api.query("e", f"FieldValue(field=v, column={c})")[0]
+        assert (r.val, r.count) == want, f"FieldValue column {c}"
+    r = api.query("e", "FieldValue(field=d, column=5)")[0]
+    assert (r.val, r.count) == (float(d_val[5]), 1), "FieldValue of d"
+
     neg = v[v < 0]
     checks = {
         "Min(field=v)": (int(v.min()), int((v == v.min()).sum())),
@@ -1080,6 +1167,10 @@ def _bsi_edge_cases(report: Report, API) -> None:
     for q, want in checks.items():
         r = api.query("e", q)[0]
         assert (r.val, r.count) == want, f"{q}: {r} != {want}"
+    torch.cuda.synchronize()
+    report.launched("bsi_small", KU.launches(),
+                    ("pair_counts", "bsi_compare", "tape_count",
+                     "scatter_merge"))
 
     # the kernels on this index's own stacks, at the shapes its queries
     # give them, against their plain versions
@@ -1108,6 +1199,19 @@ def _bsi_edge_cases(report: Report, API) -> None:
             bk = (b & mags[-1][None, :]).contiguous()
             report.err("pair_counts", G.pair_counts(a2, bk),
                        G.pair_counts_plain(a2, bk))
+    # the 3-field fold: the (m, g) groups against a row block of t, then
+    # the (m, g, t) groups against the ones row and the signed planes
+    rows = {f: stacked_set(idx.field(f), [0], "standard") for f in "mgt"}
+    mg = torch.stack([rows["m"].row_plane(a) & rows["g"].row_plane(b)
+                      for a in range(5) for b in range(3)])
+    for _, b in rows["t"].iter_blocks():
+        report.err("pair_counts", G.pair_counts(mg, b),
+                   G.pair_counts_plain(mg, b))
+    mgt = torch.cat([mg & rows["t"].row_plane(r)[None, :] for r in range(4)])
+    side = torch.cat([torch.full_like(pos_m, -1)[None, :],
+                      mags & pos_m[None, :], mags & neg_m[None, :]])
+    report.err("pair_counts", G.pair_counts(mgt, side),
+               G.pair_counts_plain(mgt, side))
 
 
 #: TPC-H/SSB order dates: 1992-01-01 .. 1998-08-02 (ENDDATE - 151 days)
@@ -1141,6 +1245,7 @@ def phase_ssb_by_date(report: Report, args) -> dict:
     from pilosa_tpu_torch.api import API
     from pilosa_tpu_torch.core import stacked as STK
     from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import groupby as G
     from pilosa_tpu_torch.ops import kernel_util as KU
     from pilosa_tpu_torch.ops import topk as T
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -1185,7 +1290,16 @@ def phase_ssb_by_date(report: Report, args) -> dict:
                "Count(All())"]
     for q in queries:
         got[q] = api.query(name, q)[0]
+    # a 3-field GroupBy folds: pair_counts at each level, per row block of
+    # brand, then of orderdate (the compressed blocks decode first)
+    fold_q = ('GroupBy(Rows(year), Rows(brand), Rows(orderdate), '
+              'filter=Row(brand="MFGR#1003"))')
+    before = KU.launches()["pair_counts"]
+    t0 = time.perf_counter()
+    got[fold_q] = api.query(name, fold_q)[0]
     torch.cuda.synchronize()
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    fold_launches = KU.launches()["pair_counts"] - before
     launched = KU.launches()
 
     # -- oracle ---------------------------------------------------------------
@@ -1228,6 +1342,13 @@ def phase_ssb_by_date(report: Report, args) -> dict:
     assert [(g.group[0].row_id, g.count) for g in got[
         "GroupBy(Rows(orderdate), filter=Row(year=1996), limit=50)"]] == \
         want_days, "GroupBy(orderdate, filter)"
+    sel = brand_of == 3
+    triples, tcounts = np.unique(
+        np.stack([year[sel], date[sel]], axis=1), axis=0, return_counts=True)
+    want_fold = [(int(y), names[3], int(d), int(c))
+                 for (y, d), c in zip(triples, tcounts)]
+    assert [(g.group[0].row_id, g.group[1].row_key, g.group[2].row_id,
+             g.count) for g in got[fold_q]] == want_fold, "3-field GroupBy"
     for q, sel in (
             ('Count(Intersect(Row(year=1995), Row(brand="MFGR#1007")))',
              (year == 1995) & (brand_of == 7)),
@@ -1269,6 +1390,13 @@ def phase_ssb_by_date(report: Report, args) -> dict:
                      f"{'compressed' if all(compressed) else 'dense'}")
     report.launched(name, launched, ("ctile_count", "tape_count",
                                      "pair_counts", "scatter_merge"))
+    # one launch per level and row block: year's one block against
+    # brand's blocks, then the pruned groups against orderdate's
+    assert fold_launches == (stacks["brand"].n_blocks
+                             + stacks["orderdate"].n_blocks), fold_launches
+    lines.append(f"{fold_q}: {len(got[fold_q])} groups in {fold_ms:.1f} ms "
+                 f"(first run), {fold_launches} pair_counts launches (one a "
+                 f"level and row block)")
     # ctile_count on the path's own resident blocks (year, _exists and
     # every orderdate block), filtered and unfiltered, against its plain
     # version
@@ -1292,6 +1420,35 @@ def phase_ssb_by_date(report: Report, args) -> dict:
     lines.append(f"ctile_count equals its plain version on the path's "
                  f"{n_held // 2} resident compressed blocks, one by one and "
                  f"stack by stack, filtered and not")
+    # pair_counts at the fold's shapes: the filtered year groups against
+    # each brand block, then the (year, MFGR#1003) groups, the same
+    # planes since the filter is that brand's row, against each decoded
+    # orderdate block
+    groups = stacks["year"].take_rows(stacks["year"].row_ids) & filt[None, :]
+    fold_shapes = {}
+    for level, (a, st) in enumerate(((groups, stacks["brand"]),
+                                     (groups, stacks["orderdate"])), start=1):
+        for _, b in st.iter_blocks():
+            report.err("pair_counts", G.pair_counts(a, b),
+                       G.pair_counts_plain(a, b))
+        shape = f"{a.shape[0]} x {b.shape[0]} x {a.shape[1]} words"
+        fold_shapes[f"level {level}: {shape}"] = {
+            "ms": _time_ms(lambda a=a, b=b: G.pair_counts(a, b), reps=5,
+                           trials=5),
+            "kernel_ms": _device_ms(lambda a=a, b=b: G.pair_counts(a, b),
+                                    "pc_", calls=10),
+            "plain_ms": _time_ms(lambda a=a, b=b: G.pair_counts_plain(a, b),
+                                 reps=1, trials=3),
+            "bound_ms": (a.numel() + b.numel()) * 4 / _mem_rate(
+                torch.cuda.get_device_name(0)) * 1e3}
+        del b
+    report.kernel("pair_counts", fold_shapes=fold_shapes)
+    lines.append("pair_counts equals its plain version at the fold's "
+                 "shapes: " + "; ".join(
+                     f"{k}: {v['ms']:.4f} ms call, kernel "
+                     f"{_fmt_ms(v['kernel_ms'])}, bound {v['bound_ms']:.4f} "
+                     f"ms, plain {v['plain_ms']:.4f} ms"
+                     for k, v in fold_shapes.items()))
     # one TopN over the 10 orderdate blocks: one ctile_count launch
     KU.reset_launches()
     api.query(name, top_q)
@@ -2607,6 +2764,137 @@ def phase_time(report: Report, args, rates) -> None:
     print("time path: every answer matches numpy")
 
 
+#: BASELINE.json config 5 (bench.py bench_config5): 64 shards x 2^20 rows
+C5_SHARDS = 64
+
+
+def _config5_build():
+    """Config 5 as ``bench.py`` builds it: per shard ``fare`` and
+    ``dist`` float32 columns from seed 5, one ``API.import_dataframe``
+    per shard; returns the API and the host columns ``[S, 2^20]``."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as SW
+
+    rng = np.random.default_rng(5)
+    api = API()
+    api.create_index("df")
+    fare = np.empty((C5_SHARDS, SW), dtype=np.float32)
+    dist = np.empty((C5_SHARDS, SW), dtype=np.float32)
+    pos = np.arange(SW)
+    for s in range(C5_SHARDS):
+        fare[s] = rng.random(SW, dtype=np.float32) * 100
+        dist[s] = rng.random(SW, dtype=np.float32) * 30
+        api.import_dataframe("df", s, pos, {"fare": fare[s], "dist": dist[s]})
+    return api, fare, dist
+
+
+def phase_dataframe(report: Report, args, mem_rate: float) -> None:
+    """Path 8: ``BASELINE.json`` config 5 at full size (the dataframe's
+    Apply float aggregation over 67,108,864 rows), its reductions against
+    numpy, and filtered Apply / Arrow over a few thousand records."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as SW
+
+    lab = report.label
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    api, fare, dist = _config5_build()
+    import_s = time.perf_counter() - t0
+    rows = C5_SHARDS * SW
+    x32 = fare + dist * np.float32(2)  # the expression, as the card rounds it
+    x64 = fare.astype(np.float64) + dist.astype(np.float64) * 2
+    sum_q = 'Apply("sum(fare + dist * 2)")'
+    t0 = time.perf_counter()
+    got_sum = api.query("df", sum_q)[0].value  # stacks and uploads 604 MB
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    want_sum = float(x64.sum())
+    assert abs(got_sum - want_sum) <= 1e-4 * abs(want_sum), (got_sum,
+                                                             want_sum)
+    exact = {'Apply("min(fare + dist * 2)")': float(x32.min()),
+             'Apply("max(fare + dist * 2)")': float(x32.max()),
+             'Apply("count(fare + dist * 2)")': rows}
+    for q, want in exact.items():
+        got = api.query("df", q)[0].value
+        assert got == want, f"{q}: {got} != {want}"
+    got_mean = api.query("df", 'Apply("mean(fare + dist * 2)")')[0].value
+    want_mean = float(x64.mean())
+    assert abs(got_mean - want_mean) <= 1e-4 * abs(want_mean), (got_mean,
+                                                                want_mean)
+    # a few thousand seeded records across the shards, as a ConstRow
+    rng = np.random.default_rng(args.seed + 5)
+    picked = np.sort(rng.choice(rows, 4096, replace=False))
+    const = "ConstRow(columns=[" + ",".join(map(str, picked)) + "])"
+    flat_fare = fare.reshape(-1)
+    got = api.query("df", f'Apply({const}, "sum(fare)")')[0].value
+    want = float(flat_fare[picked].astype(np.float64).sum())
+    assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+    got = api.query("df", f'Apply({const}, "fare * 2")')[0].value
+    assert got == [float(v) for v in flat_fare[picked] * np.float32(2)], \
+        "vector Apply disagrees"
+    got = api.query("df", f'Arrow({const}, header=["fare"])')[0]
+    assert [f.name for f in got.fields] == ["fare"]
+    assert got.ids == picked.tolist(), "Arrow ids disagree"
+    assert got.columns == [[float(v) for v in flat_fare[picked]]], \
+        "Arrow values disagree"
+    torch.cuda.synchronize()
+    launched = KU.launches()
+    # the Apply path runs no hand-written kernel: eager torch ops only
+    report.launched("dataframe", launched, ())
+
+    store = api.holder.index("df").dataframe
+    cols, valid, cap = store.device_columns(["dist", "fare"],
+                                            list(range(C5_SHARDS)))
+    assert cap == SW and valid.is_cuda and all(
+        c.is_cuda for c in cols.values()), "the columns are not on the card"
+    resident = valid.numel() * valid.element_size() + sum(
+        c.numel() * c.element_size() for c in cols.values())
+    # two float32 columns and a bool validity: 603,979,776 B at 64 shards
+    assert resident == rows * (4 + 4 + 1), resident
+    bound_ms = resident / mem_rate * 1e3  # each input read once
+    p50 = {}
+    for label, q in (("sum", sum_q), ("mean", 'Apply("mean(fare + dist * 2)")'),
+                     ("filtered sum of 4096 rows",
+                      f'Apply({const}, "sum(fare)")')):
+        p50[label] = statistics.median(
+            _wall_ms(lambda q=q: api.query("df", q)) for _ in range(11))
+    calls = 11
+    ops = _device_ops(lambda: api.query("df", sum_q), calls=calls)
+    # each op runs once a query; a trace loses events, so the busy time
+    # is the sum of the ops' mean times
+    _once_per_call(ops, calls, len(ops))
+    busy = sum(ms for _, ms in ops.values())
+    print(f"dataframe path: config 5, {C5_SHARDS} shards x {SW} rows "
+          f"({rows}); import {import_s:.3f} s; first Apply (stacks and "
+          f"uploads {resident} B) {first_s:.3f} s; launches {launched} {lab}")
+    print(f"dataframe path: sum {got_sum!r} against numpy float64 "
+          f"{want_sum!r} (rel {abs(got_sum - want_sum) / want_sum:.2e}); "
+          f"mean rel {abs(got_mean - want_mean) / want_mean:.2e}; min, max "
+          f"and count exact {lab}")
+    for label, ms in p50.items():
+        print(f"dataframe path: p50 of the {label} {ms:.3f} ms {lab}")
+    print(f"dataframe path: {sum_q}: device busy {busy:.4f} ms per query "
+          f"({100 * busy / p50['sum']:.1f}% of its p50) in {len(ops)} "
+          f"device ops (events in a trace of {calls} queries): "
+          + ", ".join(f"{k} x {name} at {ms:.4f} ms"
+                      for name, (k, ms) in ops.items())
+          + f"; bytes bound {bound_ms:.4f} ms ({resident} B at "
+          f"{mem_rate / 1e12:.2f} TB/s) {lab}")
+    print("dataframe path: " + json.dumps({
+        "import_s": import_s, "first_query_s": first_s,
+        "resident_bytes": resident, "p50_ms": p50, "busy_ms": busy,
+        "device_ops_per_query": len(ops),
+        "bound_ms": bound_ms}))
+    print("dataframe path: every answer matches numpy")
+    store.delete()
+    torch.cuda.empty_cache()
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -2702,6 +2990,7 @@ def main() -> int:
     config1 = phase_config1(report, args)
     phase_writes(report, config1, by_date, bsi)
     phase_time(report, args, (mem_rate, popc_rate, lop_rate))
+    phase_dataframe(report, args, mem_rate)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

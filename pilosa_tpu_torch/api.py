@@ -5,8 +5,9 @@ indexes and fields (set, mutex, bool, time, int, decimal, timestamp; a
 ``time`` field's ``timeQuantum`` is validated as in the JAX package),
 bulk-import bits (by row id or row key) and BSI values (by column id or
 key), keeping
-the ``_exists`` field up to date, and run PQL reads and writes (a query
-with write calls runs as one write request, ``storage/txn.py``).
+the ``_exists`` field up to date, ingest and read dataframe changesets,
+and run PQL reads and writes (a query with write calls, and a dataframe
+changeset, runs as one write request, ``storage/txn.py``).
 ``API()`` runs on the card, ``cuda:0``; ``API(device="cpu")`` runs every
 kernel's plain PyTorch version on the CPU. Without a card, ``API()``
 raises.
@@ -14,7 +15,7 @@ raises.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -130,3 +131,37 @@ class API:
         if idx.options.track_existence:
             idx.field(EXISTENCE_FIELD).import_bits(
                 np.zeros(len(cols), dtype=np.int64), cols)
+
+    # -- dataframe (reference: apply.go ingest, http_handler.go:506-509) --
+
+    def import_dataframe(self, index: str, shard: int,
+                         shard_ids: Sequence[int],
+                         columns: Dict[str, Sequence]) -> None:
+        """Apply a columnar changeset to one shard's frame (reference:
+        apply.go:400 ShardFile.Process)."""
+        idx = self.holder.index(index)
+        with write_qcx(self.holder):
+            idx.dataframe.apply_changeset(shard, shard_ids, columns)
+
+    def dataframe_schema(self, index: str) -> List[dict]:
+        return self.holder.index(index).dataframe.schema()
+
+    def dataframe_shard(self, index: str, shard: int) -> dict:
+        """Raw frame contents for one shard (reference: handleGetDataframe)."""
+        frame = self.holder.index(index).dataframe.frames.get(shard)
+        if frame is None:
+            return {"shard": shard, "columns": {}}
+        out = {}
+        for name, col in frame.columns.items():
+            pos = np.nonzero(frame.valid[name])[0]
+            vals = col[pos]
+            out[name] = {
+                "positions": [int(p) for p in pos],
+                "values": [int(v) if col.dtype.kind == "i" else float(v)
+                           for v in vals],
+            }
+        return {"shard": shard, "columns": out}
+
+    def delete_dataframe(self, index: str) -> None:
+        with write_qcx(self.holder):
+            self.holder.index(index).dataframe.delete()

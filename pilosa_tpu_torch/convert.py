@@ -18,6 +18,8 @@ imports that package):
                                             "planes": ...}}},
             "bsi": {0: np.uint32[2 + depth, WORDS_PER_SHARD]},  # int-like
         }, ...],
+        "dataframe": {0: {"columns": {"fare": np.float64[cap], ...},
+                          "valid": {"fare": np.bool_[cap], ...}}},
     }, ...]}
 
 Row ``i`` of ``planes`` holds the bits of ``row_ids[i]``: ``shards``
@@ -25,7 +27,10 @@ holds the standard view, and ``views`` any other view by name (a
 ``time`` field's quantum views), shard by shard in the same form. A
 ``bsi`` stack is an int-like field's [exists, sign, magnitude bits
 LSB-first] planes of one shard. Any of the three keys may be absent.
-After loading, the port answers what the source answered.
+An index's ``dataframe`` (absent when it has none) holds, per shard,
+each column's values (int64 or float64) and validity as the source's
+frame holds them. After loading, the port answers what the source
+answered.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from pilosa_tpu_torch.core.fragment import _grow_rows
 from pilosa_tpu_torch.core.index import EXISTENCE_FIELD
 from pilosa_tpu_torch.ops.bsi import OFFSET
 from pilosa_tpu_torch.core.schema import FieldOptions, IndexOptions
+from pilosa_tpu_torch.dataframe.store import ShardFrame
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
 
@@ -69,6 +75,8 @@ def load_state(api, state: dict) -> None:
             for view, shards in views.items():
                 for shard, sh in shards.items():
                     _load_rows(fld, name, view, int(shard), sh)
+        for shard, fr in idx_state.get("dataframe", {}).items():
+            _load_frame(idx, int(shard), fr)
 
 
 def _load_rows(fld, name: str, view: str, shard: int, sh: dict) -> None:
@@ -82,3 +90,19 @@ def _load_rows(fld, name: str, view: str, shard: int, sh: dict) -> None:
     frag.row_ids = row_ids
     frag.row_index = {r: i for i, r in enumerate(row_ids)}
     frag.version += 1
+
+
+def _load_frame(idx, shard: int, fr: dict) -> None:
+    frame = ShardFrame(shard)
+    for name, col in fr["columns"].items():
+        col = np.array(col)
+        valid = np.array(fr["valid"][name], dtype=bool)
+        if col.dtype.kind not in "if" or valid.shape != col.shape:
+            raise ValueError(f"dataframe shard {shard} column {name}: "
+                             f"{col.dtype} values and {valid.shape} validity "
+                             f"do not form a column")
+        frame.columns[name] = col.astype(
+            np.int64 if col.dtype.kind == "i" else np.float64)
+        frame.valid[name] = valid
+    frame.version += 1
+    idx.dataframe.frames[shard] = frame

@@ -2,8 +2,9 @@
 
 Port of ``pilosa_tpu/core/index.py``: maintains the existence field
 ``_exists`` (reference: index.go:384) so Not/All have a universe to
-complement against, deletes records from every field, and keeps the
-partitioned record-key store when ``keys=True``.
+complement against, deletes records from every field, keeps the
+partitioned record-key store when ``keys=True``, and holds the index's
+dataframe store (Apply / Arrow) on the index's device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from pilosa_tpu_torch.core.field import Field
 from pilosa_tpu_torch.core.schema import FieldOptions, FieldType, IndexOptions
 from pilosa_tpu_torch.core.translate import PartitionedTranslateStore
+from pilosa_tpu_torch.dataframe.store import DataframeStore
 
 EXISTENCE_FIELD = "_exists"
 EXISTENCE_ROW = 0
@@ -38,6 +40,7 @@ class Index:
         if self.options.track_existence:
             self._create_field_object(EXISTENCE_FIELD,
                                       FieldOptions(type=FieldType.SET))
+        self.dataframe = DataframeStore(name, device)
 
     def _create_field_object(self, name: str, options: FieldOptions) -> Field:
         field = Field(name, options, self.device,
@@ -87,9 +90,11 @@ class Index:
         return frag.row_plane(EXISTENCE_ROW)
 
     def shards(self) -> Set[int]:
-        """All shards holding data in any field (reference: field.go:454
-        available shards, unioned)."""
+        """All shards holding data in any field or the dataframe
+        (reference: field.go:454 available shards, unioned; dataframe
+        shard files, index.go:1035)."""
         out: Set[int] = set()
         for f in self.fields.values():
             out |= f.shards()
+        out.update(self.dataframe.frames)
         return out or {0}

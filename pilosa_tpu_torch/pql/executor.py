@@ -7,14 +7,16 @@ calls Row / Intersect / Union / Difference / Xor / Not / All (with Range
 rows of int-like fields, and ``from=``/``to=`` time ranges over a
 ``time`` field's quantum views), the row-set calls ConstRow / UnionRows /
 Shift / Limit / Distinct / Rows / IncludesColumn, ``Sum`` / ``Min`` /
-``Max`` / ``Percentile``, ``TopN`` (ranged too), ``GroupBy`` over one or
-two ``Rows`` with an optional ``filter=`` and ``aggregate=Sum(...)`` or
-``Count(...)``, ``Options(shards=)``, and the ``StackStale`` retry; and
-the write calls ``Set`` (with a timestamp too) / ``Clear`` /
+``Max`` / ``Percentile``, ``TopN`` (ranged too), ``GroupBy`` over any
+number of ``Rows`` with an optional ``filter=`` and ``aggregate=Sum(...)``
+or ``Count(...)`` (dense up to 2^24 cells over one or two fields, a
+pruning fold past that), the host-scan calls ``Extract`` / ``Sort`` /
+``FieldValue``, the dataframe calls ``Apply`` / ``Arrow``,
+``ExternalLookup``, ``Options(shards=)``, and the ``StackStale`` retry;
+and the write calls ``Set`` (with a timestamp too) / ``Clear`` /
 ``ClearRow`` / ``Store`` / ``Delete``, run once under the holder's write
 lock (reference: executor.go executeSet / executeClear / executeClearRow
-/ executeSetRow / executeDeleteRecords). Every other call raises
-``PQLError("not ported yet: ...")``.
+/ executeSetRow / executeDeleteRecords).
 
 Key translation happens host-side around the kernels (reference:
 executor.go:6814 preTranslate, :7519 translateResults).
@@ -23,7 +25,7 @@ executor.go:6814 preTranslate, :7519 translateResults).
 from __future__ import annotations
 
 import datetime as dt
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +38,8 @@ from pilosa_tpu_torch.core.index import EXISTENCE_ROW, Index
 from pilosa_tpu_torch.core.schema import FieldType
 from pilosa_tpu_torch.core.stacked import (StackedBSI, StackStale,
                                            stacked_bsi, stacked_set)
-from pilosa_tpu_torch.errors import PQLError, not_ported
+from pilosa_tpu_torch.dataframe.expr import compile_expr
+from pilosa_tpu_torch.errors import PQLError
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import topk as T
@@ -55,9 +58,8 @@ _BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
 
 _WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "Delete"}
 
-#: calls of the JAX executor that later slices port
-_LATER_CALLS = {"Extract", "Apply", "Arrow", "Sort", "FieldValue",
-                "ExternalLookup"}
+#: compiled Apply expressions an executor keeps, oldest dropped first
+_APPLY_CACHE_ENTRIES = 64
 
 _COND_TO_BSI = {"==": S.EQ, "!=": S.NE, "<": S.LT, "<=": S.LE,
                 ">": S.GT, ">=": S.GE, "between": S.BETWEEN}
@@ -69,6 +71,8 @@ def has_write_calls(query) -> bool:
     def walk(call) -> bool:
         if call.name in _WRITE_CALLS:
             return True
+        if call.name == "ExternalLookup" and call.arg("write"):
+            return True  # write-mode lookups keep single-writer ordering
         return any(walk(c) for c in call.children)
 
     calls = query.calls if isinstance(query, Query) else [query]
@@ -103,11 +107,36 @@ def _concat(parts, dim=0):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
-class Executor:
-    """Reference: executor.go:55."""
+def _bsi_values(frag, pos: np.ndarray) -> np.ndarray:
+    """The signed stored values of a BSI fragment at the shard-local
+    columns ``pos``, decoded on the host one magnitude plane at a time
+    (the pivot analog, reference: bsi.go:18 PivotDescending)."""
+    w = (pos // 32).astype(np.int64)
+    b = (pos % 32).astype(np.uint32)
+    raw = np.zeros(pos.size, dtype=np.int64)
+    for k in range(frag.depth):
+        raw |= ((frag.planes[S.OFFSET + k][w] >> b) & 1).astype(np.int64) << k
+    sgn = ((frag.planes[S.SIGN][w] >> b) & 1).astype(bool)
+    raw[sgn] = -raw[sgn]
+    return raw
 
-    def __init__(self, holder: Holder):
+
+class Executor:
+    """Reference: executor.go:55.
+
+    ``remote=True`` is peer-serving mode (the reference's Remote:true
+    query flag, executor.go:6392): ``Extract`` and ``Sort`` return
+    untranslated, uncut partials for a coordinator to merge. The other
+    calls do not read it yet; they follow with the cluster slice."""
+
+    #: plug point for ExternalLookup: fn(query: str, write: bool) -> Any
+    external_lookup = None
+
+    def __init__(self, holder: Holder, remote: bool = False):
         self.holder = holder
+        self.remote = remote
+        # source text -> (fn, columns used, is reduction)
+        self._apply_cache: Dict[str, Tuple[Callable, List[str], bool]] = {}
 
     # -- public entry (reference: executor.go:183 Execute) --------------------
 
@@ -165,8 +194,18 @@ class Executor:
             return self._materialize_row(idx, call, shards)
         if name == "IncludesColumn":
             return self._execute_includes_column(idx, call)
-        if name in _LATER_CALLS:
-            raise not_ported(name)
+        if name == "Extract":
+            return self._execute_extract(idx, call, shards)
+        if name == "Apply":
+            return self._execute_apply(idx, call, shards)
+        if name == "Arrow":
+            return self._execute_arrow(idx, call, shards)
+        if name == "Sort":
+            return self._execute_sort(idx, call, shards)
+        if name == "FieldValue":
+            return self._execute_field_value(idx, call)
+        if name == "ExternalLookup":
+            return self._execute_external_lookup(call)
         raise PQLError(f"unknown call {name!r}")
 
     # -- shard helpers ---------------------------------------------------------
@@ -614,23 +653,12 @@ class Executor:
 
     @staticmethod
     def _decode_distinct(frag, filt: Optional[np.ndarray]) -> set:
-        """The unique stored values of a BSI fragment, decoded on the host
-        (the pivot analog, reference: bsi.go:18 PivotDescending)."""
+        """The unique stored values of a BSI fragment, decoded on the
+        host."""
         exists = frag.planes[S.EXISTS]
         if filt is not None:
             exists = exists & filt
-        cols = B.plane_to_bits(exists)
-        if cols.size == 0:
-            return set()
-        w = (cols // 32).astype(np.int64)
-        b = (cols % 32).astype(np.uint32)
-        vals = np.zeros(cols.size, dtype=np.int64)
-        for k in range(frag.depth):
-            bits = (frag.planes[S.OFFSET + k][w] >> b) & 1
-            vals |= bits.astype(np.int64) << k
-        sign = ((frag.planes[S.SIGN][w] >> b) & 1).astype(bool)
-        vals[sign] = -vals[sign]
-        return set(int(v) for v in vals)
+        return set(int(v) for v in _bsi_values(frag, B.plane_to_bits(exists)))
 
     # -- IncludesColumn (reference: executor.go executeIncludesColumnCall) -----
 
@@ -670,8 +698,6 @@ class Executor:
             if agg_call.name == "Sum":
                 agg_field = idx.field(agg_call.arg("field")
                                       or agg_call.arg("_field"))
-        if len(call.children) > 2:
-            raise not_ported("GroupBy over more than two fields")
         fields = [idx.field(self._field_name(c)) for c in call.children]
         limit = call.arg("limit")
         shard_list = self._shards(idx, shards)
@@ -683,17 +709,25 @@ class Executor:
             return []
         agg_st = (stacked_bsi(agg_field, shard_list)
                   if agg_field is not None else None)
+        filter_call = call.arg("filter")
+        filt = (self._eval_all(idx, filter_call, shard_list)
+                if filter_call is not None else None)
+        if len(sts) <= 2 and self._groupby_dense_ok(sts, agg_st):
+            return self._groupby_dense(fields, sts, filt, agg_st, limit)
+        return self._groupby_fold(fields, sts, filt, agg_st, limit)
+
+    @staticmethod
+    def _groupby_dense_ok(sts, agg_st) -> bool:
+        """The dense path holds the whole ``[capA, capB]`` count tensor
+        (and ``[D, capA, capB]`` sum tensors with a Sum aggregate); past
+        2^24 cells the GroupBy folds instead, since paging bounds the
+        input blocks but not the dense output."""
         cells = 1
         for st in sts:
             cells *= st.cap
         if agg_st is not None:  # its plane count, without a decode
             cells *= S.OFFSET + agg_st.depth
-        if cells > 1 << 24:  # the JAX package folds here instead
-            raise not_ported("GroupBy over more than 2^24 dense cells")
-        filter_call = call.arg("filter")
-        filt = (self._eval_all(idx, filter_call, shard_list)
-                if filter_call is not None else None)
-        return self._groupby_dense(fields, sts, filt, agg_st, limit)
+        return cells <= 1 << 24
 
     def _field_row(self, field: Field, row: int) -> R.FieldRow:
         if field.options.keys:
@@ -784,6 +818,338 @@ class Executor:
             return self._groupby_emit(fields, keyed, limit)
 
         return _Deferred(arrays, fin2)
+
+    def _groupby_fold(self, fields, sts, filt, agg_st, limit):
+        """GroupBy over 3+ fields or past the dense cap: fold left to
+        right with the group planes on the device, pruning the empty
+        groups between levels (one copy to the host per level and block
+        of the first field; the reference walks nested iterators per
+        shard, executor.go:3918).
+        The first field streams per row block; deeper levels hold the
+        nonzero groups only, as many as the data has."""
+        keyed_all: List[Tuple] = []
+        n0 = len(sts[0].row_ids)
+        for lo, blk in sts[0].iter_blocks():
+            hi = min(lo + sts[0].block_rows, n0)
+            if hi <= lo:
+                break
+            group_planes = blk[: hi - lo]
+            if filt is not None:
+                group_planes = group_planes & filt[None, :]
+            keys = [(r,) for r in sts[0].row_ids[lo:hi]]
+            keyed_all.extend(self._fold_levels(sts, group_planes, keys,
+                                               agg_st))
+        keyed_all.sort(key=lambda kv: kv[0])
+        return self._groupby_emit(fields, keyed_all, limit)
+
+    @staticmethod
+    def _fold_levels(sts, group_planes, keys, agg_st) -> List[Tuple]:
+        """Fold one batch of level-0 group planes through the remaining
+        fields: per level one pair_counts launch per row block of the
+        next field, then a gather of the nonzero groups' planes. Returns
+        (key, count, agg) of the nonzero groups, agg None without a Sum
+        aggregate."""
+        for level, st in enumerate(sts[1:], start=1):
+            counts = _concat([pair_counts(group_planes, blk)
+                              for _, blk in st.iter_blocks()], dim=1)
+            counts = counts[:, :len(st.row_ids)].cpu().numpy()
+            gi, gj = np.nonzero(counts)
+            if level == len(sts) - 1 and agg_st is None:
+                return [(keys[g] + (st.row_ids[r],), int(counts[g, r]), None)
+                        for g, r in zip(gi, gj)]
+            if gi.size == 0:
+                return []
+            sel = torch.as_tensor(gi, device=group_planes.device)
+            group_planes = group_planes[sel] & st.take_rows(
+                [st.row_ids[r] for r in gj])
+            keys = [keys[g] + (st.row_ids[r],) for g, r in zip(gi, gj)]
+        # each group's count, and with a Sum aggregate its per-plane
+        # signed counts, in one launch
+        side = B.device_ones(group_planes.shape[1], group_planes.device)[None]
+        if agg_st is not None:
+            planes = agg_st.planes
+            mags = planes[S.OFFSET:]
+            side = torch.cat([side,
+                              mags & (planes[S.EXISTS] & ~planes[S.SIGN]),
+                              mags & (planes[S.EXISTS] & planes[S.SIGN])])
+        cols = pair_counts(group_planes, side).cpu().numpy()
+        depth = (cols.shape[1] - 1) // 2
+        return [(keys[g], int(cols[g, 0]),
+                 None if agg_st is None else S.assemble_sum(
+                     cols[g, 1:1 + depth], cols[g, 1 + depth:]))
+                for g in range(len(keys))]
+
+    # -- Extract (reference: executor.go:4711 executeExtract) ------------------
+
+    def _execute_extract(self, idx: Index, call: Call, shards
+                         ) -> R.ExtractedTable:
+        """Extract(bitmap, Rows(f)...): per column of the bitmap, each
+        field's value (BSI), its rows (set, mutex) or its bool, walked on
+        the host after one copy of the bitmap's plane."""
+        if not call.children:
+            raise PQLError("Extract requires a bitmap child")
+        fields = [idx.field(self._field_name(c)) for c in call.children[1:]]
+        efields = [R.ExtractedField(name=f.name, type=f.options.type.value)
+                   for f in fields]
+        columns: List[R.ExtractedColumn] = []
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return R.ExtractedTable(fields=efields, columns=columns)
+        planes_np = self._host_planes(
+            self._eval_all(idx, call.children[0], shard_list),
+            len(shard_list))
+        for si, shard in enumerate(shard_list):
+            local = B.plane_to_bits(planes_np[si])
+            if local.size == 0:
+                continue
+            base = shard * SHARD_WIDTH
+            w = (local // 32).astype(np.int64)
+            b = (local % 32).astype(np.uint32)
+            per_field_vals: List[List[Any]] = []
+            for f in fields:
+                if f.options.type.is_bsi:
+                    frag = f.bsi_fragment(shard)
+                    vals: List[Any] = [None] * local.size
+                    if frag is not None:
+                        exists = ((frag.planes[S.EXISTS][w] >> b) & 1
+                                  ).astype(bool)
+                        vals = [f.from_stored(int(v)) if e else None
+                                for v, e in zip(_bsi_values(frag, local),
+                                                exists)]
+                    per_field_vals.append(vals)
+                    continue
+                frag = f.fragment(shard)
+                rows_per_col: List[Any] = [[] for _ in range(local.size)]
+                if frag is not None:
+                    for row in frag.existing_rows():
+                        hit = ((frag.row_plane(row)[w] >> b) & 1).astype(bool)
+                        for i in np.nonzero(hit)[0]:
+                            rows_per_col[i].append(row)
+                    if f.options.keys and not self.remote:
+                        m = f.translate.translate_ids(
+                            {r for rs in rows_per_col for r in rs})
+                        rows_per_col = [[m.get(r, str(r)) for r in rs]
+                                        for rs in rows_per_col]
+                    if f.options.type == FieldType.BOOL:
+                        rows_per_col = [bool(rs and rs[-1] == 1)
+                                        for rs in rows_per_col]
+                per_field_vals.append(rows_per_col)
+            key_map = {}
+            if idx.options.keys and not self.remote:
+                key_map = idx.translate.translate_ids(
+                    [int(base + c) for c in local])
+            for i, c in enumerate(local):
+                col_id = int(base + c)
+                columns.append(R.ExtractedColumn(
+                    column=col_id,
+                    key=key_map.get(col_id) if idx.options.keys else None,
+                    rows=[pv[i] for pv in per_field_vals]))
+        return R.ExtractedTable(fields=efields, columns=columns)
+
+    # -- Sort (reference: executor.go:9321 executeSort) ------------------------
+
+    def _execute_sort(self, idx: Index, call: Call, shards) -> R.SortedRow:
+        """Sort(filter?, field=f, sort-desc=bool, limit=n): record ids
+        ordered by (value, column) of a bool or int-like field, decoded
+        on the host (reference: executor.go:9387 executeSortShard +
+        SortedRow.Merge)."""
+        field = idx.field(self._field_name(call))
+        desc = bool(call.arg("sort-desc", False))
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return R.SortedRow(columns=[], values=[])
+        filt_np = None
+        if call.children:
+            filt_np = self._host_planes(
+                self._eval_all(idx, call.children[0], shard_list),
+                len(shard_list))
+        cols: List[int] = []
+        vals: List[Any] = []
+        if field.options.type == FieldType.BOOL:
+            for si, shard in enumerate(shard_list):
+                frag = field.fragment(shard)
+                if frag is None:
+                    continue
+                base = shard * SHARD_WIDTH
+                for row, v in ((0, False), (1, True)):
+                    plane = frag.row_plane(row)
+                    if filt_np is not None:
+                        plane = plane & filt_np[si]
+                    for c in B.plane_to_bits(plane):
+                        cols.append(int(base + c))
+                        vals.append(v)
+        elif field.options.type.is_bsi:
+            for si, shard in enumerate(shard_list):
+                frag = field.bsi_fragment(shard)
+                if frag is None:
+                    continue
+                exists = frag.planes[S.EXISTS]
+                if filt_np is not None:
+                    exists = exists & filt_np[si]
+                pos = B.plane_to_bits(exists)
+                base = shard * SHARD_WIDTH
+                cols.extend(int(base + p) for p in pos)
+                vals.extend(field.from_stored(int(v))
+                            for v in _bsi_values(frag, pos))
+        else:
+            raise PQLError(
+                f"Sort supports bool and int-like fields, not "
+                f"{field.options.type.value}")
+        order = sorted(range(len(cols)),
+                       key=lambda i: (vals[i], cols[i]), reverse=desc)
+        limit = call.arg("limit")
+        if limit is not None and not self.remote:
+            order = order[: int(limit)]
+        sorted_cols = [cols[i] for i in order]
+        keys = None
+        if idx.options.keys and not self.remote:
+            m = idx.translate.translate_ids(sorted_cols)
+            keys = [m.get(c, str(c)) for c in sorted_cols]
+        return R.SortedRow(columns=sorted_cols,
+                           values=[vals[i] for i in order], keys=keys)
+
+    # -- FieldValue (reference: executor.go:942 executeFieldValueCall) ---------
+
+    def _execute_field_value(self, idx: Index, call: Call) -> R.ValCount:
+        fname = call.arg("field") or call.arg("_field")
+        if not fname:
+            raise PQLError("FieldValue requires field=")
+        col = call.arg("column")
+        if col is None:
+            raise PQLError("FieldValue requires column=")
+        field = idx.field(fname)
+        c = self._col_id(idx, col)
+        if c is None:
+            return R.ValCount(val=None, count=0)
+        if field.options.type == FieldType.BOOL:
+            shard, pos = divmod(c, SHARD_WIDTH)
+            frag = field.fragment(shard)
+            if frag is None:
+                return R.ValCount(val=None, count=0)
+            w, b = divmod(pos, 32)
+            for row in (1, 0):
+                if frag.row_plane(row)[w] & (np.uint32(1) << np.uint32(b)):
+                    return R.ValCount(val=bool(row), count=1)
+            return R.ValCount(val=None, count=0)
+        if not field.options.type.is_bsi:
+            raise PQLError("FieldValue requires an int-like or bool field")
+        v = field.value(c)
+        if v is None:
+            return R.ValCount(val=None, count=0)
+        return R.ValCount(val=v, count=1)
+
+    # -- ExternalLookup (reference: executor.go executeExternalLookup, a
+    #    pass-through to an operator-configured external database) -------------
+
+    def _execute_external_lookup(self, call: Call) -> Any:
+        if self.external_lookup is None:
+            raise PQLError(
+                "ExternalLookup requires an external lookup backend "
+                "(reference: server --lookup-db-dsn); none is configured")
+        return self.external_lookup(call.arg("query"),
+                                    bool(call.arg("write", False)))
+
+    # -- Apply / Arrow (dataframe; reference: apply.go:121 executeApply,
+    #    arrow.go:36 executeArrow) ---------------------------------------------
+
+    def _execute_apply(self, idx: Index, call: Call, shards) -> Any:
+        """Apply(filter?, "expr"): the expression (dataframe/expr.py)
+        compiles once per source text and runs as eager torch ops over
+        the shard-stacked columns on the device, the map and the
+        cross-shard reduce together; a reduction comes back as one
+        scalar."""
+        # the expression string lands in _ivy (the reference's reserved
+        # arg), in _args (after a filter child), or in _col (no filter)
+        src = call.arg("_ivy") or call.arg("_args", [None])[0]
+        if not isinstance(src, str):
+            src = call.arg("_col")
+        if not isinstance(src, str):
+            raise PQLError("Apply requires an expression string argument")
+        if len(call.children) > 1:
+            raise PQLError("Apply() accepts a single bitmap filter")
+        shard_list = self._shards(idx, shards)
+        df_shards = [s for s in shard_list if s in idx.dataframe.frames]
+        compiled = self._apply_cache.get(src)
+        if compiled is None:
+            fn, cols_used, is_red = compile_expr(src)
+            compiled = self._apply_cache[src] = (fn, sorted(cols_used),
+                                                 is_red)
+            while len(self._apply_cache) > _APPLY_CACHE_ENTRIES:
+                self._apply_cache.pop(next(iter(self._apply_cache)))
+        fn, cols_used, is_red = compiled
+        if not df_shards:
+            return R.ApplyResult(value=0 if is_red else [])
+        cols, valid, cap = idx.dataframe.device_columns(cols_used, df_shards)
+        mask = valid
+        if call.children:
+            plane = self._eval_all(idx, call.children[0], df_shards)
+            mask = mask & self._plane_to_mask(plane, len(df_shards), cap)
+        out = fn(cols, mask)
+        if is_red:
+            return _Deferred([out], lambda v: R.ApplyResult(value=v.item()))
+        return _Deferred([out[mask]], lambda v: R.ApplyResult(
+            value=[float(x) for x in v]))
+
+    @staticmethod
+    def _plane_to_mask(plane: torch.Tensor, n_shards: int, cap: int
+                       ) -> torch.Tensor:
+        """Expand an ``int32[S*W]`` bitmap plane into ``bool[S, cap]``
+        positions, LSB first. The shift is arithmetic on int32, and
+        ``(w >> s) & 1`` is still bit ``s`` for every s in 0..31."""
+        need_words = (cap + 31) // 32
+        words = plane.reshape(n_shards, WORDS_PER_SHARD)[:, :need_words]
+        shifts = torch.arange(32, dtype=torch.int32, device=plane.device)
+        bits = (words[:, :, None] >> shifts) & 1
+        return bits.reshape(n_shards, need_words * 32)[:, :cap] != 0
+
+    def _execute_arrow(self, idx: Index, call: Call, shards) -> R.ArrowTable:
+        """Arrow(filter?, header=[...]): the dataframe's values of the
+        filtered records, walked on the host (reference: arrow.go:366
+        executeArrowShard + header filterColumns)."""
+        header = call.arg("header")
+        shard_list = self._shards(idx, shards)
+        df_shards = [s for s in shard_list if s in idx.dataframe.frames]
+        schema = idx.dataframe.schema()
+        if header:
+            schema = [c for c in schema if c["name"] in set(header)]
+        names = [c["name"] for c in schema]
+        fields = [R.ExtractedField(name=c["name"], type=c["type"])
+                  for c in schema]
+        if not df_shards or not names:
+            return R.ArrowTable(fields=fields, columns=[[] for _ in names])
+        filt_np = None
+        if call.children:
+            filt_np = self._host_planes(
+                self._eval_all(idx, call.children[0], df_shards),
+                len(df_shards))
+        ids: List[int] = []
+        out_cols: List[List[Any]] = [[] for _ in names]
+        for si, shard in enumerate(df_shards):
+            frame = idx.dataframe.frames[shard]
+            n = frame.length()
+            present = np.zeros(n, dtype=bool)
+            for name in names:
+                v = frame.valid.get(name)
+                if v is not None:
+                    present[: v.size] |= v[:n]
+            if filt_np is not None:
+                fbits = np.unpackbits(
+                    filt_np[si].view(np.uint8), bitorder="little")[:n]
+                present &= fbits.astype(bool)
+            pos = np.nonzero(present)[0]
+            base = shard * SHARD_WIDTH
+            ids.extend(int(base + p) for p in pos)
+            for ci, name in enumerate(names):
+                col = frame.columns.get(name)
+                v = frame.valid.get(name)
+                for p in pos:
+                    if col is not None and p < col.size and v[p]:
+                        x = col[p]
+                        out_cols[ci].append(
+                            int(x) if col.dtype.kind == "i" else float(x))
+                    else:
+                        out_cols[ci].append(None)
+        return R.ArrowTable(fields=fields, columns=out_cols, ids=ids)
 
     # -- writes (reference: executor.go executeSet/Clear/Store) ----------------
 

@@ -91,3 +91,76 @@ class GroupCount:
         if self.agg is not None:
             d["agg"] = self.agg
         return d
+
+
+@dataclasses.dataclass
+class ExtractedField:
+    name: str
+    type: str
+
+
+@dataclasses.dataclass
+class ExtractedColumn:
+    column: int
+    key: Optional[str]
+    rows: List[Any]  # one entry per field: list of row ids/keys, value, or bool
+
+
+@dataclasses.dataclass
+class ExtractedTable:
+    fields: List[ExtractedField]
+    columns: List[ExtractedColumn]
+
+    def to_json(self) -> dict:
+        return {
+            "fields": [dataclasses.asdict(f) for f in self.fields],
+            "columns": [
+                {
+                    ("key" if c.key is not None else "column"):
+                        (c.key if c.key is not None else c.column),
+                    "rows": c.rows,
+                }
+                for c in self.columns
+            ],
+        }
+
+
+@dataclasses.dataclass
+class SortedRow:
+    """Sort() output (reference: executor.go:9321 executeSort SortedRow):
+    record ids ordered by a field's value, with the values alongside."""
+    columns: List[int]
+    values: List[Any]
+    keys: Optional[List[str]] = None
+
+    def to_json(self) -> dict:
+        out = {"columns": self.columns, "values": self.values}
+        if self.keys is not None:
+            out["keys"] = self.keys
+        return out
+
+
+@dataclasses.dataclass
+class ApplyResult:
+    """Apply() output (reference: apply.go ApplyResult = *arrow.Column):
+    a scalar for reductions, else the masked per-record vector."""
+    value: Any  # float/int scalar, or List[float]
+
+    def to_json(self) -> Any:
+        return self.value
+
+
+@dataclasses.dataclass
+class ArrowTable:
+    """Arrow() output (reference: arrow.go:110 BasicTable JSON marshal):
+    named typed columns for the filtered records."""
+    fields: List[ExtractedField]
+    columns: List[List[Any]]  # one list per field, aligned with ids
+    ids: List[int] = dataclasses.field(default_factory=list)
+
+    def to_json(self) -> dict:
+        return {
+            "fields": [dataclasses.asdict(f) for f in self.fields],
+            "columns": self.columns,
+            "ids": self.ids,
+        }

@@ -654,3 +654,50 @@ def test_time_ranges_on_the_card_match_the_cpu(dev):
             out.append(api.query("t", reads))
             assert STK.UPLOAD_STATS["count"] == before, w
     assert answers[0] == answers[1]
+
+
+@pytest.mark.parametrize("groups", [1, 7, 40, 300])
+@pytest.mark.parametrize("rows", [8, 256])
+def test_pair_counts_kernel_fold_shapes(dev, groups, rows):
+    """The GroupBy fold's launches: the pruned group planes against a row
+    block of the next field, and against the ones row and the signed
+    magnitude planes of a Sum aggregate (depth 20: 41 rows)."""
+    rng = np.random.default_rng(groups * 31 + rows)
+    w = 6 * 32768
+    a = words(rng, (groups, w), dev)
+    for b in (words(rng, (rows, w), dev), words(rng, (41, w), dev)):
+        assert torch.equal(_pair_counts_once(a, b), G.pair_counts_plain(a, b))
+
+
+def test_fold_and_apply_on_the_card_match_the_cpu(dev, monkeypatch):
+    """A 3-field GroupBy (dense over 2 fields is not an option: it folds,
+    launching pair_counts per level) and Apply / Arrow over a dataframe,
+    on the card and on the CPU alike; Apply's float sums to rel 1e-5."""
+    rng = np.random.default_rng(19)
+    cols = np.sort(rng.choice(3 << 20, 5000, replace=False))
+    rows = {name: rng.integers(0, 5, cols.size) for name in "abc"}
+    values = rng.integers(-99, 99, cols.size)
+    fare = rng.random(cols.size).astype(np.float32) * 100
+    n = rng.integers(0, 9, cols.size)
+    apis = [API(), API(device="cpu")]
+    for api in apis:
+        api.create_index("f")
+        for name in "abc":
+            api.create_field("f", name)
+            api.import_bits("f", name, rows=rows[name], cols=cols)
+        api.create_field("f", "v", {"type": "int"})
+        api.import_values("f", "v", cols=cols, values=values)
+        for s in range(3):
+            mine = cols >> 20 == s
+            api.import_dataframe("f", s, cols[mine] & ((1 << 20) - 1),
+                                 {"fare": fare[mine], "n": n[mine]})
+    before = KU.launches()["pair_counts"]
+    fold = "GroupBy(Rows(a), Rows(b), Rows(c), aggregate=Sum(field=v))"
+    assert apis[0].query("f", fold) == apis[1].query("f", fold)
+    assert KU.launches()["pair_counts"] > before + 2
+    for q in ('Apply("sum(fare * n)")', 'Apply(Row(a=1), "mean(fare)")',
+              'Apply(Row(b=2), "max(fare - n)")', 'Apply("count(n)")'):
+        got, want = (api.query("f", q)[0].value for api in apis)
+        assert got == pytest.approx(want, rel=1e-5), q
+    for q in ('Apply(Row(c=3), "fare * 2")', "Arrow(Row(a=4))"):
+        assert apis[0].query("f", q) == apis[1].query("f", q), q
