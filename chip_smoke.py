@@ -133,8 +133,28 @@ Phases, each printed on its own line:
     sum, a vector Apply and an ``Arrow`` over a 4,096-column ``ConstRow``,
     with the import seconds, the first query, p50s, and the Sum's device
     ops and busy time beside its bytes bound;
-12. one ``{"kernels": [...]}`` JSON line;
-13. the last line: ``{"ok": true, "device": {...}}``.
+12. main path 9, the serving layer: (9a) ``bench.py`` config 6
+    (1,000,000 records, seed 6, ``city`` 50 rows, ``device`` 10), 64
+    Intersect Counts one after another, then from 64 threads through
+    ``API.enable_scheduler(window_ms=2.0, max_batch=64)``: QPS, p50 and
+    p99 of each, the fused batches and the host waits inside each
+    (exactly one), and the implicit syncs ``torch.cuda.set_sync_debug_mode``
+    reports in one fused batch; (9b) config 7 (seed 7) with the result
+    cache off, cold, warm (no kernel launches) and write-invalidated (each
+    read a miss that launches ``tape_count``); (9c) config 8 (8 shards x
+    200,000 records, seed 8), 32 Counts over random 4-of-8 shard subsets
+    unfused and fused, and the fusion battery's families through
+    ``execute_many(per_query_shards=...)`` against solo runs; (9d) fused
+    masked waves on the indexes of paths 7, 1 and 3 (32 ranged Counts over
+    complementary 128-of-256 shard subsets; Count / TopN / GroupBy over
+    3-of-6 subsets; TopN(orderdate), half of them filtered), each with its
+    dispatches, the mask planes built and found, the mask LRU's bytes, p50
+    and p99, the fused batch's device time and busy share; no fused batch
+    may fall back to solo runs; the masked ``tape_count`` and the
+    mask-filtered ``pair_counts`` and ``ctile_count`` against their plain
+    versions on those stacks, timed beside their bounds;
+13. one ``{"kernels": [...]}`` JSON line;
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -206,25 +226,39 @@ def _device_ms(fn, kernel: str = "", calls: int = 20, flush=None):
     this excludes the host's time to enqueue each launch. With
     ``flush`` (a tensor larger than L2, zeroed before every call) the
     operands come from device memory, not L2; name a kernel then, or the
-    zeroing counts too."""
+    zeroing counts too. Flushed traces of an H100 have held 18 or 19 of
+    20 launches, so with ``flush`` the time is the mean of the events the
+    trace holds times the whole number of them a call launches; a trace
+    that holds none (seen once) is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                if flush is not None:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:  # no CUPTI tracing on this machine
-        print(f"profiler: {e}")
+    for _ in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    if flush is not None:
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:  # no CUPTI tracing on this machine
+            print(f"profiler: {e}")
+            return None
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        if us > 0:
+            break
+    else:
         return None
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / calls / 1e3 if us > 0 else None
+    if flush is None:
+        return us / calls / 1e3
+    events = sum(e.count for e in hits)
+    if events % calls:
+        print(f"profiler: a trace of {calls} calls held {events} events "
+              f"of {kernel!r}")
+    return us / events * max(1, round(events / calls)) / 1e3
 
 
 def _device_ops(fn, calls: int = 50):
@@ -781,7 +815,7 @@ def _compressed_blocks(rng, n: int, width: int, device, rows: int = 16):
     return out
 
 
-def phase_main_path(report: Report, args) -> None:
+def phase_main_path(report: Report, args) -> dict:
     import numpy as np
     import torch
 
@@ -914,6 +948,8 @@ def phase_main_path(report: Report, args) -> None:
     print(f"main path: p50 of the GroupBy+TopN query {p50:.3f} ms; p50 of "
           f"Count(Intersect) {count_p50:.3f} ms {report.label}")
     print("main path: every answer matches the numpy oracle")
+    return {"api": api, "year_of": year_of, "brand_of": brand_of,
+            "names": names, "bid": bid}
 
 
 def _compress_decision_s(blk):
@@ -2083,7 +2119,7 @@ def _writes_ssb(ssb: dict) -> dict:
     _same_as_rebuild(br)
     return {"seg": seg, "decayed": decayed, "kinds": kinds,
             "used": (used0, used1), "first_read_ms": first_read_ms,
-            "od": od, "br": br}
+            "od": od, "br": br, "date": date, "brand_of": brand_of}
 
 
 def _writes_bsi(bsi: dict) -> dict:
@@ -2180,8 +2216,10 @@ def _writes_bsi(bsi: dict) -> dict:
             "round_busy_ms": busy}
 
 
-def phase_writes(report: Report, c1: dict, ssb: dict, bsi: dict) -> None:
-    """Path 6: writes between reads on paths 5, 3 and 2's indexes."""
+def phase_writes(report: Report, c1: dict, ssb: dict, bsi: dict) -> dict:
+    """Path 6: writes between reads on paths 5, 3 and 2's indexes.
+    Returns path 3's index with the orderdate and brand oracle as the
+    writes left them."""
     import numpy as np
     import torch
 
@@ -2304,6 +2342,7 @@ def phase_writes(report: Report, c1: dict, ssb: dict, bsi: dict) -> None:
                "ssb_first_read_ms": b["first_read_ms"]}
     print("writes path: " + json.dumps(summary))
     print("writes path: every answer matches numpy")
+    return {**ssb, "date": b["date"], "brand_of": b["brand_of"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2578,7 +2617,7 @@ def _c4_kernels(report, api, rates) -> dict:
     return out
 
 
-def phase_time(report: Report, args, rates) -> None:
+def phase_time(report: Report, args, rates) -> dict:
     """Path 7: ``BASELINE.json`` config 4 at full size (time-quantum
     Row+Count across 256 shards), its ranged reads and writes, and the
     row-set calls on a small index."""
@@ -2762,6 +2801,7 @@ def phase_time(report: Report, args, rates) -> None:
         "write_visible_ms": statistics.median(write_ms),
         "kernels": kern}))
     print("time path: every answer matches numpy")
+    return {"api": api, "host": host}
 
 
 #: BASELINE.json config 5 (bench.py bench_config5): 64 shards x 2^20 rows
@@ -2895,6 +2935,810 @@ def phase_dataframe(report: Report, args, mem_rate: float) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Path 9: the serving layer (bench.py configs 6-8, fused masked waves)
+# ---------------------------------------------------------------------------
+
+
+class _ServingProbe:
+    """What a fused wave did, counted by wrapping the executor's and the
+    scheduler's functions while the probe is open: the host's blocking
+    waits (``_wait_copies``) and those inside each ``execute_many``, the
+    sizes of the batches the scheduler dispatched, solo ``execute``
+    calls, ``execute_batch`` fallbacks (an entry re-run alone inside a
+    batch of several) and the mask planes built and found in the LRU.
+    The port needs no counter of its own for these."""
+
+    def __init__(self):
+        import threading
+
+        from pilosa_tpu_torch.pql import executor as EX
+        from pilosa_tpu_torch.sched import batch as BAT
+        from pilosa_tpu_torch.sched import scheduler as SCH
+
+        self.EX, self.BAT, self.SCH = EX, BAT, SCH
+        self.tls = threading.local()
+        self.lock = threading.Lock()
+        self.reset()
+        self._orig = (EX._wait_copies, EX._mask_plane, BAT._run_single,
+                      SCH.execute_batch)
+        wait0, mask0, single0, batch0 = self._orig
+        probe = self
+
+        def wait(ev):
+            with probe.lock:
+                probe.waits += 1
+            if getattr(probe.tls, "fused", None) is not None:
+                probe.tls.fused += 1
+            return wait0(ev)
+
+        def mask_plane(shard_list, subset, device):
+            with EX._MASK_LOCK:
+                hit = (str(device), shard_list, subset) in EX._MASK_PLANES
+            with probe.lock:
+                probe.masks[0 if hit else 1] += 1
+            return mask0(shard_list, subset, device)
+
+        def run_single(executor, entry):
+            if getattr(probe.tls, "batch", 1) > 1:
+                with probe.lock:
+                    probe.fallbacks += 1
+            return single0(executor, entry)
+
+        def execute_batch(executor, entries):
+            probe.tls.batch = len(entries)
+            with probe.lock:
+                probe.batches.append(len(entries))
+            try:
+                return batch0(executor, entries)
+            finally:
+                probe.tls.batch = 1
+
+        EX._wait_copies, EX._mask_plane = wait, mask_plane
+        BAT._run_single, SCH.execute_batch = run_single, execute_batch
+
+    def reset(self) -> None:
+        self.waits = 0
+        self.fused_waits = []  # waits inside each execute_many call
+        self.batches = []
+        self.solo = 0
+        self.fallbacks = 0
+        self.masks = [0, 0]  # found, built
+
+    def watch(self, api) -> None:
+        """Count the solo and fused calls of ``api``'s executor."""
+        ex = api.executor
+        cls = type(ex)
+        probe = self
+
+        def execute(index, query, shards=None):
+            with probe.lock:
+                probe.solo += 1
+            return cls.execute(ex, index, query, shards)
+
+        def execute_many(index, queries, shards=None, per_query_shards=None):
+            probe.tls.fused = 0
+            try:
+                return cls.execute_many(ex, index, queries, shards=shards,
+                                        per_query_shards=per_query_shards)
+            finally:
+                with probe.lock:
+                    probe.fused_waits.append(probe.tls.fused)
+                probe.tls.fused = None
+
+        ex.execute, ex.execute_many = execute, execute_many
+
+    @staticmethod
+    def unwatch(api) -> None:
+        del api.executor.execute
+        del api.executor.execute_many
+
+    def close(self) -> None:
+        EX, BAT, SCH = self.EX, self.BAT, self.SCH
+        (EX._wait_copies, EX._mask_plane, BAT._run_single,
+         SCH.execute_batch) = self._orig
+
+
+def _pct_ms(lat_s, p: float) -> float:
+    """The ``p`` quantile of latencies in seconds, in ms, as bench.py
+    takes it (the sorted sample at ``int(p * n)``)."""
+    lat = sorted(lat_s)
+    return lat[min(len(lat) - 1, int(p * len(lat)))] * 1e3
+
+
+def _free_wave(api, index, queries, shards=None):
+    """Every query from its own thread at once through ``api.query``, as
+    bench.py's configs 6 and 8 run them: (answers, per-query seconds,
+    wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(i):
+        t0 = time.perf_counter()
+        r = api.query(index, queries[i],
+                      shards=None if shards is None else shards[i])[0]
+        return r, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(queries)) as pool:
+        t0 = time.perf_counter()
+        futs = [pool.submit(timed, i) for i in range(len(queries))]
+        out = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+    return [r for r, _ in out], [s for _, s in out], wall
+
+
+def _staged_wave(api, index, queries, shards):
+    """Every query submitted from its own thread while the scheduler is
+    paused, then released at once, so the wave is one fused dispatch per
+    op family: (answers, seconds from the release to each answer, wall
+    seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sched = api.scheduler
+    sched.pause()
+    done = {}
+
+    def one(i):
+        r = api.query(index, queries[i], shards=shards[i])[0]
+        done[i] = time.perf_counter()
+        return r
+
+    with ThreadPoolExecutor(len(queries)) as pool:
+        futs = [pool.submit(one, i) for i in range(len(queries))]
+        assert sched.wait_queued(len(queries), timeout=60) == len(queries)
+        t0 = time.perf_counter()
+        sched.resume()
+        out = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+    return out, [done[i] - t0 for i in range(len(queries))], wall
+
+
+def _counters(reg, prefix: str) -> float:
+    return sum(v for k, v in reg.as_json()["counters"].items()
+               if k.startswith(prefix))
+
+
+def _c67_build(seed: int, name: str):
+    """Config 6 or 7 as bench.py builds it: 1,000,000 records of seed
+    ``seed``, set fields ``city`` (50 rows) and ``device`` (10), one
+    shard."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+
+    rng = np.random.default_rng(seed)
+    n = 1_000_000
+    city = rng.integers(0, 50, n)
+    dev = rng.integers(0, 10, n)
+    api = API()
+    api.create_index(name)
+    api.create_field(name, "city")
+    api.create_field(name, "device")
+    cols = np.arange(n)
+    api.import_bits(name, "city", rows=city, cols=cols)
+    api.import_bits(name, "device", rows=dev, cols=cols)
+    return api, city, dev
+
+
+def _serving_config6(probe, lab) -> dict:
+    """9a: bench.py config 6, 64 Intersect Counts with the scheduler off,
+    then from 64 threads with it on; one fused batch under the sync
+    debug mode."""
+    import numpy as np
+
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+
+    api, city, dev = _c67_build(6, "c6")
+    nq = 64
+    queries = [f"Count(Intersect(Row(city={i % 50}), Row(device={i % 10})))"
+               for i in range(nq)]
+    want = [int(np.sum((city == i % 50) & (dev == i % 10)))
+            for i in range(nq)]
+    assert api.query("c6", queries[0]) == [want[0]]  # builds the stacks
+    off, t0 = [], time.perf_counter()
+    for q, w in zip(queries, want):
+        t1 = time.perf_counter()
+        assert api.query("c6", q) == [w]
+        off.append(time.perf_counter() - t1)
+    off_wall = time.perf_counter() - t0
+    reg = MetricsRegistry()
+    api.enable_scheduler(window_ms=2.0, max_batch=nq, registry=reg)
+    probe.reset()
+    probe.watch(api)
+    try:
+        got, on, on_wall = _free_wave(api, "c6", queries)
+    finally:
+        probe.unwatch(api)
+        api.disable_scheduler()
+    assert got == want, "config 6: a batched answer disagrees with numpy"
+    assert probe.fallbacks == 0, f"{probe.fallbacks} solo fallbacks"
+    assert probe.fused_waits and all(w == 1 for w in probe.fused_waits), \
+        f"waits per fused Count batch {probe.fused_waits}"
+    batches = _counters(reg, "sched_batches_total")
+    # the implicit syncs one fused batch of the 64 Counts makes
+    fused, syncs = _implicit_syncs(
+        lambda: api.executor.execute_many("c6", queries))
+    assert [r[0] for r in fused] == want
+    fused_ms = statistics.median(
+        _wall_ms(lambda: api.executor.execute_many("c6", queries))
+        for _ in range(5))
+    fused_busy = _device_ms(lambda: api.executor.execute_many("c6", queries),
+                            calls=5)
+    out = {
+        "qps_off": nq / off_wall, "qps_on": nq / on_wall,
+        "p50_off_ms": _pct_ms(off, 0.5), "p99_off_ms": _pct_ms(off, 0.99),
+        "p50_on_ms": _pct_ms(on, 0.5), "p99_on_ms": _pct_ms(on, 0.99),
+        "sched_batches_total": batches, "batch_sizes": probe.batches,
+        "waits_per_fused_batch": probe.fused_waits,
+        "solo_executes": probe.solo, "fallbacks": probe.fallbacks,
+        "implicit_syncs_in_one_fused_batch": len(syncs),
+        "fused_batch_of_64_ms": fused_ms, "fused_batch_busy_ms": fused_busy}
+    print(f"serving path: 9a config 6 (1,000,000 records, 60 rows x "
+          f"131,072 B of stacks): scheduler off {out['qps_off']:.1f} QPS, "
+          f"p50 {out['p50_off_ms']:.3f} ms, p99 {out['p99_off_ms']:.3f} ms; "
+          f"on (64 threads, window 2 ms) {out['qps_on']:.1f} QPS, p50 "
+          f"{out['p50_on_ms']:.3f} ms, p99 {out['p99_on_ms']:.3f} ms; "
+          f"sched_batches_total {batches:g} (sizes {probe.batches}); waits "
+          f"per fused batch {probe.fused_waits}; solo executes "
+          f"{probe.solo} (batches of one), fallbacks {probe.fallbacks}; "
+          f"implicit syncs in one fused batch of 64: {len(syncs)}"
+          + (f" ({syncs[0]})" if syncs else "") + f"; that batch alone "
+          f"(execute_many of the 64, no scheduler) {fused_ms:.3f} ms, busy "
+          f"{_fmt_ms(fused_busy)} {lab}")
+    del api
+    return out
+
+
+def _implicit_syncs(fn):
+    """(``fn()``, the Python line, as ``file:line``, of each implicit
+    host sync that ``torch.cuda.set_sync_debug_mode("warn")`` reports
+    while it runs)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice that it is a prototype is not a sync
+    return res, [f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in caught if "prototype" not in str(w.message)]
+
+
+def _serving_config7(lab) -> dict:
+    """9b: bench.py config 7, one Intersect Count with the cache off,
+    cold, warm and write-invalidated."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    api, city, dev = _c67_build(7, "c7")
+    n = city.size
+    q = "Count(Intersect(Row(city=3), Row(device=7)))"
+    want = int(np.sum((city == 3) & (dev == 7)))
+    assert api.query("c7", q) == [want]
+    iters = 11
+
+    def timed(expect):
+        t0 = time.perf_counter()
+        r = api.query("c7", q)[0]
+        s = time.perf_counter() - t0
+        assert r == expect, (r, expect)
+        return s
+
+    lat = {"off": [timed(want) for _ in range(iters)]}
+    cache = api.enable_cache(registry=MetricsRegistry())
+    try:
+        lat["cold"] = []
+        for _ in range(iters):
+            cache.flush()
+            lat["cold"].append(timed(want))
+        timed(want)  # fill
+        torch.cuda.synchronize()
+        before = KU.launches()
+        lat["warm"] = [timed(want) for _ in range(iters * 4)]
+        warm_launches = {k: v - before[k] for k, v in KU.launches().items()}
+        assert not any(warm_launches.values()), \
+            f"a warm cache hit launched {warm_launches}"
+        lat["write-invalidated"] = []
+        exp = want
+        for i in range(iters):
+            api.query("c7", f"Set({n + i}, city=3)Set({n + i}, device=7)")
+            exp += 1
+            misses, tc = cache.stats()["misses"], \
+                KU.launches()["tape_count"]
+            lat["write-invalidated"].append(timed(exp))
+            assert cache.stats()["misses"] == misses + 1, \
+                "a read after a write was not a miss"
+            assert KU.launches()["tape_count"] == tc + 1, \
+                "a read after a write did not launch tape_count"
+        stats = cache.stats()
+    finally:
+        api.disable_cache()
+    out = {k: {"p50_ms": _pct_ms(v, 0.5), "p99_ms": _pct_ms(v, 0.99)}
+           for k, v in lat.items()}
+    out["warm_launches"] = warm_launches
+    out["cache"] = stats
+    print("serving path: 9b config 7: " + "; ".join(
+        f"{k} p50 {v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms"
+        for k, v in out.items() if "p50_ms" in v)
+        + f"; warm phase launched nothing; every write-invalidated read a "
+        f"miss with one tape_count launch; cache {stats} {lab}")
+    del api
+    return out
+
+
+_FAMILY_QUERIES = [
+    "Count(Row(city=1))", "Count(Intersect(Row(city=0), Row(device=1)))",
+    "Count(Row(amt > 10))", "Row(city=2)", "Union(Row(city=0), Row(city=3))",
+    "Difference(Row(city=1), Row(device=0))", "Xor(Row(city=1), Row(city=2))",
+    "Not(Row(city=1))", "Shift(Row(city=4), n=2)",
+    "UnionRows(Rows(city, limit=3))", "Limit(Row(city=0), limit=7, offset=2)",
+    "Sum(Row(city=1), field=amt)", "Sum(field=amt)", "Min(field=amt)",
+    "Max(Row(device=2), field=amt)", "Percentile(field=amt, nth=50)",
+    "TopN(city, n=3)", "TopK(device, k=2)", "Rows(city)",
+    "Rows(city, limit=2)", "GroupBy(Rows(city))",
+    "GroupBy(Rows(city), Rows(device), aggregate=Sum(field=amt))",
+    "Distinct(field=city)", "Count(Distinct(field=amt))"]
+
+
+def _serving_config8(probe, report, lab) -> dict:
+    """9c: bench.py config 8 (32 Counts over random 4-of-8 shard subsets,
+    unfused and fused), then the fusion battery's families through
+    ``execute_many(per_query_shards=...)`` against solo runs."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(8)
+    n_shards, per_shard = 8, 200_000
+    api = API()
+    api.create_index("c8")
+    api.create_field("c8", "city")
+    api.create_field("c8", "device")
+    city_by, dev_by = [], []
+    for shard in range(n_shards):
+        city = rng.integers(0, 50, per_shard)
+        dev = rng.integers(0, 10, per_shard)
+        cols = shard * SHARD_WIDTH + np.arange(per_shard)
+        api.import_bits("c8", "city", rows=city, cols=cols)
+        api.import_bits("c8", "device", rows=dev, cols=cols)
+        city_by.append(city)
+        dev_by.append(dev)
+    nq = 32
+    subsets = [sorted(rng.choice(n_shards, size=4, replace=False).tolist())
+               for _ in range(nq)]
+    queries = [f"Count(Intersect(Row(city={i % 50}), Row(device={i % 10})))"
+               for i in range(nq)]
+    want = [int(sum(np.sum((city_by[s] == i % 50) & (dev_by[s] == i % 10))
+                    for s in subsets[i])) for i in range(nq)]
+    api.query("c8", queries[0], shards=subsets[0])
+    api.executor.execute_many("c8", queries[:2], per_query_shards=subsets[:2])
+    out = {}
+    for label, ratio in (("unfused", 0.0), ("fused", 2.0)):
+        reg = MetricsRegistry()
+        api.enable_scheduler(window_ms=2.0, max_batch=nq,
+                             fuse_waste_ratio=ratio, registry=reg)
+        probe.reset()
+        probe.watch(api)
+        try:
+            got, lat, wall = _free_wave(api, "c8", queries, subsets)
+        finally:
+            probe.unwatch(api)
+            api.disable_scheduler()
+        assert got == want, f"config 8 {label}: an answer disagrees"
+        assert probe.fallbacks == 0, f"{probe.fallbacks} solo fallbacks"
+        out[label] = {
+            "dispatches": _counters(reg, "sched_batches_total"),
+            "superset_merges": _counters(reg, "sched_superset_merges_total"),
+            "p50_ms": _pct_ms(lat, 0.5), "p99_ms": _pct_ms(lat, 0.99),
+            "qps": nq / wall, "solo_executes": probe.solo,
+            "fallbacks": probe.fallbacks, "masks_found_built": probe.masks}
+
+    # the fusion battery (tests/test_fusion.py's families) on 8 shards
+    # with a BSI field
+    b = API()
+    b.create_index("fz")
+    for f in ("city", "device"):
+        b.create_field("fz", f)
+    b.create_field("fz", "amt", {"type": "int", "min": -100, "max": 200})
+    r = random.Random(1234)
+    cols, cities, devices, vals = [], [], [], []
+    for shard in range(n_shards):
+        for i in r.sample(range(600), 80):
+            cols.append(shard * SHARD_WIDTH + i)
+            cities.append((i + shard) % 5)
+            devices.append(i % 3)
+            vals.append(r.randrange(-60, 120))
+    b.import_bits("fz", "city", rows=cities, cols=cols)
+    b.import_bits("fz", "device", rows=devices, cols=cols)
+    b.import_values("fz", "amt", cols=cols, values=vals)
+    sets = [[0, 1, 2, 3], [4, 5, 6, 7], [2], [1, 3, 5, 7],
+            list(range(n_shards)), [0, 7]]
+    # implicit syncs of each family's fused round: the first round
+    # builds stacks and mask planes; the second finds them resident
+    battery_syncs = {}
+    for q in _FAMILY_QUERIES:
+        def fused_round():
+            return b.executor.execute_many("fz", [q] * len(sets),
+                                           per_query_shards=sets)
+
+        fused, cold = _implicit_syncs(fused_round)
+        for s, res in zip(sets, fused):
+            assert res == b.executor.execute("fz", q, shards=s), (q, s)
+        again, warm = _implicit_syncs(fused_round)
+        assert again == fused, q
+        battery_syncs[q] = {"cold": len(cold), "warm": len(warm),
+                            "warm_at": sorted(set(warm))}
+    torch.cuda.synchronize()
+    out["launches"] = KU.launches()
+    # bsi_compare of the battery's Count(Row(amt > 10)) on its stack,
+    # after the path's launches are read
+    st = STK.stacked_bsi(b.holder.index("fz").field("amt"),
+                         list(range(n_shards)))
+    report.err("bsi_compare", S.bsi_compare(st.planes, S.GT, 10),
+               S.bsi_compare_plain(st.planes, S.GT, 10))
+    out["battery"] = {"families": len(_FAMILY_QUERIES), "subsets": sets,
+                      "implicit_syncs_per_fused_round": battery_syncs}
+    for label in ("unfused", "fused"):
+        o = out[label]
+        print(f"serving path: 9c config 8 {label} (fuse_waste_ratio "
+              f"{0.0 if label == 'unfused' else 2.0}): dispatches "
+              f"{o['dispatches']:g}, superset merges "
+              f"{o['superset_merges']:g}, p50 {o['p50_ms']:.3f} ms, p99 "
+              f"{o['p99_ms']:.3f} ms, {o['qps']:.1f} QPS, solo executes "
+              f"{o['solo_executes']}, fallbacks {o['fallbacks']}, mask "
+              f"planes found/built {o['masks_found_built']} {lab}")
+    print(f"serving path: 9c fusion battery: {len(_FAMILY_QUERIES)} families "
+          f"x {len(sets)} subsets through execute_many(per_query_shards) "
+          f"equal to solo runs; implicit syncs in each family's fused round "
+          f"{battery_syncs} {lab}")
+    del api, b
+    return out
+
+
+def _complement_pairs(rng, n_shards: int, k: int, pairs: int):
+    """``2 * pairs`` random ``k``-of-``n_shards`` subsets, each followed by
+    its complement, so that every fused batch of them covers all the
+    shards (the union layout is the resident one)."""
+    out = []
+    for _ in range(pairs):
+        s = sorted(rng.choice(n_shards, size=k, replace=False).tolist())
+        out += [s, sorted(set(range(n_shards)) - set(s))]
+    return out
+
+
+def _popcount_rows(a2d):
+    """Set bits of each row of a uint32 ``[R, W]`` array."""
+    import numpy as np
+
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(a2d).sum(axis=1, dtype=np.int64)
+    return np.array([_popcount(r) for r in a2d], dtype=np.int64)
+
+
+def _masked_wave(probe, api, index, queries, subsets, want, label, lab,
+                 answer=None):
+    """One staged wave through the scheduler (fuse_waste_ratio 2.0) and the
+    same batch straight through ``execute_many``, timed and traced; each
+    answer, as ``answer`` states it, against ``want``."""
+    answer = answer or _answer
+    import statistics
+
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.pql import executor as EX
+
+    reg = MetricsRegistry()
+    api.enable_scheduler(window_ms=2.0, max_batch=len(queries),
+                         fuse_waste_ratio=2.0, registry=reg)
+    probe.reset()
+    probe.watch(api)
+    try:
+        got, lat, wall = _staged_wave(api, index, queries, subsets)
+        masks = list(probe.masks)
+        solo, fallbacks = probe.solo, probe.fallbacks
+    finally:
+        probe.unwatch(api)
+        api.disable_scheduler()
+    for q, g, w in zip(queries, got, want):
+        assert answer(g) == w, f"{label}: {q} disagrees with numpy"
+    assert solo == 0 and fallbacks == 0, (label, solo, fallbacks)
+
+    def fused():
+        return api.executor.execute_many(index, queries,
+                                         per_query_shards=subsets)
+
+    assert [answer(r[0]) for r in fused()] == want
+    wall_ms = statistics.median(_wall_ms(fused) for _ in range(5))
+    busy_ms = _device_ms(fused, calls=3)
+    out = {"dispatches": _counters(reg, "sched_batches_total"),
+           "superset_merges": _counters(reg, "sched_superset_merges_total"),
+           "masks_found": masks[0], "masks_built": masks[1],
+           "mask_lru_bytes": EX.mask_plane_bytes(),
+           "p50_ms": _pct_ms(lat, 0.5), "p99_ms": _pct_ms(lat, 0.99),
+           "wave_ms": wall * 1e3, "fused_batch_ms": wall_ms,
+           "fused_batch_busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / wall_ms}
+    print(f"serving path: 9d {label}: {len(queries)} queries, dispatches "
+          f"{out['dispatches']:g}, superset merges "
+          f"{out['superset_merges']:g}, mask planes found "
+          f"{masks[0]} / built {masks[1]}, mask LRU "
+          f"{out['mask_lru_bytes']} B on the card; p50 "
+          f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms from the "
+          f"release; the fused batch {wall_ms:.3f} ms, busy "
+          f"{_fmt_ms(busy_ms)}"
+          + ("" if busy_ms is None else
+             f" ({100 * out['busy_share']:.1f}%)") + f" {lab}")
+    return out
+
+
+def _serving_full_width(probe, report, ssb, by_date, c4, rates, lab) -> dict:
+    """9d: fused masked waves on the indexes paths 1, 3 and 7 built, and
+    each kernel they launch held against its plain version on those
+    stacks and mask planes (launches for that are not counted)."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.pql import executor as EX
+    from pilosa_tpu_torch.pql import programs as PR
+    from pilosa_tpu_torch.pql.parser import parse
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+
+    mem_rate, popc_rate, lop_rate = rates
+    rng = np.random.default_rng(9)
+    out = {}
+    KU.reset_launches()
+
+    # config 4: 32 ranged Counts over 128-of-256 shard subsets
+    api, host = c4["api"], c4["host"]
+    months = C4_MONTHS[2:6]
+    per_shard = {}
+    for k in range(C4_ROWS):
+        acc = host[months[0]][k].copy()
+        for v in months[1:]:
+            acc |= host[v][k]
+        per_shard[k] = _popcount_rows(acc.reshape(C4_SHARDS, -1))
+    subsets = _complement_pairs(rng, C4_SHARDS, C4_SHARDS // 2, 16)
+    queries = [f"Count(Row(cab={i % C4_ROWS}, {C4_RANGE}))"
+               for i in range(32)]
+    want = [int(per_shard[i % C4_ROWS][subsets[i]].sum()) for i in range(32)]
+    out["config4"] = _masked_wave(probe, api, "t", queries, subsets, want,
+                                  "config 4 (256 shards, 12 month views)",
+                                  lab)
+
+    # SSB SF-1: Count(Intersect), TopN and GroupBy over 3-of-6 subsets
+    api = ssb["api"]
+    year_of, brand_of, names = ssb["year_of"], ssb["brand_of"], ssb["names"]
+    bid = ssb["bid"]
+    shard_of = np.arange(year_of.size) >> 20
+    n_ssb = int(shard_of[-1]) + 1
+    subsets = _complement_pairs(rng, n_ssb, n_ssb // 2, 8)
+    queries, want = [], []
+    for i, s in enumerate(subsets):
+        sel = np.isin(shard_of, s)
+        y, b = int(rng.integers(0, 7)), int(rng.integers(0, 1000))
+        kind = ("count", "topn", "groupby")[i % 3] if i % 2 else "count"
+        if kind == "count":
+            queries.append(f'Count(Intersect(Row(year={y}), '
+                           f'Row(brand="{names[b]}")))')
+            want.append(int(np.sum(sel & (year_of == y) & (brand_of == b))))
+        elif kind == "topn":
+            queries.append(f"TopN(brand, Row(year={y}), n=10)")
+            counts = np.bincount(brand_of[sel & (year_of == y)],
+                                 minlength=1000)
+            ranked = sorted((-int(c), bid[k], names[k])
+                            for k, c in enumerate(counts) if c)[:10]
+            want.append([(key, -c) for c, _, key in ranked])
+        else:
+            queries.append("GroupBy(Rows(year), Rows(brand))")
+            table = np.bincount(year_of[sel] * 1000 + brand_of[sel],
+                                minlength=7000).reshape(7, 1000)
+            want.append(sorted((yy, bid[bb], int(table[yy, bb]))
+                               for yy in range(7) for bb in range(1000)
+                               if table[yy, bb]))
+    key_bid = {names[k]: bid[k] for k in range(1000)}
+
+    def ssb_answer(res):
+        if isinstance(res, list):
+            return [(g.group[0].row_id, key_bid[g.group[1].row_key], g.count)
+                    for g in res]
+        if hasattr(res, "pairs"):
+            return [(p.key, p.count) for p in res.pairs]
+        return res
+
+    out["ssb"] = _masked_wave(probe, api, "ssb", queries, subsets, want,
+                              f"SSB SF-1 ({n_ssb} shards)", lab, ssb_answer)
+
+    # SSB by order date: TopN(orderdate), half filtered by year
+    api = by_date["api"]
+    date, year = by_date["date"], by_date["year"]
+    shard_of = np.arange(date.size) >> 20
+    n_date = int(shard_of[-1]) + 1
+    subsets = _complement_pairs(rng, n_date, n_date // 2, 8)
+    queries, want = [], []
+    for i, s in enumerate(subsets):
+        sel = np.isin(shard_of, s)
+        if i % 2:
+            y = int(rng.integers(1992, 1999))
+            queries.append(f"TopN(orderdate, Row(year={y}), n=10)")
+            sel = sel & (year == y)
+        else:
+            queries.append("TopN(orderdate, n=10)")
+        d, c = np.unique(date[sel], return_counts=True)
+        want.append(_want_top(dict(zip(d.tolist(), c.tolist())), 10))
+    out["ssb_by_date"] = _masked_wave(probe, api, "ssb_by_date", queries,
+                                      subsets, want,
+                                      f"SSB by order date ({n_date} shards)",
+                                      lab)
+    torch.cuda.synchronize()
+    launched = KU.launches()
+
+    # -- each kernel of the waves against its plain version, timed -------
+    # Kernel times are taken twice: back to back (operands may sit in
+    # the 50 MB L2) and with L2 flushed before each call, the time that
+    # stands beside the bound.
+    kern = {}
+    flush = torch.empty(128 << 20, dtype=torch.int32,
+                        device=c4["api"].holder.index("t").device)
+    api = c4["api"]
+    idx = api.holder.index("t")
+    shards = list(range(C4_SHARDS))
+    mask = EX.ShardMask(shards, set(range(0, C4_SHARDS, 2)), idx.device)
+    tape, leaves = PR._lower_root(
+        api.executor, idx, parse(f"Count(Row(cab=1, {C4_RANGE}))")
+        .calls[0].children[0], shards)
+    w = leaves[0].numel()
+    report.err("tape_count", B.tape_count(tape, leaves, mask.plane),
+               B.tape_count_plain(tape, leaves, mask.plane))
+    by_bytes = ((len(leaves) + 1) * w * 4 + 4) / mem_rate * 1e3
+    by_ops = ((len(tape) + 1) * w / lop_rate + w / popc_rate) * 1e3
+    kern["tape_count masked"] = {
+        "shape": f"{len(leaves)} leaves + a mask x {w} words, "
+                 f"{len(tape)} ORs",
+        "ms": _time_ms(lambda: B.tape_count(tape, leaves, mask.plane)),
+        "kernel_ms": _device_ms(
+            lambda: B.tape_count(tape, leaves, mask.plane), "tape_"),
+        "kernel_ms_l2_flushed": _device_ms(
+            lambda: B.tape_count(tape, leaves, mask.plane), "tape_",
+            flush=flush),
+        "plain_ms": _time_ms(
+            lambda: B.tape_count_plain(tape, leaves, mask.plane),
+            reps=2, trials=3),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    del leaves
+
+    api = ssb["api"]
+    idx = api.holder.index("ssb")
+    shards = list(range(n_ssb))
+    mask = EX.ShardMask(shards, set(shards[::2]), idx.device)
+    years = STK.stacked_set(idx.field("year"), shards, "standard").planes
+    brand = STK.stacked_set(idx.field("brand"), shards, "standard")
+    blk = STK._dense(brand._ensure_block(0))
+    filt = S.mask_filter(None, mask.plane)
+
+    def masked_plain():
+        return G.pair_counts_plain((years & filt[None, :]).contiguous(), blk)
+
+    report.err("pair_counts", G.masked_pair_counts(years, blk, filt),
+               masked_plain())
+    a_rows, w = years.shape[0], blk.shape[1]
+    by_bytes = ((a_rows + blk.shape[0] + 1) * w * 4
+                + a_rows * blk.shape[0] * 4) / mem_rate * 1e3
+    by_ops = 2 * a_rows * blk.shape[0] * w * 32 / INT8_OPS_PER_S * 1e3
+    kern["pair_counts masked filter"] = {
+        "shape": f"{a_rows} year rows & a mask x {blk.shape[0]} "
+                 f"brand rows x {w} words",
+        "ms": _time_ms(lambda: G.masked_pair_counts(years, blk, filt)),
+        "kernel_ms": _device_ms(
+            lambda: G.masked_pair_counts(years, blk, filt), "pc_"),
+        "kernel_ms_l2_flushed": _device_ms(
+            lambda: G.masked_pair_counts(years, blk, filt), "pc_",
+            flush=flush),
+        "plain_ms": _time_ms(masked_plain, reps=1, trials=3),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    del years, blk
+
+    api = by_date["api"]
+    idx = api.holder.index("ssb_by_date")
+    shards = list(range(n_date))
+    mask = EX.ShardMask(shards, set(shards[1::2]), idx.device)
+    od = STK.stacked_set(idx.field("orderdate"), shards, "standard")
+    blocks = [b for b in (od._ensure_block(i) for i in range(od.n_blocks))
+              if isinstance(b, C.CompressedBlock)]
+    assert blocks, "no orderdate block is resident compressed"
+    filt = mask.plane
+    report.err("ctile_count", C.ctile_count_blocks(blocks, filt),
+               C.ctile_count_blocks_plain(blocks, filt))
+    payload = sum(b.payload.numel() for b in blocks)
+    by_bytes = (payload * 4 + filt.numel() * 4
+                + sum(b.rows for b in blocks) * 4) / mem_rate * 1e3
+    by_ops = payload / popc_rate * 1e3
+    kern["ctile_count masked filter"] = {
+        "shape": f"{len(blocks)} compressed blocks, {payload} payload "
+                 f"words, a mask filter of {filt.numel()} words",
+        "ms": _time_ms(lambda: C.ctile_count_blocks(blocks, filt)),
+        "kernel_ms": _device_ms(lambda: C.ctile_count_blocks(blocks, filt),
+                                "ctile"),
+        "kernel_ms_l2_flushed": _device_ms(
+            lambda: C.ctile_count_blocks(blocks, filt), "ctile",
+            flush=flush),
+        "plain_ms": _time_ms(lambda: C.ctile_count_blocks_plain(blocks,
+                                                                filt),
+                             reps=1, trials=3),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    torch.cuda.synchronize()
+    del flush
+    out["kernels"] = kern
+    out["launches"] = launched
+    for name, k in kern.items():
+        print(f"serving path: {name} ({k['shape']}): call "
+              f"{_fmt_ms(k['ms'])}, kernel {_fmt_ms(k['kernel_ms'])}, "
+              f"{_fmt_ms(k['kernel_ms_l2_flushed'])} with L2 flushed, bound "
+              f"{_fmt_ms(k['bound_ms'])} ({k['bound_by']}), plain "
+              f"{_fmt_ms(k['plain_ms'])}; equal to its plain version {lab}")
+    return out
+
+
+def phase_serving(report: Report, ssb: dict, by_date: dict, c4: dict,
+                  rates) -> None:
+    """Path 9: the serving layer (scheduler, result cache, fused masked
+    dispatches) on bench.py configs 6-8 and on paths 1, 3 and 7's
+    indexes."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    probe = _ServingProbe()
+    try:
+        KU.reset_launches()
+        c6 = _serving_config6(probe, lab)
+        c7 = _serving_config7(lab)
+        c8 = _serving_config8(probe, report, lab)
+        report.launched("serving 9a-9c", c8.pop("launches"),
+                        ("tape_count", "scatter_merge", "bsi_compare",
+                         "pair_counts"))
+        full = _serving_full_width(probe, report, ssb, by_date, c4, rates,
+                                   lab)
+        report.launched("serving 9d", full["launches"],
+                        ("tape_count", "pair_counts", "ctile_count"))
+    finally:
+        probe.close()
+    report.kernel("tape_count", serving=full["kernels"]["tape_count masked"])
+    report.kernel("pair_counts",
+                  serving=full["kernels"]["pair_counts masked filter"])
+    report.kernel("ctile_count",
+                  serving=full["kernels"]["ctile_count masked filter"])
+    print("serving path: " + json.dumps({
+        "config6": c6, "config7": c7, "config8": c8,
+        "full_width": {k: v for k, v in full.items() if k != "kernels"}},
+        default=str))
+    print("serving path: every answer matches numpy")
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -2983,14 +3827,16 @@ def main() -> int:
                   popc_rate, mem_rate, lop_rate, INT8_OPS_PER_S, probe_lib)
     print("kernel parity: every kernel matches its plain version bit for "
           "bit")
-    phase_main_path(report, args)
+    ssb = phase_main_path(report, args)
     bsi = phase_bsi_path(report, args)
     by_date = phase_ssb_by_date(report, args)
     phase_sparse_bsi(report, args)
     config1 = phase_config1(report, args)
-    phase_writes(report, config1, by_date, bsi)
-    phase_time(report, args, (mem_rate, popc_rate, lop_rate))
+    by_date = phase_writes(report, config1, by_date, bsi)
+    del bsi, config1
+    c4 = phase_time(report, args, (mem_rate, popc_rate, lop_rate))
     phase_dataframe(report, args, mem_rate)
+    phase_serving(report, ssb, by_date, c4, (mem_rate, popc_rate, lop_rate))
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

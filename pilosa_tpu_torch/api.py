@@ -7,7 +7,9 @@ bulk-import bits (by row id or row key) and BSI values (by column id or
 key), keeping
 the ``_exists`` field up to date, ingest and read dataframe changesets,
 and run PQL reads and writes (a query with write calls, and a dataframe
-changeset, runs as one write request, ``storage/txn.py``).
+changeset, runs as one write request, ``storage/txn.py``). Reads may go
+through the micro-batching scheduler (``enable_scheduler``, ``sched/``)
+and the version-keyed result cache (``enable_cache``, ``cache/``).
 ``API()`` runs on the card, ``cuda:0``; ``API(device="cpu")`` runs every
 kernel's plain PyTorch version on the CPU. Without a card, ``API()``
 raises.
@@ -24,6 +26,8 @@ from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.core.schema import FieldOptions, FieldType, IndexOptions
 from pilosa_tpu_torch.core.translate import bulk_translate_ids
+from pilosa_tpu_torch.obs import metrics as M
+from pilosa_tpu_torch.obs.tracing import get_tracer
 from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
 from pilosa_tpu_torch.pql.parser import parse
 from pilosa_tpu_torch.storage.txn import write_qcx
@@ -34,6 +38,9 @@ class API:
         self.device = platform.resolve_device(device)
         self.holder = Holder(self.device)
         self.executor = Executor(self.holder)
+        # optional serving layers; None keeps the read path direct
+        self.scheduler = None
+        self.cache = None
 
     # -- schema (reference: api.go CreateIndex/CreateField) -----------------
 
@@ -63,19 +70,86 @@ class API:
             raise ValueError(f"not ported yet: field options {sorted(o)}")
         self.holder.index(index).create_field(field, fo)
 
+    # -- scheduler (sched/: admission + micro-batching) --------------------
+
+    def enable_scheduler(self, config=None, **overrides):
+        """Route concurrent reads through a micro-batching scheduler
+        (amortizes the per-dispatch host cost and wait). ``config`` is a
+        pilosa_tpu_torch.config.Config; kwargs override individual knobs
+        (window_ms, max_batch, max_queue, default_deadline_ms,
+        fuse_waste_ratio, adaptive_window, window_min_ms, window_max_ms,
+        clock, registry)."""
+        from pilosa_tpu_torch.sched import QueryScheduler
+
+        if self.scheduler is not None:
+            self.disable_scheduler()
+        if config is not None:
+            self.scheduler = QueryScheduler.from_config(
+                self.executor, config, **overrides)
+        else:
+            self.scheduler = QueryScheduler(self.executor, **overrides)
+        return self.scheduler
+
+    def disable_scheduler(self) -> None:
+        sched, self.scheduler = self.scheduler, None
+        if sched is not None:
+            sched.close()
+
+    def read_executor(self):
+        """The executor read-only callers should use: the scheduling
+        facade when enabled, the raw executor otherwise."""
+        if self.scheduler is not None:
+            return self.scheduler.as_executor()
+        return self.executor
+
+    # -- result cache (cache/: version-keyed + single-flight) --------------
+
+    def enable_cache(self, config=None, **overrides):
+        """Cache read results keyed on (index, PQL, shard set, fragment
+        versions): repeated reads of unchanged data launch nothing, and
+        identical in-flight reads share one dispatch. ``config`` is a
+        pilosa_tpu_torch.config.Config; kwargs override individual knobs
+        (max_bytes, max_entries, ttl_ms, registry, clock). Attaching to
+        the executor covers both the direct and the scheduled read path
+        (the scheduler consults executor.cache on admission)."""
+        from pilosa_tpu_torch.cache import ResultCache
+
+        self.cache = ResultCache.from_config(config, **overrides)
+        self.executor.cache = self.cache
+        return self.cache
+
+    def disable_cache(self) -> None:
+        self.cache = None
+        self.executor.cache = None
+
     # -- query (reference: api.go:209 Query) -------------------------------
 
     def query(self, index: str, pql: str,
-              shards: Optional[Sequence[int]] = None) -> List[Any]:
-        """Run a PQL query. One with write calls is a write request: it
-        holds the holder's write lock, and the stacks it builds or
-        advances are not published to lock-free readers; reads take no
-        lock."""
-        parsed = parse(pql) if isinstance(pql, str) else pql
-        if has_write_calls(parsed):
-            with write_qcx(self.holder):
-                return self.executor.execute(index, parsed, shards=shards)
-        return self.executor.execute(index, parsed, shards=shards)
+              shards: Optional[Sequence[int]] = None,
+              priority: Optional[str] = None,
+              deadline_ms: Optional[float] = None) -> List[Any]:
+        """Run a PQL query under a ``query.pql`` trace span. One with
+        write calls is a write request: it holds the holder's write lock,
+        and the stacks it builds or advances are not published to
+        lock-free readers. A read takes no lock; with the scheduler on it
+        is admitted with ``priority`` and ``deadline_ms`` and may share a
+        fused dispatch with concurrent reads."""
+        M.REGISTRY.count(M.METRIC_PQL_QUERIES)
+        with get_tracer().start_trace("query.pql", index=index):
+            parsed = parse(pql) if isinstance(pql, str) else pql
+            sched = self.scheduler
+            if has_write_calls(parsed):
+                with write_qcx(self.holder):
+                    return self.executor.execute(index, parsed,
+                                                 shards=shards)
+            if sched is not None:
+                kw = {}
+                if priority is not None:
+                    kw["priority"] = priority
+                if deadline_ms is not None:
+                    kw["deadline_ms"] = deadline_ms
+                return sched.execute(index, parsed, shards=shards, **kw)
+            return self.executor.execute(index, parsed, shards=shards)
 
     # -- bulk import (reference: api.go:1438 Import) -------------------------
 

@@ -1,0 +1,187 @@
+"""Configuration of the serving layer: defaults <- TOML <- env <- flags.
+
+Port of ``pilosa_tpu/config.py`` (reference: server/config.go:51, bound
+through viper/pflag with PILOSA_* env, ctl/server.go:160
+BuildServerFlags, ``featurebase generate-config``). Same layering with
+the stdlib: tomllib for files, PILOSA_TPU_* env vars, flag dicts — the
+last source wins per field. The port carries the sections of the modules
+it has ported: ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``)
+and the two ``[tenants]`` flags the scheduler reads, with the JAX
+package's defaults and variable names; the other sections land with the
+modules they configure.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional
+
+_ENV_PREFIX = "PILOSA_TPU_"
+
+
+def _truthy(v: str) -> bool:
+    return v.strip().lower() in ("1", "true", "t", "yes", "on")
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    """The one boolean-env dialect (shared by config parsing and opt-in
+    feature flags)."""
+    raw = os.environ.get(name)
+    return default if raw is None else _truthy(raw)
+
+
+def _toml_value(val: str):
+    if val.startswith("[") and val.endswith("]"):
+        inner = val[1:-1].strip()
+        return [_toml_value(p.strip()) for p in inner.split(",")
+                if p.strip()] if inner else []
+    if len(val) >= 2 and val[0] == val[-1] and val[0] in ("'", '"'):
+        return val[1:-1]
+    if val in ("true", "false"):
+        return val == "true"
+    for conv in (int, float):
+        try:
+            return conv(val)
+        except ValueError:
+            pass
+    return val
+
+
+def _parse_toml_subset(text: str) -> Dict[str, Any]:
+    """Minimal TOML reader for Pythons without stdlib tomllib (< 3.11):
+    [section] headers, key = string / int / float / bool /
+    array-of-strings, full-line # comments — the dialect ``to_toml``
+    emits and the docs use. Real tomllib is preferred when present."""
+    doc: Dict[str, Any] = {}
+    cur = doc
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith("[") and line.endswith("]"):
+            cur = doc.setdefault(line[1:-1].strip(), {})
+            continue
+        key, sep, val = line.partition("=")
+        if not sep:
+            raise ValueError(f"unparsable config line: {raw!r}")
+        cur[key.strip()] = _toml_value(val.strip())
+    return doc
+
+
+@dataclasses.dataclass
+class Config:
+    # query scheduler ([scheduler] section / PILOSA_TPU_SCHEDULER_*):
+    # micro-batches concurrent reads to amortize the per-dispatch floor
+    scheduler_enabled: bool = False
+    scheduler_window_ms: float = 0.5  # batching horizon per group
+    scheduler_max_batch: int = 64  # queries fused per dispatch
+    scheduler_max_queue: int = 1024  # admission bound (429 beyond)
+    scheduler_default_deadline_ms: float = 0.0  # <=0: no deadline
+    # cross-shard-set superset fusion: groups whose shard sets overlap
+    # merge into one padded/masked dispatch when
+    # |union| / max(|subset|) <= fuse-waste-ratio; <=0 disables merging
+    scheduler_fuse_waste_ratio: float = 2.0
+    # adaptive batching window: derive the window from an EWMA of the
+    # observed arrival rate (short when idle, longer under load),
+    # clamped to [window-min-ms, window-max-ms]
+    scheduler_adaptive_window: bool = False
+    scheduler_window_min_ms: float = 0.2
+    scheduler_window_max_ms: float = 5.0
+    # batch-priority admits (streaming-ingest applies) yield until reads
+    # have been quiet this long — the write side of read protection
+    scheduler_batch_holdoff_ms: float = 5.0
+    # result cache ([cache] section / PILOSA_TPU_CACHE_*): version-keyed
+    # read result caching + single-flight dedup (cache/)
+    cache_enabled: bool = False
+    cache_max_bytes: int = 64 << 20
+    cache_max_entries: int = 4096
+    cache_ttl_ms: float = 0.0  # <=0: no TTL (and remote-leg caching off)
+    # tenant plane ([tenants] section / PILOSA_TPU_TENANTS_*): the
+    # flags QueryScheduler.from_config reads; the registry, quotas and
+    # overrides land with TenantRegistry
+    tenants_enabled: bool = False
+    tenants_fair_share: bool = True  # weighted-fair admission ordering
+
+    # -- sources -----------------------------------------------------------
+
+    @classmethod
+    def from_sources(cls, toml_path: Optional[str] = None,
+                     env: Optional[Dict[str, str]] = None,
+                     flags: Optional[Dict[str, Any]] = None) -> "Config":
+        cfg = cls()
+        if toml_path:
+            cfg._apply(cls._load_toml(toml_path))
+        cfg._apply(cls._from_env(env if env is not None else os.environ))
+        if flags:
+            cfg._apply({k: v for k, v in flags.items() if v is not None})
+        return cfg
+
+    def _apply(self, values: Dict[str, Any]) -> None:
+        for f in dataclasses.fields(self):
+            if f.name not in values:
+                continue
+            v = values[f.name]
+            if f.type in ("int", int):
+                v = int(v)
+            elif f.type in ("float", float):
+                v = float(v)
+            elif f.type in ("bool", bool) and isinstance(v, str):
+                v = _truthy(v)
+            setattr(self, f.name, v)
+
+    @staticmethod
+    def _load_toml(path: str) -> Dict[str, Any]:
+        try:
+            import tomllib
+        except ModuleNotFoundError:  # Python < 3.11: stdlib has no tomllib
+            tomllib = None
+        if tomllib is not None:
+            with open(path, "rb") as f:
+                doc = tomllib.load(f)
+        else:
+            with open(path, encoding="utf-8") as f:
+                doc = _parse_toml_subset(f.read())
+        # [section] key -> section_key; dotted sections nest with real
+        # tomllib ([cluster.resilience] -> {"cluster": {"resilience":
+        # ...}}) but stay dotted flat keys in the subset parser — both
+        # flatten to cluster_resilience_*
+        flat: Dict[str, Any] = {}
+
+        def _flatten(prefix: str, d: Dict[str, Any]) -> None:
+            for k, v in d.items():
+                key = (f"{prefix}_{k}" if prefix else k) \
+                    .replace("-", "_").replace(".", "_")
+                if isinstance(v, dict):
+                    _flatten(key, v)
+                else:
+                    flat[key] = v
+
+        _flatten("", doc)
+        return flat
+
+    @classmethod
+    def _from_env(cls, env) -> Dict[str, Any]:
+        out = {}
+        for f in dataclasses.fields(cls):
+            key = _ENV_PREFIX + f.name.upper()
+            if key in env:
+                out[f.name] = env[key]
+        return out
+
+    # -- generate-config (reference: ctl/generate_config.go) ---------------
+
+    def to_toml(self) -> str:
+        lines = ["# pilosa-tpu configuration (all keys optional)"]
+
+        def scalar(v) -> str:
+            if isinstance(v, bool):
+                return "true" if v else "false"
+            if isinstance(v, (int, float)):
+                return str(v)
+            return f'"{v}"'
+
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            lines.append(f"{f.name.replace('_', '-')} = {scalar(v)}")
+        return "\n".join(lines) + "\n"

@@ -7,11 +7,11 @@ holder fixes the device every index of it runs on.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Optional
 
 import torch
 
+from pilosa_tpu_torch.analysis import locktrace
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.schema import IndexOptions
 
@@ -21,7 +21,8 @@ class Holder:
         self.device = device
         # serializes writes against each other and against stack builds;
         # reads never take it (core/stacked.py)
-        self.write_lock = threading.RLock()
+        self.write_lock = locktrace.tracked_lock("core.holder.write",
+                                                 rlock=True)
         self.indexes: Dict[str, Index] = {}
 
     def create_index(self, name: str,

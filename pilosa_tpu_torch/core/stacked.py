@@ -69,6 +69,9 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.analysis import locktrace
+from pilosa_tpu_torch.obs import metrics as M
+from pilosa_tpu_torch.obs.tracing import get_tracer
 from pilosa_tpu_torch.ops import bitmap as bitops
 from pilosa_tpu_torch.ops import bsi as bsiops
 from pilosa_tpu_torch.ops import ctiles
@@ -167,7 +170,7 @@ class DeviceBudget:
     def __init__(self, cap_bytes: int):
         self.cap = cap_bytes
         self.used = 0
-        self._lock = threading.Lock()
+        self._lock = locktrace.tracked_lock("core.stacked.budget")
         self._lru: "OrderedDict[Tuple, Tuple[int, object]]" = OrderedDict()
 
     def charge(self, key: Tuple, nbytes: int, evict_cb) -> None:
@@ -186,6 +189,8 @@ class DeviceBudget:
                         break
                     continue
                 self.used -= b
+                M.REGISTRY.count(M.METRIC_DEVICE_STACK_EVICTIONS)
+                M.REGISTRY.count(M.METRIC_DEVICE_BUDGET_EVICTIONS)
                 cb()
 
     def touch(self, key: Tuple) -> None:
@@ -257,7 +262,7 @@ class StackedSet:
             -1 if f is None else f.version for f in fragments)
         self._blocks: List[Optional[Block]] = (
             [None] * (self.cap // self.block_rows))
-        self._lock = threading.Lock()
+        self._lock = locktrace.tracked_lock("core.stacked.stack")
         # a stack of a write request is never published: it charges no
         # budget entry (storage/txn.py)
         self.ephemeral = False
@@ -279,8 +284,14 @@ class StackedSet:
         """Assemble block ``bi`` from the host fragment planes and upload
         it (compressed when the policy says so, dense otherwise). Caller
         has validated the version snapshot or holds the writer lock
-        through the build."""
-        return _upload(self._assemble_host(bi), self.device)
+        through the build. The ``stack.build`` span covers the host
+        assembly and the upload: a warm resident query has none."""
+        lo_slot = bi * self.block_rows
+        with get_tracer().start_span(
+                "stack.build", block=bi,
+                rows=min(self.block_rows, len(self.row_ids) - lo_slot),
+                words=self.total_words):
+            return _upload(self._assemble_host(bi), self.device)
 
     def _assemble_host(self, bi: int) -> np.ndarray:
         """Block ``bi`` as the host fragment planes hold it now, in this
@@ -468,7 +479,7 @@ class StackedBSI:
         self.serial = next(_stack_serial)
         self._write_lock = (write_lock if write_lock is not None
                             else contextlib.nullcontext())
-        self._lock = threading.Lock()
+        self._lock = locktrace.tracked_lock("core.stacked.stack")
         self.ephemeral = False
         self._fragments = list(fragments)
         self._built_vers = _versions(fragments)
@@ -476,7 +487,10 @@ class StackedBSI:
         self._charge()
 
     def _build_host(self) -> Block:
-        return _upload(self._assemble_host(), self.device)
+        with get_tracer().start_span(
+                "stack.build", kind="bsi", planes=bsiops.OFFSET + self.depth,
+                words=self.total_words):
+            return _upload(self._assemble_host(), self.device)
 
     def _assemble_host(self) -> np.ndarray:
         """The stack as the host fragment planes hold it now."""
@@ -568,6 +582,7 @@ def _cache_get(field, group, subset, vers):
         hit = inner.get(subset)
         if hit is not None and hit[0] == vers:
             inner.move_to_end(subset)
+            M.REGISTRY.count(M.METRIC_DEVICE_RESIDENT_HITS)
             return hit[1]
         return None
 
@@ -744,7 +759,7 @@ def _advance_set(stack: StackedSet, fragments, built_vers
     new.total_words = stack.total_words
     new.serial = next(_stack_serial)
     new.block_rows = stack.block_rows
-    new._lock = threading.Lock()
+    new._lock = locktrace.tracked_lock("core.stacked.stack")
     new._write_lock = stack._write_lock
     new.ephemeral = False
     _restamp(new, fragments)
@@ -862,7 +877,7 @@ def _advance_bsi(stack: StackedBSI, fragments, built_vers
     new.depth = stack.depth
     new.serial = next(_stack_serial)
     new._write_lock = stack._write_lock
-    new._lock = threading.Lock()
+    new._lock = locktrace.tracked_lock("core.stacked.stack")
     new.ephemeral = False
     _restamp(new, fragments)
     # a compressed stack decays to dense: decoded on the device, fresh

@@ -162,7 +162,19 @@ def plane_count(a: torch.Tensor) -> torch.Tensor:
 
 
 def plane_intersection_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """popcount(a AND b) (reference: roaring/roaring.go:711)."""
+    """popcount(a AND b) (reference: roaring/roaring.go:711): on CUDA
+    tensors one ``tape_count`` launch of the one-op tape ``("and", 0,
+    1)``, as the JAX package fuses the AND into one reduce; on CPU
+    tensors :func:`plane_intersection_count_plain`."""
+    if not KU.on_card("plane_intersection_count", a, b):
+        return plane_intersection_count_plain(a, b)
+    return tape_count(_AND_TAPE, (a, b))
+
+
+def plane_intersection_count_plain(a: torch.Tensor, b: torch.Tensor
+                                   ) -> torch.Tensor:
+    """Plain PyTorch ``popcount(a AND b)``, the reference the card's
+    path is held to."""
     return popcount(a & b).sum()
 
 
@@ -171,6 +183,9 @@ def plane_intersection_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _OPCODES = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
+
+#: the one-op tape of an intersection count
+_AND_TAPE = (("and", 0, 1),)
 
 
 def tape_eval(tape: Sequence[Tuple[str, int, int]], leaves):

@@ -134,8 +134,7 @@ class CompressedBlock:
         device."""
         if rows is None:
             return _decode(self.payload, self.slot, self.const, self.words)
-        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64),
-                              device=self.device)
+        idx = _device_index(rows, self.device)
         return _decode(self.payload, self.slot[idx], self.const[idx],
                        self.words)
 
@@ -294,6 +293,17 @@ def maybe_compress(host: np.ndarray, device: torch.device
 # ---------------------------------------------------------------------------
 # Decode (a gather on the device)
 # ---------------------------------------------------------------------------
+
+
+def _device_index(values, device) -> torch.Tensor:
+    """``int64`` index tensor on ``device`` from host values. To the card
+    it goes ``non_blocking`` from pinned memory: a pageable copy would
+    wait for all the card's queued work, once per decoded leaf of a
+    fused batch."""
+    host = torch.as_tensor(np.asarray(values, dtype=np.int64))
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _decode(payload: torch.Tensor, slot: torch.Tensor, const: torch.Tensor,
@@ -550,7 +560,7 @@ def bsi_compare_compressed(cb: CompressedBlock, op: str, value: int,
     active = cb.active_tiles
     if active.size == 0:
         return device_zeros(cb.words, cb.device)
-    idx = torch.as_tensor(active.astype(np.int64), device=cb.device)
+    idx = _device_index(active, cb.device)
     narrow = _decode(cb.payload, cb.slot[:, idx], cb.const[:, idx],
                      active.size * cb.tile_words)
     res = bsiops.bsi_compare(narrow, op, value, value2)

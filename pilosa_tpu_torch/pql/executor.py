@@ -13,24 +13,39 @@ or ``Count(...)`` (dense up to 2^24 cells over one or two fields, a
 pruning fold past that), the host-scan calls ``Extract`` / ``Sort`` /
 ``FieldValue``, the dataframe calls ``Apply`` / ``Arrow``,
 ``ExternalLookup``, ``Options(shards=)``, and the ``StackStale`` retry;
-and the write calls ``Set`` (with a timestamp too) / ``Clear`` /
+``execute_many``, which resolves the deferred results of several reads
+with one wait on the card, each under its own ``ShardMask`` over a
+shared union layout when their shard sets differ (``per_query_shards``);
+the result cache branch
+(``cache/``); and the write calls ``Set`` (with a timestamp too) / ``Clear`` /
 ``ClearRow`` / ``Store`` / ``Delete``, run once under the holder's write
 lock (reference: executor.go executeSet / executeClear / executeClearRow
 / executeSetRow / executeDeleteRecords).
 
 Key translation happens host-side around the kernels (reference:
-executor.go:6814 preTranslate, :7519 translateResults).
+executor.go:6814 preTranslate, :7519 translateResults). Every deferred
+result tensor of a query (or of a fused batch of queries) is copied to
+pinned host memory without blocking, then the host waits once, on one
+CUDA event recorded after the last copy (``_start_copies``). A call that
+must read the card before it can go on (a restricted ``Rows``,
+``Distinct`` or ``UnionRows``, the GroupBy fold, a host scan) also waits
+inside itself.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime as dt
+import threading
+import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.cache.keys import query_cache_key
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import Field
 from pilosa_tpu_torch.core.holder import Holder
@@ -40,6 +55,7 @@ from pilosa_tpu_torch.core.stacked import (StackedBSI, StackStale,
                                            stacked_bsi, stacked_set)
 from pilosa_tpu_torch.dataframe.expr import compile_expr
 from pilosa_tpu_torch.errors import PQLError
+from pilosa_tpu_torch.obs import metrics as M
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import topk as T
@@ -51,12 +67,24 @@ from pilosa_tpu_torch.pql.ast import Call, Condition, Query
 from pilosa_tpu_torch.pql.parser import parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
 
-__all__ = ["Executor", "PQLError", "has_write_calls"]
+__all__ = ["Executor", "PQLError", "ShardMask", "has_write_calls",
+           "query_maskable"]
 
 _BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
                  "All", "ConstRow", "UnionRows", "Shift", "Distinct", "Limit"}
 
 _WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "Delete"}
+
+# Calls whose results stay exact under a per-query shard mask over a
+# union stacked layout (superset fusion). Every shard's segment of a
+# bitmap expression depends only on that shard's fragments (all plane
+# algebra is column-local; Shift carries stop at shard boundaries), so
+# masking the columns a reduction sees equals evaluating over the
+# subset's own stack. Host-scan calls (Extract/Apply/Arrow/Sort/...)
+# walk fragments directly and run with their own shard list instead.
+_MASKABLE_CALLS = (_BITMAP_CALLS
+                   | {"Count", "Sum", "Min", "Max", "Percentile",
+                      "TopN", "TopK", "Rows", "GroupBy"})
 
 #: compiled Apply expressions an executor keeps, oldest dropped first
 _APPLY_CACHE_ENTRIES = 64
@@ -79,6 +107,81 @@ def has_write_calls(query) -> bool:
     return any(walk(c) for c in calls)
 
 
+def query_maskable(query) -> bool:
+    """True when every top-level call of ``query`` can execute under a
+    per-query shard mask (see _MASKABLE_CALLS). ``Options`` wrappers are
+    transparent UNLESS they carry a ``shards=`` override: that re-scopes
+    the call away from the union layout the mask indexes, so such
+    queries keep their own shard list (the result cache excludes them
+    for the same reason, cache/keys.py is_cacheable)."""
+    calls = query.calls if isinstance(query, Query) else [query]
+    for call in calls:
+        while call.name == "Options" and call.children:
+            if call.arg("shards") is not None:
+                return False
+            call = call.children[0]
+        if call.name not in _MASKABLE_CALLS:
+            return False
+    return True
+
+
+# Device-resident ShardMask planes, LRU-bounded and keyed by (device,
+# union layout, subset): masks depend only on shard lists, never data, so
+# warm fused dispatches (sched/batch.py) find their mask already on the
+# card instead of staging a host plane per ShardMask. As in the JAX
+# package they are not charged to the DeviceBudget: at 256 shards one
+# plane is 33,554,432 B, so the cap bounds them at 1 GiB.
+_MASK_CAP = 32
+_MASK_PLANES: "OrderedDict[Tuple, torch.Tensor]" = OrderedDict()
+_MASK_LOCK = threading.Lock()
+
+
+def _mask_plane(shard_list: Tuple[int, ...], subset, device: torch.device
+                ) -> torch.Tensor:
+    key = (str(device), shard_list, subset)
+    with _MASK_LOCK:
+        hit = _MASK_PLANES.get(key)
+        if hit is not None:
+            _MASK_PLANES.move_to_end(key)
+    if hit is not None:
+        M.REGISTRY.count(M.METRIC_DEVICE_RESIDENT_HITS)
+        return hit
+    plane = platform.h2d_copy(B.shard_mask_plane(shard_list, subset), device)
+    with _MASK_LOCK:
+        plane = _MASK_PLANES.setdefault(key, plane)
+        _MASK_PLANES.move_to_end(key)
+        while len(_MASK_PLANES) > _MASK_CAP:
+            _MASK_PLANES.popitem(last=False)
+    return plane
+
+
+def mask_plane_bytes() -> int:
+    """Device bytes the ShardMask LRU holds."""
+    with _MASK_LOCK:
+        return sum(t.numel() * t.element_size()
+                   for t in _MASK_PLANES.values())
+
+
+class ShardMask:
+    """Per-query shard-subset mask over a union stacked layout (superset
+    fusion, sched/batch.py): an ``int32[S*W]`` word plane with all-ones
+    words (-1) on the query's own shards and zeros elsewhere
+    (ops/bitmap.py shard_mask_plane).
+
+    Applied at materialization/aggregation points only — bitmap algebra
+    (AND/OR/XOR/ANDNOT) distributes over a per-column mask, so masking
+    the final plane equals masking every leaf, and the intermediate
+    evaluation stays shared across the whole fused batch."""
+
+    __slots__ = ("shard_list", "subset", "plane")
+
+    def __init__(self, shard_list: Sequence[int], subset,
+                 device: torch.device):
+        self.shard_list = [int(s) for s in shard_list]
+        self.subset = frozenset(int(s) for s in subset)
+        self.plane = _mask_plane(tuple(self.shard_list), self.subset, device)
+
+
 def _parse_ts(v) -> dt.datetime:
     if isinstance(v, dt.datetime):
         return v
@@ -87,20 +190,61 @@ def _parse_ts(v) -> dt.datetime:
 
 class _Deferred:
     """A query result whose device tensors haven't been copied back yet:
-    every call of a query launches before any result is fetched."""
+    every call of a query launches before any result is fetched.
+    :func:`_start_copies` fills ``host``, and :meth:`resolve` finalizes
+    from it after the one wait."""
 
-    __slots__ = ("arrays", "finalize")
+    __slots__ = ("arrays", "finalize", "host")
 
     def __init__(self, arrays: Sequence[torch.Tensor], finalize: Callable):
         self.arrays = list(arrays)
         self.finalize = finalize
+        self.host: Optional[List[torch.Tensor]] = None
 
     def resolve(self):
-        return self.finalize(*[a.cpu().numpy() for a in self.arrays])
+        return self.finalize(*[h.numpy() for h in self.host])
 
 
-def _resolve(value):
-    return value.resolve() if isinstance(value, _Deferred) else value
+def _start_copies(raw) -> Optional[torch.cuda.Event]:
+    """Start the host copy of every deferred tensor of ``raw`` and return
+    the one CUDA event to wait on (None when nothing is on the card). A
+    card tensor is copied ``non_blocking`` into pinned memory from
+    torch's caching host allocator; a CPU tensor is read where it is.
+    The event is recorded on the current stream after the last copy, so
+    one wait covers every copy of a query or a fused batch (the JAX
+    package's ``copy_to_host_async`` then one block,
+    pilosa_tpu/pql/executor.py:193-200)."""
+    device = None
+    for r in raw:
+        if not isinstance(r, _Deferred):
+            continue
+        host = []
+        for a in r.arrays:
+            if a.is_cuda:
+                h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                h.copy_(a, non_blocking=True)
+                device = a.device
+            else:
+                h = a
+            host.append(h)
+        r.host = host
+    if device is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _wait_copies(event: Optional[torch.cuda.Event]) -> None:
+    """The host's one blocking wait per query or fused batch."""
+    if event is not None:
+        event.synchronize()
+
+
+def _resolve_all(raw) -> List[Any]:
+    """Every result of ``raw`` on the host, after one wait."""
+    _wait_copies(_start_copies(raw))
+    return [r.resolve() if isinstance(r, _Deferred) else r for r in raw]
 
 
 def _concat(parts, dim=0):
@@ -125,9 +269,10 @@ class Executor:
     """Reference: executor.go:55.
 
     ``remote=True`` is peer-serving mode (the reference's Remote:true
-    query flag, executor.go:6392): ``Extract`` and ``Sort`` return
-    untranslated, uncut partials for a coordinator to merge. The other
-    calls do not read it yet; they follow with the cluster slice."""
+    query flag, executor.go:6392): results keep raw IDs (no key
+    translation, which happens once at the coordinator, executor.go:7519)
+    and rankings and limits are not cut, so a coordinator's merge stays
+    exact."""
 
     #: plug point for ExternalLookup: fn(query: str, write: bool) -> Any
     external_lookup = None
@@ -137,6 +282,12 @@ class Executor:
         self.remote = remote
         # source text -> (fn, columns used, is reduction)
         self._apply_cache: Dict[str, Tuple[Callable, List[str], bool]] = {}
+        # result cache (cache/), attached by API.enable_cache(); None
+        # keeps the read path as it is without one
+        self.cache = None
+        # tenant-scoped cache namespaces: each tenant's results key under
+        # its own namespace (set once the tenant registry is ported)
+        self.tenant_namespaces = False
 
     # -- public entry (reference: executor.go:183 Execute) --------------------
 
@@ -153,6 +304,48 @@ class Executor:
             # writers, so no lazy build can go stale
             with self.holder.write_lock:
                 return self._execute_query(idx, query, shards)
+        cache = self.cache
+        if cache is not None:
+            key = self.cache_key(idx, query, shards)
+            if key is None:
+                cache.bypass()
+            else:
+                return cache.run(
+                    key, lambda: self._execute_read(idx, query, shards),
+                    allow_stale=not self.remote)
+        return self._execute_read(idx, query, shards)
+
+    def cache_key(self, index, query,
+                  shards: Optional[Sequence[int]] = None) -> Optional[Tuple]:
+        """Result-cache key for a read query against this executor (None
+        when uncacheable: writes, ExternalLookup, per-call shard
+        overrides). Accepts an Index or a name, str/Call queries like
+        ``execute``. The namespace pins the result dialect: a
+        remote=True executor returns untranslated, uncut partials for
+        the same PQL text."""
+        idx = index if isinstance(index, Index) else self.holder.index(index)
+        if isinstance(query, str):
+            query = parse(query)
+        if isinstance(query, Call):
+            query = Query([query])
+        if has_write_calls(query):
+            return None
+        return query_cache_key(idx, query, self._shards(idx, shards),
+                               namespace=self._namespace())
+
+    def _namespace(self) -> str:
+        """Cache-key namespace: the result dialect (local/remote), plus
+        the current tenant when tenant-scoped namespaces are on."""
+        ns = "remote" if self.remote else "local"
+        if self.tenant_namespaces:
+            from pilosa_tpu_torch.obs.tenants import current_tenant_id
+
+            t = current_tenant_id()
+            if t is not None:
+                return f"{ns}|{t}"
+        return ns
+
+    def _execute_read(self, idx: Index, query: Query, shards) -> List[Any]:
         # Paged stacks build blocks lazily; a write landing mid-stream
         # makes the remaining builds StackStale. Reads are pure, so retry
         # on a fresh stack; the last attempt runs under the writer lock.
@@ -166,32 +359,194 @@ class Executor:
 
     def _execute_query(self, idx: Index, query: Query, shards) -> List[Any]:
         raw = [self._execute_call(idx, call, shards) for call in query.calls]
-        return [_resolve(r) for r in raw]
+        return _resolve_all(raw)
+
+    #: capability flag for the scheduler's superset fusion (sched/batch.py
+    #: probes it before routing heterogeneous shard sets here)
+    supports_shard_masks = True
+
+    def execute_many(self, index: str, queries: Sequence,
+                     shards: Optional[Sequence[int]] = None,
+                     per_query_shards: Optional[Sequence] = None
+                     ) -> List[List[Any]]:
+        """Resolve several read queries' deferred results with ONE
+        blocking wait — the fusion primitive behind the micro-batcher
+        (sched/): every call of every query launches, all device->host
+        copies are enqueued, and the host waits once, so N concurrent
+        Counts pay one round trip exactly like N top-level calls of a
+        single ``execute``. Calls that read the card mid-evaluation (see
+        the module docstring) add their own waits.
+
+        ``per_query_shards`` (one shard set per query, overriding
+        ``shards``) enables CROSS-shard-set fusion: maskable queries
+        evaluate over ONE stacked layout covering the union of all sets,
+        each restricted to its own subset by a per-query word-lane mask
+        (ShardMask) — still one wait. Queries the mask cannot cover
+        exactly (host-scan calls, Options shards= overrides) keep their
+        own shard list within the same fused round."""
+        idx = self.holder.index(index)
+        qs: List[Query] = []
+        for q in queries:
+            if isinstance(q, str):
+                q = parse(q)
+            if isinstance(q, Call):
+                q = Query([q])
+            if has_write_calls(q):
+                raise ValueError("execute_many is read-only")
+            qs.append(q)
+        if per_query_shards is None:
+            if self.cache is None:
+                return self._execute_many_retry(idx, qs, shards)
+            return self._execute_many_cached(idx, qs, shards)
+        if len(per_query_shards) != len(qs):
+            raise ValueError("per_query_shards must match queries")
+        shard_lists = [self._shards(idx, s) for s in per_query_shards]
+        if self.cache is None:
+            plans = self._fusion_plans(idx, qs, shard_lists)
+            return self._execute_many_retry(idx, qs, shards, plans)
+        return self._execute_many_cached(idx, qs, shards, shard_lists)
+
+    def _fusion_plans(self, idx: Index, qs: Sequence[Query],
+                      shard_lists: Sequence[List[int]]
+                      ) -> List[Tuple[List[int], Optional[ShardMask]]]:
+        """Per-query (shard_list, mask) execution plans over the union
+        layout. Plans are host data and a mask plane never changes, so
+        they are safe to reuse across StackStale retries. Queries with
+        the same subset share one mask."""
+        union = sorted(set().union(*map(set, shard_lists))) \
+            if shard_lists else []
+        union_set = set(union)
+        masks: Dict[frozenset, ShardMask] = {}
+        plans: List[Tuple[List[int], Optional[ShardMask]]] = []
+        for q, sl in zip(qs, shard_lists):
+            sub = frozenset(sl)
+            if sub == union_set:
+                plans.append((union, None))
+            elif query_maskable(q):
+                mask = masks.get(sub)
+                if mask is None:
+                    mask = masks[sub] = ShardMask(union, sub, idx.device)
+                plans.append((union, mask))
+            else:
+                plans.append((sl, None))
+        return plans
+
+    def _execute_many_retry(self, idx: Index, qs: Sequence[Query],
+                            shards, plans=None) -> List[List[Any]]:
+        # the StackStale retry contract of _execute_read
+        for _ in range(3):
+            try:
+                return self._execute_many(idx, qs, shards, plans)
+            except StackStale:
+                continue
+        with self.holder.write_lock:
+            return self._execute_many(idx, qs, shards, plans)
+
+    def _execute_many_cached(self, idx: Index, qs: Sequence[Query],
+                             shards, shard_lists=None) -> List[List[Any]]:
+        """Per-query cache fill around ONE fused dispatch: hits and
+        single-flight followers drop out of the batch; all remaining
+        queries (miss leaders + uncacheable bypasses) still go through
+        a single ``_execute_many`` so the fusion amortization is kept.
+
+        With ``shard_lists`` (superset fusion), each query's key uses its
+        OWN shard set — a masked execution over the union stack fills
+        exact per-query entries, and the fusion plan for the residual
+        misses is recomputed over just their (possibly tighter) union."""
+        cache = self.cache
+        if shard_lists is None:
+            key_lists = [self._shards(idx, shards)] * len(qs)
+        else:
+            key_lists = shard_lists
+        ns = self._namespace()
+        results: List[Optional[List[Any]]] = [None] * len(qs)
+        to_run: List[Tuple[int, Optional[Tuple]]] = []  # (slot, key|None)
+        followers = []  # (slot, future)
+        for i, q in enumerate(qs):
+            key = query_cache_key(idx, q, key_lists[i], namespace=ns)
+            if key is None:
+                cache.bypass()
+                to_run.append((i, None))
+                continue
+            state, payload = cache.fetch(key)
+            if state == "hit":
+                results[i] = payload
+            elif state == "leader":
+                to_run.append((i, key))
+            else:
+                followers.append((i, payload))
+        if to_run:
+            run_qs = [qs[i] for i, _ in to_run]
+            plans = None
+            if shard_lists is not None:
+                plans = self._fusion_plans(
+                    idx, run_qs, [key_lists[i] for i, _ in to_run])
+            t0 = time.perf_counter()
+            try:
+                out = self._execute_many_retry(idx, run_qs, shards, plans)
+            except BaseException as exc:
+                for _, key in to_run:
+                    if key is not None:
+                        cache.fail(key, exc)
+                raise
+            cache.observe_dispatch(time.perf_counter() - t0)
+            for (i, key), res in zip(to_run, out):
+                results[i] = res
+                if key is not None:
+                    cache.complete(key, res)
+        for i, fut in followers:
+            results[i] = copy.deepcopy(fut.result())
+        return results
+
+    def _execute_many(self, idx: Index, qs: Sequence[Query],
+                      shards, plans=None) -> List[List[Any]]:
+        if plans is None:
+            plans = [(shards, None)] * len(qs)
+        raw = [[self._execute_call(idx, call, s, mask) for call in q.calls]
+               for q, (s, mask) in zip(qs, plans)]
+        flat = _resolve_all([r for rq in raw for r in rq])
+        out, pos = [], 0
+        for rq in raw:
+            out.append(flat[pos:pos + len(rq)])
+            pos += len(rq)
+        return out
 
     # -- dispatch (reference: executor.go:679 executeCall) --------------------
 
-    def _execute_call(self, idx: Index, call: Call, shards=None) -> Any:
+    def _execute_call(self, idx: Index, call: Call, shards=None,
+                      mask: Optional[ShardMask] = None) -> Any:
         name = call.name
         if name == "Options":
             if call.arg("shards") is not None:
+                if mask is not None:
+                    # query_maskable excludes these before planning; a
+                    # mask sized for the union layout cannot index an
+                    # arbitrary override set
+                    raise PQLError(
+                        "Options(shards=) cannot execute under a shard mask")
                 shards = [int(s) for s in call.arg("shards")]
-            return self._execute_call(idx, call.children[0], shards)
+            return self._execute_call(idx, call.children[0], shards, mask)
         if name in _WRITE_CALLS:
             return self._execute_write(idx, call, shards)
         if name == "Count":
-            return self._execute_count(idx, call, shards)
+            return self._execute_count(idx, call, shards, mask)
         if name in ("Sum", "Min", "Max"):
-            return self._execute_bsi_agg(idx, call, shards)
+            return self._execute_bsi_agg(idx, call, shards, mask)
         if name == "Percentile":
-            return self._execute_percentile(idx, call, shards)
+            return self._execute_percentile(idx, call, shards, mask)
         if name in ("TopN", "TopK"):
-            return self._execute_topn(idx, call, shards)
+            return self._execute_topn(idx, call, shards, mask)
         if name == "Rows":
-            return self._execute_rows(idx, call, shards)
+            return self._execute_rows(idx, call, shards, mask)
         if name == "GroupBy":
-            return self._execute_groupby(idx, call, shards)
+            return self._execute_groupby(idx, call, shards, mask)
         if name in _BITMAP_CALLS:
-            return self._materialize_row(idx, call, shards)
+            return self._materialize_row(idx, call, shards, mask)
+        if mask is not None:
+            # host-scan calls walk fragments directly; _MASKABLE_CALLS
+            # keeps them out of masked plans, so reaching here means a
+            # caller bypassed query_maskable
+            raise PQLError(f"{name} cannot execute under a shard mask")
         if name == "IncludesColumn":
             return self._execute_includes_column(idx, call)
         if name == "Extract":
@@ -255,10 +610,16 @@ class Executor:
 
     # -- bitmap evaluation -------------------------------------------------------
 
-    def _eval_all(self, idx: Index, call: Call, shard_list: List[int]
-                  ) -> torch.Tensor:
-        """The device plane of a bitmap call over all shards at once."""
-        return programs.run_plane(self, idx, call, shard_list)
+    def _eval_all(self, idx: Index, call: Call, shard_list: List[int],
+                  mask: Optional[ShardMask] = None) -> torch.Tensor:
+        """The device plane of a bitmap call over all shards at once.
+        ``mask`` does NOT restrict the plane: bitmap algebra is
+        column-local, so callers mask once at their materialization or
+        aggregation point. It threads through only for the row selection
+        of a restricted ``Rows`` (limit / previous / column pick other
+        rows depending on which columns count)."""
+        return programs.run_plane(self, idx, call, shard_list, mask,
+                                  apply_mask=False)
 
     def _eval_bsi_row(self, field: Field, value, shard_list: List[int]
                       ) -> torch.Tensor:
@@ -292,8 +653,8 @@ class Executor:
             _parse_ts(from_a) if from_a is not None else None,
             _parse_ts(to_a) if to_a is not None else None)
 
-    def _eval_row_set(self, idx: Index, call: Call, shard_list: List[int]
-                      ) -> torch.Tensor:
+    def _eval_row_set(self, idx: Index, call: Call, shard_list: List[int],
+                      mask: Optional[ShardMask] = None) -> torch.Tensor:
         """The device plane of ConstRow, UnionRows or Shift, which the
         lowering composes as a leaf (reference: executor.go
         executeConstRow, executeUnionRows, executeShiftShard)."""
@@ -314,10 +675,11 @@ class Executor:
                 plane[si] = B.bits_to_plane(cols)
             return platform.h2d_copy(plane.reshape(-1), idx.device)
         if name == "UnionRows":
-            return self._union_rows(idx, call, shard_list)
+            return self._union_rows(idx, call, shard_list, mask)
         if len(call.children) != 1:
             raise PQLError("Shift requires exactly one child")
-        shaped = self._eval_all(idx, call.children[0], shard_list).reshape(
+        shaped = self._eval_all(idx, call.children[0], shard_list,
+                                mask).reshape(
             len(shard_list), WORDS_PER_SHARD)
         for _ in range(int(call.arg("n", 1))):
             # carries stop at shard boundaries, as the reference's
@@ -325,8 +687,8 @@ class Executor:
             shaped = B.plane_shift(shaped)
         return shaped.reshape(-1)
 
-    def _union_rows(self, idx: Index, call: Call, shard_list: List[int]
-                    ) -> torch.Tensor:
+    def _union_rows(self, idx: Index, call: Call, shard_list: List[int],
+                    mask: Optional[ShardMask] = None) -> torch.Tensor:
         """OR of the rows each ``Rows`` child selects; a ranged child ORs
         them across its covering time views (the lowering of SQL
         ``rangeq()``)."""
@@ -340,7 +702,7 @@ class Executor:
                           or c.arg("previous") is not None
                           or c.arg("column") is not None)
             if restricted:  # honors from/to with the other options
-                rows = self._rows_list(idx, c, shard_list)
+                rows = self._rows_list(idx, c, shard_list, mask)
             elif in_a is not None:  # a bare in= list needs no device trip
                 rows = self._in_row_ids(field, in_a)
             else:
@@ -356,7 +718,8 @@ class Executor:
                                   idx.device)
         return out
 
-    def _materialize_row(self, idx: Index, call: Call, shards) -> Any:
+    def _materialize_row(self, idx: Index, call: Call, shards,
+                         mask: Optional[ShardMask] = None) -> Any:
         limit, offset = None, 0
         if call.name == "Limit":
             if len(call.children) != 1:
@@ -364,12 +727,16 @@ class Executor:
             limit = call.arg("limit")
             offset = int(call.arg("offset", 0))
             call = call.children[0]
+            if self.remote:  # the coordinator cuts after its merge
+                limit, offset = None, 0
         if call.name == "Distinct":
-            return self._execute_distinct(idx, call, shards)
+            return self._execute_distinct(idx, call, shards, mask)
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return self._row_result(idx, [])
-        plane = self._eval_all(idx, call, shard_list)
+        # the mask restricts the materialized columns to the query's own
+        # shards, ANDed in the plane terminal
+        plane = programs.run_plane(self, idx, call, shard_list, mask)
 
         def finalize(plane_np: np.ndarray):
             shaped = plane_np.view(np.uint32).reshape(len(shard_list),
@@ -387,7 +754,7 @@ class Executor:
         return _Deferred([plane], finalize)
 
     def _row_result(self, idx: Index, cols: List[int]) -> R.RowResult:
-        if idx.options.keys:
+        if idx.options.keys and not self.remote:
             m = idx.translate.translate_ids(cols)
             return R.RowResult(columns=[],
                                keys=[m.get(c, str(c)) for c in cols])
@@ -395,31 +762,37 @@ class Executor:
 
     # -- Count (reference: executor.go:5839 executeCount) ---------------------
 
-    def _execute_count(self, idx: Index, call: Call, shards) -> Any:
+    def _execute_count(self, idx: Index, call: Call, shards,
+                       mask: Optional[ShardMask] = None) -> Any:
         if len(call.children) != 1:
             raise PQLError("Count requires a single child call")
         child = call.children[0]
         if child.name == "Distinct":
-            res = _resolve(self._execute_distinct(idx, child, shards))
+            res = self._execute_distinct(idx, child, shards, mask)
             if isinstance(res, R.RowResult):
                 return len(res.columns or res.keys or [])
             return len(res)
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return 0
-        # ops + popcount in ONE tape_count launch over resident planes
-        count = programs.run_count(self, idx, child, shard_list)
+        # ops + popcount in ONE tape_count launch over resident planes,
+        # the shard mask as the kernel's mask operand
+        count = programs.run_count(self, idx, child, shard_list, mask)
         return _Deferred([count], lambda c: int(c))
 
     # -- BSI aggregates (reference: executor.go executeSum/Min/Max) -----------
 
     def _agg_filter(self, idx: Index, call: Call, shard_list: List[int],
-                    st: StackedBSI) -> torch.Tensor:
+                    st: StackedBSI, mask: Optional[ShardMask] = None
+                    ) -> torch.Tensor:
         if call.children:
-            return self._eval_all(idx, call.children[0], shard_list)
-        return st.exists_plane()
+            filt = self._eval_all(idx, call.children[0], shard_list, mask)
+        else:
+            filt = st.exists_plane()
+        return S.mask_filter(filt, mask.plane if mask is not None else None)
 
-    def _execute_bsi_agg(self, idx: Index, call: Call, shards) -> Any:
+    def _execute_bsi_agg(self, idx: Index, call: Call, shards,
+                         mask: Optional[ShardMask] = None) -> Any:
         fname = call.arg("field") or call.arg("_field")
         if fname is None:
             raise PQLError(f"{call.name} requires field=")
@@ -431,7 +804,7 @@ class Executor:
             if not shard_list:
                 return R.ValCount(val=0, count=0)
             st = stacked_bsi(field, shard_list)
-            filt = self._agg_filter(idx, call, shard_list, st)
+            filt = self._agg_filter(idx, call, shard_list, st, mask)
             count, pos, neg = S.bsi_plane_popcounts(st.planes, filt)
 
             def fin_sum(count_np, pos_np, neg_np):
@@ -448,7 +821,7 @@ class Executor:
         if not shard_list:
             return R.ValCount(val=None, count=0)
         st = stacked_bsi(field, shard_list)
-        filt = self._agg_filter(idx, call, shard_list, st)
+        filt = self._agg_filter(idx, call, shard_list, st, mask)
         return _Deferred(S.bsi_minmax(st.planes, filt, call.name == "Max"),
                          self._value_finalizer(field))
 
@@ -467,7 +840,8 @@ class Executor:
 
     # -- Percentile (reference: executor.go:1310) ------------------------------
 
-    def _execute_percentile(self, idx: Index, call: Call, shards) -> Any:
+    def _execute_percentile(self, idx: Index, call: Call, shards,
+                            mask: Optional[ShardMask] = None) -> Any:
         field = idx.field(call.arg("field") or call.arg("_field"))
         nth = call.arg("nth")
         if nth is None:
@@ -480,8 +854,10 @@ class Executor:
         if not shard_list:
             return R.ValCount(val=None, count=0)
         st = stacked_bsi(field, shard_list)
-        filt = (self._eval_all(idx, filter_call, shard_list)
+        filt = (self._eval_all(idx, filter_call, shard_list, mask)
                 if filter_call is not None else st.exists_plane())
+        if mask is not None:
+            filt = S.mask_filter(filt, mask.plane)
         return _Deferred(S.bsi_kth(st.planes, filt, round(nth * 100)),
                          self._value_finalizer(field))
 
@@ -493,14 +869,19 @@ class Executor:
             raise PQLError(f"{call.name} requires a field")
         return fname
 
-    def _execute_topn(self, idx: Index, call: Call, shards) -> Any:
+    def _execute_topn(self, idx: Index, call: Call, shards,
+                      mask: Optional[ShardMask] = None) -> Any:
         field = idx.field(self._field_name(call))
         n = call.arg("n") or call.arg("k")
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return self._pairs_field(field, [])
-        filt = (self._eval_all(idx, call.children[0], shard_list)
+        filt = (self._eval_all(idx, call.children[0], shard_list, mask)
                 if call.children else None)
+        if mask is not None:
+            # rank only the subset's columns; zero-count rows drop in
+            # finalize, matching a solo run over the subset
+            filt = S.mask_filter(filt, mask.plane)
         row_ids, counts = self._ranged_row_counts(field, call, shard_list,
                                                   filt)
         if not row_ids:
@@ -510,7 +891,7 @@ class Executor:
             ranked = [(row, int(counts_np[slot]))
                       for slot, row in enumerate(row_ids) if counts_np[slot]]
             ranked.sort(key=lambda kv: (-kv[1], kv[0]))
-            if n is not None:
+            if n is not None and not self.remote:
                 ranked = ranked[: int(n)]
             return self._pairs_field(field, ranked)
 
@@ -549,7 +930,7 @@ class Executor:
         return row_ids, _concat(parts)
 
     def _pairs_field(self, field: Field, ranked) -> R.PairsField:
-        if field.options.keys:
+        if field.options.keys and not self.remote:
             keys = field.translate.translate_ids([r for r, _ in ranked])
             pairs = [R.Pair(id=None, key=keys.get(r, str(r)), count=c)
                      for r, c in ranked]
@@ -579,7 +960,8 @@ class Executor:
                 out.add(int(v))
         return sorted(out)
 
-    def _rows_list(self, idx: Index, call: Call, shards=None) -> List[int]:
+    def _rows_list(self, idx: Index, call: Call, shards=None,
+                   mask: Optional[ShardMask] = None) -> List[int]:
         field = idx.field(self._field_name(call))
         col = call.arg("column")
         shard_list = self._shards(idx, shards)
@@ -587,7 +969,8 @@ class Executor:
         if col is not None:
             # point lookup on the host planes of the standard view
             c = self._col_id(idx, col)
-            if c is not None and c // SHARD_WIDTH in shard_list:
+            if (c is not None and c // SHARD_WIDTH in shard_list
+                    and (mask is None or c // SHARD_WIDTH in mask.subset)):
                 frag = field.fragment(c // SHARD_WIDTH)
                 if frag is not None:
                     pos = c % SHARD_WIDTH
@@ -596,9 +979,13 @@ class Executor:
                         if frag.row_plane(row)[pos // 32] & bit:
                             rows.add(row)
         elif shard_list:
-            # honors from/to (reference: executor.go:4108)
-            row_ids, counts = self._ranged_row_counts(field, call,
-                                                      shard_list, None)
+            # honors from/to (reference: executor.go:4108). A shard mask
+            # rides in as the count filter: rows present only outside
+            # the subset count zero and drop out, so the listing (and the
+            # limit/previous cut below) matches a solo run
+            row_ids, counts = self._ranged_row_counts(
+                field, call, shard_list,
+                mask.plane if mask is not None else None)
             if row_ids:
                 counts = counts.cpu().numpy()
                 rows = {row for slot, row in enumerate(row_ids)
@@ -613,26 +1000,28 @@ class Executor:
             prev_id = self._row_id(field, prev)
             out = [r for r in out if prev_id is None or r > prev_id]
         limit = call.arg("limit")
-        if limit is not None:
+        if limit is not None and not self.remote:
             out = out[: int(limit)]
         return out
 
-    def _execute_rows(self, idx: Index, call: Call, shards) -> List[Any]:
+    def _execute_rows(self, idx: Index, call: Call, shards,
+                      mask: Optional[ShardMask] = None) -> List[Any]:
         field = idx.field(self._field_name(call))
-        rows = self._rows_list(idx, call, shards)
-        if field.options.keys:
+        rows = self._rows_list(idx, call, shards, mask)
+        if field.options.keys and not self.remote:
             m = field.translate.translate_ids(rows)
             return [m.get(r, str(r)) for r in rows]
         return rows
 
     # -- Distinct (reference: executor.go:1952-2153) ---------------------------
 
-    def _execute_distinct(self, idx: Index, call: Call, shards):
+    def _execute_distinct(self, idx: Index, call: Call, shards,
+                          mask: Optional[ShardMask] = None):
         field = idx.field(self._field_name(call))
         if not field.options.type.is_bsi:
             # set-like: the distinct values are the row ids present
-            rows = self._rows_list(idx, call, shards)
-            if field.options.keys:
+            rows = self._rows_list(idx, call, shards, mask)
+            if field.options.keys and not self.remote:
                 m = field.translate.translate_ids(rows)
                 return R.RowResult(columns=[],
                                    keys=[m.get(r, str(r)) for r in rows])
@@ -641,10 +1030,12 @@ class Executor:
         filt_np = None
         if call.children and shard_list:
             filt_np = self._host_planes(
-                self._eval_all(idx, call.children[0], shard_list),
+                self._eval_all(idx, call.children[0], shard_list, mask),
                 len(shard_list))
         vals: set = set()
         for si, shard in enumerate(shard_list):
+            if mask is not None and shard not in mask.subset:
+                continue  # the host loop skips non-subset shards outright
             frag = field.bsi_fragment(shard)
             if frag is not None:
                 vals.update(self._decode_distinct(
@@ -683,7 +1074,8 @@ class Executor:
 
     # -- GroupBy (reference: executor.go:3918 executeGroupByShard) -------------
 
-    def _execute_groupby(self, idx: Index, call: Call, shards) -> Any:
+    def _execute_groupby(self, idx: Index, call: Call, shards,
+                         mask: Optional[ShardMask] = None) -> Any:
         if not call.children:
             raise PQLError("GroupBy requires at least one Rows child")
         if any(c.name != "Rows" for c in call.children):
@@ -700,6 +1092,8 @@ class Executor:
                                       or agg_call.arg("_field"))
         fields = [idx.field(self._field_name(c)) for c in call.children]
         limit = call.arg("limit")
+        if self.remote:
+            limit = None
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return []
@@ -710,8 +1104,13 @@ class Executor:
         agg_st = (stacked_bsi(agg_field, shard_list)
                   if agg_field is not None else None)
         filter_call = call.arg("filter")
-        filt = (self._eval_all(idx, filter_call, shard_list)
+        filt = (self._eval_all(idx, filter_call, shard_list, mask)
                 if filter_call is not None else None)
+        if mask is not None:
+            # the mask folds into the group filter: level-0 planes are
+            # ANDed with it, the fold keeps it, and _groupby_emit drops
+            # the count==0 groups, as a solo run over the subset would
+            filt = S.mask_filter(filt, mask.plane)
         if len(sts) <= 2 and self._groupby_dense_ok(sts, agg_st):
             return self._groupby_dense(fields, sts, filt, agg_st, limit)
         return self._groupby_fold(fields, sts, filt, agg_st, limit)
@@ -730,7 +1129,7 @@ class Executor:
         return cells <= 1 << 24
 
     def _field_row(self, field: Field, row: int) -> R.FieldRow:
-        if field.options.keys:
+        if field.options.keys and not self.remote:
             key = field.translate.translate_ids([row]).get(row, str(row))
             return R.FieldRow(field=field.name, row_key=key)
         return R.FieldRow(field=field.name, row_id=row)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -69,7 +69,13 @@ def _program(kind: str, tape: Tuple, n_leaves: int, masked: bool,
 # ---------------------------------------------------------------------------
 
 
-def _lower_root(ex, idx, call, shard_list: List[int]):
+def _lower_root(ex, idx, call, shard_list: List[int], mask=None):
+    """(tape, leaves) of a bitmap call. ``mask`` (a ShardMask) does not
+    restrict the leaves, since bitmap algebra is column-local and the
+    terminal ANDs the mask once; it reaches only the row-set leaves whose
+    row selection depends on which columns count (a restricted ``Rows``
+    inside ``UnionRows``, ``Shift``'s child), as in the JAX package's
+    ``_eval_all``."""
     total_words = len(shard_list) * WORDS_PER_SHARD
     device = idx.device
     leaves: List[torch.Tensor] = []
@@ -142,7 +148,7 @@ def _lower_root(ex, idx, call, shard_list: List[int]):
         if name == "All":
             return leaf(ex._existence_all(idx, shard_list))
         if name in ("ConstRow", "UnionRows", "Shift"):
-            return leaf(ex._eval_row_set(idx, c, shard_list))
+            return leaf(ex._eval_row_set(idx, c, shard_list, mask))
         if name == "Distinct":
             raise PQLError("Distinct cannot be nested inside bitmap calls yet")
         if name == "Limit":
@@ -165,21 +171,25 @@ def _lower_root(ex, idx, call, shard_list: List[int]):
     return tape, leaves
 
 
-def run_count(ex, idx, call, shard_list: List[int],
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Device count scalar for ``Count(call)``: one tape_count launch."""
-    tape, leaves = _lower_root(ex, idx, call, shard_list)
+def run_count(ex, idx, call, shard_list: List[int], mask=None
+              ) -> torch.Tensor:
+    """Device count scalar for ``Count(call)``: one tape_count launch,
+    with a ShardMask's plane as the kernel's mask operand."""
+    tape, leaves = _lower_root(ex, idx, call, shard_list, mask)
     total_words = len(shard_list) * WORDS_PER_SHARD
     masked = mask is not None
     fn = _program("count", tape, len(leaves), masked, total_words)
-    return fn(*leaves, mask) if masked else fn(*leaves)
+    return fn(*leaves, mask.plane) if masked else fn(*leaves)
 
 
-def run_plane(ex, idx, call, shard_list: List[int],
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Materialized (masked) plane for a bitmap call."""
-    tape, leaves = _lower_root(ex, idx, call, shard_list)
+def run_plane(ex, idx, call, shard_list: List[int], mask=None,
+              apply_mask: bool = True) -> torch.Tensor:
+    """Materialized plane for a bitmap call, ANDed with a ShardMask's
+    plane when one is given. ``apply_mask=False`` leaves the plane
+    unmasked (a filter that its caller masks once at its aggregation
+    point) and threads the mask only into row selection."""
+    tape, leaves = _lower_root(ex, idx, call, shard_list, mask)
     total_words = len(shard_list) * WORDS_PER_SHARD
-    masked = mask is not None
+    masked = mask is not None and apply_mask
     fn = _program("plane", tape, len(leaves), masked, total_words)
-    return fn(*leaves, mask) if masked else fn(*leaves)
+    return fn(*leaves, mask.plane) if masked else fn(*leaves)

@@ -701,3 +701,135 @@ def test_fold_and_apply_on_the_card_match_the_cpu(dev, monkeypatch):
         assert got == pytest.approx(want, rel=1e-5), q
     for q in ('Apply(Row(c=3), "fare * 2")', "Arrow(Row(a=4))"):
         assert apis[0].query("f", q) == apis[1].query("f", q), q
+
+
+# -- the serving layer on the card: shard masks and fused resolves ----------
+
+#: a union of 8 shards of 4,096 words, and the subsets the masks select
+MASK_SHARDS, MASK_WORDS = list(range(8)), 4096
+
+
+def _mask(dev, subset):
+    from pilosa_tpu_torch import platform
+
+    return platform.h2d_copy(
+        B.shard_mask_plane(MASK_SHARDS, subset, words=MASK_WORDS), dev)
+
+
+@pytest.mark.parametrize("subset", [{0}, {1, 3, 5, 7}, {2, 3, 4, 5}, set()])
+def test_tape_count_under_a_shard_mask(dev, subset):
+    """A masked Count's one launch: the mask plane as the kernel's mask
+    operand, and ``plane_intersection_count`` as a one-op tape."""
+    rng = np.random.default_rng(len(subset) + 31)
+    n = len(MASK_SHARDS) * MASK_WORDS
+    a, b = words(rng, (n,), dev), words(rng, (n,), dev)
+    mask = _mask(dev, subset)
+    before = KU.launches()["tape_count"]
+    got = B.tape_count((("and", 0, 1),), [a, b], mask)
+    assert int(got) == int(B.tape_count_plain((("and", 0, 1),), [a, b],
+                                              mask))
+    assert int(B.plane_intersection_count(a, mask)) == int(
+        B.plane_intersection_count_plain(a, mask))
+    assert KU.launches()["tape_count"] == before + 2
+
+
+@pytest.mark.parametrize("subset", [{0, 1, 2}, {6}, {1, 3, 5, 7}])
+def test_pair_counts_under_a_shard_mask_filter(dev, subset):
+    """GroupBy's and TopN's launches with the mask folded into the
+    filter (``S.mask_filter``), as a masked wave runs them."""
+    rng = np.random.default_rng(len(subset) + 41)
+    n = len(MASK_SHARDS) * MASK_WORDS
+    a, b = words(rng, (7, n), dev), words(rng, (40, n), dev)
+    filt = S.mask_filter(words(rng, (n,), dev), _mask(dev, subset))
+    got = G.masked_pair_counts(a, b, filt)
+    assert torch.equal(got, G.pair_counts_plain(a & filt[None, :], b))
+    assert torch.equal(T.row_counts(b, filt),
+                       G.pair_counts_plain(filt[None, :], b)[0])
+
+
+@pytest.mark.parametrize("subset", [{0, 1}, {2, 5}])
+def test_ctile_count_under_a_shard_mask_filter(dev, monkeypatch, subset):
+    """A masked TopN over compressed blocks: the mask as the filter."""
+    rng = np.random.default_rng(len(subset) + 51)
+    width = len(MASK_SHARDS) * MASK_WORDS
+    blocks = _compressed_blocks(monkeypatch, rng, 3, width, dev)
+    filt = S.mask_filter(None, _mask(dev, subset))
+    got = C.ctile_count_blocks(blocks, filt)
+    assert torch.equal(got, C.ctile_count_blocks_plain(blocks, filt))
+
+
+def test_execute_many_resolves_with_one_event_wait(dev, monkeypatch):
+    """A fused round of masked Counts, TopNs and a Row copies every result
+    to pinned memory and waits on the card once."""
+    from pilosa_tpu_torch.pql import executor as EX
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    waits = []
+    real = EX._wait_copies
+    monkeypatch.setattr(EX, "_wait_copies",
+                        lambda ev: (waits.append(ev), real(ev))[1])
+    rng = np.random.default_rng(61)
+    cols = np.sort(rng.choice(4 * SHARD_WIDTH, 20000, replace=False))
+    rows = rng.integers(0, 6, cols.size)
+    apis = [API(), API(device="cpu")]
+    for api in apis:
+        api.create_index("m")
+        api.create_field("m", "f")
+        api.import_bits("m", "f", rows=rows, cols=cols)
+    queries = ["Count(Row(f=1))", "TopN(f, n=3)", "Row(f=2)",
+               "Count(Intersect(Row(f=1), Row(f=3)))"]
+    subsets = [[0, 1], [1, 2, 3], [3], [0, 2]]
+    want = apis[1].executor.execute_many("m", queries,
+                                         per_query_shards=subsets)
+    waits.clear()  # the CPU's resolve waits on no event
+    got = apis[0].executor.execute_many("m", queries,
+                                        per_query_shards=subsets)
+    assert len(waits) == 1 and isinstance(waits[0], torch.cuda.Event)
+    assert got == want
+    want = apis[1].query("m", "Count(Row(f=1))TopN(f, n=2)")
+    waits.clear()
+    assert apis[0].query("m", "Count(Row(f=1))TopN(f, n=2)") == want
+    assert len(waits) == 1 and isinstance(waits[0], torch.cuda.Event)
+
+
+def test_warm_fused_round_over_compressed_leaves_syncs_only_once(dev):
+    """A warm fused round of masked Counts over stacks resident
+    compressed (the index is sparse): each decoded leaf's row index goes
+    to the card without waiting, so the round's one event wait is its
+    only sync, and ``set_sync_debug_mode("error")`` raises on any other."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(62)
+    api = API()
+    api.create_index("z")
+    api.create_field("z", "city")
+    api.create_field("z", "device")
+    api.create_field("z", "amt", {"type": "int", "min": -100, "max": 200})
+    cols = np.concatenate([s * SHARD_WIDTH + np.sort(
+        rng.choice(600, 80, replace=False)) for s in range(4)])
+    vals = rng.integers(-60, 120, cols.size)
+    api.import_bits("z", "city", rows=cols % 5, cols=cols)
+    api.import_bits("z", "device", rows=cols % 3, cols=cols)
+    api.import_values("z", "amt", cols=cols, values=vals)
+    queries = ["Count(Row(city=1))",
+               "Count(Intersect(Row(city=0), Row(device=1)))",
+               "Count(Not(Row(city=1)))", "Count(Row(amt > 10))"]
+    subsets = [[0, 1], [1, 2, 3], [3], [0, 2]]
+    want = api.executor.execute_many("z", queries, per_query_shards=subsets)
+    st = STK.stacked_set(api.holder.index("z").field("city"),
+                         [0, 1, 2, 3], "standard")
+    assert any(isinstance(st._ensure_block(i), C.CompressedBlock)
+               for i in range(st.n_blocks))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = api.executor.execute_many("z", queries,
+                                        per_query_shards=subsets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got == want
+    shard = cols // SHARD_WIDTH
+    for q, s, (n,) in zip(
+            [cols % 5 == 1, (cols % 5 == 0) & (cols % 3 == 1),
+             cols % 5 != 1, vals > 10], subsets, got):
+        assert n == int(np.sum(q & np.isin(shard, s)))

@@ -1,7 +1,8 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 Checked two ways: a subprocess with a clean environment imports
-``pilosa_tpu_torch``, answers a query and a write on the CPU, then
+``pilosa_tpu_torch``, answers a query and a write on the CPU, serves
+reads through the result cache, the scheduler and ``execute_many``, then
 reports what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -32,9 +33,22 @@ api.create_field("i", "f", {"type": "mutex", "keys": True})
 api.import_bits("i", "f", cols=np.arange(600), row_keys=["a", "b"] * 300)
 got = api.query("i", 'Count(Intersect(Row(f="a"), All()))TopN(f, n=1)')
 wrote = api.query("i", 'Set(600, f="c")Clear(1, f="b")Count(Row(f="c"))')
+import pilosa_tpu_torch.analysis.locktrace, pilosa_tpu_torch.config
+import pilosa_tpu_torch.obs.tenants
+api.enable_cache()
+api.enable_scheduler(window_ms=0.0)
+served = api.query("i", 'Count(Row(f="a"))') + api.query("i", 'Count(Row(f="a"))')
+fused = api.executor.execute_many("i", ['Count(Row(f="a"))', "Row(f=1)"],
+                                  per_query_shards=[[0], [0]])
+api.disable_scheduler()
 print(json.dumps({"count": got[0], "top": got[1].pairs[0].count,
-                  "wrote": wrote, "modules": sorted(sys.modules)}))
+                  "wrote": wrote, "served": served, "fused": fused[0],
+                  "modules": sorted(sys.modules)}))
 """
+
+#: the port's subpackages and modules the serving slice added; each must
+#: be in the AST scan and loaded by the subprocess probe
+_SERVING = ("analysis", "obs", "cache", "sched", "config.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -52,6 +66,10 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["count"] == 300 and out["top"] == 300
     assert out["wrote"] == [True, True, 1]
+    assert out["served"] == [300, 300] and out["fused"] == [300]
+    for part in _SERVING:
+        mod = "pilosa_tpu_torch." + part.removesuffix(".py")
+        assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
     assert not bad, f"port loaded {bad}"
 
@@ -76,6 +94,14 @@ def test_no_module_imports_jax_or_the_jax_package(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
     assert not [n for n in names if _forbidden(n)]
+
+
+def test_scan_covers_the_serving_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _SERVING:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
 
 
 def test_api_without_a_device_needs_a_card(monkeypatch):
