@@ -153,8 +153,48 @@ Phases, each printed on its own line:
     may fall back to solo runs; the masked ``tape_count`` and the
     mask-filtered ``pair_counts`` and ``ctile_count`` against their plain
     versions on those stacks, timed beside their bounds;
-13. one ``{"kernels": [...]}`` JSON line;
-14. the last line: ``{"ok": true, "device": {...}}``.
+13. main path 10, the API's read calls: ``bench.py`` config 13 as it
+    builds it (seed 13, 2 shards x 120,000 records, set fields ``f`` of
+    64 rows and ``g`` of 32, an ``int`` field ``v`` with 4,000 values a
+    shard), its seven queries through ``API.query_json`` cold (every
+    stack released before every query) and warm (after
+    ``Holder.prewarm``), each answer against numpy; every cold trace
+    must hold ``stack.build`` and ``device.h2d_copy`` and no warm trace
+    either; the cold and warm p50s, ``residency_stats`` and
+    ``program_cache_len``, each warm query's p50 beside its device time
+    and its host time split by stage (parse, ``_lower_root``, the stack
+    lookup, each kernel wrapper, the copies back; the functions wrapped
+    here, not switched in the package); then config 12 (seed 12, 2 x
+    40,000 records): untraced, tracing off (no span allocated), 10%
+    sampled and always on (traces stored), the same answers in all four,
+    with each mode's p50;
+14. main path 11, durability at full size in one data directory under
+    ``build/`` (``wal_sync="batch"``): (11a) ``bench.py`` config 11 as it
+    builds it (seed 11; 64, 256 and 1,024 commits of 32 bits after a
+    save; an unflushed crash with ``abandon_holder``, a reopen, the
+    checksum equal; recovery ms split into schema, npz load, replay and
+    repair, WAL KB, replay MB/s, re-ingest ms), then
+    ``CrashPlan.seeded(11)`` over ``crash_workload(8, seed=11)`` with a
+    checkpoint per commit, recovered to an oracle prefix covering every
+    acknowledged batch; (11b) ``BASELINE.json`` config 1 as path 5 builds
+    it, into ``API(path)`` (the checkpoints the import fires, printed),
+    six Intersect Counts and ``TopN(city, n=10)`` against numpy, crash 1
+    and recovery (the first answer after the restart), a checkpoint's
+    seconds and bytes on disk, 64 rounds of writes each read back
+    (write->visible with the WAL beside path 6a's), an import of 131,072
+    new records, crash 2 over the checkpoint and its tail; (11c) config
+    2's ``amount`` (10 shards, a shard a request) in a second index,
+    crash, then Sum, a Range Count, Min and Max against numpy; (11d)
+    ``backup_tar`` and ``restore_tar`` into a fresh ``API(path)``; (11e)
+    one shard of ``city`` as a roaring blob through ``import_roaring``;
+    every recovered checksum equal to the one before its crash;
+    ``tape_count``, ``pair_counts``, ``bsi_compare`` and
+    ``scatter_merge`` launched, the first two against their plain
+    versions on the recovered stacks;
+15. one ``{"kernels": [...]}`` JSON line;
+16. the last line: ``{"ok": true, "device": {...}}``.
+
+Each phase's seconds are printed as it ends.
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -329,6 +369,8 @@ class Report:
     def __init__(self, gpu_name: str, power_limit: str):
         self.label = f"({gpu_name}, power limit {power_limit})"
         self.kernels = {}
+        #: figures a later path prints beside its own
+        self.notes = {}
 
     def launched(self, path: str, counts: dict, expected) -> None:
         """Record one main path's launch counts; every kernel of
@@ -2340,6 +2382,7 @@ def phase_writes(report: Report, c1: dict, ssb: dict, bsi: dict) -> dict:
                "bsi_round_split_ms": cs,
                "bsi_round_busy_ms": c["round_busy_ms"],
                "ssb_first_read_ms": b["first_read_ms"]}
+    report.notes["write_visible_ms"] = med["write_visible_ms"]
     print("writes path: " + json.dumps(summary))
     print("writes path: every answer matches numpy")
     return {**ssb, "date": b["date"], "brand_of": b["brand_of"]}
@@ -3739,6 +3782,803 @@ def phase_serving(report: Report, ssb: dict, by_date: dict, c4: dict,
     print("serving path: every answer matches numpy")
 
 
+# ---------------------------------------------------------------------------
+# Path 10: the API's read calls (bench.py configs 13 and 12)
+# ---------------------------------------------------------------------------
+
+C13_PER_SHARD, C13_VALUES = 120_000, 4_000
+C13_QUERIES = [
+    "Count(Row(f=3))",
+    "Count(Intersect(Row(f=1), Row(g=1)))",
+    "Count(Union(Row(f=2), Row(g=3), Row(f=5)))",
+    "Count(Difference(Row(f=4), Row(g=0)))",
+    "Count(Not(Row(f=6)))",
+    "Count(Intersect(Row(v > 0), Row(g=2)))",
+    "Intersect(Row(f=1), Row(g=1))",
+]
+C12_PER_SHARD = 40_000
+#: bench.py's config 12 reads Row(g=2) of a field g it never creates, which
+#: raises KeyError in both packages; its one set field f stands in
+C12_QUERIES = ["Count(Row(f=3))", "Intersect(Row(f=1), Row(f=2))",
+               "TopN(f, n=4)"]
+
+
+class _StageClock:
+    """Wraps functions by module attribute while open and adds each
+    call's own seconds (its wrapped callees' excluded) to its stage: the
+    host split of a query without a switch in the package."""
+
+    def __init__(self, stages):
+        import collections
+
+        self.own = collections.defaultdict(float)
+        self.calls = collections.Counter()
+        self._stack = []
+        self._undo = []
+        for stage, owner, name in stages:
+            self._wrap(stage, owner, name)
+
+    def _wrap(self, stage, owner, name):
+        fn = getattr(owner, name)
+        clock = self
+
+        def wrapped(*a, **k):
+            clock._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                child = clock._stack.pop()
+                clock.own[stage] += dt - child
+                clock.calls[stage] += 1
+                if clock._stack:
+                    clock._stack[-1] += dt
+
+        setattr(owner, name, wrapped)
+        self._undo.append((owner, name, fn))
+
+    def close(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo = []
+
+
+def _span_names(doc, acc=None):
+    acc = [] if acc is None else acc
+    acc.append(doc.get("name", ""))
+    for c in doc.get("children", ()):
+        _span_names(c, acc)
+    return acc
+
+
+def _c13_build():
+    """bench.py config 13 as it builds it (seed 13), on the card."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(13)
+    api = API()
+    api.create_index("c13")
+    api.create_field("c13", "f")
+    api.create_field("c13", "g")
+    api.create_field("c13", "v", {"type": "int"})
+    rows = {"f": [], "g": [], "v": []}
+    for shard in range(2):
+        cols = shard * SHARD_WIDTH + np.arange(C13_PER_SHARD)
+        f = rng.integers(0, 64, C13_PER_SHARD)
+        api.import_bits("c13", "f", rows=f.tolist(), cols=cols.tolist())
+        g = rng.integers(0, 32, C13_PER_SHARD)
+        api.import_bits("c13", "g", rows=g.tolist(), cols=cols.tolist())
+        v = rng.integers(-50, 50, C13_VALUES)
+        api.holder.index("c13").field("v").set_values(
+            cols[:C13_VALUES].tolist(), v.tolist())
+        rows["f"].append(f)
+        rows["g"].append(g)
+        rows["v"].append(np.concatenate(
+            [v, np.zeros(C13_PER_SHARD - C13_VALUES, np.int64)]))
+    return api, {k: np.concatenate(x) for k, x in rows.items()}
+
+
+def _c13_oracle(r):
+    """The seven answers, as query_json gives them, from numpy."""
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    f, g, v = r["f"], r["g"], r["v"]
+    cols = np.concatenate([s * SHARD_WIDTH + np.arange(C13_PER_SHARD)
+                           for s in range(2)])
+    both = (f == 1) & (g == 1)
+    return [{"results": [x]} for x in (
+        int((f == 3).sum()), int(both.sum()),
+        int(((f == 2) | (g == 3) | (f == 5)).sum()),
+        int(((f == 4) & (g != 0)).sum()), int((f != 6).sum()),
+        int(((v > 0) & (g == 2)).sum()),
+        {"columns": cols[both].tolist()})]
+
+
+def _release(api, index):
+    from pilosa_tpu_torch.core.stacked import release_field_cache
+
+    for fld in api.holder.index(index).fields.values():
+        release_field_cache(fld)
+
+
+def _traced_json(api, index, q):
+    """query_json's answer and the span names of its trace, under an
+    always-on tracer."""
+    from pilosa_tpu_torch.obs import tracing as T
+
+    prev = T.set_tracer(T.Tracer(enabled=True, sample_rate=1.0,
+                                 store=T.TraceStore(8)))
+    try:
+        with T.get_tracer().start_trace("q13") as root:
+            out = api.query_json(index, q)
+        return out, _span_names(root.to_json())
+    finally:
+        T.set_tracer(prev)
+
+
+def _config13(lab) -> dict:
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch import api as A
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.pql import executor as E
+    from pilosa_tpu_torch.pql import programs
+
+    t0 = time.perf_counter()
+    api, rows = _c13_build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    want = _c13_oracle(rows)
+
+    # cold: every stack released before every query, so each query stages
+    # (stack.build + device.h2d_copy) as a non-resident engine would
+    cold_ms = {q: [] for q in C13_QUERIES}
+    for _ in range(5):
+        for q, w in zip(C13_QUERIES, want):
+            _release(api, "c13")
+            ms = _wall_ms(lambda q=q: api.query_json("c13", q))
+            cold_ms[q].append(ms)
+    for q, w in zip(C13_QUERIES, want):
+        _release(api, "c13")
+        got, names = _traced_json(api, "c13", q)
+        assert got == w, f"config 13 cold {q}: {got} != {w}"
+        assert "stack.build" in names and "device.h2d_copy" in names, \
+            f"a cold trace of {q} staged nothing: {names}"
+
+    _release(api, "c13")
+    stats0 = dict(api.holder.residency_stats())
+    built = api.holder.prewarm("c13")
+    assert built == {"set_stacks": 3, "bsi_stacks": 1}, built
+    warm = {}
+    for q, w in zip(C13_QUERIES, want):
+        got, names = _traced_json(api, "c13", q)
+        assert got == w, f"config 13 warm {q}: {got} != {w}"
+        assert "stack.build" not in names, f"warm query rebuilt: {q}"
+        assert "device.h2d_copy" not in names, f"warm query staged: {q}"
+    for q in C13_QUERIES:
+        warm[q] = {
+            "p50_ms": statistics.median(
+                _wall_ms(lambda q=q: api.query_json("c13", q))
+                for _ in range(21)),
+            "cold_p50_ms": statistics.median(cold_ms[q]),
+            "device_ms": _device_ms(lambda q=q: api.query_json("c13", q),
+                                    calls=21)}
+    stats = api.holder.residency_stats()
+    assert stats["block_builds"] == stats0["block_builds"] + 3, \
+        (stats0, stats)
+    idx = api.holder.index("c13")
+    kinds = {f: "compressed" if isinstance(
+        STK.stacked_set(idx.field(f), [0, 1], "standard")._blocks[0],
+        C.CompressedBlock) else "dense" for f in ("f", "g", "_exists")}
+
+    def cold_pass():
+        for q in C13_QUERIES:
+            _release(api, "c13")
+            api.query_json("c13", q)
+
+    def warm_pass():
+        for q in C13_QUERIES:
+            api.query_json("c13", q)
+
+    api.holder.prewarm("c13")
+    warm_pass_ms = statistics.median(_wall_ms(warm_pass) for _ in range(11))
+    cold_pass_ms = statistics.median(_wall_ms(cold_pass) for _ in range(5))
+    api.holder.prewarm("c13")
+
+    # the host split of each warm query by stage (each call's own time)
+    stages = [("parse", A, "parse"), ("lower", programs, "_lower_root"),
+              ("stack lookup", programs, "stacked_set"),
+              ("stack lookup", E, "stacked_set"),
+              ("stack lookup", E, "stacked_bsi"),
+              ("compressed row decode", C.CompressedBlock, "decode"),
+              ("tape_count wrapper", B, "tape_count"),
+              ("bsi_compare wrapper", S, "bsi_compare"),
+              ("copies back", E, "_start_copies"),
+              ("copies back (the wait)", E, "_wait_copies")]
+    reps = 21
+    for q in C13_QUERIES:
+        clock = _StageClock(stages)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                api.query_json("c13", q)
+            torch.cuda.synchronize()
+            total_ms = (time.perf_counter() - t0) * 1e3 / reps
+        finally:
+            clock.close()
+        split = {k: v * 1e3 / reps for k, v in clock.own.items()}
+        split["other"] = total_ms - sum(split.values())
+        warm[q]["split_ms"] = split
+        warm[q]["wrapped_ms"] = total_ms
+    _release(api, "c13")
+    out = {"build_s": build_s, "cold_pass_ms": cold_pass_ms,
+           "warm_pass_ms": warm_pass_ms, "per_query": warm,
+           "residency": stats, "stack_kinds": kinds, "program_cache_len":
+               programs.program_cache_len(),
+           "resident_bytes_warm": stats["resident_bytes"]}
+    print(f"api reads 10 config 13: 2 x {C13_PER_SHARD} records, f 64 rows, "
+          f"g 32, v {C13_VALUES} values a shard; built in {build_s:.3f} s; "
+          f"a pass of 7 queries cold {cold_pass_ms:.3f} ms, warm "
+          f"{warm_pass_ms:.3f} ms ({cold_pass_ms / warm_pass_ms:.1f}x); "
+          f"residency {stats}; stacks {kinds}; programs cached "
+          f"{out['program_cache_len']} {lab}")
+    for q in C13_QUERIES:
+        w = warm[q]
+        dev = w["device_ms"]
+        print(f"api reads 10 config 13: {q}: warm p50 {w['p50_ms']:.3f} ms "
+              f"(cold {w['cold_p50_ms']:.3f}), device {_fmt_ms(dev)}"
+              + (f" ({100 * dev / w['p50_ms']:.1f}%)" if dev else "")
+              + "; host split " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(w["split_ms"].items()))
+              + f" ms (wrapped {w['wrapped_ms']:.3f} ms) {lab}")
+    print("api reads 10 config 13: every cold trace holds stack.build and "
+          "device.h2d_copy, no warm trace holds either; every answer "
+          "matches numpy")
+    return out
+
+
+def _config12(lab) -> dict:
+    import random
+
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.obs import tracing as T
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(12)
+    api = API()
+    api.create_index("c12")
+    api.create_field("c12", "f")
+    f = []
+    for shard in range(2):
+        rows = rng.integers(0, 8, C12_PER_SHARD)
+        cols = shard * SHARD_WIDTH + np.arange(C12_PER_SHARD)
+        api.import_bits("c12", "f", rows=rows.tolist(), cols=cols.tolist())
+        f.append(rows)
+    f = np.concatenate(f)
+    cols = np.concatenate([s * SHARD_WIDTH + np.arange(C12_PER_SHARD)
+                           for s in range(2)])
+    counts = np.bincount(f, minlength=8)
+    top = _want_top({i: int(c) for i, c in enumerate(counts)}, 4)
+    want = [{"results": [int(counts[3])]},
+            {"results": [{"columns": cols[(f == 1) & (f == 2)].tolist()}]},
+            {"results": [{"rows": [{"id": i, "count": c} for i, c in top],
+                          "field": "f"}]}]
+
+    def workload():
+        return [api.query_json("c12", q) for q in C12_QUERIES]
+
+    def p50():
+        return statistics.median(_wall_ms(workload) for _ in range(21))
+
+    prev = T.get_tracer()
+    phases, results = {}, {}
+    try:
+        T.set_tracer(T.NopTracer())
+        results["untraced"] = workload()
+        phases["untraced"] = p50()
+        T.set_tracer(T.Tracer(enabled=False))
+        assert T.get_tracer().start_span("probe") is T.NOP_SPAN
+        orig_init, allocs = T.Span.__init__, [0]
+
+        def counting_init(self, *a, **k):
+            allocs[0] += 1
+            orig_init(self, *a, **k)
+
+        T.Span.__init__ = counting_init
+        try:
+            results["off"] = workload()
+            phases["off"] = p50()
+        finally:
+            T.Span.__init__ = orig_init
+        assert allocs[0] == 0, f"tracing off allocated {allocs[0]} spans"
+        T.set_tracer(T.Tracer(enabled=True, sample_rate=0.1,
+                              store=T.TraceStore(64),
+                              rng=random.Random(12)))
+        results["sampled"] = workload()
+        phases["sampled"] = p50()
+        T.set_tracer(T.Tracer(enabled=True, sample_rate=1.0,
+                              store=T.TraceStore(64)))
+        results["always"] = workload()
+        phases["always"] = p50()
+        stored = len(T.get_tracer().store)
+        assert stored > 0, "always-on tracing stored no traces"
+    finally:
+        T.set_tracer(prev)
+    assert results["untraced"] == want, "config 12 disagrees with numpy"
+    for name in ("off", "sampled", "always"):
+        assert results[name] == results["untraced"], name
+    _release(api, "c12")
+    base = phases["untraced"]
+    print(f"api reads 10 config 12: p50 of the 3-query workload untraced "
+          f"{base:.3f} ms, off {phases['off']:.3f}, 10% sampled "
+          f"{phases['sampled']:.3f}, always on {phases['always']:.3f} ("
+          + ", ".join(f"{k} {100 * (v / base - 1):+.1f}%"
+                      for k, v in phases.items() if k != "untraced")
+          + f"); spans allocated off 0; traces stored {stored} {lab}")
+    return {"p50_ms": phases, "traces_stored": stored}
+
+
+def phase_api_reads(report: Report) -> dict:
+    """Path 10: bench.py configs 13 (cold vs warm residency, the host
+    split of a warm read) and 12 (tracing overhead) through the API's
+    read calls."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    t0 = time.perf_counter()
+    KU.reset_launches()
+    c13 = _config13(report.label)
+    c12 = _config12(report.label)
+    torch.cuda.synchronize()
+    report.launched("api reads 10", KU.launches(),
+                    ("tape_count", "bsi_compare"))
+    out = {"config13": c13, "config12": c12,
+           "seconds": time.perf_counter() - t0}
+    print("api reads 10: " + json.dumps(
+        {"config13": {k: v for k, v in c13.items() if k != "per_query"},
+         "config12": c12, "seconds": out["seconds"]}, default=str))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Path 11: durability (WAL, checkpoints, crash recovery, backup/restore)
+# ---------------------------------------------------------------------------
+
+C11_COMMITS = (64, 256, 1024)
+C2_SHARDS = 10
+
+
+def _dir_bytes(path: str) -> int:
+    total = 0
+    for dirpath, _, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.path.getsize(os.path.join(dirpath, f))
+            except OSError:
+                pass
+    return total
+
+
+class _CheckpointLog:
+    """Counts and times ``Holder.checkpoint`` calls while open."""
+
+    def __init__(self):
+        from pilosa_tpu_torch.core.holder import Holder
+
+        self.seconds = []
+        self._orig = Holder.checkpoint
+        log = self
+
+        def checkpoint(holder):
+            t0 = time.perf_counter()
+            try:
+                return log._orig(holder)
+            finally:
+                log.seconds.append(time.perf_counter() - t0)
+
+        Holder.checkpoint = checkpoint
+
+    def close(self):
+        from pilosa_tpu_torch.core.holder import Holder
+
+        Holder.checkpoint = self._orig
+
+
+def _recover(path: str):
+    """Reopen ``path`` (crash recovery), split into the schema load, the
+    npz load, the WAL replay and the repair; returns (api, seconds,
+    split)."""
+    import torch
+
+    from pilosa_tpu_torch import api as A
+    from pilosa_tpu_torch.core import holder as H
+    from pilosa_tpu_torch.storage import store, wal
+
+    clock = _StageClock([("schema", H.Holder, "_load_schema"),
+                         ("npz load", store, "load_holder_data"),
+                         ("replay", H.Holder, "replay_records"),
+                         ("repair", wal.WAL, "repair")])
+    try:
+        t0 = time.perf_counter()
+        api = A.API(path)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        clock.close()
+    return api, secs, dict(clock.own)
+
+
+def _config11(base: str, lab) -> dict:
+    """11a: bench.py config 11 as it builds it, on the card."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.storage.recovery import (
+        CrashPlan, abandon_holder, crash_workload, oracle_checksums,
+        run_crash_point)
+
+    rng = np.random.default_rng(11)
+    sizes = []
+    for n_commits in C11_COMMITS:
+        path = os.path.join(base, f"wal{n_commits}")
+        api = API(path)
+        api.create_index("r", {"trackExistence": False})
+        api.create_field("r", "f")
+        api.save()  # the schema checkpoint: the WAL tail is all data
+        rows = rng.integers(0, 8, size=(n_commits, 32))
+        cols = rng.integers(0, 1 << 20, size=(n_commits, 32))
+        t0 = time.perf_counter()
+        for i in range(n_commits):
+            api.import_bits("r", "f", rows=rows[i].tolist(),
+                            cols=cols[i].tolist())
+        ingest_s = time.perf_counter() - t0
+        want = api.checksum()
+        wal_bytes = api.holder.wal_bytes()
+        api.holder.flush_wals()
+        abandon_holder(api.holder)
+        recovered, recover_s, split = _recover(path)
+        assert recovered.checksum() == want, \
+            f"recovery lost data at {n_commits} commits"
+        abandon_holder(recovered.holder)
+        sizes.append({"commits": n_commits, "recover_ms": recover_s * 1e3,
+                      "wal_kb": wal_bytes / 1024,
+                      "replay_mbps": wal_bytes / recover_s / 1e6,
+                      "reingest_ms": ingest_s * 1e3,
+                      "split_ms": {k: v * 1e3 for k, v in split.items()}})
+        print(f"durability 11a: {n_commits} commits of 32 bits: recovery "
+              f"{recover_s * 1e3:.3f} ms ("
+              + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in split.items())
+              + f" ms) for {wal_bytes / 1024:.1f} KB of WAL, replay "
+              f"{wal_bytes / recover_s / 1e6:.3f} MB/s; re-ingest "
+              f"{ingest_s * 1e3:.3f} ms; checksum equal {lab}")
+    kp = os.path.join(base, "killpoint")
+    batches = crash_workload(n_batches=8, seed=11)
+    oracle = oracle_checksums(kp, batches)
+    plan = CrashPlan.seeded(11)
+    res = run_crash_point(kp, plan, batches, checkpoint_bytes=1)
+    k = oracle.index(res["checksum"]) if res["checksum"] in oracle else -1
+    assert k >= 0, "the seeded kill point recovered a non-prefix state"
+    assert k >= res["acked"], f"acked batch lost: prefix {k} < {res['acked']}"
+    abandon_holder(res["api"].holder)
+    print(f"durability 11a: CrashPlan.seeded(11) fired at {res['fired']}; "
+          f"{res['acked']} of 8 batches acknowledged, recovered the prefix "
+          f"of {k} batches (crashed {res['crashed']})")
+    return {"sizes": sizes, "kill_point": {"fired": res["fired"],
+                                           "acked": res["acked"],
+                                           "prefix": k}}
+
+
+def _c1_answers(api, pairs):
+    out = {}
+    for c, d in pairs:
+        q = f"Count(Intersect(Row(city={c}), Row(device={d})))"
+        out[q] = api.query("taxi", q)[0]
+    top = api.query("taxi", "TopN(city, n=10)")[0]
+    out["TopN(city, n=10)"] = [(p.id, p.count) for p in top.pairs]
+    return out
+
+
+def _c1_oracle(city, dev, pairs):
+    import numpy as np
+
+    out = {}
+    for c, d in pairs:
+        q = f"Count(Intersect(Row(city={c}), Row(device={d})))"
+        out[q] = int(((city == c) & (dev == d)).sum())
+    counts = np.bincount(city)
+    out["TopN(city, n=10)"] = _want_top(
+        {i: int(x) for i, x in enumerate(counts)}, 10)
+    return out
+
+
+def _c2_answers(api):
+    half = 524288
+    s = api.query("b", f"Sum(Row(amount > {half}), field=amount)")[0]
+    mn = api.query("b", "Min(field=amount)")[0]
+    mx = api.query("b", "Max(field=amount)")[0]
+    return {"sum": (s.val, s.count),
+            "range": api.query("b", "Count(Row(1000 <= amount <= 2000))")[0],
+            "min": (mn.val, mn.count), "max": (mx.val, mx.count)}
+
+
+def _c2_oracle(amount):
+    half = 524288
+    big = amount[amount > half]
+    lo, hi = int(amount.min()), int(amount.max())
+    return {"sum": (int(big.sum()), int(big.size)),
+            "range": int(((amount >= 1000) & (amount <= 2000)).sum()),
+            "min": (lo, int((amount == lo).sum())),
+            "max": (hi, int((amount == hi).sum()))}
+
+
+def phase_durability(report: Report, args, write_visible_ms) -> dict:
+    """Path 11: durability at full size in one data directory on local
+    disk (the checkout's build/), wal_sync="batch": 11a bench.py config
+    11, 11b BASELINE config 1 into API(path) with two crashes, 11c
+    config 2's amount field beside it, 11d backup and restore, 11e a
+    roaring import."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.probes import import_probe as IP
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.storage import roaring
+    from pilosa_tpu_torch.storage.recovery import abandon_holder
+
+    lab = report.label
+    base = os.path.abspath(os.path.join("build", "chip_smoke_data"))
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t_phase = time.perf_counter()
+    out = {}
+    ckpts = _CheckpointLog()
+    try:
+        KU.reset_launches()
+        # -- 11a ---------------------------------------------------------------
+        t0 = time.perf_counter()
+        out["11a"] = _config11(os.path.join(base, "c11"), lab)
+        out["11a"]["seconds"] = time.perf_counter() - t0
+        ckpts.seconds.clear()
+
+        # -- 11b: config 1 into API(path) ------------------------------------
+        t0 = time.perf_counter()
+        path = os.path.join(base, "holder")
+        city, dev = IP.config1_data()
+        n = city.size
+        pairs = [(7, 3), (0, 0), (999, 9), (500, 5), (123, 1), (42, 8)]
+        api = API(path)
+        t1 = time.perf_counter()
+        changed = IP.import_config1(api, city, dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t1
+        IP.check_config1(api, city, dev, changed)
+        import_ckpts = list(ckpts.seconds)
+        ckpts.seconds.clear()
+        want = _c1_oracle(city, dev, pairs)
+        assert _c1_answers(api, pairs) == want, "config 1 disagrees"
+        digest = api.checksum()
+        wal_bytes = api.holder.wal_bytes()
+        abandon_holder(api.holder)
+        t1 = time.perf_counter()
+        api, rec_s, split = _recover(path)
+        first = api.query(
+            "taxi", "Count(Intersect(Row(city=7), Row(device=3)))")[0]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        assert first == want["Count(Intersect(Row(city=7), Row(device=3)))"]
+        assert api.checksum() == digest, "crash 1 changed the checksum"
+        assert _c1_answers(api, pairs) == want, "crash 1 changed an answer"
+        t1 = time.perf_counter()
+        api.save()
+        save_s = time.perf_counter() - t1
+        ckpts.seconds.clear()
+        disk = _dir_bytes(path)
+        assert api.holder.wal_bytes() == 0
+        # 64 rounds of writes with the WAL, each read back
+        q = "Count(Intersect(Row(city=3), Row(device=7)))"
+        c3d7 = int(((city == 3) & (dev == 7)).sum())
+        rounds_ms = []
+        for i in range(64):
+            c = n + i
+            t1 = time.perf_counter()
+            api.query("taxi", f"Set({c}, city=3)Set({c}, device=7)")
+            got = api.query("taxi", q)[0]
+            rounds_ms.append((time.perf_counter() - t1) * 1e3)
+            assert got == c3d7 + i + 1, f"round {i}: {got}"
+        city = np.concatenate([city, np.full(64, 3)])
+        dev = np.concatenate([dev, np.full(64, 7)])
+        cols_all = np.arange(city.size)
+        # one import_bits of 131,072 new records; shard 0 has 48,512 free
+        # columns left, so they go to the start of shard 1
+        rng = np.random.default_rng(111)
+        new = rng.integers(0, 1000, IP.C1_BATCH)
+        ids = SHARD_WIDTH + np.arange(IP.C1_BATCH)
+        before = KU.launches()["scatter_merge"]
+        api.import_bits("taxi", "city", rows=new, cols=ids)
+        torch.cuda.synchronize()
+        import_launches = KU.launches()["scatter_merge"] - before
+        # the city field and the _exists mark: one launch each
+        assert import_launches == 2, import_launches
+        city = np.concatenate([city, new])
+        dev = np.concatenate([dev, np.full(new.size, -1)])
+        cols_all = np.concatenate([cols_all, ids])
+        want = _c1_oracle(city, dev, pairs)
+        assert _c1_answers(api, pairs) == want, "after the writes"
+        writes_ckpts = list(ckpts.seconds)
+        digest = api.checksum()
+        tail_bytes = api.holder.wal_bytes()
+        abandon_holder(api.holder)
+        api, rec2_s, split2 = _recover(path)
+        assert api.checksum() == digest, "crash 2 changed the checksum"
+        assert _c1_answers(api, pairs) == want, "crash 2 changed an answer"
+        out["11b"] = {
+            "import_s": import_s, "import_checkpoints_s": import_ckpts,
+            "wal_bytes_at_crash1": wal_bytes, "recovery1_s": rec_s,
+            "recovery1_split_s": split, "first_answer_s": first_s,
+            "checkpoint_s": save_s, "bytes_on_disk": disk,
+            "write_visible_median_ms": statistics.median(rounds_ms),
+            "write_visible_in_memory_ms": write_visible_ms,
+            "import_launches": import_launches,
+            "writes_checkpoints_s": writes_ckpts,
+            "wal_bytes_at_crash2": tail_bytes, "recovery2_s": rec2_s,
+            "recovery2_split_s": split2,
+            "seconds": time.perf_counter() - t0}
+        b = out["11b"]
+        print(f"durability 11b: config 1 into API(path): import "
+              f"{import_s:.3f} s with {len(import_ckpts)} checkpoints ("
+              + ", ".join(f"{s:.3f}" for s in import_ckpts)
+              + f" s); crash 1 with {wal_bytes} B of WAL: recovery "
+              f"{rec_s:.3f} s (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in split.items())
+              + f" s); first answer after the restart {first_s:.3f} s "
+              f"{lab}")
+        print(f"durability 11b: checkpoint {save_s:.3f} s, {disk} B on "
+              f"disk; write->visible with the WAL median "
+              f"{b['write_visible_median_ms']:.3f} ms (64 rounds; path 6a "
+              f"in memory {_fmt_ms(write_visible_ms)}); an import of "
+              f"{IP.C1_BATCH} new records: {import_launches} scatter_merge "
+              f"launches; {len(writes_ckpts)} checkpoints since the save; "
+              f"crash 2 (checkpoint + {tail_bytes} B of tail): "
+              f"recovery {rec2_s:.3f} s (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in split2.items())
+              + f" s); checksum and answers equal {lab}")
+
+        # -- 11c: config 2's amount field in a second index -------------------
+        t0 = time.perf_counter()
+        ckpts.seconds.clear()
+        amount = np.random.default_rng(args.seed).integers(
+            0, 1 << 20, C2_SHARDS * SHARD_WIDTH)
+        api.create_index("b")
+        api.create_field("b", "amount", {"type": "int"})
+        t1 = time.perf_counter()
+        for s in range(C2_SHARDS):
+            lo = s * SHARD_WIDTH
+            api.import_values("b", "amount",
+                              cols=np.arange(lo, lo + SHARD_WIDTH),
+                              values=amount[lo:lo + SHARD_WIDTH])
+        torch.cuda.synchronize()
+        c2_import_s = time.perf_counter() - t1
+        c2_ckpts = list(ckpts.seconds)
+        want2 = _c2_oracle(amount)
+        digest = api.checksum()
+        tail = api.holder.wal_bytes()
+        abandon_holder(api.holder)
+        api, rec3_s, split3 = _recover(path)
+        assert api.checksum() == digest, "11c: the checksum changed"
+        assert _c2_answers(api) == want2, "11c disagrees with numpy"
+        assert _c1_answers(api, pairs) == want
+        bsi_bytes = sum(f.planes.nbytes for f in
+                        api.holder.index("b").field("amount").bsi.values())
+        out["11c"] = {"import_s": c2_import_s, "checkpoints_s": c2_ckpts,
+                      "wal_tail_bytes": tail, "recovery_s": rec3_s,
+                      "recovery_split_s": split3, "bsi_bytes": bsi_bytes,
+                      "seconds": time.perf_counter() - t0}
+        print(f"durability 11c: config 2's amount ({C2_SHARDS} shards, "
+              f"{bsi_bytes} B of BSI planes) imported a shard a request in "
+              f"{c2_import_s:.3f} s with {len(c2_ckpts)} checkpoints ("
+              + ", ".join(f"{s:.3f}" for s in c2_ckpts)
+              + f" s); crash with {tail} B of tail: recovery {rec3_s:.3f} "
+              f"s (" + ", ".join(f"{k} {v:.3f}" for k, v in split3.items())
+              + f" s); Sum, Range Count, Min, Max match numpy {lab}")
+
+        # -- 11d: backup and restore -------------------------------------------
+        t0 = time.perf_counter()
+        buf = io.BytesIO()
+        api.backup_tar(buf)
+        backup_s = time.perf_counter() - t0
+        tar = buf.getvalue()
+        del buf
+        t1 = time.perf_counter()
+        dst = API(os.path.join(base, "restored"))
+        dst.restore_tar(io.BytesIO(tar))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        assert dst.checksum() == api.checksum(), "restore changed the data"
+        assert _c1_answers(dst, pairs) == want
+        assert _c2_answers(dst) == want2
+        abandon_holder(dst.holder)
+        del dst
+        out["11d"] = {"tar_bytes": len(tar), "backup_s": backup_s,
+                      "restore_s": restore_s}
+        print(f"durability 11d: backup_tar {len(tar)} B in {backup_s:.3f} "
+              f"s; restore_tar into a fresh API(path) {restore_s:.3f} s; "
+              f"checksum and every answer of 11b and 11c equal {lab}")
+        del tar
+
+        # -- 11e: import_roaring -----------------------------------------------
+        t0 = time.perf_counter()
+        in0 = cols_all < SHARD_WIDTH
+        blob = roaring.encode_positions(
+            city[in0].astype(np.uint64) * np.uint64(SHARD_WIDTH)
+            + cols_all[in0].astype(np.uint64))
+        api.create_field("taxi", "city2")
+        t1 = time.perf_counter()
+        api.import_roaring("taxi", "city2", 0, {"": blob})
+        roaring_s = time.perf_counter() - t1
+        for c in (0, 3, 7, 500, 999):
+            assert api.query("taxi", f"Count(Row(city2={c}))")[0] == \
+                int((city[in0] == c).sum())
+        q2 = "Count(Intersect(Row(city2=7), Row(device=3)))"
+        assert api.query("taxi", q2)[0] == want[
+            "Count(Intersect(Row(city=7), Row(device=3)))"]
+        out["11e"] = {"roaring_bytes": len(blob), "import_s": roaring_s,
+                      "seconds": time.perf_counter() - t0}
+        print(f"durability 11e: one shard of city as a {len(blob)} B "
+              f"roaring blob, imported into a fresh field in "
+              f"{roaring_s:.3f} s; Counts equal {lab}")
+
+        torch.cuda.synchronize()
+        launched = KU.launches()
+        report.launched("durability 11", launched,
+                        ("tape_count", "pair_counts", "bsi_compare",
+                         "scatter_merge"))
+        # tape_count and pair_counts against their plain versions on the
+        # recovered stacks (these launches are not counted)
+        idx = api.holder.index("taxi")
+        cs = STK.stacked_set(idx.field("city"), [0], "standard")
+        ds = STK.stacked_set(idx.field("device"), [0], "standard")
+        leaves = [cs.row_plane(3), ds.row_plane(7)]
+        tape = (("and", 0, 1),)
+        report.err("tape_count", B.tape_count(tape, leaves),
+                   B.tape_count_plain(tape, leaves))
+        for _, blk in cs.iter_blocks():
+            report.err("pair_counts", G.pair_counts(ds.planes, blk),
+                       G.pair_counts_plain(ds.planes, blk))
+        abandon_holder(api.holder)
+        del api
+    finally:
+        ckpts.close()
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"durability 11: launches {launched} {lab}")
+    print("durability 11: " + json.dumps(out, default=str))
+    print("durability 11: every recovered checksum equals the one before "
+          "its crash; every answer matches numpy")
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -3823,20 +4663,33 @@ def main() -> int:
     device = torch.device("cuda", 0)
     lop_rate = LOP_PER_CLOCK_PER_SM * props.multi_processor_count \
         * clock_mhz * 1e6
-    phase_kernels(report, np.random.default_rng(args.seed + 1), device,
-                  popc_rate, mem_rate, lop_rate, INT8_OPS_PER_S, probe_lib)
+    rates = (mem_rate, popc_rate, lop_rate)
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    timed("kernel parity", phase_kernels, report,
+          np.random.default_rng(args.seed + 1), device, popc_rate, mem_rate,
+          lop_rate, INT8_OPS_PER_S, probe_lib)
     print("kernel parity: every kernel matches its plain version bit for "
           "bit")
-    ssb = phase_main_path(report, args)
-    bsi = phase_bsi_path(report, args)
-    by_date = phase_ssb_by_date(report, args)
-    phase_sparse_bsi(report, args)
-    config1 = phase_config1(report, args)
-    by_date = phase_writes(report, config1, by_date, bsi)
+    ssb = timed("1 SSB", phase_main_path, report, args)
+    bsi = timed("2 BSI", phase_bsi_path, report, args)
+    by_date = timed("3 SSB by date", phase_ssb_by_date, report, args)
+    timed("sparse BSI", phase_sparse_bsi, report, args)
+    config1 = timed("5 config 1", phase_config1, report, args)
+    by_date = timed("6 writes", phase_writes, report, config1, by_date, bsi)
     del bsi, config1
-    c4 = phase_time(report, args, (mem_rate, popc_rate, lop_rate))
-    phase_dataframe(report, args, mem_rate)
-    phase_serving(report, ssb, by_date, c4, (mem_rate, popc_rate, lop_rate))
+    c4 = timed("7 time", phase_time, report, args, rates)
+    timed("8 dataframe", phase_dataframe, report, args, mem_rate)
+    timed("9 serving", phase_serving, report, ssb, by_date, c4, rates)
+    del ssb, by_date, c4
+    timed("10 API reads", phase_api_reads, report)
+    timed("11 durability", phase_durability, report, args,
+          report.notes.get("write_visible_ms"))
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

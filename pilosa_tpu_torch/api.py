@@ -1,55 +1,93 @@
 """API facade: the programmatic surface over holder + executor.
 
-Port of the core of ``pilosa_tpu/api.py`` (reference: api.go:209): create
+Port of ``pilosa_tpu/api.py`` (reference: api.go:209): create and delete
 indexes and fields (set, mutex, bool, time, int, decimal, timestamp; a
 ``time`` field's ``timeQuantum`` is validated as in the JAX package),
-bulk-import bits (by row id or row key) and BSI values (by column id or
-key), keeping
-the ``_exists`` field up to date, ingest and read dataframe changesets,
-and run PQL reads and writes (a query with write calls, and a dataframe
-changeset, runs as one write request, ``storage/txn.py``). Reads may go
-through the micro-batching scheduler (``enable_scheduler``, ``sched/``)
-and the version-keyed result cache (``enable_cache``, ``cache/``).
-``API()`` runs on the card, ``cuda:0``; ``API(device="cpu")`` runs every
-kernel's plain PyTorch version on the CPU. Without a card, ``API()``
-raises.
+bulk-import bits (by row id or row key, or as roaring blobs) and BSI
+values (by column id or key), keeping the ``_exists`` field up to date,
+ingest and read dataframe changesets, run PQL reads and writes (JSON
+results and a profiled span tree from ``query_json``), and back up,
+restore and checksum the holder. Every write runs as one write request
+(``storage/txn.py``): with a data directory, ``API(path)`` logs it to
+the WAL and group-commits it when the request finishes, and opening
+``API(path)`` recovers the last checkpoint and the WAL tail — the JAX
+package's data directory layout, so either package recovers the
+other's. Reads may go through the micro-batching scheduler
+(``enable_scheduler``, ``sched/``) and the version-keyed result cache
+(``enable_cache``, ``cache/``). ``API()`` runs on the card, ``cuda:0``;
+``API(device="cpu")`` runs every kernel's plain PyTorch version on the
+CPU. Without a card, ``API()`` raises.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import tarfile
+import tempfile
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.core import timeq
+from pilosa_tpu_torch.core.fragment import group_sorted
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.core.schema import FieldOptions, FieldType, IndexOptions
 from pilosa_tpu_torch.core.translate import bulk_translate_ids
+from pilosa_tpu_torch.ingest.idalloc import IDAllocator
 from pilosa_tpu_torch.obs import metrics as M
 from pilosa_tpu_torch.obs.tracing import get_tracer
+from pilosa_tpu_torch.ops.bitmap import bits_to_plane
 from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
 from pilosa_tpu_torch.pql.parser import parse
-from pilosa_tpu_torch.storage.txn import write_qcx
+from pilosa_tpu_torch.pql.result import result_to_json
+from pilosa_tpu_torch.shardwidth import (SHARD_WIDTH, SHARD_WIDTH_EXP,
+                                         WORDS_PER_SHARD)
+from pilosa_tpu_torch.storage.roaring import decode_to_positions
+from pilosa_tpu_torch.storage.store import export_holder, save_holder_data
+from pilosa_tpu_torch.storage.txn import TxFactory
+from pilosa_tpu_torch.transaction import TransactionManager
 
 
 class API:
-    def __init__(self, device: platform.DeviceLike = None):
+    def __init__(self, path: Optional[str] = None, wal_sync: str = "batch",
+                 segment_bytes: Optional[int] = None,
+                 device: platform.DeviceLike = None):
         self.device = platform.resolve_device(device)
-        self.holder = Holder(self.device)
+        self.holder = Holder(self.device, path, wal_sync=wal_sync,
+                             segment_bytes=segment_bytes)
         self.executor = Executor(self.holder)
+        self.txf = TxFactory(self.holder)
+        # cluster transactions (reference: transaction.go) and the auto-ID
+        # reservation service (reference: idalloc.go)
+        self.transactions = TransactionManager()
+        self.idalloc = IDAllocator(
+            os.path.join(path, "idalloc.jsonl") if path else None)
         # optional serving layers; None keeps the read path direct
         self.scheduler = None
         self.cache = None
+        if path:
+            # checkpoint load + WAL replay (reference: rbf/db.go open)
+            self.holder.recover()
 
-    # -- schema (reference: api.go CreateIndex/CreateField) -----------------
+    # -- schema (reference: api.go CreateIndex/CreateField/Schema) ---------
 
     def create_index(self, name: str, options: Optional[dict] = None) -> Index:
         opts = IndexOptions(
             keys=bool((options or {}).get("keys", False)),
             track_existence=bool((options or {}).get("trackExistence", True)),
         )
-        return self.holder.create_index(name, opts)
+        idx = self.holder.create_index(name, opts)
+        M.REGISTRY.count(M.METRIC_CREATE_INDEX)
+        return idx
+
+    def delete_index(self, name: str) -> None:
+        self.holder.delete_index(name)
+        M.REGISTRY.count(M.METRIC_DELETE_INDEX)
 
     def create_field(self, index: str, field: str,
                      options: Optional[dict] = None) -> None:
@@ -63,12 +101,24 @@ class API:
             scale=int(o.pop("scale", 0)),
             time_unit=o.pop("timeUnit", "s"),
             time_quantum=o.pop("timeQuantum", ""),
+            ttl_seconds=int(o.pop("ttl", 0)),
             cache_type=o.pop("cacheType", "ranked"),
             cache_size=int(o.pop("cacheSize", 50000)),
         )
         if o:
             raise ValueError(f"not ported yet: field options {sorted(o)}")
         self.holder.index(index).create_field(field, fo)
+        M.REGISTRY.count(M.METRIC_CREATE_FIELD)
+        self.holder.save_schema()
+
+    def delete_field(self, index: str, field: str) -> None:
+        with self.txf.qcx():  # flushes the delete_field WAL tombstone
+            self.holder.index(index).delete_field(field)
+        M.REGISTRY.count(M.METRIC_DELETE_FIELD)
+        self.holder.save_schema()
+
+    def schema(self) -> List[dict]:
+        return self.holder.schema()
 
     # -- scheduler (sched/: admission + micro-batching) --------------------
 
@@ -139,7 +189,7 @@ class API:
             parsed = parse(pql) if isinstance(pql, str) else pql
             sched = self.scheduler
             if has_write_calls(parsed):
-                with write_qcx(self.holder):
+                with self.txf.qcx():
                     return self.executor.execute(index, parsed,
                                                  shards=shards)
             if sched is not None:
@@ -151,15 +201,34 @@ class API:
                 return sched.execute(index, parsed, shards=shards, **kw)
             return self.executor.execute(index, parsed, shards=shards)
 
+    def query_json(self, index: str, pql: str,
+                   priority: Optional[str] = None,
+                   deadline_ms: Optional[float] = None,
+                   profile: bool = False) -> dict:
+        """``{"results": [...]}`` in the reference's JSON shapes.
+        ``profile=True`` forces a sampled trace for this query and returns
+        its span tree beside the results (the reference's ProfiledSpan)."""
+        if profile:
+            with get_tracer().profile("query.profile", index=index) as root:
+                out = self.query_json(index, pql, priority=priority,
+                                      deadline_ms=deadline_ms)
+            out["profile"] = root.to_json()
+            return out
+        return {"results": [result_to_json(r) for r in self.query(
+            index, pql, priority=priority, deadline_ms=deadline_ms)]}
+
     # -- bulk import (reference: api.go:1438 Import) -------------------------
 
     def import_bits(self, index: str, field: str,
                     rows: Sequence[int] = (),
                     cols: Optional[Sequence[int]] = None,
                     row_keys: Optional[Sequence[str]] = None,
-                    col_keys: Optional[Sequence[str]] = None) -> int:
+                    col_keys: Optional[Sequence[str]] = None,
+                    clear: bool = False) -> int:
         """Bulk (row, col) import, translating keys when given; marks
-        every column in ``_exists`` when the index tracks existence."""
+        every column in ``_exists`` when the index tracks existence.
+        ``clear`` clears the bits instead (and marks nothing). One write
+        request: with a data directory, one group commit."""
         idx = self.holder.index(index)
         fld = idx.field(field)
         if row_keys is not None:
@@ -172,9 +241,12 @@ class API:
             cols = bulk_translate_ids(idx.translate, col_keys)
         if cols is None or len(rows) != len(cols):
             raise ValueError("rows and cols must be the same length")
-        with self.holder.write_lock:
-            changed = fld.import_bits(rows, cols)
-            self._mark_exists(idx, cols)
+        with self.txf.qcx():
+            changed = fld.import_bits(rows, cols, clear=clear)
+            if not clear:
+                self._mark_exists(idx, cols)
+        M.REGISTRY.count(M.METRIC_CLEARED if clear else M.METRIC_IMPORTED,
+                         len(cols))
         return changed
 
     def import_values(self, index: str, field: str,
@@ -195,10 +267,46 @@ class API:
         if cols is None or len(cols) != len(values):
             raise ValueError("cols and values must be the same length")
         cols = np.asarray(cols, dtype=np.int64)
-        with self.holder.write_lock:
+        with self.txf.qcx():
             fld.set_values(cols, values)
             self._mark_exists(idx, cols)
+        M.REGISTRY.count(M.METRIC_IMPORTED, len(cols))
         return len(cols)
+
+    def import_roaring(self, index: str, field: str, shard: int,
+                       views: Dict[str, bytes], clear: bool = False) -> None:
+        """Shard-transactional roaring import (reference: api.go:1647
+        ImportRoaringShard): per view, a pilosa-roaring blob addressed as
+        row * ShardWidth + column within the shard, merged (or cleared)
+        into the fragment row by row."""
+        idx = self.holder.index(index)
+        fld = idx.field(field)
+        if fld.options.type.is_bsi:
+            raise ValueError(
+                f"field {field!r} is int-like; roaring imports target "
+                "bitmap-row fields")
+        all_cols = []
+        with self.txf.qcx():
+            for view, blob in views.items():
+                view = view or timeq.VIEW_STANDARD
+                positions = decode_to_positions(blob)
+                rows = (positions >> np.uint64(SHARD_WIDTH_EXP)
+                        ).astype(np.int64)
+                cols = (positions & np.uint64(SHARD_WIDTH - 1)
+                        ).astype(np.int64)
+                for row, (sel,) in group_sorted(rows, cols):
+                    plane = bits_to_plane(sel, WORDS_PER_SHARD)
+                    if clear:
+                        fld.clear_row_plane_bits(shard, row, plane,
+                                                 view=view)
+                    else:
+                        fld.write_row_plane(shard, row, plane, view=view)
+                all_cols.append(cols)
+            cols = np.unique(np.concatenate(all_cols)) if all_cols else ()
+            if not clear and idx.options.track_existence and len(cols):
+                idx.field(EXISTENCE_FIELD).import_bits(
+                    np.zeros(len(cols), dtype=np.int64),
+                    shard * SHARD_WIDTH + cols)
 
     @staticmethod
     def _mark_exists(idx: Index, cols) -> None:
@@ -214,7 +322,7 @@ class API:
         """Apply a columnar changeset to one shard's frame (reference:
         apply.go:400 ShardFile.Process)."""
         idx = self.holder.index(index)
-        with write_qcx(self.holder):
+        with self.txf.qcx():
             idx.dataframe.apply_changeset(shard, shard_ids, columns)
 
     def dataframe_schema(self, index: str) -> List[dict]:
@@ -237,5 +345,128 @@ class API:
         return {"shard": shard, "columns": out}
 
     def delete_dataframe(self, index: str) -> None:
-        with write_qcx(self.holder):
+        with self.txf.qcx():  # flushes the df_delete WAL tombstone
             self.holder.index(index).dataframe.delete()
+
+    # -- backup / restore / checksum (reference: ctl/backup.go,
+    #    ctl/backup_tar.go, ctl/restore.go, ctl/chksum.go) ------------------
+
+    def backup_tar(self, fileobj) -> None:
+        """Stream a tar snapshot: schema, fragments, BSI planes, dataframe
+        and translate journals, consistent under the write lock (the
+        reference holds a cluster transaction instead, ctl/backup.go:30)."""
+        with self.holder.write_lock:
+            with tempfile.TemporaryDirectory(prefix="pilosa-backup") as tmp:
+                export_holder(self.holder, tmp)
+                with tarfile.open(fileobj=fileobj, mode="w|gz") as tar:
+                    tar.add(tmp, arcname=".")
+
+    def restore_tar(self, fileobj) -> None:
+        """Replace ALL holder contents with a ``backup_tar`` snapshot
+        (reference: ctl/restore.go). The archive's holder opens
+        ``readonly``: its checkpoint loads, and no WAL in it is replayed
+        (unpickling a foreign log would run untrusted bytes)."""
+        with tempfile.TemporaryDirectory(prefix="pilosa-restore") as tmp:
+            with tarfile.open(fileobj=fileobj, mode="r|*") as tar:
+                tar.extractall(tmp, filter="data")
+            with self.holder.write_lock:
+                for name in list(self.holder.indexes):
+                    self.holder.delete_index(name)
+                src = Holder(self.device, tmp, readonly=True)
+                src.recover()
+                # rebuilt through this holder, so WALs and paths attach to
+                # this data dir; then the loaded planes are copied over
+                for sidx in src.indexes.values():
+                    didx = self.holder.create_index(sidx.name, sidx.options)
+                    for f in sidx.public_fields():
+                        didx.create_field(f.name, f.options)
+                    for fname, sf in sidx.fields.items():
+                        df_ = didx.fields[fname]
+                        for view, frags in sf.views.items():
+                            for shard, frag in frags.items():
+                                for slot, row in enumerate(frag.row_ids):
+                                    df_.write_row_plane(
+                                        shard, row, frag.planes[slot],
+                                        clear=True, view=view)
+                        # BSI planes are copied, not logged; the
+                        # checkpoint below persists them
+                        for shard, bfrag in sf.bsi.items():
+                            b = df_.bsi_fragment(shard, create=True)
+                            b._ensure_depth(bfrag.depth)
+                            b.planes[: bfrag.planes.shape[0]] = bfrag.planes
+                            b.version += 1
+                        if sf.translate is not None \
+                                and df_.translate is not None:
+                            df_.translate.replace_all(sf.translate.key_to_id)
+                    if sidx.translate is not None \
+                            and didx.translate is not None:
+                        didx.translate.replace_all(sidx.translate.key_to_id)
+                    for shard, frame in sidx.dataframe.frames.items():
+                        didx.dataframe.frames[shard] = frame
+                        frame.version += 1
+                self.holder.save_schema()
+            if self.holder.path:
+                self.holder.checkpoint()
+
+    def checksum(self) -> str:
+        """Deterministic digest of all data (reference: ctl/chksum.go),
+        computed as the JAX package computes it, so two holders with the
+        same bits digest equal whichever package holds them. Rows hash in
+        row-id order, not insertion order."""
+        h = hashlib.sha256()
+        with self.holder.write_lock:
+            h.update(json.dumps(self.holder.schema(),
+                                sort_keys=True).encode())
+            for iname in sorted(self.holder.indexes):
+                idx = self.holder.indexes[iname]
+                for fname in sorted(idx.fields):
+                    field = idx.fields[fname]
+                    for view in sorted(field.views):
+                        for shard in sorted(field.views[view]):
+                            frag = field.views[view][shard]
+                            h.update(f"{iname}/{fname}/{view}/{shard}"
+                                     .encode())
+                            n = len(frag.row_ids)
+                            rows = np.asarray(frag.row_ids, dtype=np.uint64)
+                            order = np.argsort(rows, kind="stable")
+                            h.update(rows[order].tobytes())
+                            h.update(np.ascontiguousarray(
+                                np.asarray(frag.planes[:n])[order]).tobytes())
+                    for shard in sorted(field.bsi):
+                        h.update(f"{iname}/{fname}/bsi/{shard}".encode())
+                        h.update(np.ascontiguousarray(
+                            field.bsi[shard].planes).tobytes())
+                    if field.translate is not None:
+                        h.update(json.dumps(sorted(
+                            field.translate.key_to_id.items())).encode())
+                if idx.translate is not None:
+                    h.update(json.dumps(sorted(
+                        idx.translate.key_to_id.items())).encode())
+                for shard in sorted(idx.dataframe.frames):
+                    frame = idx.dataframe.frames[shard]
+                    for name in sorted(frame.columns):
+                        h.update(f"df/{iname}/{shard}/{name}".encode())
+                        h.update(np.ascontiguousarray(
+                            frame.columns[name]).tobytes())
+                        h.update(np.packbits(frame.valid[name]).tobytes())
+        return h.hexdigest()
+
+    def save(self) -> None:
+        """Checkpoint: snapshot all planes and prune the WAL segments they
+        subsume (reference: rbf checkpoint, rbf/db.go:149)."""
+        if self.holder.path:
+            self.holder.checkpoint()
+        else:
+            save_holder_data(self.holder)
+
+    def info(self) -> dict:
+        if self.device.type == "cuda":
+            devices = [f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                       for i in range(torch.cuda.device_count())]
+        else:
+            devices = [str(self.device)]
+        return {
+            "shardWidth": SHARD_WIDTH,
+            "devices": devices,
+            "indexes": sorted(self.holder.indexes),
+        }

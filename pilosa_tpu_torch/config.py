@@ -5,7 +5,8 @@ through viper/pflag with PILOSA_* env, ctl/server.go:160
 BuildServerFlags, ``featurebase generate-config``). Same layering with
 the stdlib: tomllib for files, PILOSA_TPU_* env vars, flag dicts — the
 last source wins per field. The port carries the sections of the modules
-it has ported: ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``)
+it has ported: the storage fields and ``[storage.recovery]``
+(``storage/``), ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``)
 and the two ``[tenants]`` flags the scheduler reads, with the JAX
 package's defaults and variable names; the other sections land with the
 modules they configure.
@@ -71,6 +72,20 @@ def _parse_toml_subset(text: str) -> Dict[str, Any]:
 
 @dataclasses.dataclass
 class Config:
+    # storage: the data directory (empty: in memory), the WAL's sync mode
+    # and the record bytes that trigger a checkpoint
+    data_dir: str = ""
+    wal_sync: str = "batch"  # always | batch | never
+    checkpoint_bytes: int = 64 << 20
+    # crash recovery ([storage.recovery] section /
+    # PILOSA_TPU_STORAGE_RECOVERY_*): WAL segment rotation size
+    # (checkpoints prune whole sealed segments), the record bytes that
+    # trigger a checkpoint (0 falls back to checkpoint-bytes), and the
+    # shipped WAL-tail bytes per catch-up fetch (read by the cluster's
+    # catch-up, which is not ported yet)
+    storage_recovery_segment_bytes: int = 4 << 20
+    storage_recovery_checkpoint_interval_bytes: int = 0
+    storage_recovery_catchup_batch_bytes: int = 1 << 20
     # query scheduler ([scheduler] section / PILOSA_TPU_SCHEDULER_*):
     # micro-batches concurrent reads to amortize the per-dispatch floor
     scheduler_enabled: bool = False

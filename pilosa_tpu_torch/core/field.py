@@ -8,14 +8,17 @@ on (reference: field.go:73, :449). Int-like fields store one BSI fragment
 per shard and map external values to stored integers through their base,
 decimal scale or time unit (reference: field.go bsiGroup). The write
 calls (set and clear a bit, set and clear a value, write, clear or zero a
-row plane, clear columns) are in-memory; a timestamped set lands in the
-standard view and one view per unit of the quantum. The WAL waits for a
-later slice.
+row plane, clear columns) are the single logging funnel: each appends the
+JAX package's WAL record (numpy arrays and Python scalars only) to the
+index's log, when the holder is durable, before it changes a fragment;
+fragment methods never log. A timestamped set lands in the standard view
+and one view per unit of the quantum.
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import os
 from typing import Dict, Iterable, List, Optional, Set
 
 import numpy as np
@@ -28,6 +31,7 @@ from pilosa_tpu_torch.core.schema import (BOOL_FALSE_ROW, BOOL_TRUE_ROW,
                                           FieldOptions, FieldType)
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP
+from pilosa_tpu_torch.storage.wal import pack_plane
 
 _PORTED_TYPES = (FieldType.SET, FieldType.MUTEX, FieldType.BOOL,
                  FieldType.TIME, FieldType.INT, FieldType.DECIMAL, FieldType.TIMESTAMP)
@@ -43,7 +47,8 @@ def _int64(xs) -> np.ndarray:
 
 class Field:
     def __init__(self, name: str, options: FieldOptions,
-                 device: torch.device, write_lock=None):
+                 device: torch.device, write_lock=None,
+                 path: Optional[str] = None):
         if options.type not in _PORTED_TYPES:
             raise NotImplementedError(
                 f"not ported yet: {options.type.value} fields")
@@ -52,13 +57,20 @@ class Field:
         self.name = name
         self.options = options
         self.device = device
+        self.path = path
         # the holder-wide writer lock (core/stacked.py build serialization)
         self.write_lock = write_lock
         # view name -> shard -> fragment
         self.views: Dict[str, Dict[int, SetFragment]] = {}
         # BSI storage (int/decimal/timestamp): shard -> BSIFragment
         self.bsi: Dict[int, BSIFragment] = {}
-        self.translate = TranslateStore(start=1) if options.keys else None
+        self.translate = (
+            TranslateStore(os.path.join(path, "keys.jsonl") if path else None,
+                           start=1)
+            if options.keys else None)
+        # the index's write-ahead log (storage/wal.py), attached by the
+        # owning Index when the holder is durable
+        self.wal = None
 
     # -- value <-> stored mapping (BSI) -------------------------------------
 
@@ -159,12 +171,18 @@ class Field:
             views += timeq.views_by_time(timestamp, self.options.time_quantum)
         return views
 
+    def _log(self, *record) -> None:
+        if self.wal is not None:
+            self.wal.append(record)
+
     def set_bit(self, row: int, col: int,
                 timestamp: Optional[dt.datetime] = None) -> bool:
         """Set (row, col) in every view of the write; mutex/bool clear the
         column's other rows first (reference: fragment.go setBit +
         fragment.go:1787)."""
-        views = self._write_views(timestamp)
+        views = self._write_views(timestamp)  # validates before logging
+        self._log("set_bit", self.name, row, col,
+                  timestamp.isoformat() if timestamp else None)
         shard, pos = divmod(col, SHARD_WIDTH)
         changed = False
         for view in views:
@@ -177,6 +195,7 @@ class Field:
     def clear_bit(self, row: int, col: int) -> bool:
         """Clear (row, col) in every view (reference: fragment clearBit
         per view)."""
+        self._log("clear_bit", self.name, row, col)
         shard, pos = divmod(col, SHARD_WIDTH)
         changed = False
         for view in list(self.views):
@@ -192,6 +211,7 @@ class Field:
         self.set_values([col], [value])
 
     def clear_value(self, col: int) -> bool:
+        self._log("clear_value", self.name, col)
         shard, pos = divmod(col, SHARD_WIDTH)
         frag = self.bsi_fragment(shard)
         return frag.clear_value(pos) if frag else False
@@ -202,6 +222,8 @@ class Field:
         """Merge (OR) or replace one row plane (the Store path;
         reference: fragment.go:2038 importRoaring, executor.go
         executeSetRow)."""
+        self._log("row_plane", self.name, view, shard, row,
+                  pack_plane(plane), clear)
         frag = self.fragment(shard, view, create=True)
         frag.import_row_plane(row, plane, clear=clear)
 
@@ -209,6 +231,8 @@ class Field:
                              view: str = timeq.VIEW_STANDARD) -> bool:
         """Clear the bits of ``plane`` from one row (reference:
         fragment.go:2053 ImportRoaringClearAndSet)."""
+        self._log("clear_row_bits", self.name, view, shard, row,
+                  pack_plane(plane))
         frag = self.fragment(shard, view)
         if frag is None:
             return False
@@ -217,6 +241,7 @@ class Field:
     def clear_row(self, row: int) -> bool:
         """Zero a row across all views and shards (reference:
         executor.go executeClearRow)."""
+        self._log("clear_row", self.name, row)
         changed = False
         for view in list(self.views):
             for frag in self.views[view].values():
@@ -227,10 +252,13 @@ class Field:
                     changed = True
         return changed
 
-    def clear_columns(self, shard: int, plane) -> None:
+    def clear_columns(self, shard: int, plane, log: bool = True) -> None:
         """Clear the columns of ``plane`` from every view fragment and
         the BSI planes of this shard (record deletion, reference:
-        executor.go:9050 executeDeleteRecords)."""
+        executor.go:9050 executeDeleteRecords). ``log=False`` when the
+        owning Index already logged one index-level delete record."""
+        if log:
+            self._log("clear_cols", self.name, shard, pack_plane(plane))
         for view_frags in self.views.values():
             frag = view_frags.get(shard)
             if frag is not None:
@@ -239,14 +267,20 @@ class Field:
         if bsi is not None:
             bsi.clear_plane(plane)
 
-    def import_bits(self, rows: Iterable[int], cols: Iterable[int]) -> int:
+    def import_bits(self, rows: Iterable[int], cols: Iterable[int],
+                    clear: bool = False) -> int:
         """Bulk (row, col) import with IDs already translated (reference:
         fragment.go:1498 bulkImport; mutex variant :1787). Returns the
-        changed bit count."""
+        changed bit count. One bulk WAL record replaces per-bit logging;
+        ``clear`` clears bit by bit, every view, each clear logged."""
         rows, cols = _int64(rows), _int64(cols)
         if rows.size != cols.size:
             raise ValueError("rows and cols must be the same length")
         changed = 0
+        if clear:
+            for r, c in zip(rows, cols):
+                changed += self.clear_bit(int(r), int(c))
+            return changed
         mutex = self.options.type in (FieldType.MUTEX, FieldType.BOOL)
         if mutex and rows.size < 256:
             # small batches: per-bit, as the JAX package does
@@ -259,6 +293,7 @@ class Field:
             _, last = np.unique(cols[::-1], return_index=True)
             idx = cols.size - 1 - last
             rows, cols = rows[idx], cols[idx]
+        self._log("import_bits", self.name, rows, cols)
         shards = cols >> SHARD_WIDTH_EXP
         pos = cols & (SHARD_WIDTH - 1)
         for shard, (r, p) in group_sorted(shards, rows, pos):
@@ -277,6 +312,9 @@ class Field:
         stored = self._to_stored_bulk(values)
         if cols.size != stored.size:
             raise ValueError("cols and values must be the same length")
+        # external values, so replay converts them again through the
+        # field's options (decimal and timestamp conversion in one place)
+        self._log("set_values", self.name, cols, np.asarray(values))
         shards = cols >> SHARD_WIDTH_EXP
         pos = cols & (SHARD_WIDTH - 1)
         for shard, (p, v) in group_sorted(shards, pos, stored):

@@ -23,12 +23,44 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import native
+from pilosa_tpu_torch.config import env_bool as _env_bool
 from pilosa_tpu_torch.ops import bsi as bsiops
 from pilosa_tpu_torch.ops import scatter as scatterops
 from pilosa_tpu_torch.ops.bitmap import bits_to_plane
 from pilosa_tpu_torch.shardwidth import BITS_PER_WORD, WORDS_PER_SHARD
 
 _MIN_CAPACITY = 8
+
+# Paranoia mode (reference: roaring/roaring_paranoia.go build tag): opt-in
+# re-validation of the fragment invariants after every mutation, read from
+# PILOSA_TPU_PARANOIA at import, as the JAX package reads it.
+PARANOIA = _env_bool("PILOSA_TPU_PARANOIA")
+
+
+def _paranoia_set(frag: "SetFragment") -> None:
+    assert len(frag.row_ids) == len(frag.row_index), \
+        "row_ids/row_index length mismatch"
+    for slot, row in enumerate(frag.row_ids):
+        assert frag.row_index[row] == slot, f"slot map broken for row {row}"
+    assert frag.planes.shape[0] >= len(frag.row_ids), "capacity underflow"
+    assert frag.planes.dtype == np.uint32
+    # padding slots must stay zero (stacks rely on it for gather fill)
+    if frag.planes.shape[0] > len(frag.row_ids):
+        assert not frag.planes[len(frag.row_ids):].any(), \
+            "dirty padding slot"
+
+
+def _paranoia_bsi(frag: "BSIFragment") -> None:
+    assert frag.planes.shape[0] == bsiops.OFFSET + frag.depth, \
+        "plane count != 2 + depth"
+    exists = frag.planes[bsiops.EXISTS]
+    # sign and magnitude bits only where a value exists
+    for k in range(frag.planes.shape[0]):
+        if k == bsiops.EXISTS:
+            continue
+        assert not (frag.planes[k] & ~exists).any(), \
+            f"plane {k} has bits outside the existence plane"
+
 
 # Write-delta log bounds: more pending ops (or more columns of replay)
 # than this and a full re-stack is cheaper than scattering, so the log
@@ -149,6 +181,8 @@ class SetFragment:
         self.planes[s, w] = old | mask
         self.version += 1
         self.deltas.record(self.version, (row, (col,), ()))
+        if PARANOIA:
+            _paranoia_set(self)
         return True
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -163,6 +197,8 @@ class SetFragment:
         self.planes[s, w] = old & ~mask
         self.version += 1
         self.deltas.record(self.version, (row, (), (col,)))
+        if PARANOIA:
+            _paranoia_set(self)
         return True
 
     def clear_column(self, col: int, except_row=None) -> bool:
@@ -182,6 +218,8 @@ class SetFragment:
         self.version += 1
         for slot in np.nonzero(to_clear)[0]:
             self.deltas.record(self.version, (self.row_ids[slot], (), (col,)))
+        if PARANOIA:
+            _paranoia_set(self)
         return True
 
     def set_many(self, rows: Sequence[int], cols: Sequence[int]) -> int:
@@ -206,6 +244,8 @@ class SetFragment:
             self.planes, np.repeat(slots, sizes),
             np.concatenate([sel for _, (sel,) in groups]), self.device)
         self.version += 1
+        if PARANOIA:
+            _paranoia_set(self)
         if cols.size > _DELTA_MAX_COLS:
             self.deltas.reset(self.version)
             return changed
@@ -240,6 +280,8 @@ class SetFragment:
             self.planes[s] |= plane
         self.version += 1
         self.deltas.reset(self.version)
+        if PARANOIA:
+            _paranoia_set(self)
         return changed
 
     def import_row_plane(self, row: int, plane: np.ndarray,
@@ -253,6 +295,8 @@ class SetFragment:
             self.planes[s] |= plane
         self.version += 1
         self.deltas.reset(self.version)
+        if PARANOIA:
+            _paranoia_set(self)
 
     def clear_row_plane_bits(self, row: int, plane: np.ndarray) -> bool:
         """Clear the bits of ``plane`` from a row; a no-op (no slot) when
@@ -263,6 +307,8 @@ class SetFragment:
         self.planes[s] &= ~plane
         self.version += 1
         self.deltas.reset(self.version)
+        if PARANOIA:
+            _paranoia_set(self)
         return True
 
     def clear_plane(self, plane: np.ndarray) -> None:
@@ -274,6 +320,8 @@ class SetFragment:
         self.planes[:n] &= ~plane
         self.version += 1
         self.deltas.reset(self.version)
+        if PARANOIA:
+            _paranoia_set(self)
 
     # -- host read path ----------------------------------------------------
 
@@ -339,6 +387,8 @@ class BSIFragment:
         self.planes |= bsiops.encode_values(cols, values, self.depth,
                                             self.words)
         self.version += 1
+        if PARANOIA:
+            _paranoia_bsi(self)
         cost = cols.size * (bsiops.OFFSET + self.depth)
         if grew or cost > _DELTA_MAX_COLS:
             self.deltas.reset(self.version)
@@ -358,6 +408,8 @@ class BSIFragment:
         self.version += 1
         self.deltas.record(self.version, ("clear", col),
                            cost=bsiops.OFFSET + self.depth)
+        if PARANOIA:
+            _paranoia_bsi(self)
         return True
 
     def value(self, col: int) -> Optional[int]:
@@ -381,3 +433,5 @@ class BSIFragment:
         self.planes &= ~plane[None, :]
         self.version += 1
         self.deltas.reset(self.version)
+        if PARANOIA:
+            _paranoia_bsi(self)

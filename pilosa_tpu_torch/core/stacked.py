@@ -87,6 +87,10 @@ UPLOAD_STATS = {"count": 0, "bytes": 0}
 #: version misses served by an advance or by a (re)build, and the mask
 #: scatters of the advances with the bytes they moved to the device
 ADVANCE_STATS = {"advanced": 0, "built": 0, "scatters": 0, "mask_bytes": 0}
+#: set-block builds from the host planes (BSI stacks are not counted, as
+#: in the JAX package), budget evictions, and lazy builds that found their
+#: fragments newer than the stack's snapshot (``Holder.residency_stats`` reads them, as in the JAX package)
+PAGING_STATS = {"block_builds": 0, "evictions": 0, "stale_retries": 0}
 
 #: a resident entry: a dense device tensor or a compressed-tile block
 Block = Union[torch.Tensor, ctiles.CompressedBlock]
@@ -189,6 +193,7 @@ class DeviceBudget:
                         break
                     continue
                 self.used -= b
+                PAGING_STATS["evictions"] += 1
                 M.REGISTRY.count(M.METRIC_DEVICE_STACK_EVICTIONS)
                 M.REGISTRY.count(M.METRIC_DEVICE_BUDGET_EVICTIONS)
                 cb()
@@ -291,6 +296,7 @@ class StackedSet:
                 "stack.build", block=bi,
                 rows=min(self.block_rows, len(self.row_ids) - lo_slot),
                 words=self.total_words):
+            PAGING_STATS["block_builds"] += 1
             return _upload(self._assemble_host(bi), self.device)
 
     def _assemble_host(self, bi: int) -> np.ndarray:
@@ -324,6 +330,7 @@ class StackedSet:
                 return blk
             for frag, built_v in zip(self._fragments, self._built_vers):
                 if (frag.version if frag is not None else -1) != built_v:
+                    PAGING_STATS["stale_retries"] += 1
                     raise StackStale(
                         "fragment advanced past the stack snapshot")
             blk = self._build_block_host(bi)
@@ -526,6 +533,7 @@ class StackedBSI:
             blk = self._planes
             if blk is None:
                 if _versions(self._fragments) != self._built_vers:
+                    PAGING_STATS["stale_retries"] += 1
                     raise StackStale(
                         "fragment advanced past the stack snapshot")
                 blk = self._planes = self._build_host()

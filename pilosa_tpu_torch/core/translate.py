@@ -1,18 +1,22 @@
-"""Key translation: string keys <-> uint64 IDs, host-side, in memory.
+"""Key translation: string keys <-> uint64 IDs, host-side.
 
-Port of ``pilosa_tpu/core/translate.py`` without the journal: strings
-never reach the device — IDs flow in, IDs flow out, translation happens
-on the host around kernel launches (reference: executor.go:6814
-preTranslate / :7519 translateResults). The partitioned record-key
-allocator keeps the same ID scheme as the JAX package, so both packages
-hand out identical IDs for the same keys.
+Port of ``pilosa_tpu/core/translate.py``: strings never reach the device
+— IDs flow in, IDs flow out, translation happens on the host around
+kernel launches (reference: executor.go:6814 preTranslate / :7519
+translateResults). A store with a path keeps an append-only journal of
+``[key, id]`` JSON lines (the BoltDB analog), in the JAX package's
+format, and replays it on open. The partitioned record-key allocator
+keeps the same ID scheme as the JAX package, so both packages hand out
+identical IDs for the same keys.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import struct
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -43,20 +47,52 @@ def key_to_partition(index: str, key: str,
     return fnv64a(index.encode() + key.encode()) % partition_n
 
 
+def _read_journal(path: Optional[str]):
+    """The ``(key, id)`` pairs of a journal, in file order."""
+    if not path or not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [tuple(json.loads(line)) for line in f if line.strip()]
+
+
+def _append_journal(path: Optional[str], pairs: List) -> None:
+    if not path or not pairs:
+        return
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "a") as f:
+        for key, id_ in pairs:
+            f.write(json.dumps([key, id_]) + "\n")
+
+
+def _rewrite_journal(path: Optional[str], key_to_id: Dict[str, int]) -> None:
+    if not path:
+        return
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for key, id_ in sorted(key_to_id.items(), key=lambda kv: kv[1]):
+            f.write(json.dumps([key, id_]) + "\n")
+
+
 class TranslateStore:
     """One key<->id namespace (an index's record keys, or a field's row
     keys). IDs are allocated sequentially from ``start``; field stores
     pass start=1 because the reference reserves row id 0 as invalid."""
 
-    def __init__(self, start: int = 0):
+    def __init__(self, path: Optional[str] = None, start: int = 0):
+        self._path = path
         self._start = start
         self._next = start
         self._lock = threading.Lock()
         self.key_to_id: Dict[str, int] = {}
         self.id_to_key: Dict[int, str] = {}
+        for key, id_ in _read_journal(path):
+            self.key_to_id[key] = id_
+            self.id_to_key[id_] = key
+            self._next = max(self._next, id_ + 1)
 
     def create_keys(self, keys: Iterable[str]) -> Dict[str, int]:
         out: Dict[str, int] = {}
+        new: List = []
         with self._lock:
             for k in keys:
                 id_ = self.key_to_id.get(k)
@@ -65,7 +101,9 @@ class TranslateStore:
                     self._next += 1
                     self.key_to_id[k] = id_
                     self.id_to_key[id_] = k
+                    new.append((k, id_))
                 out[k] = id_
+            _append_journal(self._path, new)
         return out
 
     def find_keys(self, keys: Iterable[str]) -> Dict[str, int]:
@@ -75,11 +113,13 @@ class TranslateStore:
         return {i: self.id_to_key[i] for i in ids if i in self.id_to_key}
 
     def replace_all(self, key_to_id: Dict[str, int]) -> None:
-        """Replace the whole mapping (state loading, convert.py)."""
+        """Replace the whole mapping and rewrite the journal (restore,
+        state loading)."""
         with self._lock:
             self.key_to_id = {k: int(i) for k, i in key_to_id.items()}
             self.id_to_key = {i: k for k, i in self.key_to_id.items()}
             self._next = max([i + 1 for i in self.id_to_key] + [self._start])
+            _rewrite_journal(self._path, self.key_to_id)
 
 
 class PartitionedTranslateStore:
@@ -89,13 +129,20 @@ class PartitionedTranslateStore:
     *shard* hashes back to the same partition (reference: translate.go:103
     GenerateNextPartitionedID)."""
 
-    def __init__(self, index: str, partition_n: int = DEFAULT_PARTITION_N):
+    def __init__(self, index: str, path: Optional[str] = None,
+                 partition_n: int = DEFAULT_PARTITION_N):
         self._index = index
+        self._path = path
         self._partition_n = partition_n
         self._lock = threading.Lock()
         self.key_to_id: Dict[str, int] = {}
         self.id_to_key: Dict[int, str] = {}
         self._max_id: Dict[int, int] = {}  # partition -> max allocated id
+        for key, id_ in _read_journal(path):
+            self.key_to_id[key] = id_
+            self.id_to_key[id_] = key
+            p = self.partition(key)
+            self._max_id[p] = max(self._max_id.get(p, 0), id_)
 
     def partition(self, key: str) -> int:
         return key_to_partition(self._index, key, self._partition_n)
@@ -115,6 +162,7 @@ class PartitionedTranslateStore:
 
     def create_keys(self, keys: Iterable[str]) -> Dict[str, int]:
         out: Dict[str, int] = {}
+        new: List = []
         with self._lock:
             for k in keys:
                 id_ = self.key_to_id.get(k)
@@ -124,7 +172,9 @@ class PartitionedTranslateStore:
                     self._max_id[p] = id_
                     self.key_to_id[k] = id_
                     self.id_to_key[id_] = k
+                    new.append((k, id_))
                 out[k] = id_
+            _append_journal(self._path, new)
         return out
 
     def find_keys(self, keys: Iterable[str]) -> Dict[str, int]:
@@ -134,7 +184,8 @@ class PartitionedTranslateStore:
         return {i: self.id_to_key[i] for i in ids if i in self.id_to_key}
 
     def replace_all(self, key_to_id: Dict[str, int]) -> None:
-        """Replace the whole mapping (state loading, convert.py)."""
+        """Replace the whole mapping and rewrite the journal (restore,
+        state loading)."""
         with self._lock:
             self.key_to_id = {k: int(i) for k, i in key_to_id.items()}
             self.id_to_key = {i: k for k, i in self.key_to_id.items()}
@@ -142,6 +193,7 @@ class PartitionedTranslateStore:
             for k, id_ in self.key_to_id.items():
                 p = self.partition(k)
                 self._max_id[p] = max(self._max_id.get(p, 0), id_)
+            _rewrite_journal(self._path, self.key_to_id)
 
 
 def bulk_translate_ids(store, keys) -> np.ndarray:

@@ -7,20 +7,27 @@ apply.go:278): host-canonical numpy columns per shard (float64 or int64,
 with a validity mask), uploaded to the store's device as ``float32[S,
 cap]`` stacks under a versioned cache that Apply's expression reads
 (dataframe/expr.py). The stacks are not charged to the ``DeviceBudget``,
-as in the JAX package. Checkpoint files and the WAL record come with the
-durability slice.
+as in the JAX package. A changeset and a delete are logged to the
+index's WAL (``df_changeset`` / ``df_delete``, the JAX package's
+records), and a checkpoint saves one npz per shard under the index's
+``dataframe`` directory in the JAX package's layout.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+import re
+import shutil
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
+_FRAME_RE = re.compile(r"shard\.(\d+)\.npz$")
 _MIN_CAP = 1024
 #: device stacks kept, oldest dropped first
 _CACHE_ENTRIES = 8
@@ -89,9 +96,12 @@ def _staging(shape, dtype: torch.dtype, device: torch.device,
 class DataframeStore:
     """All shard frames of one index, and the stacked device cache."""
 
-    def __init__(self, index_name: str, device: torch.device):
+    def __init__(self, index_name: str, device: torch.device,
+                 path: Optional[str] = None, wal=None):
         self.index_name = index_name
         self.device = device
+        self.path = path  # <index dir>/dataframe
+        self.wal = wal
         self.frames: Dict[int, ShardFrame] = {}
         self._device_cache: Dict[Tuple, Tuple] = {}
         self._lock = threading.Lock()
@@ -99,23 +109,40 @@ class DataframeStore:
     # -- write path --------------------------------------------------------
 
     def apply_changeset(self, shard: int, shard_ids: Sequence[int],
-                        columns: Dict[str, Sequence]) -> None:
+                        columns: Dict[str, Sequence],
+                        log: bool = True) -> None:
         """Reference: apply.go:400 ShardFile.Process: one changeset sets
-        several columns at the same shard-local row ids."""
-        ids = np.asarray(shard_ids, dtype=np.int64)
+        several columns at the same shard-local row ids. Validated before
+        it is logged, so a rejected changeset never reaches the WAL."""
+        ids = [int(i) for i in shard_ids]
         for name, values in columns.items():
-            if len(values) != ids.size:
+            if len(values) != len(ids):
                 raise ValueError(
-                    f"column {name!r} length {len(values)} != ids {ids.size}")
+                    f"column {name!r} length {len(values)} != ids {len(ids)}")
         frame = self.frames.get(shard)
         if frame is None:
             frame = self.frames[shard] = ShardFrame(shard)
+        if log and self.wal is not None:
+            self.wal.append(("df_changeset", "", shard, ids,
+                             {k: list(map(float, v)) if _is_float(v)
+                              else [int(x) for x in v]
+                              for k, v in columns.items()}))
         for name, values in columns.items():
             frame.set_column(name, ids, values)
 
-    def delete(self) -> None:
-        """Drop all frames and their device stacks."""
+    def delete(self, log: bool = True) -> None:
+        """Drop all frames, their device stacks and their checkpoint
+        files; logged as a tombstone, so replaying earlier changesets on
+        reopen does not resurrect them."""
+        if log and self.wal is not None:
+            self.wal.append(("df_delete", ""))
         self.frames.clear()
+        self.release_device()
+        if self.path and os.path.isdir(self.path):
+            shutil.rmtree(self.path)
+
+    def release_device(self) -> None:
+        """Drop the device stacks (the next Apply restacks)."""
         with self._lock:
             self._device_cache.clear()
 
@@ -132,6 +159,40 @@ class DataframeStore:
 
     def shards(self) -> List[int]:
         return sorted(self.frames)
+
+    # -- persistence (checkpoint files; reference: parquet per shard) ------
+
+    def save(self) -> None:
+        if not self.path:
+            return
+        os.makedirs(self.path, exist_ok=True)
+        for shard, frame in self.frames.items():
+            arrays = {}
+            for name, col in frame.columns.items():
+                arrays[f"c:{name}"] = col
+                arrays[f"v:{name}"] = frame.valid[name]
+            tmp = os.path.join(self.path, f"shard.{shard}.npz.tmp")
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, **arrays)
+            os.replace(tmp, os.path.join(self.path, f"shard.{shard}.npz"))
+
+    def load(self) -> None:
+        if not self.path or not os.path.isdir(self.path):
+            return
+        for fp in glob.glob(os.path.join(self.path, "shard.*.npz")):
+            m = _FRAME_RE.search(fp)
+            if not m:
+                continue
+            shard = int(m.group(1))
+            frame = self.frames.setdefault(shard, ShardFrame(shard))
+            with np.load(fp) as z:
+                for key in z.files:
+                    kind, name = key.split(":", 1)
+                    if kind == "c":
+                        frame.columns[name] = z[key]
+                    else:
+                        frame.valid[name] = z[key]
+            frame.version += 1
 
     # -- device path -------------------------------------------------------
 
@@ -187,3 +248,7 @@ class DataframeStore:
             while len(self._device_cache) > _CACHE_ENTRIES:
                 self._device_cache.pop(next(iter(self._device_cache)))
         return cols, valid, cap
+
+
+def _is_float(values) -> bool:
+    return np.asarray(values).dtype.kind == "f"

@@ -1,7 +1,7 @@
 """Device resolution and host<->device plane copies.
 
 Port of the transfer half of ``pilosa_tpu/platform.py`` (``:171``
-``h2d_copy``). There is no dispatch lock and no backend probing: PyTorch
+``h2d_copy``, with its ``device.h2d_copy`` span). There is no dispatch lock and no backend probing: PyTorch
 launches are ordered on the current CUDA stream, and the caller names its
 device. Planes live on the host as ``np.uint32`` and on the device as
 ``torch.int32`` with the same bit patterns (torch's ``uint32`` lacks
@@ -14,6 +14,8 @@ from typing import Union
 
 import numpy as np
 import torch
+
+from pilosa_tpu_torch.obs.tracing import get_tracer
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -41,12 +43,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def h2d_copy(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint32 host planes -> int32 device tensor (bit-identical)."""
+    """uint32 host planes -> int32 device tensor (bit-identical), traced
+    as a ``device.h2d_copy`` span tagged with the byte count, as the JAX
+    package traces it: a warm resident query has no such span."""
     arr = np.ascontiguousarray(host, dtype=np.uint32).view(np.int32)
     t = torch.from_numpy(arr)
-    if device.type == "cpu":
-        return t.clone()  # never alias the caller's host planes
-    return t.to(device)
+    with get_tracer().start_span("device.h2d_copy", nbytes=arr.nbytes):
+        if device.type == "cpu":
+            return t.clone()  # never alias the caller's host planes
+        return t.to(device)
 
 
 def d2h(t: torch.Tensor) -> np.ndarray:

@@ -62,6 +62,11 @@ def _program(kind: str, tape: Tuple, n_leaves: int, masked: bool,
     return fn
 
 
+def program_cache_len() -> int:
+    with _PROGRAMS_LOCK:
+        return len(_PROGRAMS)
+
+
 # ---------------------------------------------------------------------------
 # Lowering: call tree -> (tape, leaves). Leaf refs are ("L", i) and op refs
 # ("O", j) during lowering, remapped to flat register indices afterwards

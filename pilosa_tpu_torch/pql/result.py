@@ -4,7 +4,9 @@ JSON-facing shapes mirror the reference's wire formats (reference:
 row.go:15 Row, executor Pair/PairsField cache.go:374-507, GroupCount
 executor.go groupBy types) so clients of the reference find the same
 response structure. Copied from ``pilosa_tpu/pql/result.py``: the result
-types the ported slices return.
+types, their JSON form (``result_to_json``) and the node-to-node wire
+codec (``result_to_wire`` / ``result_from_wire``), which both packages
+encode alike.
 """
 
 from __future__ import annotations
@@ -164,3 +166,88 @@ class ArrowTable:
             "columns": self.columns,
             "ids": self.ids,
         }
+
+
+def result_to_json(r) -> Any:
+    if hasattr(r, "to_json"):
+        return r.to_json()
+    if isinstance(r, list):  # GroupBy / Rows / Distinct results
+        return [result_to_json(x) for x in r]
+    return r
+
+
+# -- internal wire codec (node-to-node results) ------------------------------
+#
+# The reference ships remote per-shard results as typed protobuf unions
+# (encoding/proto, wire_response.go); here the union tag is a JSON "type"
+# field. Remote results carry raw IDs only — translation happens at the
+# coordinator (reference: executor.go:7519 translateResults).
+
+def result_to_wire(r) -> dict:
+    if r is None:
+        return {"type": "null"}
+    if isinstance(r, bool):
+        return {"type": "bool", "data": r}
+    if isinstance(r, int):
+        return {"type": "int", "data": r}
+    if isinstance(r, RowResult):
+        return {"type": "row", "columns": r.columns, "keys": r.keys}
+    if isinstance(r, ValCount):
+        return {"type": "valcount", "val": r.val, "count": r.count}
+    if isinstance(r, PairsField):
+        return {"type": "pairs", "field": r.field,
+                "pairs": [[p.id, p.key, p.count] for p in r.pairs]}
+    if isinstance(r, ExtractedTable):
+        return {"type": "extract",
+                "fields": [dataclasses.asdict(f) for f in r.fields],
+                "columns": [{"column": c.column, "key": c.key, "rows": c.rows}
+                            for c in r.columns]}
+    if isinstance(r, ApplyResult):
+        return {"type": "apply", "data": r.value}
+    if isinstance(r, SortedRow):
+        return {"type": "sorted", "columns": r.columns, "values": r.values,
+                "keys": r.keys}
+    if isinstance(r, ArrowTable):
+        return {"type": "arrow",
+                "fields": [dataclasses.asdict(f) for f in r.fields],
+                "columns": r.columns, "ids": r.ids}
+    if isinstance(r, list):
+        if r and isinstance(r[0], GroupCount):
+            return {"type": "groupcounts", "data": [
+                {"group": [dataclasses.asdict(fr) for fr in gc.group],
+                 "count": gc.count, "agg": gc.agg} for gc in r]}
+        return {"type": "list", "data": r}
+    raise TypeError(f"unknown result type {type(r).__name__}")
+
+
+def result_from_wire(d: dict) -> Any:
+    t = d["type"]
+    if t == "null":
+        return None
+    if t in ("bool", "int", "list"):
+        return d["data"]
+    if t == "row":
+        return RowResult(columns=d.get("columns") or [], keys=d.get("keys"))
+    if t == "valcount":
+        return ValCount(val=d.get("val"), count=d.get("count", 0))
+    if t == "pairs":
+        return PairsField(field=d["field"], pairs=[
+            Pair(id=i, key=k, count=c) for i, k, c in d["pairs"]])
+    if t == "extract":
+        return ExtractedTable(
+            fields=[ExtractedField(**f) for f in d["fields"]],
+            columns=[ExtractedColumn(column=c["column"], key=c.get("key"),
+                                     rows=c["rows"]) for c in d["columns"]])
+    if t == "groupcounts":
+        return [GroupCount(group=[FieldRow(**fr) for fr in gc["group"]],
+                           count=gc["count"], agg=gc.get("agg"))
+                for gc in d["data"]]
+    if t == "apply":
+        return ApplyResult(value=d["data"])
+    if t == "sorted":
+        return SortedRow(columns=d["columns"], values=d["values"],
+                         keys=d.get("keys"))
+    if t == "arrow":
+        return ArrowTable(fields=[ExtractedField(**f) for f in d["fields"]],
+                          columns=d["columns"], ids=d.get("ids", []))
+    raise ValueError(f"unknown wire result type {t!r}")

@@ -833,3 +833,58 @@ def test_warm_fused_round_over_compressed_leaves_syncs_only_once(dev):
             [cols % 5 == 1, (cols % 5 == 0) & (cols % 3 == 1),
              cols % 5 != 1, vals > 10], subsets, got):
         assert n == int(np.sum(q & np.isin(shard, s)))
+
+
+def test_recovery_on_the_card_matches_before_the_crash(dev, tmp_path):
+    """API(path) on the card: imports, an unflushed crash, a reopen; the
+    checksum, a Count, a TopN and a Sum equal their values before it."""
+    from pilosa_tpu_torch.storage.recovery import abandon_holder
+
+    rng = np.random.default_rng(21)
+    api = API(str(tmp_path))
+    api.create_index("i")
+    api.create_field("i", "f")
+    api.create_field("i", "n", {"type": "int"})
+    cols = np.arange(40_000)
+    api.import_bits("i", "f", rows=rng.integers(0, 16, cols.size),
+                    cols=cols + (cols % 2) * (1 << 20))
+    api.save()
+    api.import_values("i", "n", cols=cols, values=rng.integers(-99, 99,
+                                                               cols.size))
+    api.query("i", "Set(5, f=3)Clear(6, f=3)")
+    queries = ["Count(Intersect(Row(f=3), Row(f=4)))", "TopN(f, n=5)",
+               "Sum(Row(n > 0), field=n)"]
+    want = [api.query_json("i", q) for q in queries]
+    digest = api.checksum()
+    api.holder.flush_wals()
+    abandon_holder(api.holder)
+    again = API(str(tmp_path))
+    assert again.checksum() == digest
+    assert [again.query_json("i", q) for q in queries] == want
+    assert again.holder.index("i").field("f").device.type == "cuda"
+
+
+def test_checkpoint_loaded_stack_equals_a_rebuild(dev, tmp_path):
+    """After release_field_cache, the stacks of a checkpoint-loaded holder
+    equal a rebuild from its host planes, bit for bit."""
+    rng = np.random.default_rng(22)
+    api = API(str(tmp_path))
+    api.create_index("i")
+    api.create_field("i", "f")
+    api.import_bits("i", "f", rows=rng.integers(0, 40, 60_000),
+                    cols=rng.integers(0, 3 << 20, 60_000))
+    api.save()
+    del api
+    api = API(str(tmp_path))
+    fld = api.holder.index("i").field("f")
+    shards = sorted(fld.shards())
+    first = STK.stacked_set(fld, shards, "standard")
+    dense = first.planes.clone()
+    STK.release_field_cache(fld)
+    st = STK.stacked_set(fld, shards, "standard")
+    assert st is not first
+    for bi in range(st.n_blocks):
+        host = st._assemble_host(bi)
+        got = STK._dense(st._ensure_block(bi)).cpu().numpy().view(np.uint32)
+        assert np.array_equal(got, host)
+    assert torch.equal(st.planes, dense)

@@ -2,8 +2,9 @@
 
 Checked two ways: a subprocess with a clean environment imports
 ``pilosa_tpu_torch``, answers a query and a write on the CPU, serves
-reads through the result cache, the scheduler and ``execute_many``, then
-reports what ``sys.modules`` holds (this test process cannot tell:
+reads through the result cache, the scheduler and ``execute_many``,
+writes to a data directory, recovers it and backs it up, then reports
+what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
 fall back to the CPU by itself.
@@ -41,14 +42,32 @@ served = api.query("i", 'Count(Row(f="a"))') + api.query("i", 'Count(Row(f="a"))
 fused = api.executor.execute_many("i", ['Count(Row(f="a"))', "Row(f=1)"],
                                   per_query_shards=[[0], [0]])
 api.disable_scheduler()
+import io, tempfile
+d = tempfile.mkdtemp()
+dur = API(d, device="cpu")
+dur.create_index("i")
+dur.create_field("i", "f")
+dur.query("i", "Set(3, f=1)")
+dur.save()
+dur.import_bits("i", "f", rows=[1], cols=[4])
+want = dur.checksum()
+dur.backup_tar(io.BytesIO())
+import pilosa_tpu_torch.transaction
+import pilosa_tpu_torch.storage.roaring
+del dur
+recovered = API(d, device="cpu").checksum() == want
 print(json.dumps({"count": got[0], "top": got[1].pairs[0].count,
                   "wrote": wrote, "served": served, "fused": fused[0],
-                  "modules": sorted(sys.modules)}))
+                  "recovered": recovered, "modules": sorted(sys.modules)}))
 """
 
 #: the port's subpackages and modules the serving slice added; each must
 #: be in the AST scan and loaded by the subprocess probe
 _SERVING = ("analysis", "obs", "cache", "sched", "config.py")
+#: and the durability slice's
+_DURABILITY = ("storage", "storage/wal.py", "storage/store.py",
+               "storage/recovery.py", "storage/roaring.py", "storage/txn.py",
+               "transaction.py", "ingest", "ingest/idalloc.py", "config.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -67,8 +86,9 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["count"] == 300 and out["top"] == 300
     assert out["wrote"] == [True, True, 1]
     assert out["served"] == [300, 300] and out["fused"] == [300]
-    for part in _SERVING:
-        mod = "pilosa_tpu_torch." + part.removesuffix(".py")
+    assert out["recovered"] is True
+    for part in _SERVING + _DURABILITY:
+        mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
     assert not bad, f"port loaded {bad}"
@@ -104,6 +124,14 @@ def test_scan_covers_the_serving_modules():
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
 
 
+def test_scan_covers_the_durability_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _DURABILITY:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
 def test_api_without_a_device_needs_a_card(monkeypatch):
     from pilosa_tpu_torch.api import API
 
@@ -113,6 +141,8 @@ def test_api_without_a_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         API(device="cuda")
     assert API(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        API(str(ROOT))  # a data directory does not pick the device
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
