@@ -191,8 +191,41 @@ Phases, each printed on its own line:
     ``tape_count``, ``pair_counts``, ``bsi_compare`` and
     ``scatter_merge`` launched, the first two against their plain
     versions on the recovered stacks;
-15. one ``{"kernels": [...]}`` JSON line;
-16. the last line: ``{"ok": true, "device": {...}}``.
+15. main path 12, ingest and streams, each ``bench.py`` config at its
+    full size: (12a) config 1 as ``bench_config1`` runs it, 1,000,000
+    CSV rows from seed 1 (``city`` 1000 rows, ``device`` 10) through
+    ``Ingester(api, "taxi", CSVSource(csv_text, inline=True),
+    batch_size=131072)``: rows/s beside the raw ``csv.reader`` parse,
+    its ``scatter_merge`` launches, the checksum equal to the same
+    records loaded with ``API.import_bits`` (path 5's loader) and the
+    Counts equal to numpy; (12b) config 17 as ``bench_config17`` runs it,
+    2,000,000 rows from seed 17 in two shards (``city`` 100 rows,
+    ``device`` 10): the classic CSV Ingester best of 2, the stream as
+    8,192-row chunks, the classic oracle draining it, the pipelined
+    ingester best of 3 at ``batch_rows=32`` (each checksum equal to the
+    oracle's), then with the scheduler on the GroupBy p50 / p99 alone and
+    under a churn of pipelined re-ingests at ``batch_rows=8``, the reads
+    paced at twice the scheduler's batch holdoff (a churn batch must
+    start and land between the first read and the last, the churn must
+    re-apply at least 2,000,000 rows, the checksum must not change, the
+    Count must equal numpy and the GroupBy's 100 groups numpy's pair
+    counts; the batches, rows and shed admits inside the reads and the
+    reads an apply overlapped are printed); ``bench.py``'s speed bars
+    (pipelined >= 2x classic, busy p50 / p99 <= 1.5x alone) are printed
+    met or missed, not asserted; (12c) datagen's ``kitchen-sink``, 200,000
+    records from seed 1 through the per-record ``Batch``, its Counts
+    (one for each ``an_idset`` row), a Range Count, a Sum and a bool
+    Count against an oracle of the generated records; (12d)
+    ``API(path)`` under ``build/`` with ``enable_stream(batch_rows=64)``:
+    64 pushes of 1,024 records each drained by ``step``, then the same
+    with a kill at ``stream.apply`` hit 2, ``abandon_holder``, a reopen
+    and a resume from the replayed source: the checksum equal to the
+    clean run's and the offsets summing to the records pushed;
+    ``scatter_merge``, ``tape_count``, ``pair_counts`` and
+    ``bsi_compare`` launched, ``scatter_merge`` and ``pair_counts``
+    against their plain versions on path 12's planes and stacks;
+16. one ``{"kernels": [...]}`` JSON line;
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -203,6 +236,7 @@ the port is not importable, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -4579,6 +4613,557 @@ def phase_durability(report: Report, args, write_visible_ms) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 12: ingest and streams (sources, Batch, Ingester, datagen, the
+# broker, the pipelined ingester, API.enable_stream)
+# ---------------------------------------------------------------------------
+
+#: bench.py's sizes (configs 1 and 17, kitchen-sink and the service run)
+C1_ROWS = 1_000_000
+C17_ROWS = 2_000_000
+C17_CHUNK = 8192
+C17_ITERS = 100  # bench.py: max(25, QUERY_ITERS * 5)
+C17_GROUPBY = "GroupBy(Rows(city), Rows(device), limit=100)"
+KS_ROWS = 200_000
+SVC_PUSHES, SVC_PER_PUSH, SVC_BATCH_ROWS = 64, 1024, 64
+
+
+def _csv_lines(ids, city, dev) -> str:
+    lines = ["id,city__IS,device__IS"]
+    lines.extend(f"{i},{c},{d}" for i, c, d in zip(ids, city, dev))
+    return "\n".join(lines)
+
+
+def _synced_s(fn):
+    """(fn's result, its seconds to a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _bar(ok: bool) -> str:
+    return "met" if ok else "missed"
+
+
+_UNCOUNTED: dict = {}
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Set aside the launches of a reference load or a timed re-run:
+    ``phase_ingest`` takes them out of path 12's counts."""
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    before = KU.launches()
+    try:
+        yield
+    finally:
+        for k, v in KU.launches().items():
+            _UNCOUNTED[k] = _UNCOUNTED.get(k, 0) + v - before.get(k, 0)
+
+
+def _ingest_config1(lab) -> dict:
+    """12a: bench.py config 1 through the Ingester."""
+    import csv
+    import io
+
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import field as F
+    from pilosa_tpu_torch.ingest import ingest as IG
+    from pilosa_tpu_torch.ingest import source as SRC
+    from pilosa_tpu_torch.ingest.ingest import Ingester
+    from pilosa_tpu_torch.ingest.source import CSVSource
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.probes import import_probe as IP
+
+    city, dev = IP.config1_data(C1_ROWS)
+    n = city.size
+    text = _csv_lines(range(n), city, dev)
+    t0 = time.perf_counter()
+    for _ in csv.reader(io.StringIO(text)):
+        pass
+    parse_s = time.perf_counter() - t0
+    api = API()
+    before = KU.launches()["scatter_merge"]
+    got, ingest_s = _synced_s(lambda: Ingester(
+        api, "taxi", CSVSource(text, inline=True), batch_size=131072).run())
+    launches = KU.launches()["scatter_merge"] - before
+    # the same load again with its host stages timed: the whole-column
+    # parse, the cell coercion, the field writes and, inside them, the
+    # bulk scatter (sort, pack, one scatter_merge round trip)
+    clock = _StageClock([("parse", SRC.CSVSource, "columns"),
+                         ("coerce", IG, "coerce_column"),
+                         ("import_bits", F.Field, "import_bits"),
+                         ("scatter", SC, "scatter_new_bits_bulk")])
+    try:
+        with _uncounted():
+            _, split_s = _synced_s(lambda: Ingester(
+                API(), "taxi", CSVSource(text, inline=True),
+                batch_size=131072).run())
+    finally:
+        clock.close()
+    split = dict(clock.own)
+    split["rest"] = split_s - sum(split.values())
+    del text
+    assert got == n, got
+    assert launches > 0, "the ingest launched no scatter_merge"
+    ref = API()
+    with _uncounted():
+        IP.import_config1(ref, city, dev)
+    digest = api.checksum()
+    assert digest == ref.checksum(), \
+        "the Ingester's load differs from API.import_bits'"
+    del ref
+    pairs = [(7, 3), (0, 0), (999, 9), (500, 5), (123, 1), (42, 8)]
+    for c, d in pairs:
+        q = f"Count(Intersect(Row(city={c}), Row(device={d})))"
+        assert api.query("taxi", q)[0] == int(((city == c) & (dev == d))
+                                               .sum()), q
+    rows_s = n / ingest_s
+    out = {"rows": n, "ingest_s": ingest_s, "rows_s": rows_s,
+           "parse_s": parse_s, "parse_rows_s": n / parse_s,
+           "vs_parse": rows_s / (n / parse_s),
+           "scatter_merge_launches": launches, "split_s": split,
+           "split_total_s": split_s}
+    print(f"ingest 12a: config 1, {n} CSV rows through the Ingester in "
+          f"{ingest_s:.3f} s, {rows_s:,.0f} rows/s ({out['vs_parse']:.3f}x "
+          f"the raw csv.reader parse, {n / parse_s:,.0f} rows/s); "
+          f"{launches} scatter_merge launches; checksum equal to "
+          f"API.import_bits' load; 6 Counts equal numpy {lab}")
+    print(f"ingest 12a: the load again, {split_s:.3f} s split by host "
+          f"stage (each its own time): " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in split.items()) + f" {lab}")
+    return out
+
+
+def _ingest_config17(lab) -> dict:
+    """12b: bench.py config 17's three phases."""
+    import threading
+
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.ingest.ingest import Ingester
+    from pilosa_tpu_torch.ingest.source import CSVSource, _parse_header
+    from pilosa_tpu_torch.pql.result import result_to_json
+    from pilosa_tpu_torch.stream.broker import (BrokerSource, StreamBroker,
+                                                make_chunk)
+    from pilosa_tpu_torch.stream.pipeline import PipelinedIngester
+
+    rng = np.random.default_rng(17)
+    n = C17_ROWS
+    city = rng.integers(0, 100, n)
+    dev = rng.integers(0, 10, n)
+
+    # phase 1: the control, the classic columnar CSV ingest, best of 2
+    text = _csv_lines(range(n), city, dev)
+    classic_s = []
+    for _ in range(2):
+        api = API()
+        got, s = _synced_s(lambda: Ingester(
+            api, "s17", CSVSource(text, inline=True),
+            batch_size=131072).run())
+        assert got == n, got
+        classic_s.append(s)
+    csv_digest = api.checksum()
+    del text, api
+    c1_rows_s = n / min(classic_s)
+
+    # the stream: chunked messages, drained by the classic oracle and the
+    # timed pipelined runs as separate groups
+    broker = StreamBroker(partitions=1, seed=17)
+    ids = np.arange(n)
+    for lo in range(0, n, C17_CHUNK):
+        hi = min(lo + C17_CHUNK, n)
+        broker.produce("s17", make_chunk({
+            "id": ids[lo:hi], "city": city[lo:hi], "device": dev[lo:hi]}))
+    schema = _parse_header(["city__IS", "device__IS"])
+    api_cl = API()
+    got, oracle_s = _synced_s(lambda: Ingester(
+        api_cl, "s17", BrokerSource(broker.consumer("classic", ["s17"]),
+                                    schema), batch_size=131072).run())
+    assert got == n, got
+    oracle = api_cl.checksum()
+    assert oracle == csv_digest, "the broker's stream differs from the CSV"
+    del api_cl
+
+    # phase 2: pipelined over the same stream, best of 3
+    piped_s, api_rd, batches = [], None, 0
+    for t in range(3):
+        api_pp = API()
+        p = PipelinedIngester(api_pp, "s17",
+                              broker.consumer(f"piped{t}", ["s17"]),
+                              schema=schema, batch_rows=32)
+        got, s = _synced_s(p.run)
+        assert got == n, got
+        assert api_pp.checksum() == oracle, \
+            "pipelined ingest diverged from the classic Ingester oracle"
+        piped_s.append(s)
+        batches = p.batches
+        api_rd = api_pp
+    piped_rows_s = n / min(piped_s)
+
+    # one more pipelined run with each thread's busy seconds summed: the
+    # host side's _prepare, the device side's _apply (imports, WAL)
+    busy = {"prepare": 0.0, "apply": 0.0}
+    lock = threading.Lock()
+    p = PipelinedIngester(API(), "s17", broker.consumer("split", ["s17"]),
+                          schema=schema, batch_rows=32)
+    for name in busy:
+        def timed(*a, _fn=getattr(p, f"_{name}"), _name=name):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a)
+            finally:
+                with lock:
+                    busy[_name] += time.perf_counter() - t0
+        setattr(p, f"_{name}", timed)
+    with _uncounted():
+        _, split_wall = _synced_s(p.run)
+    del p
+
+    # phase 3: read p50/p99 alone vs under full-rate ingest churn. The
+    # reads are paced, in both runs: each starts twice the scheduler's
+    # batch holdoff after the last one ended. bench.py's back-to-back
+    # reads keep every batch admit inside the holdoff, so no churn batch
+    # could start while they run
+    gap_s = 2 * api_rd.enable_scheduler().batch_holdoff_s
+    q = C17_GROUPBY
+    want_count = int(np.sum((city == 7) & (dev == 3)))
+    assert api_rd.query(
+        "s17", "Count(Intersect(Row(city=7), Row(device=3)))")[0] \
+        == want_count
+    pairs, counts = np.unique(np.stack([city, dev]), axis=1,
+                              return_counts=True)
+    want = [{"group": [{"field": "city", "rowID": int(c)},
+                       {"field": "device", "rowID": int(d)}],
+             "count": int(k)}
+            for (c, d), k in zip(pairs.T[:100], counts[:100])]
+
+    def percentiles(iters):
+        """(p50 ms, p99 ms, each read's (start, end))."""
+        api_rd.query("s17", q)  # warm
+        spans, answers = [], []
+        for _ in range(iters):
+            time.sleep(gap_s)
+            t0 = time.perf_counter()
+            answers.append(api_rd.query("s17", q)[0])
+            spans.append((t0, time.perf_counter()))
+        for a in answers:
+            assert result_to_json(a) == want, "GroupBy disagrees with numpy"
+        times = [b - a for a, b in spans]
+        return (float(np.percentile(times, 50)) * 1e3,
+                float(np.percentile(times, 99)) * 1e3, spans)
+
+    p50_alone, p99_alone, _ = percentiles(C17_ITERS)
+    stop = threading.Event()
+    churned = [0]
+    applied = []  # (start, end, rows) of each churn batch's apply
+    sheds = {"done": 0, "cur": None}
+    shed_lock = threading.Lock()
+    errors = []
+
+    def shed_total():
+        with shed_lock:
+            cur = sheds["cur"]
+            return sheds["done"] + (cur.shed if cur is not None else 0)
+
+    def churn():
+        w = 0
+        try:
+            while not stop.is_set():
+                w += 1
+                c = PipelinedIngester(
+                    api_rd, "s17", broker.consumer(f"churn{w}", ["s17"]),
+                    schema=schema, batch_rows=8, group=f"churn{w}")
+
+                def timed(batch, _fn=c._apply):
+                    t0 = time.perf_counter()
+                    _fn(batch)
+                    applied.append((t0, time.perf_counter(), batch.n))
+                c._apply = timed
+                with shed_lock:
+                    sheds["cur"] = c
+                got = c.run()
+                with shed_lock:
+                    sheds["done"] += c.shed
+                    sheds["cur"] = None
+                churned[0] += got
+        except BaseException as e:  # noqa: BLE001 - fails the phase below
+            errors.append(e)
+
+    th = threading.Thread(target=churn, daemon=True)
+    t_churn = time.perf_counter()
+    th.start()
+    while not applied and th.is_alive():  # the churn is live
+        time.sleep(0.005)
+    live_s = time.perf_counter() - t_churn
+    shed0 = shed_total()
+    p50_busy, p99_busy, spans = percentiles(C17_ITERS)
+    shed_window = shed_total() - shed0
+    still_churning = th.is_alive()
+    stop.set()
+    th.join(timeout=120)
+    assert not th.is_alive(), "the churn did not stop"
+    assert not errors, f"the churn failed: {errors}"
+    # the churn batches that started and landed between the first read's
+    # start and the last read's end, and the reads an apply overlapped
+    w0, w1 = spans[0][0], spans[-1][1]
+    inside = [a for a in applied if w0 < a[0] and a[1] < w1]
+    overlapped = sum(any(a[0] < e and s < a[1] for a in applied)
+                     for s, e in spans)
+    assert inside, "no churn batch started and landed during the reads"
+    assert still_churning and churned[0] >= n, \
+        f"the churn stopped early ({churned[0]} rows)"
+    assert api_rd.checksum() == oracle, \
+        "idempotent re-ingest changed the checksum"
+    assert api_rd.query(
+        "s17", "Count(Intersect(Row(city=7), Row(device=3)))")[0] \
+        == want_count
+    api_rd.disable_scheduler()
+    out = {"rows": n, "classic_s": classic_s, "classic_rows_s": c1_rows_s,
+           "oracle_s": oracle_s, "oracle_rows_s": n / oracle_s,
+           "piped_s": piped_s, "piped_rows_s": piped_rows_s,
+           "piped_batches": batches, "chunk_rows": C17_CHUNK,
+           "ratio": piped_rows_s / c1_rows_s,
+           "p50_alone_ms": p50_alone, "p99_alone_ms": p99_alone,
+           "p50_busy_ms": p50_busy, "p99_busy_ms": p99_busy,
+           "read_gap_ms": gap_s * 1e3, "churn_live_s": live_s,
+           "churned_rows": churned[0], "iters": C17_ITERS,
+           "window_s": w1 - w0, "window_batches": len(inside),
+           "window_rows": sum(a[2] for a in inside),
+           "window_sheds": shed_window, "reads_overlapped": overlapped,
+           "thread_busy_s": busy, "split_wall_s": split_wall}
+    print(f"ingest 12b: config 17, {n} rows: classic CSV Ingester "
+          f"{c1_rows_s:,.0f} rows/s (best of 2: " + ", ".join(
+              f"{s:.3f}" for s in classic_s) + " s); the classic oracle "
+          f"over {len(range(0, n, C17_CHUNK))} chunks of {C17_CHUNK} "
+          f"{oracle_s:.3f} s; pipelined ({batches} batches of 32 chunks) "
+          f"{piped_rows_s:,.0f} rows/s (best of 3: " + ", ".join(
+              f"{s:.3f}" for s in piped_s) + " s); every checksum equal to "
+          f"the oracle's {lab}")
+    print(f"ingest 12b: a pipelined run of {split_wall:.3f} s: host side "
+          f"(_prepare) busy {busy['prepare']:.3f} s, device side (_apply) "
+          f"busy {busy['apply']:.3f} s {lab}")
+    print(f"ingest 12b: GroupBy p50 / p99 alone {p50_alone:.3f} / "
+          f"{p99_alone:.3f} ms, under churn {p50_busy:.3f} / "
+          f"{p99_busy:.3f} ms ({C17_ITERS} reads each, "
+          f"{gap_s * 1e3:.1f} ms apart); in the {out['window_s']:.3f} s of "
+          f"the churned reads {len(inside)} churn batches "
+          f"({out['window_rows']} rows) started and landed, {shed_window} "
+          f"admits were shed, {overlapped} of {C17_ITERS} reads overlapped "
+          f"an apply; churn re-applied {churned[0]} rows in all; checksum "
+          f"unchanged; Count and the 100 groups equal numpy {lab}")
+    print(f"ingest 12b: bench.py's bars: pipelined / classic "
+          f"{out['ratio']:.3f}x (>= 2x) {_bar(out['ratio'] >= 2.0)}; busy / "
+          f"alone p50 {p50_busy / p50_alone:.3f}x (<= 1.5x) "
+          f"{_bar(p50_busy <= 1.5 * p50_alone)}, p99 "
+          f"{p99_busy / p99_alone:.3f}x (<= 1.5x) "
+          f"{_bar(p99_busy <= 1.5 * p99_alone)} {lab}")
+    out["api"] = api_rd
+    return out
+
+
+def _ingest_kitchen_sink(lab) -> dict:
+    """12c: datagen's kitchen-sink through the per-record Batch."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.ingest.datagen import scenario
+    from pilosa_tpu_torch.ingest.ingest import Ingester
+
+    t0 = time.perf_counter()
+    recs = list(scenario("kitchen-sink", rows=KS_ROWS, seed=1).records())
+    gen_s = time.perf_counter() - t0
+    idset = {}
+    for r in recs:
+        for x in set(r["an_idset"]):
+            idset[x] = idset.get(x, 0) + 1
+    want = {
+        'Count(Row(a_mutex="v3"))': sum(r["a_mutex"] == "v3" for r in recs),
+        "Count(Row(an_int > 0))": sum(r["an_int"] > 0 for r in recs),
+        "Sum(field=an_int)": sum(r["an_int"] for r in recs),
+        "Count(Row(a_bool=true))": sum(r["a_bool"] for r in recs),
+        **{f"Count(Row(an_idset={x}))": k for x, k in sorted(idset.items())},
+    }
+    del recs
+    api = API()
+    got, ingest_s = _synced_s(lambda: Ingester(
+        api, "ks", scenario("kitchen-sink", rows=KS_ROWS, seed=1),
+        batch_size=65536).run())
+    assert got == KS_ROWS, got
+    for q, w in want.items():
+        r = api.query("ks", q)[0]
+        assert (r.val if q.startswith("Sum") else r) == w, (q, r, w)
+    out = {"rows": KS_ROWS, "generate_s": gen_s, "ingest_s": ingest_s,
+           "rows_s": KS_ROWS / ingest_s, "queries": len(want)}
+    print(f"ingest 12c: kitchen-sink, {KS_ROWS} records through Batch in "
+          f"{ingest_s:.3f} s, {out['rows_s']:,.0f} rows/s with the "
+          f"generator (which alone takes {gen_s:.3f} s); {len(want)} "
+          f"answers (Counts, a Range Count, a Sum) equal the records' "
+          f"oracle {lab}")
+    return out
+
+
+def _ingest_service(base: str, lab) -> dict:
+    """12d: API(path).enable_stream, pushes drained by step, then a kill
+    at stream.apply hit 2, a reopen and a resume."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.ingest.source import _parse_header
+    from pilosa_tpu_torch.storage.recovery import (CrashPlan,
+                                                   SimulatedCrash,
+                                                   abandon_holder,
+                                                   attach_crash_plan)
+
+    rng = np.random.default_rng(12)
+    total = SVC_PUSHES * SVC_PER_PUSH
+    city = rng.integers(0, 1000, total)
+    dev = rng.integers(0, 10, total)
+    recs = [{"id": i, "city": int(c), "device": int(d)}
+            for i, (c, d) in enumerate(zip(city, dev))]
+    schema = _parse_header(["city__IS", "device__IS"])
+
+    def serve(path, plan=None, api=None):
+        api = api if api is not None else API(path)
+        if plan is not None:
+            attach_crash_plan(api.holder, plan)
+        svc = api.enable_stream("taxi", schema=schema,
+                                batch_rows=SVC_BATCH_ROWS, plan=plan)
+        t0 = time.perf_counter()
+        for lo in range(0, total, SVC_PER_PUSH):
+            svc.push(recs[lo:lo + SVC_PER_PUSH])
+            try:
+                svc.step()
+            except SimulatedCrash:
+                return api, svc, None
+        return api, svc, time.perf_counter() - t0
+
+    clean, svc, clean_s = serve(os.path.join(base, "clean"))
+    assert clean_s is not None and svc.stats()["rows"] == total
+    digest = clean.checksum()
+    clean.disable_stream()
+    abandon_holder(clean.holder)
+    path = os.path.join(base, "crash")
+    plan = CrashPlan().kill("stream.apply", at=2)
+    api, svc, done = serve(path, plan)
+    assert done is None and plan.fired == ("stream.apply", 2), plan.fired
+    api.disable_stream()
+    abandon_holder(api.holder)
+    t0 = time.perf_counter()
+    api = API(path)
+    reopen_s = time.perf_counter() - t0
+    api, svc, resume_s = serve(path, api=api)
+    assert resume_s is not None
+    assert api.checksum() == digest, "the resumed stream's checksum differs"
+    offsets = api.holder.index("taxi").stream_offsets["ingest"]
+    assert sum(offsets.values()) == total, offsets
+    resumed = svc.stats()["rows"]
+    for c, d in ((7, 3), (500, 5)):
+        q = f"Count(Intersect(Row(city={c}), Row(device={d})))"
+        assert api.query("taxi", q)[0] == int(((city == c) & (dev == d))
+                                               .sum()), q
+    api.disable_stream()
+    abandon_holder(api.holder)
+    out = {"records": total, "clean_s": clean_s,
+           "clean_rows_s": total / clean_s, "reopen_s": reopen_s,
+           "resume_s": resume_s, "resumed_rows": resumed}
+    print(f"ingest 12d: enable_stream on API(path), {SVC_PUSHES} pushes of "
+          f"{SVC_PER_PUSH} records drained by step in {clean_s:.3f} s "
+          f"({out['clean_rows_s']:,.0f} rows/s, batches of "
+          f"{SVC_BATCH_ROWS}); killed at stream.apply hit 2, reopened in "
+          f"{reopen_s:.3f} s, resumed {resumed} rows in {resume_s:.3f} s; "
+          f"checksum equal to the clean run's, offsets sum to {total} {lab}")
+    return out
+
+
+def phase_ingest(report: Report) -> dict:
+    """Path 12: ingest and streams (12a config 1, 12b config 17, 12c the
+    kitchen sink through Batch, 12d the stream service and a crash)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.ops import scatter as SC
+
+    lab = report.label
+    base = os.path.abspath(os.path.join("build", "chip_smoke_stream"))
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        KU.reset_launches()
+        _UNCOUNTED.clear()
+        for key, fn in (("12a", lambda: _ingest_config1(lab)),
+                        ("12b", lambda: _ingest_config17(lab)),
+                        ("12c", lambda: _ingest_kitchen_sink(lab)),
+                        ("12d", lambda: _ingest_service(base, lab))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # the main path's own runs: less the reference load and the
+        # timed re-runs of 12a and 12b
+        launched = {k: v - _UNCOUNTED.get(k, 0)
+                    for k, v in KU.launches().items()}
+        report.launched("ingest 12", launched,
+                        ("scatter_merge", "tape_count", "pair_counts",
+                         "bsi_compare"))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    # scatter_merge and pair_counts against their plain versions on path
+    # 12's planes and stacks (these launches are not counted)
+    api = out["12b"].pop("api")
+    idx = api.holder.index("s17")
+    frag = idx.field("city").fragment(0)
+    rng = np.random.default_rng(12)
+    rows = rng.integers(0, 100, 32 * C17_CHUNK)
+    slots = np.asarray([frag.row_index[int(r)] for r in range(100)])[rows]
+    cols = np.arange(rows.size)
+    addr, masks_np = SC.sort_updates(slots, cols, frag.planes.shape[1])
+    t = SC._tile_words(frag.planes.size)
+    which, packed, _ = SC.pack_tiles(addr, t)
+    tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
+    device = api.device
+    addr_t = torch.from_numpy(packed.astype(np.int32)).to(device)
+    masks_t = torch.from_numpy(masks_np.view(np.int32)).to(device)
+    # the churn's shape (every bit already set) and a fresh flat
+    for flat in (torch.from_numpy(tiles.view(np.int32)).to(device),
+                 torch.zeros(tiles.size, dtype=torch.int32, device=device)):
+        ours, plain = flat.clone(), flat.clone()
+        report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+                   SC.scatter_merge_plain(plain, addr_t, masks_t))
+        report.err("scatter_merge", ours, plain)
+    cs = STK.stacked_set(idx.field("city"), [0, 1], "standard")
+    ds = STK.stacked_set(idx.field("device"), [0, 1], "standard")
+    for _, blk in cs.iter_blocks():
+        report.err("pair_counts", G.pair_counts(ds.planes, blk),
+                   G.pair_counts_plain(ds.planes, blk))
+    del api, cs, ds
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ingest 12: launches {launched} (set aside: the reference "
+          f"load and the timed re-runs, {dict(_UNCOUNTED)}) {lab}")
+    print(f"ingest 12: scatter_merge ({which.size} "
+          f"packed tiles of {t} words, {addr.size} updates) and pair_counts "
+          f"equal their plain versions on path 12's planes and stacks {lab}")
+    print("ingest 12: " + json.dumps(out, default=str))
+    print("ingest 12: every pipelined and resumed checksum equals its "
+          "oracle; every answer matches numpy or the generated records")
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -4690,6 +5275,7 @@ def main() -> int:
     timed("10 API reads", phase_api_reads, report)
     timed("11 durability", phase_durability, report, args,
           report.notes.get("write_visible_ms"))
+    timed("12 ingest", phase_ingest, report)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ the WAL and group-commits it when the request finishes, and opening
 package's data directory layout, so either package recovers the
 other's. Reads may go through the micro-batching scheduler
 (``enable_scheduler``, ``sched/``) and the version-keyed result cache
-(``enable_cache``, ``cache/``). ``API()`` runs on the card, ``cuda:0``;
+(``enable_cache``, ``cache/``); ``enable_stream`` attaches the pipelined
+streaming ingester (``stream/``). ``API()`` runs on the card, ``cuda:0``;
 ``API(device="cpu")`` runs every kernel's plain PyTorch version on the
 CPU. Without a card, ``API()`` raises.
 """
@@ -70,6 +71,9 @@ class API:
         # optional serving layers; None keeps the read path direct
         self.scheduler = None
         self.cache = None
+        # optional streaming ingest service (stream/): in-process broker
+        # topic + pipelined exactly-once ingester; enable_stream
+        self.stream = None
         if path:
             # checkpoint load + WAL replay (reference: rbf/db.go open)
             self.holder.recover()
@@ -171,6 +175,31 @@ class API:
     def disable_cache(self) -> None:
         self.cache = None
         self.executor.cache = None
+
+    # -- streaming ingest (stream/: broker + pipelined ingester) -----------
+
+    def enable_stream(self, index: str, config=None, **overrides):
+        """Attach the continuous-ingest service for ``index``: an
+        in-process Kafka-shaped broker topic feeding the two-stage
+        pipelined ingester with exactly-once WAL offsets. ``config`` is a
+        pilosa_tpu_torch.config.Config ([stream]); kwargs override
+        individual StreamService knobs (schema, topic, group, partitions,
+        batch_rows, queue_depth, max_backlog_rows, id_field, keys, clock,
+        plan). Records arrive via ``api.stream.push`` or direct
+        ``api.stream.broker.produce``; ``api.stream.step()`` drains them
+        through the pipeline."""
+        from pilosa_tpu_torch.stream.pipeline import StreamService
+
+        if self.stream is not None:
+            self.disable_stream()
+        self.stream = StreamService.from_config(self, index, config=config,
+                                                **overrides)
+        return self.stream
+
+    def disable_stream(self) -> None:
+        svc, self.stream = self.stream, None
+        if svc is not None:
+            svc.close()
 
     # -- query (reference: api.go:209 Query) -------------------------------
 

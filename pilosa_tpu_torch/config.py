@@ -6,8 +6,9 @@ BuildServerFlags, ``featurebase generate-config``). Same layering with
 the stdlib: tomllib for files, PILOSA_TPU_* env vars, flag dicts — the
 last source wins per field. The port carries the sections of the modules
 it has ported: the storage fields and ``[storage.recovery]``
-(``storage/``), ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``)
-and the two ``[tenants]`` flags the scheduler reads, with the JAX
+(``storage/``), ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
+``[stream]`` (``stream/``) and the two ``[tenants]`` flags the
+scheduler reads, with the JAX
 package's defaults and variable names; the other sections land with the
 modules they configure.
 """
@@ -117,6 +118,18 @@ class Config:
     # overrides land with TenantRegistry
     tenants_enabled: bool = False
     tenants_fair_share: bool = True  # weighted-fair admission ordering
+    # streaming ingest ([stream] section / PILOSA_TPU_STREAM_*): the
+    # fields StreamService.from_config reads (stream/pipeline.py; attach
+    # via API.enable_stream). Batch rows per pipeline hand-off, bounded
+    # queue depth (2 = double-buffered), the consumer group name and
+    # the broker backlog at which push starts rejecting (0 =
+    # batch_rows * queue_depth * 8). ``enabled`` / ``index`` land with
+    # the CLI that starts the service, ``ingest_stall_s`` with the
+    # health plane that reads it
+    stream_batch_rows: int = 8192
+    stream_queue_depth: int = 2
+    stream_group: str = "ingest"
+    stream_max_backlog_rows: int = 0
 
     # -- sources -----------------------------------------------------------
 

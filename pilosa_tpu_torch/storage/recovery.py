@@ -9,7 +9,9 @@ must converge to the exact planes the committed write stream describes.
 1. :class:`CrashPlan`: deterministic kill points at the five
    durability-critical sites (``wal.append``, ``wal.flush``,
    ``savez.pre_replace``, ``savez.post_replace``, ``checkpoint.mid``)
-   raise :class:`SimulatedCrash`; after the first fire the simulated
+   and at the streaming pipeline's three stage boundaries
+   (``STREAM_CRASH_SITES``, stream/pipeline.py) raise
+   :class:`SimulatedCrash`; after the first fire the simulated
    process is *dead* and every hooked operation silently no-ops, so
    unwind paths (``Qcx.__exit__`` still calls ``finish()``) cannot
    persist post-crash state. The same seeds pick the same sites as in
@@ -49,6 +51,16 @@ CRASH_SITES = (
     "checkpoint.mid",
 )
 
+# pipeline stage-boundary kill sites (stream/pipeline.py). A SEPARATE
+# tuple: seeded() chooses over CRASH_SITES only, so the pinned crash-lane
+# seeds keep selecting the same sites; the stream lane draws from
+# stream_seeded() instead.
+STREAM_CRASH_SITES = (
+    "stream.handoff",
+    "stream.apply",
+    "stream.commit",
+)
+
 CHECKPOINT_META = "checkpoint.json"
 
 
@@ -78,7 +90,7 @@ class CrashPlan:
         self._lock = locktrace.tracked_lock("storage.recovery.crashplan")
 
     def kill(self, site: str, at: int = 1) -> "CrashPlan":
-        if site not in CRASH_SITES:
+        if site not in CRASH_SITES and site not in STREAM_CRASH_SITES:
             raise ValueError(f"unknown crash site {site!r}")
         if at < 1:
             raise ValueError("at must be >= 1")
@@ -91,6 +103,15 @@ class CrashPlan:
         crash, forever (string-seeded like FaultPlan/GossipAgent)."""
         rng = random.Random(f"crash:{seed}")
         return cls().kill(rng.choice(CRASH_SITES), at=rng.randint(1, 4))
+
+    @classmethod
+    def stream_seeded(cls, seed) -> "CrashPlan":
+        """Seed-derived plan over the pipeline stage boundaries — the
+        stream lane's analog of :meth:`seeded` (its own keyspace so the
+        storage lane's pinned seeds stay untouched)."""
+        rng = random.Random(f"stream-crash:{seed}")
+        return cls().kill(rng.choice(STREAM_CRASH_SITES),
+                          at=rng.randint(1, 3))
 
     @classmethod
     def from_env(cls, var: str = "PILOSA_TPU_CRASH_SEED") -> Optional["CrashPlan"]:

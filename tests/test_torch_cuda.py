@@ -10,6 +10,8 @@ it also runs on a machine without them:
 Tolerance 0: every result is an integer or a bitmap.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -888,3 +890,62 @@ def test_checkpoint_loaded_stack_equals_a_rebuild(dev, tmp_path):
         got = STK._dense(st._ensure_block(bi)).cpu().numpy().view(np.uint32)
         assert np.array_equal(got, host)
     assert torch.equal(st.planes, dense)
+
+
+def test_pipelined_load_on_the_card_matches_the_cpu(dev):
+    """A chunked stream through the PipelinedIngester and through the
+    classic Ingester, on the card and on the CPU: the card's loads launch
+    scatter_merge and give the CPU's checksum, and a GroupBy read while
+    a second pipelined pass re-applies the stream (the device thread's
+    launches beside the reader's) answers as on the CPU."""
+    import threading
+
+    from pilosa_tpu_torch.ingest.ingest import Ingester
+    from pilosa_tpu_torch.ingest.source import _parse_header
+    from pilosa_tpu_torch.stream import (BrokerSource, PipelinedIngester,
+                                         StreamBroker, make_chunk)
+
+    rng = np.random.default_rng(17)
+    n = 60_000
+    city = rng.integers(0, 100, n)
+    device = rng.integers(0, 10, n)
+    ids = np.arange(n) * 30  # two shards
+    broker = StreamBroker(partitions=1, seed=17)
+    for lo in range(0, n, 4096):
+        broker.produce("s", make_chunk({"id": ids[lo:lo + 4096],
+                                        "city": city[lo:lo + 4096],
+                                        "device": device[lo:lo + 4096]}))
+    schema = _parse_header(["city__IS", "device__IS"])
+    q = "GroupBy(Rows(city), Rows(device), limit=100)"
+    out = {}
+    for name, make in (("cpu", lambda: API(device="cpu")), ("cuda", API)):
+        before = KU.launches()["scatter_merge"]
+        piped = make()
+        p = PipelinedIngester(piped, "s", broker.consumer(f"p{name}", ["s"]),
+                              schema=schema, batch_rows=2)
+        assert p.run() == n
+        classic = make()
+        Ingester(classic, "s", BrokerSource(
+            broker.consumer(f"c{name}", ["s"]), schema)).run()
+        launched = KU.launches()["scatter_merge"] - before
+        answer = piped.query_json("s", q)
+        digest = piped.checksum()
+        churn = PipelinedIngester(piped, "s",
+                                  broker.consumer(f"r{name}", ["s"]),
+                                  schema=schema, batch_rows=1,
+                                  group=f"r{name}")
+        th = threading.Thread(target=churn.run)
+        th.start()
+        during, deadline = [], time.monotonic() + 120
+        while len(during) < 5 or (th.is_alive()  # reads for the whole pass
+                                  and time.monotonic() < deadline):
+            during.append(piped.query_json("s", q))
+        th.join(120)
+        assert not th.is_alive() and churn.rows == n
+        assert during == [answer] * len(during)
+        assert piped.checksum() == digest
+        out[name] = (digest, classic.checksum(), answer, launched)
+        assert piped.holder.index("s").field("city").device.type == name
+    assert out["cuda"][0] == out["cuda"][1] == out["cpu"][0] == out["cpu"][1]
+    assert out["cuda"][2] == out["cpu"][2]
+    assert out["cuda"][3] > 0 and out["cpu"][3] == 0

@@ -3,7 +3,10 @@
 Checked two ways: a subprocess with a clean environment imports
 ``pilosa_tpu_torch``, answers a query and a write on the CPU, serves
 reads through the result cache, the scheduler and ``execute_many``,
-writes to a data directory, recovers it and backs it up, then reports
+writes to a data directory, recovers it and backs it up, loads a CSV
+through the ``Ingester``, drains a broker through the
+``PipelinedIngester`` and a pushed stream through ``enable_stream``
+(importing every ingest and stream module), then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -56,9 +59,30 @@ import pilosa_tpu_torch.transaction
 import pilosa_tpu_torch.storage.roaring
 del dur
 recovered = API(d, device="cpu").checksum() == want
+from pilosa_tpu_torch.ingest import CSVSource, Ingester
+from pilosa_tpu_torch.ingest.datagen import scenario
+from pilosa_tpu_torch.ingest.kafka import KafkaSource
+from pilosa_tpu_torch.ingest.sources_ext import AvroSource, SQLSource
+from pilosa_tpu_torch.stream import PipelinedIngester, StreamBroker, make_chunk
+ing = API(device="cpu")
+loaded = Ingester(ing, "c", CSVSource("id,city__IS\n1,7\n2,7\n",
+                                      inline=True)).run()
+broker = StreamBroker()
+broker.produce("t", make_chunk({"id": [3, 4, 5], "city": [7, 8, 7]}))
+src = scenario("bank", rows=4)
+piped = PipelinedIngester(ing, "c", broker.consumer("g", ["t"])).run()
+sd = tempfile.mkdtemp()
+sapi = API(sd, device="cpu")
+svc = sapi.enable_stream("s", batch_rows=2)
+svc.push([{"id": i} for i in range(5)])
+streamed = svc.step()
+sapi.disable_stream()
 print(json.dumps({"count": got[0], "top": got[1].pairs[0].count,
                   "wrote": wrote, "served": served, "fused": fused[0],
-                  "recovered": recovered, "modules": sorted(sys.modules)}))
+                  "recovered": recovered, "loaded": loaded,
+                  "piped": piped, "streamed": streamed,
+                  "city7": ing.query("c", "Count(Row(city=7))")[0],
+                  "modules": sorted(sys.modules)}))
 """
 
 #: the port's subpackages and modules the serving slice added; each must
@@ -68,6 +92,10 @@ _SERVING = ("analysis", "obs", "cache", "sched", "config.py")
 _DURABILITY = ("storage", "storage/wal.py", "storage/store.py",
                "storage/recovery.py", "storage/roaring.py", "storage/txn.py",
                "transaction.py", "ingest", "ingest/idalloc.py", "config.py")
+#: and the ingest and streaming slice's
+_INGEST = ("ingest/source.py", "ingest/batch.py", "ingest/ingest.py",
+           "ingest/datagen.py", "ingest/sources_ext.py", "ingest/kafka.py",
+           "stream", "stream/broker.py", "stream/pipeline.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -87,7 +115,9 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["wrote"] == [True, True, 1]
     assert out["served"] == [300, 300] and out["fused"] == [300]
     assert out["recovered"] is True
-    for part in _SERVING + _DURABILITY:
+    assert (out["loaded"], out["piped"], out["streamed"]) == (2, 3, 5)
+    assert out["city7"] == 4
+    for part in _SERVING + _DURABILITY + _INGEST:
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -128,6 +158,14 @@ def test_scan_covers_the_durability_modules():
     scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
                for p in _sources()}
     for part in _DURABILITY:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_ingest_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _INGEST:
         hits = [p for p in scanned if p == part or p.startswith(part + "/")]
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
 
