@@ -224,8 +224,34 @@ Phases, each printed on its own line:
     ``scatter_merge``, ``tape_count``, ``pair_counts`` and
     ``bsi_compare`` launched, ``scatter_merge`` and ``pair_counts``
     against their plain versions on path 12's planes and stacks;
-16. one ``{"kernels": [...]}`` JSON line;
-17. the last line: ``{"ok": true, "device": {...}}``.
+16. main path 13, SQL on ``bench.py`` config 23's single node as
+    ``bench_config23`` builds it, from the port's ``loadgen/ssb.py``:
+    (13a) ``ssb.generate(120_000, seed=7)`` loaded by ``ssb.load`` in
+    500-row INSERTs through ``API.sql`` (the seconds split by host stage:
+    the SQL parse, the records, ``_batch_upsert``'s own work, the
+    imports, ``set_mutex_many``, the BSI writes and the bulk scatter with
+    its ``scatter_merge`` launches); all 13 queries against ``ssb.oracle``
+    under ``ssb.verify`` (row multisets and ORDER BY keys); the two
+    no-join queries must leave ``sql_join_queries_total`` /
+    ``sql_join_fallback_total`` still; each query's first (cold) time and
+    warm p50 (20 runs); the Q2/Q3 flights' hash-fallback p50s
+    (``PILOSA_TPU_SEMIJOIN=0``, 2 runs, the first answer checked) and the worst
+    speedup against ``bench.py``'s 2x bar, printed met or missed, not
+    asserted; Q1.1, Q2.1, Q3.1 and Q4.1's card busy ms, launches per
+    kernel, executor waits and implicit syncs, and one warm run's host
+    ms by layer (the SQL parse, planning, the executor's calls, the host
+    operators and the API's own work); ``lineorder``'s resident
+    stacks, stored and dense bytes (the 3-node phase waits for the
+    port's cluster plane); (13b) ``fb_exec_requests`` lists the path's
+    last statements with their language and status, a ``QueryLogger``
+    under ``build/`` holds one line per statement, and
+    ``fb_performance_counters`` shows ``sql_queries_total``;
+    ``scatter_merge``, ``bsi_compare`` and ``pair_counts`` (and
+    ``tape_count`` / ``ctile_count`` when the path launched them)
+    launched, and the first four against their plain versions on path
+    13's planes;
+17. one ``{"kernels": [...]}`` JSON line;
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -5164,6 +5190,347 @@ def phase_ingest(report: Report) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 13: SQL (lexer, parser, planner, engine, the bitwise semi-join) with
+# the query history and the query log, on bench.py config 23's single node
+# ---------------------------------------------------------------------------
+
+#: bench.py config 23: ``ssb.generate(max(_n(120_000), 15_000), seed=7)``
+#: loaded by ``ssb.load`` in 500-row INSERTs, 20 iterations a p50
+C23_ROWS = 120_000
+C23_SEED = 7
+C23_ITERS = 20
+#: the hash fallback's iterations a flight (bench.py: 20), cut first to
+#: keep path 13 inside its 600 s beside the load: a hash-fallback run of
+#: a Q2/Q3 flight takes 5-7 s at 120,000 rows on the H100's host
+C23_HASH_ITERS = 2
+#: the queries whose card time, launches and syncs path 13 prints
+C23_CARD = ("Q1.1", "Q2.1", "Q3.1", "Q4.1")
+#: bench.py config 23's no-join queries (the join plane must not move)
+C23_NO_JOIN = ("SELECT d_year, COUNT(*) FROM ssb_date GROUP BY d_year",
+               "SELECT SUM(lo_revenue) FROM lineorder WHERE lo_discount = 3")
+_JOIN_COUNTERS = ("sql_join_queries_total", "sql_join_fallback_total")
+
+
+def _join_counts():
+    from pilosa_tpu_torch.obs import metrics as M
+
+    c = M.REGISTRY.snapshot()["counters"]
+    return tuple(c.get(k, 0) for k in _JOIN_COUNTERS)
+
+
+def _sql_load(api, data, lab) -> dict:
+    """``ssb.load`` through ``api.sql``, its host seconds split by stage
+    (each stage its own time, its wrapped callees' excluded)."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core.fragment import BSIFragment, SetFragment
+    from pilosa_tpu_torch.loadgen import ssb
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.sql import engine as E
+
+    clock = _StageClock([
+        ("parse", E, "parse_statement"),
+        ("records", E.SQLEngine, "_insert"),
+        ("batch_upsert", E.SQLEngine, "_batch_upsert"),
+        ("import_bits", API, "import_bits"),
+        ("import_values", API, "import_values"),
+        ("set_mutex_many", SetFragment, "set_mutex_many"),
+        ("bsi_set_values", BSIFragment, "set_values"),
+        ("scatter (scatter_merge)", SC, "scatter_new_bits_bulk")])
+    before = KU.launches()["scatter_merge"]
+    try:
+        _, load_s = _synced_s(lambda: ssb.load(api.sql, data))
+    finally:
+        clock.close()
+    split = dict(clock.own)
+    split["rest"] = load_s - sum(split.values())
+    out = {"rows": len(data.lineorder["_id"]), "load_s": load_s,
+           "split_s": split, "calls": dict(clock.calls),
+           "scatter_merge_launches": KU.launches()["scatter_merge"] - before}
+    print(f"sql 13a: config 23 single node, SSB {out['rows']} lineorder rows "
+          f"(seed {C23_SEED}) loaded by ssb.load in 500-row INSERTs through "
+          f"API.sql in {load_s:.3f} s; {out['scatter_merge_launches']} "
+          f"scatter_merge launches {lab}")
+    print(f"sql 13a: the load split by host stage: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in split.items()) + f" {lab}")
+    return out
+
+
+def _resident_bytes(idx) -> dict:
+    """{field: [stored B, dense B]} of the stacks ``idx``'s fields hold on
+    the card now (a compressed block's dense size beside its stored)."""
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import ctiles as C
+
+    out = {}
+    for f in idx.fields.values():
+        for inner in getattr(f, "_stacked_cache", {}).values():
+            for _, st in inner.values():
+                blocks = getattr(st, "_blocks", None) or [st._planes]
+                for b in blocks:
+                    if b is None:
+                        continue
+                    stored = STK._nbytes(b)
+                    dense = (b.dense_nbytes if isinstance(
+                        b, C.CompressedBlock) else stored)
+                    acc = out.setdefault(f.name, [0, 0])
+                    acc[0] += stored
+                    acc[1] += dense
+    return out
+
+
+def _card_figures(api, q) -> dict:
+    """Warm runs of ``q``: device busy ms, launches per kernel, the
+    executor's host waits and the implicit syncs inside one run, and one
+    run's host seconds by layer (the SQL parse, planning, the executor's
+    calls, and the host operators with the API's own work as the rest)."""
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.pql import executor as EX
+    from pilosa_tpu_torch.sql import engine as E
+    from pilosa_tpu_torch.sql.planner import Planner
+
+    busy = _device_ms(lambda: api.sql(q), calls=5)
+    clock = _StageClock([("parse", E, "parse_statement"),
+                         ("plan", Planner, "plan_select"),
+                         ("executor", EX.Executor, "execute")])
+    try:
+        _, total_s = _synced_s(lambda: api.sql(q))
+    finally:
+        clock.close()
+    split = {k: v * 1e3 for k, v in clock.own.items()}
+    split["host operators and the rest"] = total_s * 1e3 - sum(
+        split.values())
+    waits = [0]
+    wait0 = EX._wait_copies
+
+    def wait(ev):
+        waits[0] += 1
+        return wait0(ev)
+
+    before = KU.launches()
+    EX._wait_copies = wait
+    try:
+        _, syncs = _implicit_syncs(lambda: api.sql(q))
+    finally:
+        EX._wait_copies = wait0
+    after = KU.launches()
+    return {"busy_ms": busy, "split_ms": split,
+            "executor_calls": clock.calls["executor"],
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]},
+            "waits": waits[0], "implicit_syncs": len(syncs),
+            "sync_sites": sorted(set(syncs))}
+
+
+def phase_sql(report: Report) -> dict:
+    """Path 13: SQL over config 23's single node (13a) and the query
+    history and log (13b)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.loadgen import ssb
+    from pilosa_tpu_torch.obs import metrics as M
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.ops import scatter as SC
+
+    lab = report.label
+    base = os.path.abspath(os.path.join("build", "chip_smoke_sql"))
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t_phase = time.perf_counter()
+    out = {"cuts": {"hash_iters": C23_HASH_ITERS,
+                    "phase_2": "the 3-node LocalCluster phase waits for "
+                               "the port's cluster plane"}}
+    try:
+        data = ssb.generate(C23_ROWS, seed=C23_SEED)
+        oracles = {qid: ssb.oracle(data, qid) for qid in ssb.QUERIES}
+        api = API()
+        log_path = os.path.join(base, "query.log")
+        api.set_query_logger(log_path)
+        c0 = M.REGISTRY.snapshot()["counters"]
+        KU.reset_launches()
+
+        # -- 13a: load, the oracle gate, the no-join gate, timings -----------
+        out["load"] = _sql_load(api, data, lab)
+        cold = {}
+        for qid, q in ssb.QUERIES.items():
+            res, s = _synced_s(lambda: api.sql(q))
+            cold[qid] = s * 1e3
+            err = ssb.verify(data, qid, res.data, expected=oracles[qid])
+            assert err is None, f"single-node {err}"
+        before = _join_counts()
+        for q in C23_NO_JOIN:
+            api.sql(q)
+        assert _join_counts() == before, \
+            "no-JOIN queries touched the join plane"
+        assert api.sql(C23_NO_JOIN[1]).data == [[int(
+            data.lineorder["lo_revenue"][
+                data.lineorder["lo_discount"] == 3].sum())]]
+        warm = {qid: statistics.median(_wall_ms(lambda: api.sql(q))
+                                       for _ in range(C23_ITERS))
+                for qid, q in ssb.QUERIES.items()}
+        flights = [q for q in ssb.QUERIES if q.startswith(("Q2", "Q3"))]
+        hash_p50 = {}
+        os.environ["PILOSA_TPU_SEMIJOIN"] = "0"
+        try:
+            n0 = _join_counts()
+            for qid in flights:
+                res = []
+                hash_p50[qid] = statistics.median(
+                    _wall_ms(lambda: res.append(api.sql(ssb.QUERIES[qid])))
+                    for _ in range(C23_HASH_ITERS))
+                err = ssb.verify(data, qid, res[0].data,
+                                 expected=oracles[qid])
+                assert err is None, f"hash fallback {err}"
+            assert _join_counts()[0] == n0[0], "the semi plane ran"
+        finally:
+            del os.environ["PILOSA_TPU_SEMIJOIN"]
+        speedups = {q: hash_p50[q] / max(warm[q], 1e-6) for q in flights}
+        worst = min(speedups, key=speedups.get)
+        card = {qid: _card_figures(api, ssb.QUERIES[qid]) for qid in C23_CARD}
+        resident = _resident_bytes(api.holder.index("lineorder"))
+        out.update(cold_ms=cold, warm_p50_ms=warm, hash_p50_ms=hash_p50,
+                   speedups=speedups, card=card, resident=resident)
+        print(f"sql 13a: all 13 queries equal ssb.oracle (row multisets and "
+              f"ORDER BY keys); the no-join queries left "
+              f"{'/'.join(_JOIN_COUNTERS)} at {before} {lab}")
+        for qid in ssb.QUERIES:
+            print(f"sql 13a: {qid} cold {cold[qid]:.3f} ms, warm p50 "
+                  f"{warm[qid]:.3f} ms ({C23_ITERS} runs)" + (
+                      f", hash fallback p50 {hash_p50[qid]:.3f} ms "
+                      f"({C23_HASH_ITERS} runs), {speedups[qid]:.2f}x"
+                      if qid in hash_p50 else "") + f" {lab}")
+        print(f"sql 13a: semi-join vs hash fallback on the Q2/Q3 flights: "
+              f"worst {worst} at {speedups[worst]:.2f}x; bench.py's 2x bar "
+              f"{_bar(speedups[worst] >= 2.0)} (printed, not asserted) "
+              f"{lab}")
+        for qid, fig in card.items():
+            print(f"sql 13a: {qid} card busy {_fmt_ms(fig['busy_ms'])}, "
+                  f"launches {fig['launches']}, {fig['waits']} executor "
+                  f"waits, {fig['implicit_syncs']} implicit syncs at "
+                  f"{fig['sync_sites']}; one run's host ms by layer: " +
+                  ", ".join(f"{k} {v:.3f}" for k, v in
+                            fig["split_ms"].items()) +
+                  f" ({fig['executor_calls']} executor calls) {lab}")
+        print(f"sql 13a: lineorder's resident stacks [stored B, dense B]: "
+              f"{resident} {lab}")
+        print("sql 13a: the 3-node LocalCluster phase (bench.py phase 2) "
+              "waits for the port's cluster plane; cut: the hash "
+              f"fallback's p50s take {C23_HASH_ITERS} runs, not 20")
+
+        # -- 13b: the query history, the query log, the counters ------------
+        q11 = ssb.QUERIES["Q1.1"]
+        api.sql(q11)
+        try:
+            api.sql("SELECT nosuch FROM lineorder")
+        except KeyError:
+            pass
+        else:
+            raise AssertionError("an unknown column did not fail")
+        api.query("lineorder", "Count(Row(lo_discount=3))")
+        hist = api.sql("SELECT * FROM fb_exec_requests LIMIT 4")
+        names = [n for n, _ in hist.schema]
+        got = [(r[names.index("query")], r[names.index("language")],
+                r[names.index("status")]) for r in hist.data]
+        assert got == [
+            ("SELECT * FROM fb_exec_requests LIMIT 4", "sql", "running"),
+            ("Count(Row(lo_discount=3))", "pql", "complete"),
+            ("SELECT nosuch FROM lineorder", "sql", "error"),
+            (q11, "sql", "complete")], got
+        perf = dict(api.sql("SELECT * FROM fb_performance_counters").data)
+        c1 = M.REGISTRY.snapshot()["counters"]
+        n_sql = c1.get(M.METRIC_SQL_QUERIES, 0) - c0.get(
+            M.METRIC_SQL_QUERIES, 0)
+        n_pql = c1.get(M.METRIC_PQL_QUERIES, 0) - c0.get(
+            M.METRIC_PQL_QUERIES, 0)
+        assert perf[M.METRIC_SQL_QUERIES] >= n_sql > 0
+        with open(log_path) as f:
+            lines = [json.loads(x) for x in f]
+        kinds = [x["kind"] for x in lines if x["kind"] != "slow"]
+        assert (kinds.count("sql"), kinds.count("pql")) == (n_sql, n_pql), \
+            (kinds.count("sql"), kinds.count("pql"), n_sql, n_pql)
+        assert lines[-1]["kind"] == "sql" and lines[-1]["query"] == \
+            "SELECT * FROM fb_performance_counters"
+        out["history"] = {"statements": n_sql + n_pql, "log_lines":
+                          len(lines), "sql_queries_total":
+                          perf[M.METRIC_SQL_QUERIES]}
+        print(f"sql 13b: fb_exec_requests lists the path's last statements "
+              f"with their language and status; the query log holds one "
+              f"line per statement ({n_sql} SQL, {n_pql} PQL); "
+              f"fb_performance_counters shows sql_queries_total = "
+              f"{perf[M.METRIC_SQL_QUERIES]:.0f} {lab}")
+
+        torch.cuda.synchronize()
+        launched = KU.launches()
+        expected = ["scatter_merge", "bsi_compare", "pair_counts"]
+        if launched.get("tape_count", 0):
+            expected.append("tape_count")
+        if launched.get("ctile_count", 0):
+            expected.append("ctile_count")
+        report.launched("sql 13", launched, expected)
+
+        # each launched kernel against its plain version on path 13's own
+        # planes (these launches are not counted)
+        idx = api.holder.index("lineorder")
+        disc = STK.stacked_bsi(idx.field("lo_discount"), [0])
+        rev = STK.stacked_bsi(idx.field("lo_revenue"), [0])
+        filt = S.bsi_compare_plain(disc.planes, S.BETWEEN, 1, 3)
+        report.err("bsi_compare", S.bsi_compare(disc.planes, S.BETWEEN, 1, 3),
+                   filt)
+        rows = rev.planes[S.EXISTS] & filt
+        sign = rev.planes[S.SIGN]
+        a = torch.stack([rows & ~sign, rows & sign])
+        report.err("pair_counts", G.pair_counts(a, rev.planes[S.OFFSET:]),
+                   G.pair_counts_plain(a, rev.planes[S.OFFSET:]))
+        ex = STK.stacked_set(idx.field("_exists"), [0], "standard")
+        leaves = [filt, ex.row_plane(0)]
+        tape = (("and", 0, 1),)
+        report.err("tape_count", B.tape_count(tape, leaves),
+                   B.tape_count_plain(tape, leaves))
+        frag = idx.field("_exists").fragment(0)
+        cols = np.arange(C23_ROWS - 500, C23_ROWS + 1)
+        addr, masks_np = SC.sort_updates(np.zeros(cols.size, np.int64), cols,
+                                         frag.planes.shape[1])
+        t = SC._tile_words(frag.planes.size)
+        which, packed, _ = SC.pack_tiles(addr, t)
+        tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
+        # the load set every one of these bits: clear them in the copy,
+        # so that both sides set all of them anew
+        tiles[packed] &= ~masks_np
+        flat = torch.from_numpy(tiles.view(np.int32)).to(api.device)
+        addr_t = torch.from_numpy(packed.astype(np.int32)).to(api.device)
+        masks_t = torch.from_numpy(masks_np.view(np.int32)).to(api.device)
+        ours, plain = flat.clone(), flat.clone()
+        new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
+        assert int(new_bits) == cols.size, \
+            f"the replay set {int(new_bits)} new bits of {cols.size}"
+        report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+                   new_bits)
+        report.err("scatter_merge", ours, plain)
+        del api, disc, rev, ex
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sql 13: launches {launched} {lab}")
+    print("sql 13: bsi_compare (lo_discount BETWEEN 1 AND 3), pair_counts "
+          "(the Sum's sign classes x lo_revenue), tape_count (the filter "
+          "under _exists) and scatter_merge (the last INSERT's _exists "
+          "bits, cleared and set anew) equal their plain versions on path "
+          f"13's planes {lab}")
+    print("sql 13: " + json.dumps(out, default=str))
+    print("sql 13: every answer equals ssb.oracle; the join plane stayed "
+          "still for the no-join queries")
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -5276,6 +5643,7 @@ def main() -> int:
     timed("11 durability", phase_durability, report, args,
           report.notes.get("write_visible_ms"))
     timed("12 ingest", phase_ingest, report)
+    timed("13 SQL", phase_sql, report)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

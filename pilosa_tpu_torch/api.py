@@ -6,7 +6,10 @@ indexes and fields (set, mutex, bool, time, int, decimal, timestamp; a
 bulk-import bits (by row id or row key, or as roaring blobs) and BSI
 values (by column id or key), keeping the ``_exists`` field up to date,
 ingest and read dataframe changesets, run PQL reads and writes (JSON
-results and a profiled span tree from ``query_json``), and back up,
+results and a profiled span tree from ``query_json``) and SQL statements
+(``sql``, over ``sql/``), each recorded in the query-history ring
+(``history``) and, when ``set_query_logger`` names a file, the query
+log; and back up,
 restore and checksum the holder. Every write runs as one write request
 (``storage/txn.py``): with a data directory, ``API(path)`` logs it to
 the WAL and group-commits it when the request finishes, and opening
@@ -27,6 +30,7 @@ import json
 import os
 import tarfile
 import tempfile
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -41,6 +45,7 @@ from pilosa_tpu_torch.core.schema import FieldOptions, FieldType, IndexOptions
 from pilosa_tpu_torch.core.translate import bulk_translate_ids
 from pilosa_tpu_torch.ingest.idalloc import IDAllocator
 from pilosa_tpu_torch.obs import metrics as M
+from pilosa_tpu_torch.obs.history import ExecutionRequestsAPI
 from pilosa_tpu_torch.obs.tracing import get_tracer
 from pilosa_tpu_torch.ops.bitmap import bits_to_plane
 from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
@@ -63,20 +68,31 @@ class API:
                              segment_bytes=segment_bytes)
         self.executor = Executor(self.holder)
         self.txf = TxFactory(self.holder)
-        # cluster transactions (reference: transaction.go) and the auto-ID
-        # reservation service (reference: idalloc.go)
+        # query history (reference: tracker.go), cluster transactions
+        # (reference: transaction.go) and the auto-ID reservation service
+        # (reference: idalloc.go)
+        self.history = ExecutionRequestsAPI()
         self.transactions = TransactionManager()
         self.idalloc = IDAllocator(
             os.path.join(path, "idalloc.jsonl") if path else None)
+        self._sql_engine = None
         # optional serving layers; None keeps the read path direct
         self.scheduler = None
         self.cache = None
+        # optional structured query log (reference: server.go:792);
+        # set via set_query_logger
+        self.query_logger = None
         # optional streaming ingest service (stream/): in-process broker
         # topic + pipelined exactly-once ingester; enable_stream
         self.stream = None
         if path:
             # checkpoint load + WAL replay (reference: rbf/db.go open)
             self.holder.recover()
+
+    def set_query_logger(self, path: str) -> None:
+        from pilosa_tpu_torch.obs.logger import QueryLogger
+
+        self.query_logger = QueryLogger(path)
 
     # -- schema (reference: api.go CreateIndex/CreateField/Schema) ---------
 
@@ -207,14 +223,18 @@ class API:
               shards: Optional[Sequence[int]] = None,
               priority: Optional[str] = None,
               deadline_ms: Optional[float] = None) -> List[Any]:
-        """Run a PQL query under a ``query.pql`` trace span. One with
-        write calls is a write request: it holds the holder's write lock,
-        and the stacks it builds or advances are not published to
-        lock-free readers. A read takes no lock; with the scheduler on it
-        is admitted with ``priority`` and ``deadline_ms`` and may share a
-        fused dispatch with concurrent reads."""
+        """Run a PQL query under a ``query.pql`` trace span, recorded in
+        the history ring and the query log. One with write calls is a
+        write request: it holds the holder's write lock, and the stacks
+        it builds or advances are not published to lock-free readers. A
+        read takes no lock; with the scheduler on it is admitted with
+        ``priority`` and ``deadline_ms`` and may share a fused dispatch
+        with concurrent reads."""
         M.REGISTRY.count(M.METRIC_PQL_QUERIES)
-        with get_tracer().start_trace("query.pql", index=index):
+        text = pql if isinstance(pql, str) else "".join(
+            c.to_pql() for c in getattr(pql, "calls", []))
+
+        def run():
             parsed = parse(pql) if isinstance(pql, str) else pql
             sched = self.scheduler
             if has_write_calls(parsed):
@@ -229,6 +249,65 @@ class API:
                     kw["deadline_ms"] = deadline_ms
                 return sched.execute(index, parsed, shards=shards, **kw)
             return self.executor.execute(index, parsed, shards=shards)
+
+        return self._recorded("pql", index, text, run,
+                              get_tracer().start_trace("query.pql",
+                                                       index=index))
+
+    def sql(self, query: str, parsed=None):
+        """Execute a SQL statement (reference: server/sql.go:17 execSQL)
+        under a ``query.sql`` trace span, recorded in the history ring
+        and the query log. Returns a pilosa_tpu_torch.sql.SQLResult.
+        ``parsed`` reuses a statement the caller already parsed."""
+        eng = self._sql_engine
+        if eng is None:
+            # benign if two threads race (same-state engines)
+            from pilosa_tpu_torch.sql import SQLEngine
+            eng = self._sql_engine = SQLEngine(self)
+        M.REGISTRY.count(M.METRIC_SQL_QUERIES)
+        return self._recorded("sql", "", query,
+                              lambda: eng.query(query, parsed=parsed),
+                              get_tracer().start_trace("query.sql"))
+
+    def _recorded(self, kind: str, index: str, text: str, run, span):
+        """Run one request under ``span``: a history record (its
+        request id tagged on the span), a query-log line and, above the
+        tracer's slow threshold, a slow-query line."""
+        rec = self.history.begin(index, text, kind)
+        rec.trace_id = span.trace_id
+        span.set_tag("request_id", rec.request_id)
+        t0 = time.monotonic()
+        try:
+            out = run()
+            self.history.end(rec)
+            if self.query_logger is not None:
+                self.query_logger.log(kind, index, text,
+                                      time.monotonic() - t0)
+            return out
+        except Exception as e:
+            span.set_tag("error", str(e) or type(e).__name__)
+            self.history.end(rec, error=str(e))
+            if self.query_logger is not None:
+                self.query_logger.log(kind, index, text,
+                                      time.monotonic() - t0, error=str(e))
+            raise
+        finally:
+            span.finish()
+            self._maybe_slow_log(kind, index, text,
+                                 time.monotonic() - t0, rec)
+
+    def _maybe_slow_log(self, kind: str, index: str, text: str,
+                        duration_s: float, rec) -> None:
+        """Structured slow-query line above the tracer's threshold,
+        linking request_id <-> trace_id (obs/tracing.py slow_ms)."""
+        tracer = get_tracer()
+        if tracer.slow_ms <= 0 or duration_s * 1e3 < tracer.slow_ms:
+            return
+        M.REGISTRY.count(M.METRIC_TRACE_SLOW_QUERIES, kind=kind)
+        if self.query_logger is not None:
+            self.query_logger.log(
+                "slow", index, text, duration_s,
+                trace_id=rec.trace_id, request_id=rec.request_id)
 
     def query_json(self, index: str, pql: str,
                    priority: Optional[str] = None,

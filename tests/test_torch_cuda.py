@@ -949,3 +949,33 @@ def test_pipelined_load_on_the_card_matches_the_cpu(dev):
     assert out["cuda"][0] == out["cuda"][1] == out["cpu"][0] == out["cpu"][1]
     assert out["cuda"][2] == out["cpu"][2]
     assert out["cuda"][3] > 0 and out["cpu"][3] == 0
+
+
+def test_ssb_sql_on_the_card_matches_the_oracle(dev):
+    """SSB ``small`` (6,000 lineorder rows) through ``API.sql`` on the
+    card: the 13 queries equal the port's oracle on the semi-join plane
+    and the hash fallback, and the load and the queries launched
+    scatter_merge, bsi_compare and pair_counts."""
+    import os
+
+    from pilosa_tpu_torch.loadgen import ssb
+
+    data = ssb.generate("small", seed=7)
+    api = API()
+    before = KU.launches()
+    ssb.load(api.sql, data)
+    for semijoin in ("1", "0"):
+        os.environ["PILOSA_TPU_SEMIJOIN"] = semijoin
+        try:
+            for qid, q in ssb.QUERIES.items():
+                assert ssb.verify(data, qid, api.sql(q).data) is None, \
+                    (qid, semijoin)
+        finally:
+            del os.environ["PILOSA_TPU_SEMIJOIN"]
+    assert api.sql("SELECT SUM(lo_revenue) FROM lineorder "
+                   "WHERE lo_discount = 3").data == [[int(
+                       data.lineorder["lo_revenue"][
+                           data.lineorder["lo_discount"] == 3].sum())]]
+    after = KU.launches()
+    for k in ("scatter_merge", "bsi_compare", "pair_counts"):
+        assert after[k] > before[k], k

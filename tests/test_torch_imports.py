@@ -6,7 +6,9 @@ reads through the result cache, the scheduler and ``execute_many``,
 writes to a data directory, recovers it and backs it up, loads a CSV
 through the ``Ingester``, drains a broker through the
 ``PipelinedIngester`` and a pushed stream through ``enable_stream``
-(importing every ingest and stream module), then reports
+(importing every ingest and stream module), loads SSB through
+``API.sql`` under a query log and answers a star join and the history
+table (importing every SQL module), then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -77,7 +79,17 @@ svc = sapi.enable_stream("s", batch_rows=2)
 svc.push([{"id": i} for i in range(5)])
 streamed = svc.step()
 sapi.disable_stream()
-print(json.dumps({"count": got[0], "top": got[1].pairs[0].count,
+import os
+from pilosa_tpu_torch.loadgen import ssb
+sq = API(device="cpu")
+sq.set_query_logger(os.path.join(tempfile.mkdtemp(), "q.log"))
+data = ssb.generate("tiny", seed=7)
+ssb.load(sq.sql, data)
+star = ssb.verify(data, "Q2.1", sq.sql(ssb.QUERIES["Q2.1"]).data)
+hist = sq.sql("select language, status from fb_exec_requests limit 1").data
+print(json.dumps({"star": star, "hist": hist,
+                  "logged": len(sq.query_logger.tail(1000)),
+                  "count": got[0], "top": got[1].pairs[0].count,
                   "wrote": wrote, "served": served, "fused": fused[0],
                   "recovered": recovered, "loaded": loaded,
                   "piped": piped, "streamed": streamed,
@@ -96,6 +108,10 @@ _DURABILITY = ("storage", "storage/wal.py", "storage/store.py",
 _INGEST = ("ingest/source.py", "ingest/batch.py", "ingest/ingest.py",
            "ingest/datagen.py", "ingest/sources_ext.py", "ingest/kafka.py",
            "stream", "stream/broker.py", "stream/pipeline.py")
+#: and the SQL slice's
+_SQL = ("sql", "sql/lexer.py", "sql/ast.py", "sql/parser.py", "sql/types.py",
+        "sql/plan.py", "sql/planner.py", "sql/joins.py", "sql/engine.py",
+        "obs/history.py", "obs/logger.py", "loadgen", "loadgen/ssb.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -117,7 +133,9 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["recovered"] is True
     assert (out["loaded"], out["piped"], out["streamed"]) == (2, 3, 5)
     assert out["city7"] == 4
-    for part in _SERVING + _DURABILITY + _INGEST:
+    assert out["star"] is None and out["hist"] == [["sql", "running"]]
+    assert out["logged"] == 5 + 6 + 2  # DDL, INSERT batches, SELECTs
+    for part in _SERVING + _DURABILITY + _INGEST + _SQL:
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -166,6 +184,14 @@ def test_scan_covers_the_ingest_modules():
     scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
                for p in _sources()}
     for part in _INGEST:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_sql_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _SQL:
         hits = [p for p in scanned if p == part or p.startswith(part + "/")]
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
 
