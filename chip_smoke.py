@@ -250,8 +250,33 @@ Phases, each printed on its own line:
     ``tape_count`` / ``ctile_count`` when the path launched them)
     launched, and the first four against their plain versions on path
     13's planes;
-17. one ``{"kernels": [...]}`` JSON line;
-18. the last line: ``{"ok": true, "device": {...}}``.
+17. main path 14, observability (run right after path 9, on the
+    indexes paths 1, 2, 3 and 5 built): (14a) ``bench.py`` config 16 at
+    its own sizes (seed 16, 2 shards x 80,000 columns, ``f`` 32 rows,
+    ``g`` 16): with ``obs/devprof.py`` off no cost evaluation, no profile
+    and no profiler event; on, the same results and a profile with
+    positive MFU and GB/s for each of the four query families; 24 paired
+    off/on rounds, their p50s and the overhead against the JAX package's
+    3% reading (printed met or missed); a ``tape_count`` call's host time
+    off and on and its kernel clock's time; (14b) config 15 (seed
+    15, 2 x 40,000, 8 rows): no timeline sample while the health plane is
+    off, ``enable_health(interval_ms=10.0)`` samples, counts query SLO
+    events and keeps results, p50s both ways, then ``start=True`` and a
+    ``disable_health`` that joins the sampler thread; (14c) the profiler
+    over path 1's Count and GroupBy+TopN, path 2's filtered Sum, path 3's
+    ``TopN(orderdate)`` and one config-1 import batch on path 5's index:
+    each of the five kernels' devprof time per launch (the kernel's own
+    clock) against the ``torch.profiler`` kernel time of the same calls
+    (L2 flushed first), on an idle card and behind a 2 ms spin kernel,
+    within max(3 us, 30%) in both, and no share above 105% of the named
+    card's peaks;
+    (14d) under a ``ManualClock``, path 1's brand stack rebuilt through a
+    64 MiB budget: evictions above 10/s fire ``eviction_storm``, whose
+    bundle holds the ``residency`` and ``kernels`` probes; the
+    resident-bytes gauges equal ``BUDGET.used`` after every charge and
+    release; the budget is restored; all five kernels launched;
+18. one ``{"kernels": [...]}`` JSON line;
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -4681,7 +4706,8 @@ _UNCOUNTED: dict = {}
 @contextlib.contextmanager
 def _uncounted():
     """Set aside the launches of a reference load or a timed re-run:
-    ``phase_ingest`` takes them out of path 12's counts."""
+    ``phase_ingest`` and ``phase_observability`` take them out of paths
+    12 and 14's counts."""
     from pilosa_tpu_torch.ops import kernel_util as KU
 
     before = KU.launches()
@@ -5531,6 +5557,459 @@ def phase_sql(report: Report) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 14: observability (bench.py configs 16 and 15, the device profiler
+# at full width, the flight recorder)
+# ---------------------------------------------------------------------------
+
+C16_PER_SHARD, C15_PER_SHARD = 80_000, 40_000
+C16_QUERIES = [
+    "Count(Row(f=3))",
+    "Count(Intersect(Row(f=1), Row(g=1)))",
+    "Count(Union(Row(f=2), Row(g=3), Row(f=5)))",
+    "Intersect(Row(f=1), Row(g=2))",
+]
+C15_QUERIES = ["Count(Row(f=3))", "Intersect(Row(f=1), Row(f=2))",
+               "TopN(f, n=4)"]
+#: paired off/on rounds (bench.py: max(24, QUERY_ITERS))
+C16_PAIRS = 24
+#: the JAX package's devprof overhead reading (bench.py config 16)
+DEVPROF_OVERHEAD_PCT = 3.0
+#: devprof's time per launch against the profiler's: within this many us
+#: or this share of the profiler's time, whichever is larger
+DEVPROF_AGREE_US, DEVPROF_AGREE_REL = 3.0, 0.30
+#: the most any family may read of the card's named peak (a share above
+#: it counts bytes or operations the kernel does not do)
+PEAK_SHARE_PCT = 105.0
+#: 14d's rounds of a TopN over path 1's brand stack (4 blocks at full
+#: size) built anew under a 64 MiB budget: 3 evictions a round
+C14_FLIGHT_ROUNDS = 6
+
+
+def _median_wall_ms(fn, n: int = 21) -> float:
+    return statistics.median(_wall_ms(fn) for _ in range(n))
+
+
+def _obs_config16(lab) -> dict:
+    """14a: bench.py config 16 at its own sizes. Off: no cost evaluation,
+    no profile, no profiler event. On: the same results, and a profile
+    with positive MFU and GB/s for each of the four query families;
+    paired interleaved off/on p50s."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.obs import devprof
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(16)
+    api = API()
+    api.create_index("c16")
+    api.create_field("c16", "f")
+    api.create_field("c16", "g")
+    f, g = [], []
+    for shard in range(2):
+        cols = shard * SHARD_WIDTH + np.arange(C16_PER_SHARD)
+        f.append(rng.integers(0, 32, C16_PER_SHARD))
+        g.append(rng.integers(0, 16, C16_PER_SHARD))
+        api.import_bits("c16", "f", rows=f[-1].tolist(), cols=cols.tolist())
+        api.import_bits("c16", "g", rows=g[-1].tolist(), cols=cols.tolist())
+    api.holder.prewarm("c16")
+    f, g = np.concatenate(f), np.concatenate(g)
+    cols = np.concatenate([s * SHARD_WIDTH + np.arange(C16_PER_SHARD)
+                           for s in range(2)])
+    want = [int((f == 3).sum()), int(((f == 1) & (g == 1)).sum()),
+            int(((f == 2) | (g == 3) | (f == 5)).sum()),
+            cols[(f == 1) & (g == 2)].tolist()]
+
+    def workload():
+        return [api.query_json("c16", q) for q in C16_QUERIES]
+
+    assert not devprof.ENABLED, "unset PILOSA_TPU_DEVPROF for path 14"
+    evals0, allocs0 = devprof.cost_evals(), devprof.KERNELS.allocations
+    events0 = devprof.EVENTS_CREATED
+    off = workload()
+    got = [r["results"][0] for r in off]
+    assert got[:3] == want[:3] and got[3]["columns"] == want[3], \
+        "config 16 disagrees with numpy"
+    for _ in range(5):
+        workload()
+    assert devprof.cost_evals() == evals0, "devprof off evaluated costs"
+    assert devprof.KERNELS.allocations == allocs0, \
+        "devprof off allocated profiles"
+    assert devprof.EVENTS_CREATED == events0, "devprof off made events"
+    devprof.enable()
+    try:
+        devprof.reset()
+        assert workload() == off, "devprof changed config 16's results"
+        off_t, on_t = [], []
+        for _ in range(C16_PAIRS):
+            devprof.disable()
+            off_t.append(_wall_ms(workload))
+            devprof.enable()
+            on_t.append(_wall_ms(workload))
+        profiles = devprof.KERNELS.snapshot()
+    finally:
+        devprof.disable()
+    assert len(profiles) >= len(C16_QUERIES), profiles
+    for p in profiles:
+        assert p["dispatches"] > 0, p
+        assert p.get("mfu_pct", 0) > 0 and p.get("achieved_gbps", 0) > 0, p
+    off_ms, on_ms = statistics.median(off_t), statistics.median(on_t)
+    pct = (on_ms / off_ms - 1.0) * 100.0
+    print(f"14a config 16: off p50 {off_ms:.4f} ms, on p50 {on_ms:.4f} ms "
+          f"a round of {len(C16_QUERIES)} queries ({C16_PAIRS} paired "
+          f"rounds), overhead {pct:+.2f}%: the JAX package's "
+          f"<={DEVPROF_OVERHEAD_PCT:.0f}% reading "
+          f"{_bar(pct <= DEVPROF_OVERHEAD_PCT)} {lab}")
+    for p in profiles:
+        print(f"14a profile {p['family']}: {p['dispatches']} dispatches, "
+              f"{p['us_per_dispatch']} us/dispatch, "
+              f"{p['achieved_gbps']} GB/s, bw {p.get('bw_util_pct')}%, "
+              f"mfu {p.get('mfu_pct')}% {lab}")
+    return {"off_ms": off_ms, "on_ms": on_ms, "overhead_pct": pct,
+            "families": sorted(p["family"] for p in profiles)}
+
+
+def _launch_overhead(lab) -> dict:
+    """14a: host time of one tape_count call (2 leaves x 196,608 words)
+    with the profiler off and on, and the kernel's clock beside its time
+    in a profiler trace."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.obs import devprof
+    from pilosa_tpu_torch.ops import bitmap as B
+
+    rng = np.random.default_rng(14)
+    dev = torch.device("cuda", 0)
+    x, y = (_rand_words(rng, (6 * 32768,), dev) for _ in range(2))
+    tape = (("and", 0, 1),)
+
+    def host_us(n=2000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            B.tape_count(tape, [x, y])
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    host_us(200)
+    off_us = [host_us()]
+    devprof.enable()
+    try:
+        devprof.reset()
+        on_us = [host_us()]
+        devprof.disable()
+        off_us.append(host_us())
+        devprof.enable()
+        on_us.append(host_us())
+        devprof.KERNELS.snapshot()
+        k = devprof.KERNELS
+        clock_us = k.other_device_s / k.other_dispatches * 1e6
+    finally:
+        devprof.disable()
+    kernel_ms = _device_ms(lambda: B.tape_count(tape, [x, y]), "tape_",
+                           calls=200)
+    off, on = statistics.median(off_us), statistics.median(on_us)
+    print(f"14a tape_count call: {off:.2f} us host off, {on:.2f} us on "
+          f"(+{on - off:.2f} us: a timing slot and the profile's update); "
+          f"kernel clock {clock_us:.2f} us, trace {_fmt_ms(kernel_ms)} "
+          f"(back-to-back calls) {lab}")
+    return {"host_off_us": off, "host_on_us": on, "clock_us": clock_us,
+            "kernel_ms": kernel_ms}
+
+
+def _obs_config15(lab) -> dict:
+    """14b: bench.py config 15 at its own sizes: no samples while the
+    plane is off; enable_health(interval_ms=10.0) samples, feeds the
+    query SLO and keeps results; a threaded phase whose sampler thread
+    ``disable_health`` joins."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.obs import metrics as M
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(15)
+    api = API()
+    api.create_index("c15")
+    api.create_field("c15", "f")
+    f = []
+    for shard in range(2):
+        rows = rng.integers(0, 8, C15_PER_SHARD)
+        cols = shard * SHARD_WIDTH + np.arange(C15_PER_SHARD)
+        api.import_bits("c15", "f", rows=rows.tolist(), cols=cols.tolist())
+        f.append(rows)
+    counts = np.bincount(np.concatenate(f), minlength=8)
+
+    def workload():
+        return [api.query_json("c15", q) for q in C15_QUERIES]
+
+    assert api.health is None
+    before = M.REGISTRY.value(M.METRIC_TIMELINE_SAMPLES)
+    disabled = workload()
+    assert disabled[0]["results"][0] == int(counts[3])
+    assert disabled[1]["results"][0]["columns"] == []
+    top = disabled[2]["results"][0]["rows"]
+    assert [r["count"] for r in top] == sorted(counts, reverse=True)[:4]
+    off_ms = _median_wall_ms(workload)
+    assert M.REGISTRY.value(M.METRIC_TIMELINE_SAMPLES) == before, \
+        "the disabled health plane sampled"
+    hp = api.enable_health(interval_ms=10.0)
+    try:
+        assert workload() == disabled, "the health plane changed results"
+        on_ms = _median_wall_ms(workload)
+        sampled = len(hp.timeline)
+        events = {r["surface"]: r["events_fast"]
+                  for r in hp.slo.burn_rates()}
+    finally:
+        api.disable_health()
+    assert sampled > 0, "the health plane never sampled"
+    assert events.get("query", 0) > 0, "no query reached the SLO tracker"
+    hp = api.enable_health(interval_ms=10.0, start=True)
+    thread = hp.timeline._thread
+    t_end = time.perf_counter() + 0.3
+    while time.perf_counter() < t_end:
+        workload()
+    threaded = len(hp.timeline)
+    api.disable_health()
+    thread.join(timeout=5.0)
+    assert threaded > 0 and not thread.is_alive() \
+        and hp.timeline._thread is None, "the sampler thread outlived it"
+    pct = (on_ms / off_ms - 1.0) * 100.0
+    print(f"14b config 15: disabled p50 {off_ms:.4f} ms, always-on p50 "
+          f"{on_ms:.4f} ms a round of {len(C15_QUERIES)} queries "
+          f"({pct:+.2f}%), {sampled} samples, {events.get('query')} query "
+          f"SLO events; threaded: {threaded} samples in 0.3 s, thread "
+          f"joined {lab}")
+    return {"off_ms": off_ms, "on_ms": on_ms, "overhead_pct": pct,
+            "samples": sampled, "threaded_samples": threaded}
+
+
+#: per kernel: the profiler's kernel-name fragment and devprof's family
+_DEVPROF_KERNELS = {
+    "tape_count": ("tape_", lambda fam: fam.startswith("count/")),
+    "pair_counts": ("pc_", lambda fam: "/mm1" in fam),
+    "bsi_compare": ("bsi_compare", lambda fam: "/cmp1" in fam),
+    "ctile_count": ("ctile_count", lambda fam: "/pop1" in fam),
+    "scatter_merge": ("scatter_merge", lambda fam: "/scatter1" in fam),
+}
+
+
+def _profiled_us(fn, fragment: str, calls: int, prep) -> float:
+    """Mean microseconds per launch of kernels named ``fragment`` in a
+    ``torch.profiler`` trace of ``calls`` calls of ``fn``, each after
+    ``prep()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prep()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            prep()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if fragment in e.key]
+    n = sum(e.count for e in hits)
+    assert n, f"the trace holds no {fragment!r} kernel"
+    return sum(e.self_device_time_total for e in hits) / n
+
+
+def _devprof_us(fn, match, calls: int, prep):
+    """devprof's (us per dispatch, dispatches, bw %, mfu %) over the
+    families ``match`` picks, for ``calls`` calls of ``fn``."""
+    import torch
+
+    from pilosa_tpu_torch.obs import devprof
+
+    prep()
+    fn()
+    torch.cuda.synchronize()
+    devprof.enable()
+    try:
+        devprof.reset()
+        for _ in range(calls):
+            prep()
+            fn()
+        rows = [r for r in devprof.KERNELS.snapshot() if match(r["family"])]
+    finally:
+        devprof.disable()
+    assert rows, "devprof recorded no dispatch of the family"
+    n = sum(r["dispatches"] for r in rows)
+    s = sum(r["device_seconds"] for r in rows)
+    bw = max(r.get("bw_util_pct", 0.0) for r in rows)
+    mfu = max(r.get("mfu_pct", 0.0) for r in rows)
+    return s / n * 1e6, n, bw, mfu
+
+
+def _obs_full_width(report, ssb, bsi, by_date, c1, lab) -> dict:
+    """14c: the profiler over the APIs paths 1, 2, 3 and 5 built: each
+    kernel's devprof time per launch against the profiler's kernel time
+    of the same calls, with L2 flushed before each call, on an idle card
+    (a sync first) and on a busy one (a 2 ms spin kernel ahead, so the
+    kernel does not wait for the host's launch), within max(3 us, 30%)
+    in both; every share of the named card's peaks at most
+    PEAK_SHARE_PCT. One call of each through its entry point counts
+    toward path 14's launches; the timed runs do not."""
+    import torch
+
+    from pilosa_tpu_torch.obs import devprof
+    from pilosa_tpu_torch.probes import import_probe as IP
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    spin = int(2e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
+
+    def idle():
+        flush.zero_()
+        torch.cuda.synchronize()
+
+    def busy():
+        flush.zero_()
+        torch.cuda._sleep(spin)
+
+    city, batch = c1["city"], IP.C1_BATCH
+    ids = list(range(batch))
+    work = {
+        "tape_count": lambda: ssb["api"].query(
+            "ssb", 'Count(Intersect(Row(year=1), Row(brand="MFGR#1003")))'),
+        "pair_counts": lambda: ssb["api"].query(
+            "ssb", "GroupBy(Rows(year), Rows(brand), limit=100)"
+                   "TopN(brand, n=10)"),
+        "bsi_compare": lambda: bsi["api"].query(
+            "b", "Sum(Row(amount > 524288), field=amount)"),
+        "ctile_count": lambda: by_date["api"].query(
+            "ssb_by_date", "TopN(orderdate, n=10)"),
+        # the first config-1 batch again: its bits are set, the merge and
+        # count still run
+        "scatter_merge": lambda: c1["api"].import_bits(
+            "taxi", "city", rows=city[:batch], cols=ids),
+    }
+    calls = {"scatter_merge": 8}
+    out = {}
+    for name, fn in work.items():
+        fragment, match = _DEVPROF_KERNELS[name]
+        n = calls.get(name, 20)
+        fn()
+        row = {}
+        for mode, prep in (("idle", idle), ("busy", busy)):
+            with _uncounted():
+                dp_us, launches, bw, mfu = _devprof_us(fn, match, n, prep)
+                tr_us = _profiled_us(fn, fragment, n, prep)
+            ok = abs(dp_us - tr_us) <= max(DEVPROF_AGREE_US,
+                                            DEVPROF_AGREE_REL * tr_us)
+            row[mode] = {"devprof_us": dp_us, "trace_us": tr_us,
+                         "dispatches": launches, "bw_util_pct": bw,
+                         "mfu_pct": mfu, "agree": ok}
+            print(f"14c {name} ({mode}): devprof {dp_us:.2f} us/dispatch "
+                  f"over {launches}, trace {tr_us:.2f} us/launch, within "
+                  f"max({DEVPROF_AGREE_US:.0f} us, "
+                  f"{DEVPROF_AGREE_REL:.0%}): {_bar(ok)}; bw {bw:.2f}%, "
+                  f"mfu {mfu:.4f}% of {devprof.backend_name()} {lab}")
+            assert bw <= PEAK_SHARE_PCT and mfu <= PEAK_SHARE_PCT, \
+                f"{name}: a share above {PEAK_SHARE_PCT}% of the peak"
+        out[name] = row
+    del flush
+    torch.cuda.empty_cache()
+    off = {k: v for k, v in out.items()
+           if not (v["idle"]["agree"] and v["busy"]["agree"])}
+    assert not off, f"devprof and the profiler disagree: {off}"
+    return out
+
+
+def _obs_flight(ssb, lab) -> dict:
+    """14d: under a ManualClock, path 1's brand stack through a budget
+    too small to hold it: evictions above the eviction rate fire
+    ``eviction_storm``, whose bundle holds the residency and kernels
+    probes; the resident-bytes gauge equals ``BUDGET.used`` after every
+    charge and release. The budget is restored afterwards."""
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.obs import devprof
+    from pilosa_tpu_torch.obs import metrics as M
+    from pilosa_tpu_torch.sched.clock import ManualClock
+
+    api, budget = ssb["api"], STK.BUDGET
+    checks = {"charge": 0, "release": 0}
+    real = {k: getattr(budget, k) for k in checks}
+
+    def checked(kind):
+        def call(*a, **kw):
+            real[kind](*a, **kw)
+            checks[kind] += 1
+            for g in (M.METRIC_DEVICE_HBM_RESIDENT_BYTES,
+                      M.METRIC_DEVICE_BUDGET_RESIDENT_BYTES):
+                assert M.REGISTRY.value(g) == budget.used, (kind, g)
+        return call
+
+    cap = budget.cap
+    clock = ManualClock()
+    hp = api.enable_health(clock=clock, eviction_rate=10.0)
+    devprof.enable()
+    try:
+        for k in checks:
+            setattr(budget, k, checked(k))
+        budget.cap = 64 << 20
+        hp.timeline.sample()
+        ev0 = STK.PAGING_STATS["evictions"]
+        for _ in range(C14_FLIGHT_ROUNDS):
+            _release(api, "ssb")  # each round builds and charges anew
+            api.query("ssb", "TopN(brand, n=10)")
+        evictions = STK.PAGING_STATS["evictions"] - ev0
+        clock.advance(1.0)
+        hp.timeline.sample()
+        storms = [b for b in hp.flight.bundles()
+                  if b["trigger"] == "eviction_storm"]
+    finally:
+        budget.cap = cap
+        for k in checks:
+            setattr(budget, k, real[k])
+        devprof.disable()
+        api.disable_health()
+    assert evictions > 10, f"only {evictions} evictions"
+    assert storms, "no eviction_storm bundle"
+    probes = storms[0]["sample"]["probes"]
+    assert probes["residency"]["evictions"] >= evictions, probes["residency"]
+    assert probes["kernels"]["enabled"] and probes["kernels"]["kernels"], \
+        probes["kernels"]
+    print(f"14d flight recorder: {evictions} evictions in 1 s of "
+          f"ManualClock -> {storms[0]['reason']!r}; bundle keys "
+          f"{sorted(storms[0])}; gauge == BUDGET.used after "
+          f"{checks['charge']} charges and {checks['release']} releases "
+          f"{lab}")
+    return {"evictions": evictions, "reason": storms[0]["reason"],
+            "charges": checks["charge"], "releases": checks["release"]}
+
+
+def phase_observability(report: Report, ssb: dict, bsi: dict, by_date: dict,
+                        c1: dict) -> dict:
+    """Path 14: bench.py configs 16 and 15, the device profiler over
+    paths 1, 2, 3 and 5's full-width APIs, and the flight recorder."""
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    KU.reset_launches()
+    _UNCOUNTED.clear()
+    out = {"14a": _obs_config16(lab)}
+    with _uncounted():  # a microbenchmark, not the path's traffic
+        out["14a_launch"] = _launch_overhead(lab)
+    out["14b"] = _obs_config15(lab)
+    out["14c"] = _obs_full_width(report, ssb, bsi, by_date, c1, lab)
+    out["14d"] = _obs_flight(ssb, lab)
+    # configs 16 and 15, one entry-point call a kernel in 14c, and 14d
+    launched = {k: v - _UNCOUNTED.get(k, 0)
+                for k, v in KU.launches().items()}
+    report.launched("observability", launched,
+                    ("tape_count", "pair_counts", "bsi_compare",
+                     "ctile_count", "scatter_merge"))
+    for name, row in out["14c"].items():
+        report.kernel(name, devprof=row)
+    print("observability path: " + json.dumps(out, default=str))
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -5634,11 +6113,12 @@ def main() -> int:
     timed("sparse BSI", phase_sparse_bsi, report, args)
     config1 = timed("5 config 1", phase_config1, report, args)
     by_date = timed("6 writes", phase_writes, report, config1, by_date, bsi)
-    del bsi, config1
     c4 = timed("7 time", phase_time, report, args, rates)
     timed("8 dataframe", phase_dataframe, report, args, mem_rate)
     timed("9 serving", phase_serving, report, ssb, by_date, c4, rates)
-    del ssb, by_date, c4
+    timed("14 observability", phase_observability, report, ssb, bsi, by_date,
+          config1)
+    del ssb, by_date, c4, bsi, config1
     timed("10 API reads", phase_api_reads, report)
     timed("11 durability", phase_durability, report, args,
           report.notes.get("write_visible_ms"))

@@ -18,13 +18,17 @@ package's data directory layout, so either package recovers the
 other's. Reads may go through the micro-batching scheduler
 (``enable_scheduler``, ``sched/``) and the version-keyed result cache
 (``enable_cache``, ``cache/``); ``enable_stream`` attaches the pipelined
-streaming ingester (``stream/``). ``API()`` runs on the card, ``cuda:0``;
+streaming ingester (``stream/``) and ``enable_health`` the health plane
+(``obs/health.py``: timeline, SLOs, flight recorder), which every
+query, SQL statement and bulk import then feeds. ``API()`` runs on the
+card, ``cuda:0``;
 ``API(device="cpu")`` runs every kernel's plain PyTorch version on the
 CPU. Without a card, ``API()`` raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.config import env_bool
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.fragment import group_sorted
 from pilosa_tpu_torch.core.holder import Holder
@@ -57,6 +62,21 @@ from pilosa_tpu_torch.storage.roaring import decode_to_positions
 from pilosa_tpu_torch.storage.store import export_holder, save_holder_data
 from pilosa_tpu_torch.storage.txn import TxFactory
 from pilosa_tpu_torch.transaction import TransactionManager
+
+_NULL_SCOPE = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _slo_scope(hp, surface: str):
+    """One request of ``surface`` into the health plane's SLO tracker,
+    an error when the body raises."""
+    t0 = time.monotonic()
+    try:
+        yield
+    except Exception:
+        hp.record(surface, time.monotonic() - t0, error=True)
+        raise
+    hp.record(surface, time.monotonic() - t0)
 
 
 class API:
@@ -85,9 +105,26 @@ class API:
         # optional streaming ingest service (stream/): in-process broker
         # topic + pipelined exactly-once ingester; enable_stream
         self.stream = None
+        # optional health plane (obs/health.py): timeline sampler + SLO
+        # burn tracking + flight recorder. None = the query and import
+        # paths pay one attribute check.
+        self.health = None
+        # the tenant registry and the degradation ladder are not ported;
+        # the health plane's ``tenants`` / ``degrade`` probes read these
+        # and report ``{"enabled": false}``
+        self.tenants = None
+        self.degrade = None
         if path:
             # checkpoint load + WAL replay (reference: rbf/db.go open)
             self.holder.recover()
+        if env_bool("PILOSA_TPU_OBS_TIMELINE"):
+            # zero-thread mode: sampling piggybacks on request
+            # accounting, so a whole test run can hold the plane live
+            # and leak no threads
+            self.enable_health(
+                interval_ms=float(os.environ.get(
+                    "PILOSA_TPU_OBS_TIMELINE_INTERVAL_MS", "1000")),
+                start=False)
 
     def set_query_logger(self, path: str) -> None:
         from pilosa_tpu_torch.obs.logger import QueryLogger
@@ -192,6 +229,48 @@ class API:
         self.cache = None
         self.executor.cache = None
 
+    # -- health plane (obs/: timeline + SLO + flight recorder) -------------
+
+    def enable_health(self, config=None, start: bool = False, **overrides):
+        """Attach the health plane: a timeline ring sampling the metrics
+        registry + live probes, per-surface SLO burn tracking, and the
+        anomaly-triggered flight recorder. ``config`` is a
+        pilosa_tpu_torch.config.Config ([obs.timeline]); kwargs override
+        individual HealthPlane knobs (interval_ms, capacity, clock,
+        objectives, fast_burn_alert, dump_dir, ...). ``start=True`` runs
+        the sampler on a daemon thread; otherwise sampling piggybacks on
+        request accounting (deterministic under an injected clock)."""
+        from pilosa_tpu_torch.obs.health import HealthPlane
+
+        if self.health is not None:
+            self.disable_health()
+        self.health = HealthPlane.from_config(config, **overrides)
+        self.health.attach_api(self)
+        if config is not None and config.obs_timeline_exemplars \
+                and not M.REGISTRY.exemplars:
+            M.REGISTRY.exemplars = True
+            self._health_set_exemplars = True
+        if start:
+            self.health.start()
+        return self.health
+
+    def disable_health(self) -> None:
+        """Detach the plane; a running sampler thread is joined."""
+        hp, self.health = self.health, None
+        if hp is not None:
+            hp.stop()
+        if getattr(self, "_health_set_exemplars", False):
+            M.REGISTRY.exemplars = False
+            self._health_set_exemplars = False
+
+    def _ingest_slo(self):
+        """SLO accounting scope for the bulk-import surface (the shared
+        no-op when the health plane is off)."""
+        hp = self.health
+        if hp is None:
+            return _NULL_SCOPE
+        return _slo_scope(hp, "ingest")
+
     # -- streaming ingest (stream/: broker + pipelined ingester) -----------
 
     def enable_stream(self, index: str, config=None, **overrides):
@@ -276,6 +355,7 @@ class API:
         rec = self.history.begin(index, text, kind)
         rec.trace_id = span.trace_id
         span.set_tag("request_id", rec.request_id)
+        surface = "query" if kind == "pql" else kind
         t0 = time.monotonic()
         try:
             out = run()
@@ -283,6 +363,8 @@ class API:
             if self.query_logger is not None:
                 self.query_logger.log(kind, index, text,
                                       time.monotonic() - t0)
+            if self.health is not None:
+                self.health.record(surface, time.monotonic() - t0)
             return out
         except Exception as e:
             span.set_tag("error", str(e) or type(e).__name__)
@@ -290,6 +372,9 @@ class API:
             if self.query_logger is not None:
                 self.query_logger.log(kind, index, text,
                                       time.monotonic() - t0, error=str(e))
+            if self.health is not None:
+                self.health.record(surface, time.monotonic() - t0,
+                                   error=True)
             raise
         finally:
             span.finish()
@@ -349,7 +434,7 @@ class API:
             cols = bulk_translate_ids(idx.translate, col_keys)
         if cols is None or len(rows) != len(cols):
             raise ValueError("rows and cols must be the same length")
-        with self.txf.qcx():
+        with self._ingest_slo(), self.txf.qcx():
             changed = fld.import_bits(rows, cols, clear=clear)
             if not clear:
                 self._mark_exists(idx, cols)
@@ -375,7 +460,7 @@ class API:
         if cols is None or len(cols) != len(values):
             raise ValueError("cols and values must be the same length")
         cols = np.asarray(cols, dtype=np.int64)
-        with self.txf.qcx():
+        with self._ingest_slo(), self.txf.qcx():
             fld.set_values(cols, values)
             self._mark_exists(idx, cols)
         M.REGISTRY.count(M.METRIC_IMPORTED, len(cols))

@@ -6,11 +6,11 @@ BuildServerFlags, ``featurebase generate-config``). Same layering with
 the stdlib: tomllib for files, PILOSA_TPU_* env vars, flag dicts — the
 last source wins per field. The port carries the sections of the modules
 it has ported: the storage fields and ``[storage.recovery]``
-(``storage/``), ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
+(``storage/``), ``[obs.tracing]`` and ``[obs.timeline]`` (``obs/``), the
+log fields, ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
 ``[stream]`` (``stream/``) and the two ``[tenants]`` flags the
-scheduler reads, with the JAX
-package's defaults and variable names; the other sections land with the
-modules they configure.
+scheduler reads, with the JAX package's defaults and variable names;
+the other sections land with the modules they configure.
 """
 
 from __future__ import annotations
@@ -87,6 +87,30 @@ class Config:
     storage_recovery_segment_bytes: int = 4 << 20
     storage_recovery_checkpoint_interval_bytes: int = 0
     storage_recovery_catchup_batch_bytes: int = 1 << 20
+    # distributed tracing ([obs.tracing] section / PILOSA_TPU_TRACE_*):
+    # contextvar span scopes + traceparent propagation (obs/tracing.py;
+    # install via obs.tracing.configure(cfg)). sample-rate head-samples
+    # roots; slow-ms > 0 writes a structured slow-query line linking
+    # request_id <-> trace_id; store-capacity bounds the trace store
+    trace_enabled: bool = False
+    trace_sample_rate: float = 1.0
+    trace_slow_ms: float = 0.0  # <=0: slow-query log off
+    trace_store_capacity: int = 256
+    # health plane ([obs.timeline] section — the names flatten straight
+    # to these fields, so env vars read PILOSA_TPU_OBS_TIMELINE_*; the
+    # bare PILOSA_TPU_OBS_TIMELINE=1 switch is honored by API.__init__).
+    # Sampler cadence/ring, SLO burn windows + alert threshold,
+    # flight-recorder ring/cooldown, and the exemplar flag on the
+    # registry's histograms (obs/health.py HealthPlane.from_config)
+    obs_timeline_interval_ms: float = 1000.0
+    obs_timeline_capacity: int = 300
+    obs_timeline_slo_fast_window_s: float = 300.0
+    obs_timeline_slo_slow_window_s: float = 3600.0
+    obs_timeline_slo_fast_burn_alert: float = 10.0
+    obs_timeline_flight_capacity: int = 16
+    obs_timeline_flight_cooldown_s: float = 30.0
+    obs_timeline_flight_dump_dir: str = ""
+    obs_timeline_exemplars: bool = False
     # query scheduler ([scheduler] section / PILOSA_TPU_SCHEDULER_*):
     # micro-batches concurrent reads to amortize the per-dispatch floor
     scheduler_enabled: bool = False
@@ -123,13 +147,14 @@ class Config:
     # via API.enable_stream). Batch rows per pipeline hand-off, bounded
     # queue depth (2 = double-buffered), the consumer group name and
     # the broker backlog at which push starts rejecting (0 =
-    # batch_rows * queue_depth * 8). ``enabled`` / ``index`` land with
-    # the CLI that starts the service, ``ingest_stall_s`` with the
-    # health plane that reads it
+    # batch_rows * queue_depth * 8), and the paused/saturated stall
+    # seconds that fire the flight recorder's ingest_stall trigger.
+    # ``enabled`` / ``index`` land with the CLI that starts the service
     stream_batch_rows: int = 8192
     stream_queue_depth: int = 2
     stream_group: str = "ingest"
     stream_max_backlog_rows: int = 0
+    stream_ingest_stall_s: float = 5.0
 
     # -- sources -----------------------------------------------------------
 
@@ -186,6 +211,12 @@ class Config:
                     flat[key] = v
 
         _flatten("", doc)
+        # [obs.tracing] keys land as obs_tracing_*; the fields are named
+        # trace_* so their env vars read PILOSA_TPU_TRACE_* (the
+        # documented dialect) — remap the TOML spelling onto them
+        for k in list(flat):
+            if k.startswith("obs_tracing_"):
+                flat["trace_" + k[len("obs_tracing_"):]] = flat.pop(k)
         return flat
 
     @classmethod

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import datetime as dt
 import os
+import time
 from typing import Dict, Iterable, List, Optional, Set
 
 import numpy as np
@@ -30,6 +31,7 @@ from pilosa_tpu_torch.core.fragment import (BSIFragment, SetFragment,
 from pilosa_tpu_torch.core.schema import (BOOL_FALSE_ROW, BOOL_TRUE_ROW,
                                           FieldOptions, FieldType)
 from pilosa_tpu_torch.core.translate import TranslateStore
+from pilosa_tpu_torch.obs import devprof
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP
 from pilosa_tpu_torch.storage.wal import pack_plane
 
@@ -272,7 +274,20 @@ class Field:
         """Bulk (row, col) import with IDs already translated (reference:
         fragment.go:1498 bulkImport; mutex variant :1787). Returns the
         changed bit count. One bulk WAL record replaces per-bit logging;
-        ``clear`` clears bit by bit, every view, each clear logged."""
+        ``clear`` clears bit by bit, every view, each clear logged. With
+        the device profiler on, the call is the ``fragment_advance``
+        ingest stage."""
+        if not devprof.ENABLED:
+            return self._import_bits(rows, cols, clear)
+        rows, cols = _int64(rows), _int64(cols)
+        t0 = time.perf_counter()
+        changed = self._import_bits(rows, cols, clear)
+        devprof.record_stage("fragment_advance", time.perf_counter() - t0,
+                             rows=len(cols))
+        return changed
+
+    def _import_bits(self, rows: Iterable[int], cols: Iterable[int],
+                     clear: bool) -> int:
         rows, cols = _int64(rows), _int64(cols)
         if rows.size != cols.size:
             raise ValueError("rows and cols must be the same length")
@@ -305,8 +320,17 @@ class Field:
     def set_values(self, cols: Iterable[int], values: Iterable) -> None:
         """Bulk BSI write of external values (reference: api.go
         ImportValue -> fragment.importValue); converts and validates all
-        values before any fragment changes."""
+        values before any fragment changes. With the device profiler on,
+        the call is the ``fragment_advance`` ingest stage."""
         cols = _int64(cols)
+        if not devprof.ENABLED:
+            return self._set_values(cols, values)
+        t0 = time.perf_counter()
+        self._set_values(cols, values)
+        devprof.record_stage("fragment_advance", time.perf_counter() - t0,
+                             rows=len(cols))
+
+    def _set_values(self, cols: np.ndarray, values: Iterable) -> None:
         if not isinstance(values, (list, tuple, np.ndarray)):
             values = list(values)
         stored = self._to_stored_bulk(values)

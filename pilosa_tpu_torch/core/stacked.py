@@ -122,10 +122,11 @@ def _take(blk: Block, slots: Sequence[int]) -> torch.Tensor:
     return blk.index_select(0, idx)
 
 
-def _upload(host: np.ndarray, device: torch.device) -> Block:
+def _upload(host: np.ndarray, device: torch.device, kind: str) -> Block:
     """Upload an assembled block, compressed when the policy says so,
-    counted in ``UPLOAD_STATS`` (the stored bytes of a compressed one)."""
-    blk = ctiles.maybe_compress(host, device)
+    counted in ``UPLOAD_STATS`` (the stored bytes of a compressed one).
+    ``kind`` (``set`` | ``bsi``) labels the compression metrics."""
+    blk = ctiles.maybe_compress(host, device, kind)
     if blk is None:
         blk = platform.h2d_copy(host, device)
     UPLOAD_STATS["count"] += 1
@@ -197,6 +198,7 @@ class DeviceBudget:
                 M.REGISTRY.count(M.METRIC_DEVICE_STACK_EVICTIONS)
                 M.REGISTRY.count(M.METRIC_DEVICE_BUDGET_EVICTIONS)
                 cb()
+            self._publish()
 
     def touch(self, key: Tuple) -> None:
         with self._lock:
@@ -208,6 +210,13 @@ class DeviceBudget:
             old = self._lru.pop(key, None)
             if old is not None:
                 self.used -= old[0]
+                self._publish()
+
+    def _publish(self) -> None:
+        """The resident-bytes gauges, set on every charge and release as
+        the JAX package sets them (``self._lock`` held)."""
+        M.REGISTRY.gauge(M.METRIC_DEVICE_HBM_RESIDENT_BYTES, self.used)
+        M.REGISTRY.gauge(M.METRIC_DEVICE_BUDGET_RESIDENT_BYTES, self.used)
 
     def audit(self) -> None:
         """The byte counter must equal the sum of resident entries — a
@@ -297,7 +306,7 @@ class StackedSet:
                 rows=min(self.block_rows, len(self.row_ids) - lo_slot),
                 words=self.total_words):
             PAGING_STATS["block_builds"] += 1
-            return _upload(self._assemble_host(bi), self.device)
+            return _upload(self._assemble_host(bi), self.device, "set")
 
     def _assemble_host(self, bi: int) -> np.ndarray:
         """Block ``bi`` as the host fragment planes hold it now, in this
@@ -497,7 +506,7 @@ class StackedBSI:
         with get_tracer().start_span(
                 "stack.build", kind="bsi", planes=bsiops.OFFSET + self.depth,
                 words=self.total_words):
-            return _upload(self._assemble_host(), self.device)
+            return _upload(self._assemble_host(), self.device, "bsi")
 
     def _assemble_host(self) -> np.ndarray:
         """The stack as the host fragment planes hold it now."""

@@ -24,6 +24,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_timing.cuh"
+
 enum { PK_EQ = 0, PK_NE = 1, PK_LT = 2, PK_LE = 3, PK_GT = 4, PK_GE = 5,
        PK_BETWEEN = 6 };
 
@@ -84,7 +86,8 @@ __device__ __forceinline__ void signed_partition(
 }
 
 template <bool BETWEEN>
-__global__ void bsi_compare_kernel(const BsiDesc d) {
+__global__ void bsi_compare_kernel(const BsiDesc d, const PkTiming clk) {
+    pk_clock_start(clk);
     const long long w = d.w;
     const long long stride = (long long)gridDim.x * blockDim.x;
     const unsigned long long b0 = d.side[0].bits;
@@ -122,6 +125,7 @@ __global__ void bsi_compare_kernel(const BsiDesc d) {
         }
         d.out[i] = out;
     }
+    pk_clock_stop(clk);
 }
 
 static int sm_count() {
@@ -139,7 +143,9 @@ extern "C" {
 
 // Every word of desc->out is written. Returns cudaGetLastError() after the
 // launch; an op outside PK_EQ..PK_BETWEEN is cudaErrorInvalidValue.
-int pk_bsi_compare(const BsiDesc* desc, void* stream) {
+// timing: the device profiler's (launch_timing.cuh) or nullptr.
+int pk_bsi_compare(const BsiDesc* desc, void* stream,
+                   const PkTiming* timing) {
     if (desc->op < PK_EQ || desc->op > PK_BETWEEN || desc->depth < 1 ||
         desc->depth > 64 || desc->w < 1)
         return (int)cudaErrorInvalidValue;
@@ -148,10 +154,13 @@ int pk_bsi_compare(const BsiDesc* desc, void* stream) {
     const long long cap = 16LL * sm_count();
     if (blocks > cap) blocks = cap;
     cudaStream_t s = (cudaStream_t)stream;
+    const PkTiming clk = pk_clock(timing);
     if (desc->op == PK_BETWEEN) {
-        bsi_compare_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(*desc);
+        bsi_compare_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(*desc,
+                                                                      clk);
     } else {
-        bsi_compare_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(*desc);
+        bsi_compare_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(*desc,
+                                                                       clk);
     }
     return (int)cudaGetLastError();
 }

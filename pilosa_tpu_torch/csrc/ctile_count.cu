@@ -48,6 +48,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_timing.cuh"
+
 #define CT_MAX_BLOCKS 16
 #define CT_THREADS 256
 #define FULL 0xffffffffu
@@ -198,7 +200,9 @@ __device__ __forceinline__ void const_item_plain(const CtBatch& b,
 
 template <int MODE, bool FILTERED>
 __global__ void __launch_bounds__(CT_THREADS) ctile_count_kernel(
-        const __grid_constant__ CtBatch b, int* __restrict__ out) {
+        const __grid_constant__ CtBatch b, int* __restrict__ out,
+        const PkTiming clk) {
+    pk_clock_start(clk);
     const int lane = threadIdx.x & 31;
     const long long n_warps = (long long)gridDim.x * (CT_THREADS / 32);
     const long long total = b.item_end[b.n_blocks - 1];
@@ -216,6 +220,7 @@ __global__ void __launch_bounds__(CT_THREADS) ctile_count_kernel(
         else
             const_item_plain(b, B, (local - B.n_payload) * 32, o, lane);
     }
+    pk_clock_stop(clk);
 }
 
 static int sm_count() {
@@ -231,8 +236,9 @@ static int sm_count() {
 
 template <int MODE, bool FILTERED>
 static void launch(const CtBatch& b, unsigned blocks, int* out,
-                   cudaStream_t s) {
-    ctile_count_kernel<MODE, FILTERED><<<blocks, CT_THREADS, 0, s>>>(b, out);
+                   cudaStream_t s, const PkTiming& clk) {
+    ctile_count_kernel<MODE, FILTERED><<<blocks, CT_THREADS, 0, s>>>(b, out,
+                                                                    clk);
 }
 
 extern "C" {
@@ -242,8 +248,10 @@ extern "C" {
 // filt: int32[n_tiles, t] on the device or nullptr. out: int32 on the
 // device, zeroed by the caller, out_off + rows long for every block.
 // Launches on `stream` of `device` and returns cudaGetLastError().
+// timing: the device profiler's (launch_timing.cuh) or nullptr.
 int pk_ctile_count(const long long* blocks, int n_blocks, const void* filt,
-                   int t, int n_tiles, int* out, int device, void* stream) {
+                   int t, int n_tiles, int* out, int device, void* stream,
+                   const PkTiming* timing) {
     if (n_blocks < 1 || n_blocks > CT_MAX_BLOCKS || t < 1)
         return (int)cudaErrorInvalidValue;
     int cur = device;
@@ -285,14 +293,15 @@ int pk_ctile_count(const long long* blocks, int n_blocks, const void* filt,
     const int mode = !aligned ? 0 : t == 512 ? 2 : 1;
     cudaStream_t s = (cudaStream_t)stream;
     const unsigned g = (unsigned)grid;
+    const PkTiming clk = pk_clock(timing);
     if (filtered) {
-        if (mode == 2) launch<2, true>(b, g, out, s);
-        else if (mode == 1) launch<1, true>(b, g, out, s);
-        else launch<0, true>(b, g, out, s);
+        if (mode == 2) launch<2, true>(b, g, out, s, clk);
+        else if (mode == 1) launch<1, true>(b, g, out, s, clk);
+        else launch<0, true>(b, g, out, s, clk);
     } else {
-        if (mode == 2) launch<2, false>(b, g, out, s);
-        else if (mode == 1) launch<1, false>(b, g, out, s);
-        else launch<0, false>(b, g, out, s);
+        if (mode == 2) launch<2, false>(b, g, out, s, clk);
+        else if (mode == 1) launch<1, false>(b, g, out, s, clk);
+        else launch<0, false>(b, g, out, s, clk);
     }
     const int rc = (int)cudaGetLastError();
     if (cur != device) cudaSetDevice(cur);

@@ -45,6 +45,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_timing.cuh"
+
 #define PC_THREADS 256
 #define PC_WARPS (PC_THREADS / 32)
 
@@ -124,7 +126,8 @@ template <int MG, int NG, int VEC>
 __global__ void __launch_bounds__(PC_THREADS)
 pc_b1(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       int r1, int r2, long long w, long long slice, int slices, int n_jt,
-      long long si, long long sj, int* __restrict__ out) {
+      long long si, long long sj, int* __restrict__ out, const PkTiming clk) {
+    pk_clock_start(clk);
     constexpr int TA = 8 * NG, TB = 16 * MG;
     __shared__ int red[TA * TB];
     for (int e = threadIdx.x; e < TA * TB; e += PC_THREADS) red[e] = 0;
@@ -186,6 +189,7 @@ pc_b1(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                                    g + 8 * (e >> 1)],
                               acc[m][n][e]);
     flush(red, TA, TB, t, r1, r2, si, sj, out);
+    pk_clock_stop(clk);
 }
 
 // Grid of a (ta x tb) tiling of [r1, r2] with slices of `slice` words;
@@ -204,7 +208,7 @@ static unsigned grid_x(int r1, int r2, long long w, int ta, int tb,
 
 typedef void (*pc_kernel_t)(const uint32_t*, const uint32_t*, int, int,
                             long long, long long, int, int, long long,
-                            long long, int*);
+                            long long, int*, PkTiming);
 
 template <int MG, int NG>
 static pc_kernel_t b1_inst(int vec) {
@@ -232,10 +236,12 @@ extern "C" {
 // j * sj], int32, zeroed by the caller; ta (8, 16, ..., 64) rows of a x tb
 // (16 or 32) rows of b and `slice` words per block; vec 4 (16-byte loads)
 // or 1. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a tile or grid it has no kernel for.
+// cudaErrorInvalidValue for a tile or grid it has no kernel for. timing:
+// the device profiler's (launch_timing.cuh) or nullptr.
 int pk_pair_counts(const uint32_t* a, const uint32_t* b, int r1, int r2,
                    long long w, int ta, int tb, int vec, long long slice,
-                   long long si, long long sj, int* out, void* stream) {
+                   long long si, long long sj, int* out, void* stream,
+                   const PkTiming* timing) {
     const int ng = ta / 8;
     pc_kernel_t k = ta % 8 != 0 ? nullptr
                   : tb == 16 ? b1_pick<1>(ng, vec)
@@ -243,8 +249,9 @@ int pk_pair_counts(const uint32_t* a, const uint32_t* b, int r1, int r2,
     int slices = 0, n_jt = 0;
     const unsigned blocks = grid_x(r1, r2, w, ta, tb, slice, &slices, &n_jt);
     if (k == nullptr || blocks == 0) return (int)cudaErrorInvalidValue;
-    k<<<blocks, PC_THREADS, 0, (cudaStream_t)stream>>>(
-        a, b, r1, r2, w, slice, slices, n_jt, si, sj, out);
+    cudaStream_t s = (cudaStream_t)stream;
+    k<<<blocks, PC_THREADS, 0, s>>>(
+        a, b, r1, r2, w, slice, slices, n_jt, si, sj, out, pk_clock(timing));
     return (int)cudaGetLastError();
 }
 

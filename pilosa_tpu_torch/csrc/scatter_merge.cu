@@ -32,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include "count_finish.cuh"
+#include "launch_timing.cuh"
 
 #define THREADS 128
 
@@ -51,7 +52,8 @@ __global__ void __launch_bounds__(THREADS) scatter_merge_kernel(
         uint32_t* __restrict__ flat, long long n, const int* __restrict__ addr,
         const uint32_t* __restrict__ masks, int head, long long n_vec,
         long long m, unsigned long long* __restrict__ acc,
-        int* __restrict__ out) {
+        int* __restrict__ out, const PkTiming clk) {
+    pk_clock_start(clk);
     int local = 0;
     const long long stride = (long long)gridDim.x * THREADS;
     const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -75,6 +77,7 @@ __global__ void __launch_bounds__(THREADS) scatter_merge_kernel(
             local += merge_one(flat, n, __ldg(addr + u), __ldg(masks + u));
     }
     finish<THREADS>(local, acc, out);
+    pk_clock_stop(clk);
 }
 
 // Blocks for `elems` elements at one per thread a pass: at most eight
@@ -91,10 +94,12 @@ extern "C" {
 // flat: [n] words, updated in place; addr/masks: [m] unique updates;
 // out: one int32 on the device, written, never read; acc: one 64-bit word
 // on the device, zero (each launch leaves it so). Launches on `stream` of
-// `device` and returns cudaGetLastError().
+// `device` and returns cudaGetLastError(). timing: the device profiler's
+// (launch_timing.cuh) or nullptr.
 int pk_scatter_merge(uint32_t* flat, long long n, const int* addr,
                      const uint32_t* masks, long long m, int* out,
-                     void* acc_ptr, int device, void* stream) {
+                     void* acc_ptr, int device, void* stream,
+                     const PkTiming* timing) {
     unsigned long long* acc = static_cast<unsigned long long*>(acc_ptr);
     int cur = device;
     cudaGetDevice(&cur);
@@ -102,13 +107,14 @@ int pk_scatter_merge(uint32_t* flat, long long n, const int* addr,
     cudaStream_t s = (cudaStream_t)stream;
     const uintptr_t off = (uintptr_t)addr & 15u;
     const int head = (int)(((16 - off) & 15u) / 4);
+    const PkTiming clk = pk_clock(timing);
     if (off % 4 == 0 && ((uintptr_t)masks & 15u) == off && m >= head + 4) {
         const long long n_vec = (m - head) / 4;
         scatter_merge_kernel<true><<<grid_for(n_vec), THREADS, 0, s>>>(
-            flat, n, addr, masks, head, n_vec, m, acc, out);
+            flat, n, addr, masks, head, n_vec, m, acc, out, clk);
     } else {
         scatter_merge_kernel<false><<<grid_for(m), THREADS, 0, s>>>(
-            flat, n, addr, masks, 0, 0, m, acc, out);
+            flat, n, addr, masks, 0, 0, m, acc, out, clk);
     }
     const int rc = (int)cudaGetLastError();
     if (cur != device) cudaSetDevice(cur);

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "count_finish.cuh"
+#include "launch_timing.cuh"
 
 #define PK_MAX_LEAVES 32
 #define PK_MAX_OPS 64
@@ -174,7 +175,8 @@ template <bool VEC>
 __global__ void __launch_bounds__(THREADS) tape_one_op_kernel(
         const __grid_constant__ TapeDesc t, int head, long long n_vec,
         long long n_words, unsigned long long* __restrict__ acc,
-        int* __restrict__ out) {
+        int* __restrict__ out, const PkTiming clk) {
+    pk_clock_start(clk);
     int local;
     if (VEC) {
         local = one_op_range<uint4>(t, head, n_vec);
@@ -189,6 +191,7 @@ __global__ void __launch_bounds__(THREADS) tape_one_op_kernel(
         local = one_op_range<uint32_t>(t, 0, n_words);
     }
     finish<THREADS>(local, acc, out);
+    pk_clock_stop(clk);
 }
 
 // -- the general path ----------------------------------------------------------
@@ -205,13 +208,16 @@ __device__ __forceinline__ uint32_t tape_word(const TapeDesc& t, long long w) {
 
 __global__ void __launch_bounds__(THREADS) tape_general_kernel(
         const __grid_constant__ TapeDesc t, long long n_words,
-        unsigned long long* __restrict__ acc, int* __restrict__ out) {
+        unsigned long long* __restrict__ acc, int* __restrict__ out,
+        const PkTiming clk) {
+    pk_clock_start(clk);
     int local = 0;
     const long long stride = (long long)gridDim.x * THREADS;
     for (long long w = (long long)blockIdx.x * THREADS + threadIdx.x;
          w < n_words; w += stride)
         local += __popc(tape_word(t, w));
     finish<THREADS>(local, acc, out);
+    pk_clock_stop(clk);
 }
 
 // Blocks for `elems` elements at two per thread: at most four per SM
@@ -251,14 +257,17 @@ extern "C" {
 // other the general path. out: one int32 on the device, written, never
 // read; acc: one 64-bit word on the device, zero (each launch leaves it
 // so). Launches on `stream` of `device` and returns cudaGetLastError().
+// timing: the device profiler's (launch_timing.cuh) or nullptr.
 int pk_tape_count(const TapeOps* ops, const void* const* leaves,
                   const void* mask, long long n_words, int* out,
-                  void* acc_ptr, int device, void* stream) {
+                  void* acc_ptr, int device, void* stream,
+                  const PkTiming* timing) {
     unsigned long long* acc = static_cast<unsigned long long*>(acc_ptr);
     int cur = device;
     cudaGetDevice(&cur);
     if (cur != device) cudaSetDevice(device);
     cudaStream_t s = (cudaStream_t)stream;
+    const PkTiming clk = pk_clock(timing);
     if (ops->n_ops == 1) {
         // passed its operands (one leaf when a == b)
         const int a = ops->a[0], b = ops->b[0];
@@ -274,14 +283,15 @@ int pk_tape_count(const TapeOps* ops, const void* const* leaves,
         if (same && n_words >= head + 4) {
             const long long n_vec = (n_words - head) / 4;
             tape_one_op_kernel<true><<<grid_for(n_vec), THREADS, 0, s>>>(
-                t, head, n_vec, n_words, acc, out);
+                t, head, n_vec, n_words, acc, out, clk);
         } else {
             tape_one_op_kernel<false><<<grid_for(n_words), THREADS, 0, s>>>(
-                t, 0, 0, n_words, acc, out);
+                t, 0, 0, n_words, acc, out, clk);
         }
     } else {
+        const TapeDesc t = describe(*ops, leaves, ops->n_leaves, mask);
         tape_general_kernel<<<grid_for(n_words), THREADS, 0, s>>>(
-            describe(*ops, leaves, ops->n_leaves, mask), n_words, acc, out);
+            t, n_words, acc, out, clk);
     }
     const int rc = (int)cudaGetLastError();
     if (cur != device) cudaSetDevice(cur);

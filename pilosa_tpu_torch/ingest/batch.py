@@ -14,9 +14,11 @@ writes.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Tuple
 
 from pilosa_tpu_torch.core.schema import FieldType
+from pilosa_tpu_torch.obs import devprof
 
 
 class Batch:
@@ -57,7 +59,9 @@ class Batch:
         if not self._records:
             return 0
         n = len(self._records)
-        with self.api.txf.qcx():  # one group commit per flush
+        scope = devprof.ingest_scope() if devprof.ENABLED \
+            else devprof.NULL_SCOPE
+        with scope, self.api.txf.qcx():  # one group commit per flush
             ids = self._translate_ids()
             self._import_fields(ids)
             if self._idx.options.track_existence:
@@ -75,7 +79,13 @@ class Batch:
         raw = [r[self.id_column] for r in self._records]
         if self._idx.options.keys:
             keys = [str(v) for v in raw]
+            if not devprof.ENABLED:
+                m = self._idx.translate.create_keys(keys)
+                return [m[k] for k in keys]
+            t0 = time.perf_counter()
             m = self._idx.translate.create_keys(keys)
+            devprof.record_stage("key_translate",
+                                 time.perf_counter() - t0, rows=len(keys))
             return [m[k] for k in keys]
         return [int(v) for v in raw]
 

@@ -11,6 +11,7 @@ auto-ids through the allocator when the source has no id column
 
 from __future__ import annotations
 
+import time
 import uuid
 from typing import Optional
 
@@ -21,6 +22,7 @@ from pilosa_tpu_torch.core.translate import bulk_translate_ids
 from pilosa_tpu_torch.ingest.batch import Batch
 from pilosa_tpu_torch.ingest.idalloc import IDAllocator
 from pilosa_tpu_torch.ingest.source import Source, coerce_column
+from pilosa_tpu_torch.obs import devprof
 from pilosa_tpu_torch.obs import metrics as M
 
 
@@ -86,7 +88,13 @@ class Ingester:
         translated in bulk per column, and each field gets ONE
         import_bits/set_values call with arrays. The per-record Batch
         path remains for record-stream sources (Kafka etc.)."""
-        n, cols = self.source.columns()
+        if devprof.ENABLED:
+            # whole-column parse is the host-side front of the pipeline
+            t0 = time.perf_counter()
+            n, cols = self.source.columns()
+            devprof.record_stage("parse", time.perf_counter() - t0, rows=n)
+        else:
+            n, cols = self.source.columns()
         idx = self.api.holder.index(self.index)
         id_col = self.source.id_column()
         # -- record ids: bulk-translate keys or parse ints ----------------
@@ -102,7 +110,9 @@ class Ingester:
             ids = np.arange(rng.base, rng.base + n, dtype=np.int64)
             self.allocator.commit(session)
         imported = 0
-        with self.api.txf.qcx():  # one group commit per load
+        scope = devprof.ingest_scope() if devprof.ENABLED \
+            else devprof.NULL_SCOPE
+        with scope, self.api.txf.qcx():  # one group commit per load
             for name, (opts, raw) in cols.items():
                 fld = idx.field(name)
                 t = fld.options.type
@@ -172,7 +182,13 @@ class Ingester:
     def _translate_bulk(store, raw):
         """Bulk key->id translation (reference: batch.go:860
         doTranslation)."""
-        return bulk_translate_ids(store, [str(k) for k in raw])
+        if not devprof.ENABLED:
+            return bulk_translate_ids(store, [str(k) for k in raw])
+        t0 = time.perf_counter()
+        out = bulk_translate_ids(store, [str(k) for k in raw])
+        devprof.record_stage("key_translate", time.perf_counter() - t0,
+                             rows=len(raw))
+        return out
 
     def _flush_auto(self, batch: Batch, pending: list, session: str,
                     offset: int) -> int:

@@ -272,21 +272,24 @@ def tape_count(tape, leaves: Sequence[torch.Tensor],
     tensors: :func:`tape_count_plain`."""
     ops = encode_tape(tape, len(leaves))
     operands = list(leaves) if mask is None else [*leaves, mask]
-    if not KU.on_card("tape_count", *operands):
-        return tape_count_plain(tape, leaves, mask)
-    n = operands[0].numel()
-    for t in operands:
-        KU.check_words("tape_count", "leaf", t, 1)
-        if t.numel() != n:
-            raise ValueError("tape_count: leaves differ in length")
-    dev = operands[0].device
-    out = torch.empty((), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves])
-    stream = KU.stream(out)
-    rc = KU.lib().pk_tape_count(
-        ctypes.byref(ops), ptrs, None if mask is None else mask.data_ptr(),
-        n, out.data_ptr(), KU.tape_scratch(dev, stream), dev.index,
-        stream)
-    KU.check(rc, "tape_count")
+    # a launch of the calling thread's tape family (pql/programs.py)
+    with KU.launch_scope(operands[0]) as prof:
+        if not KU.on_card("tape_count", *operands):
+            return tape_count_plain(tape, leaves, mask)
+        n = operands[0].numel()
+        for t in operands:
+            KU.check_words("tape_count", "leaf", t, 1)
+            if t.numel() != n:
+                raise ValueError("tape_count: leaves differ in length")
+        dev = operands[0].device
+        out = torch.empty((), dtype=torch.int32, device=dev)
+        ptrs = (ctypes.c_void_p * len(leaves))(*[t.data_ptr()
+                                                 for t in leaves])
+        stream = KU.stream(out)
+        rc = KU.lib().pk_tape_count(
+            ctypes.byref(ops), ptrs,
+            None if mask is None else mask.data_ptr(), n, out.data_ptr(),
+            KU.tape_scratch(dev, stream), dev.index, stream, prof.timing)
+        KU.check(rc, "tape_count")
     tape_count_launches.bump()
     return out

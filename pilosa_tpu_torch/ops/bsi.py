@@ -184,25 +184,29 @@ def bsi_compare(planes: torch.Tensor, op: str, value: int,
     CUDA tensors: one launch of csrc/bsi_compare.cu (replaces
     pilosa_tpu/ops/bsi.py:138/:197). CPU tensors:
     :func:`bsi_compare_plain`."""
-    if not KU.on_card("bsi_compare", planes):
-        return bsi_compare_plain(planes, op, value, value2)
-    KU.check_words("bsi_compare", "planes", planes, 2)
     depth = planes.shape[0] - OFFSET
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"bsi_compare: depth {depth} outside 1..{MAX_DEPTH}")
-    w = planes.shape[1]
-    if w == 0:
-        raise ValueError("bsi_compare: empty stack")
-    first, second = _sides(op, value, value2, depth)
-    out = torch.empty(w, dtype=torch.int32, device=planes.device)
-    desc = KU.BsiDesc()
-    desc.planes, desc.out, desc.w = planes.data_ptr(), out.data_ptr(), w
-    desc.depth, desc.op = depth, _OPCODES[op]
-    _side_struct(desc.side[0], *first)
-    _side_struct(desc.side[1], *second)
-    with torch.cuda.device(planes.device):
-        rc = KU.lib().pk_bsi_compare(ctypes.byref(desc), KU.stream(planes))
-    KU.check(rc, "bsi_compare")
+    with KU.kernel_scope("cmp", depth, 2 if op == BETWEEN else 1,
+                         OFFSET + depth, planes.shape[-1], planes) as prof:
+        if not KU.on_card("bsi_compare", planes):
+            return bsi_compare_plain(planes, op, value, value2)
+        KU.check_words("bsi_compare", "planes", planes, 2)
+        if not 1 <= depth <= MAX_DEPTH:
+            raise ValueError(f"bsi_compare: depth {depth} outside "
+                             f"1..{MAX_DEPTH}")
+        w = planes.shape[1]
+        if w == 0:
+            raise ValueError("bsi_compare: empty stack")
+        first, second = _sides(op, value, value2, depth)
+        out = torch.empty(w, dtype=torch.int32, device=planes.device)
+        desc = KU.BsiDesc()
+        desc.planes, desc.out, desc.w = planes.data_ptr(), out.data_ptr(), w
+        desc.depth, desc.op = depth, _OPCODES[op]
+        _side_struct(desc.side[0], *first)
+        _side_struct(desc.side[1], *second)
+        with torch.cuda.device(planes.device):
+            rc = KU.lib().pk_bsi_compare(ctypes.byref(desc),
+                                         KU.stream(planes), prof.timing)
+        KU.check(rc, "bsi_compare")
     bsi_compare_launches.bump()
     return out
 

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.obs import devprof
+from pilosa_tpu_torch.obs import metrics as M
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops.bitmap import device_zeros, popcount
 
@@ -230,13 +232,22 @@ def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return np.pad(a, pad)
 
 
-def maybe_compress(host: np.ndarray, device: torch.device
-                   ) -> Optional[CompressedBlock]:
+def _fallback(why: str, kind: str) -> None:
+    # as in the JAX package, the kill switch costs nothing, not a tick
+    if why != "disabled":
+        M.REGISTRY.count(M.METRIC_COMPRESS_FALLBACK, why=why, kind=kind)
+
+
+def maybe_compress(host: np.ndarray, device: torch.device,
+                   kind: str = "set") -> Optional[CompressedBlock]:
     """Classify ``host`` and upload it to ``device`` as a
     :class:`CompressedBlock`, or ``None`` when the block stays dense (by
-    policy or by the ratio rule). The JAX package's ``kind`` argument
-    labels its metrics, which the port does not keep yet."""
-    if why_not_compress(host.nbytes) is not None:
+    policy or by the ratio rule). ``kind`` labels the ``METRIC_COMPRESS_*``
+    series (``set`` | ``bsi``), which count what the JAX package's
+    count."""
+    why = why_not_compress(host.nbytes)
+    if why is not None:
+        _fallback(why, kind)
         return None
     rows = host.shape[0]
     t = tile_words(host.shape[1])
@@ -253,6 +264,7 @@ def maybe_compress(host: np.ndarray, device: torch.device
         cap <<= 1
     stored = (cap * t + 2 * rows * n_tiles) * 4 + cap * 8
     if not forced() and stored > MAX_RATIO * host.nbytes:
+        _fallback("ratio", kind)
         return None
     payload, slot, payload_row, payload_tile = _pack(tiles, const_ok, const)
     cb = CompressedBlock()
@@ -287,6 +299,10 @@ def maybe_compress(host: np.ndarray, device: torch.device
     cb.kernel_desc = (cb.payload.data_ptr(), cb.payload_row.data_ptr(),
                       cb.payload_tile.data_ptr(), cb.nz.data_ptr(),
                       n_payload, cb.n_nz, rows)
+    M.REGISTRY.count(M.METRIC_COMPRESS_BLOCKS, kind=kind)
+    M.REGISTRY.count(M.METRIC_COMPRESS_DENSE_BYTES, host.nbytes)
+    M.REGISTRY.count(M.METRIC_COMPRESS_STORED_BYTES, stored)
+    M.REGISTRY.gauge(M.METRIC_COMPRESS_RATIO, host.nbytes / max(stored, 1))
     return cb
 
 
@@ -377,10 +393,11 @@ def ctile_count_plain(payload: torch.Tensor, payload_row: torch.Tensor,
 
 
 def _launch(descs, offsets, filt_tiles: Optional[torch.Tensor], t: int,
-            n_tiles: int, out: torch.Tensor) -> None:
+            n_tiles: int, out: torch.Tensor, timing=None) -> None:
     """One kernel launch over at most MAX_BLOCKS blocks, each given as
     (payload, payload_row, payload_tile, nz pointers, n_payload, n_nz,
-    rows) and counted into ``out`` from its offset."""
+    rows) and counted into ``out`` from its offset. ``timing``: the
+    device profiler's ``KU.PkTiming``, or None."""
     flat = []
     for d, off in zip(descs, offsets):
         flat.extend(d)
@@ -389,7 +406,7 @@ def _launch(descs, offsets, filt_tiles: Optional[torch.Tensor], t: int,
     rc = KU.lib().pk_ctile_count(
         (ctypes.c_longlong * len(flat))(*flat), len(descs),
         None if filt_tiles is None else filt_tiles.data_ptr(), t, n_tiles,
-        out.data_ptr(), dev.index, KU.stream(out))
+        out.data_ptr(), dev.index, KU.stream(out), timing)
     KU.check(rc, "ctile_count")
     ctile_count_launches.bump()
 
@@ -519,17 +536,32 @@ def ctile_count_blocks(blocks: Sequence[CompressedBlock],
     :func:`ctile_count_blocks_plain`."""
     out, offsets, ft = _blocks_args(blocks, filt, out, offsets)
     first = blocks[0]
-    if not KU.on_card("ctile_count", first.payload, out,
-                      *([] if ft is None else [ft])):
-        return ctile_count_blocks_plain(blocks, ft, out, offsets)
-    if ft is not None:
+    card = KU.on_card("ctile_count", first.payload, out,
+                      *([] if ft is None else [ft]))
+    if card and ft is not None:
         KU.check_words("ctile_count", "filt_tiles", ft, 2)
+    M.REGISTRY.count(M.METRIC_COMPRESS_TILES_SKIPPED, sum(
+        cb.rows * cb.n_tiles - cb.n_payload for cb in blocks))
     for lo in range(0, len(blocks), MAX_BLOCKS):
         group = blocks[lo:lo + MAX_BLOCKS]
-        _launch([cb.kernel_desc for cb in group],
-                offsets[lo:lo + MAX_BLOCKS], ft, first.tile_words,
-                first.n_tiles, out)
+        offs = offsets[lo:lo + MAX_BLOCKS]
+        with _count_scope(group, out) as prof:
+            if card:
+                _launch([cb.kernel_desc for cb in group], offs, ft,
+                        first.tile_words, first.n_tiles, out, prof.timing)
+            else:
+                ctile_count_blocks_plain(group, ft, out, offs)
     return out
+
+
+def _count_scope(group: Sequence[CompressedBlock], out: torch.Tensor):
+    """Profiler scope of one launch over ``group``: the JAX package's
+    ``pop`` family over the payload entries it counts, of one tile
+    each."""
+    if not devprof.ENABLED:
+        return devprof.NULL_SCOPE
+    return KU.kernel_scope("pop", sum(cb.n_payload for cb in group), 1, 1,
+                           group[0].tile_words, out)
 
 
 def _filt_tiles(filt: torch.Tensor, n_tiles: int, t: int) -> torch.Tensor:
@@ -560,6 +592,8 @@ def bsi_compare_compressed(cb: CompressedBlock, op: str, value: int,
     active = cb.active_tiles
     if active.size == 0:
         return device_zeros(cb.words, cb.device)
+    M.REGISTRY.count(M.METRIC_COMPRESS_TILES_SKIPPED,
+                     cb.rows * (cb.n_tiles - active.size))
     idx = _device_index(active, cb.device)
     narrow = _decode(cb.payload, cb.slot[:, idx], cb.const[:, idx],
                      active.size * cb.tile_words)

@@ -99,19 +99,23 @@ def pair_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"pair_counts: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)} do not share a word axis")
-    if not KU.on_card("pair_counts", a, b):
-        return pair_counts_plain(a, b)
-    KU.check_words("pair_counts", "a", a, 2)
-    KU.check_words("pair_counts", "b", b, 2)
-    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    plan = _plan(a.shape[0], b.shape[0], a.shape[1], aligned,
-                 KU.sm_count(a.device))
-    return launch(a, b, plan)
+    with KU.kernel_scope("mm", a.shape[0], b.shape[0], 2, a.shape[1],
+                         a) as prof:
+        if not KU.on_card("pair_counts", a, b):
+            return pair_counts_plain(a, b)
+        KU.check_words("pair_counts", "a", a, 2)
+        KU.check_words("pair_counts", "b", b, 2)
+        aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+        plan = _plan(a.shape[0], b.shape[0], a.shape[1], aligned,
+                     KU.sm_count(a.device))
+        return launch(a, b, plan, prof.timing)
 
 
-def launch(a: torch.Tensor, b: torch.Tensor, plan: Plan) -> torch.Tensor:
+def launch(a: torch.Tensor, b: torch.Tensor, plan: Plan,
+           timing=None) -> torch.Tensor:
     """Run one pair_counts kernel on checked CUDA operands as ``plan``
-    says (:func:`pair_counts` makes the plan; a probe may pass its own)."""
+    says (:func:`pair_counts` makes the plan; a probe may pass its own).
+    ``timing``: the device profiler's ``KU.PkTiming``, or None."""
     r1, w = a.shape
     r2 = b.shape[0]
     out = torch.zeros((r1, r2), dtype=torch.int32, device=a.device)
@@ -122,7 +126,8 @@ def launch(a: torch.Tensor, b: torch.Tensor, plan: Plan) -> torch.Tensor:
     with torch.cuda.device(a.device):
         rc = KU.lib().pk_pair_counts(
             x.data_ptr(), y.data_ptr(), n1, n2, w, plan.ta, plan.tb,
-            plan.vec, plan.slice, si, sj, out.data_ptr(), KU.stream(a))
+            plan.vec, plan.slice, si, sj, out.data_ptr(), KU.stream(a),
+            timing)
     KU.check(rc, f"pair_counts ({plan.variant})")
     pair_counts_launches.bump()
     return out

@@ -14,7 +14,9 @@ the CPU tests import every module on a machine without ``nvcc``.
 
 Each kernel keeps a :class:`LaunchCounter` beside its wrapper, bumped
 exactly where the wrapper launches it, so a run can show which kernels
-its main path went through.
+its main path went through. Each launch site is also a device-profiler
+scope (:func:`kernel_scope`, :func:`launch_scope`): with the profiler
+off it is one flag check and a shared no-op object.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from pilosa_tpu_torch.native import BUILD_DIR
+from pilosa_tpu_torch.obs import devprof
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -82,6 +85,16 @@ class BsiDesc(ctypes.Structure):
         ("depth", ctypes.c_int),
         ("op", ctypes.c_int),
         ("side", BsiSide * 2),
+    ]
+
+
+class PkTiming(ctypes.Structure):
+    """Mirror of ``struct PkTiming`` in csrc/launch_timing.cuh: the device
+    profiler's kernel clock words for one launch, passed by pointer as
+    every launcher's last argument (None: no timing)."""
+    _fields_ = [
+        ("dev", ctypes.c_void_p),
+        ("host", ctypes.c_void_p),
     ]
 
 
@@ -204,19 +217,23 @@ def lib() -> ctypes.CDLL:
             return _lib
         dll = ctypes.CDLL(build())
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # every launcher's last argument: the profiler's timing or None
+        # (csrc/launch_timing.cuh)
+        tm = ctypes.POINTER(PkTiming)
         dll.pk_tape_count.argtypes = [ctypes.POINTER(TapeOps),
                                       ctypes.POINTER(vp), vp, ll, vp, vp, i,
-                                      vp]
+                                      vp, tm]
         dll.pk_tape_count.restype = i
         dll.pk_pair_counts.argtypes = [vp, vp, i, i, ll, i, i, i, ll, ll,
-                                       ll, vp, vp]
+                                       ll, vp, vp, tm]
         dll.pk_pair_counts.restype = i
-        dll.pk_scatter_merge.argtypes = [vp, ll, vp, vp, ll, vp, vp, i, vp]
+        dll.pk_scatter_merge.argtypes = [vp, ll, vp, vp, ll, vp, vp, i, vp,
+                                         tm]
         dll.pk_scatter_merge.restype = i
-        dll.pk_bsi_compare.argtypes = [ctypes.POINTER(BsiDesc), vp]
+        dll.pk_bsi_compare.argtypes = [ctypes.POINTER(BsiDesc), vp, tm]
         dll.pk_bsi_compare.restype = i
         dll.pk_ctile_count.argtypes = [ctypes.POINTER(ll), i, vp, i, i, vp,
-                                       i, vp]
+                                       i, vp, tm]
         dll.pk_ctile_count.restype = i
         dll.pk_error_string.argtypes = [i]
         dll.pk_error_string.restype = ctypes.c_char_p
@@ -299,3 +316,34 @@ def sm_count(device: torch.device) -> int:
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
+
+
+# ---------------------------------------------------------------------------
+# Device-profiler scopes of the launch sites (obs/devprof.py)
+# ---------------------------------------------------------------------------
+
+
+def kernel_scope(op: str, d1: int, d2: int, n_inputs: int,
+                 total_words: int, like: torch.Tensor):
+    """Profiler scope of one launch of a kernel family, the counterpart
+    of ``pilosa_tpu/ops/pallas_util.py`` ``kernel_scope``: ``op`` is the
+    cost family (``mm`` | ``cmp`` | ``scatter`` | ``pop``), ``d1`` /
+    ``d2`` its two dimensions (``devprof.tape_cost``), with the port
+    kernel's own shapes. ``like`` is a tensor on the launch's device.
+    The scope's ``timing`` goes to the C launcher as its last argument.
+    The shared no-op scope when the profiler is off."""
+    if not devprof.ENABLED:
+        return devprof.NULL_SCOPE
+    ent = devprof.KERNELS.entry_for(
+        "pallas", ((op, int(d1), int(d2)),), n_inputs, False,
+        int(total_words), 0)
+    return devprof.launch(ent, like.device)
+
+
+def launch_scope(like: torch.Tensor):
+    """Profiler scope of one launch attributed to the calling thread's
+    tape family (``devprof.kernel_scope``), or to ``other`` outside one;
+    the shared no-op scope when the profiler is off."""
+    if not devprof.ENABLED:
+        return devprof.NULL_SCOPE
+    return devprof.launch(None, like.device)

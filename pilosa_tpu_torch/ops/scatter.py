@@ -93,20 +93,26 @@ def scatter_merge_(flat: torch.Tensor, addr: torch.Tensor,
                                                         out)
     if out is not None and (out.dtype != torch.int32 or out.dim() != 0):
         raise ValueError("scatter_merge: out must be a 0-d int32 tensor")
-    if not KU.on_card("scatter_merge", *operands):
-        count = scatter_merge_plain(flat, addr, masks)
-        return count if out is None else out.copy_(count)
-    for name, t in (("flat", flat), ("addr", addr), ("masks", masks)):
-        KU.check_words("scatter_merge", name, t, 1)
-    dev = flat.device
-    if out is None:
-        out = torch.empty((), dtype=torch.int32, device=dev)
-    stream = KU.stream(flat)
-    rc = KU.lib().pk_scatter_merge(
-        flat.data_ptr(), flat.numel(), addr.data_ptr(), masks.data_ptr(),
-        addr.numel(), out.data_ptr(), KU.tape_scratch(dev, stream),
-        dev.index, stream)
-    KU.check(rc, "scatter_merge")
+    # the cost family's words are those the kernel moves: an address, a
+    # mask and a read and a write of the addressed word an update, 16 B,
+    # which the JAX formula's 12 B a word gives at 4/3 words an update
+    # (the JAX package counts its padded sub-planes)
+    m = addr.numel()
+    with KU.kernel_scope("scatter", m, 1, 2, 4 * m // 3, flat) as prof:
+        if not KU.on_card("scatter_merge", *operands):
+            count = scatter_merge_plain(flat, addr, masks)
+            return count if out is None else out.copy_(count)
+        for name, t in (("flat", flat), ("addr", addr), ("masks", masks)):
+            KU.check_words("scatter_merge", name, t, 1)
+        dev = flat.device
+        if out is None:
+            out = torch.empty((), dtype=torch.int32, device=dev)
+        stream = KU.stream(flat)
+        rc = KU.lib().pk_scatter_merge(
+            flat.data_ptr(), flat.numel(), addr.data_ptr(),
+            masks.data_ptr(), m, out.data_ptr(),
+            KU.tape_scratch(dev, stream), dev.index, stream, prof.timing)
+        KU.check(rc, "scatter_merge")
     scatter_merge_launches.bump()
     return out
 

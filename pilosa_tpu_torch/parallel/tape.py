@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from pilosa_tpu_torch.obs import devprof
 from pilosa_tpu_torch.ops import bitmap as B
 
 _tape_eval = B.tape_eval
@@ -64,9 +65,14 @@ def compile_tape_count(tape, n_leaves: int, masked: bool,
 
 
 def compile_tape_plane(tape, masked: bool) -> Callable:
-    """``fn(*leaves[, mask])`` -> the materialized (masked) result plane."""
+    """``fn(*leaves[, mask])`` -> the materialized (masked) result plane.
+    With the device profiler on, the eager op chain is timed under the
+    calling tape family."""
 
     def fn(*args: torch.Tensor) -> torch.Tensor:
-        return _tape_result(tape, masked, args)
+        if not devprof.ENABLED:
+            return _tape_result(tape, masked, args)
+        with devprof.time_body(args[0].device):
+            return _tape_result(tape, masked, args)
 
     return fn

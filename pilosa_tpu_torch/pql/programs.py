@@ -31,6 +31,7 @@ import torch
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.stacked import stacked_set
 from pilosa_tpu_torch.errors import PQLError
+from pilosa_tpu_torch.obs import devprof
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.parallel import tape as T
 from pilosa_tpu_torch.pql.ast import Condition, ROW_OPTIONS
@@ -176,6 +177,18 @@ def _lower_root(ex, idx, call, shard_list: List[int], mask=None):
     return tape, leaves
 
 
+def _invoke(kind: str, tape: Tuple, n_leaves: int, masked: bool,
+            total_words: int, fn, *args):
+    """Run one program, attributing its launches (and, for a plane
+    program, its eager op chain) to the tape's kernel family when the
+    device profiler is on. The flag check is the whole disabled cost
+    (``pilosa_tpu/pql/programs.py:219-227``)."""
+    if not devprof.ENABLED:
+        return fn(*args)
+    with devprof.kernel_scope(kind, tape, n_leaves, masked, total_words):
+        return fn(*args)
+
+
 def run_count(ex, idx, call, shard_list: List[int], mask=None
               ) -> torch.Tensor:
     """Device count scalar for ``Count(call)``: one tape_count launch,
@@ -184,7 +197,9 @@ def run_count(ex, idx, call, shard_list: List[int], mask=None
     total_words = len(shard_list) * WORDS_PER_SHARD
     masked = mask is not None
     fn = _program("count", tape, len(leaves), masked, total_words)
-    return fn(*leaves, mask.plane) if masked else fn(*leaves)
+    args = (*leaves, mask.plane) if masked else tuple(leaves)
+    return _invoke("count", tape, len(leaves), masked, total_words, fn,
+                   *args)
 
 
 def run_plane(ex, idx, call, shard_list: List[int], mask=None,
@@ -197,4 +212,6 @@ def run_plane(ex, idx, call, shard_list: List[int], mask=None,
     total_words = len(shard_list) * WORDS_PER_SHARD
     masked = mask is not None and apply_mask
     fn = _program("plane", tape, len(leaves), masked, total_words)
-    return fn(*leaves, mask.plane) if masked else fn(*leaves)
+    args = (*leaves, mask.plane) if masked else tuple(leaves)
+    return _invoke("plane", tape, len(leaves), masked, total_words, fn,
+                   *args)

@@ -51,6 +51,7 @@ import zlib
 from typing import Iterator, List, Optional, Tuple
 
 from pilosa_tpu_torch.analysis import locktrace
+from pilosa_tpu_torch.obs import devprof
 
 # crc32 over (lsn bytes || payload), payload length, lsn
 _HDR = struct.Struct("<IIQ")
@@ -176,6 +177,9 @@ class WAL:
         # monotonic stamp of the oldest append still awaiting its write
         # barrier (None when clean) — the health plane's WAL-stall read
         self._dirty_since: Optional[float] = None
+        # record bytes since the last write barrier: the device
+        # profiler's ``wal_commit`` stage bytes
+        self._pending_flush_bytes = 0
         self._open_existing()
 
     # -- open / segments -----------------------------------------------------
@@ -293,6 +297,7 @@ class WAL:
             seg = self._segments[-1]
             seg.record_bytes += len(framed)
             seg.max_lsn = lsn
+            self._pending_flush_bytes += len(framed)
             if not self._dirty:
                 self._dirty_since = time.monotonic()
             self._dirty = True
@@ -308,9 +313,14 @@ class WAL:
     def _flush_locked(self) -> None:
         if not self._dirty:
             return
+        t0 = time.perf_counter() if devprof.ENABLED else None
         self._f.flush()
         if self.sync != "never":
             os.fsync(self._f.fileno())
+        if t0 is not None:
+            devprof.record_stage("wal_commit", time.perf_counter() - t0,
+                                 nbytes=self._pending_flush_bytes)
+        self._pending_flush_bytes = 0
         self._dirty = False
         self._dirty_since = None
 

@@ -67,6 +67,7 @@ from pilosa_tpu_torch.core.schema import FieldType
 from pilosa_tpu_torch.core.translate import bulk_translate_ids
 from pilosa_tpu_torch.errors import AdmissionError
 from pilosa_tpu_torch.ingest.idalloc import IDAllocator
+from pilosa_tpu_torch.obs import devprof
 from pilosa_tpu_torch.obs import metrics as M
 from pilosa_tpu_torch.sched.clock import MonotonicClock
 from pilosa_tpu_torch.sched.scheduler import PRIORITY_BATCH
@@ -199,7 +200,14 @@ class PipelinedIngester:
         return self.plan is None or self.plan.fire(site)
 
     def _translate(self, store, raw) -> np.ndarray:
-        return bulk_translate_ids(store, [str(k) for k in raw])
+        keys = [str(k) for k in raw]
+        if not devprof.ENABLED:
+            return bulk_translate_ids(store, keys)
+        t0 = time.perf_counter()
+        out = bulk_translate_ids(store, keys)
+        devprof.record_stage("key_translate", time.perf_counter() - t0,
+                             rows=len(keys))
+        return out
 
     def _record_ids(self, values, records):
         idf = self.id_field
@@ -375,7 +383,13 @@ class PipelinedIngester:
                     self.batch_rows, timeout_s=self.poll_timeout_s)
                 if not records:
                     break  # drained
-                batch = self._prepare(records)
+                if devprof.ENABLED:
+                    t0 = time.perf_counter()
+                    batch = self._prepare(records)
+                    devprof.record_stage(
+                        "parse", time.perf_counter() - t0, rows=batch.n)
+                else:
+                    batch = self._prepare(records)
                 if not self._fire("stream.handoff"):
                     break
                 self._enqueue(batch)
@@ -393,7 +407,9 @@ class PipelinedIngester:
 
     def _apply(self, batch: PreparedBatch) -> None:
         idx = self._idx
-        with self.api.txf.qcx():
+        scope = devprof.ingest_scope() if devprof.ENABLED \
+            else devprof.NULL_SCOPE
+        with scope, self.api.txf.qcx():
             if not self._fire("stream.apply"):
                 return
             for kind, fname, a, b in batch.ops:

@@ -979,3 +979,127 @@ def test_ssb_sql_on_the_card_matches_the_oracle(dev):
     after = KU.launches()
     for k in ("scatter_merge", "bsi_compare", "pair_counts"):
         assert after[k] > before[k], k
+
+
+# -- the device profiler's timing on the card (obs/devprof.py) ---------------
+
+
+@pytest.fixture
+def prof(dev, monkeypatch):
+    from pilosa_tpu_torch.obs import devprof
+
+    monkeypatch.setenv("PILOSA_TPU_COMPRESS", "1")  # ctile_count's block
+    was = devprof.ENABLED
+    devprof.disable()
+    devprof.reset()
+    yield devprof
+    devprof.reset()
+    devprof.enable() if was else devprof.disable()
+
+
+def _five_launches(dev):
+    """One launch of each kernel through its wrapper."""
+    rng = np.random.default_rng(14)
+    x, y = words(rng, (1 << 16,), dev), words(rng, (1 << 16,), dev)
+    B.tape_count((("and", 0, 1),), [x, y])
+    G.pair_counts(words(rng, (2, 4096), dev), words(rng, (20, 4096), dev))
+    S.bsi_compare(words(rng, (22, 4096), dev), S.GT, 1000)
+    host = np.zeros((16, 4096), dtype=np.uint32)
+    host[3, :700] = rng.integers(0, 1 << 32, 700, dtype=np.uint32)
+    C.ctile_count_blocks([C.maybe_compress(host, dev)])
+    flat = torch.zeros(4096, dtype=torch.int32, device=dev)
+    addr = torch.arange(0, 4096, 4, dtype=torch.int32, device=dev)
+    SC.scatter_merge_(flat, addr, torch.ones_like(addr))
+
+
+def test_devprof_off_creates_no_event(prof, dev, monkeypatch):
+    made = []
+    real = torch.cuda.Event
+
+    def counting(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", counting)
+    created, evals = prof.EVENTS_CREATED, prof.cost_evals()
+    _five_launches(dev)
+    torch.cuda.synchronize()
+    assert made == [] and prof.EVENTS_CREATED == created
+    assert prof.cost_evals() == evals and prof.KERNELS.profile_count() == 0
+
+
+def test_devprof_events_drain_with_device_time(prof, dev):
+    prof.enable()
+    created = prof.EVENTS_CREATED
+    _five_launches(dev)
+    assert prof.EVENTS_CREATED == created  # a kernel reads its own clock
+    rows = prof.KERNELS.snapshot()  # waits for the pending launches
+    assert not prof._PENDING
+    ops = {r["family"].split("/")[2].split("#")[0] for r in rows}
+    assert ops == {"mm1", "cmp1", "pop1", "scatter1"}, rows
+    assert prof.KERNELS.other_dispatches == 1  # tape_count, no tape scope
+    for r in rows:
+        assert r["dispatches"] == 1 and r["device_seconds"] > 0, r
+        assert r["us_per_dispatch"] < 1e4, r
+    assert prof.stats_json()["device"]["name"] == \
+        torch.cuda.get_device_name(0)
+
+
+def test_devprof_pool_reuses_event_pairs(prof, dev):
+    prof.enable()
+    rng = np.random.default_rng(3)
+    x = words(rng, (1 << 12,), dev)
+    for _ in range(50):
+        B.tape_count((("or", 0, 0),), [x])
+    prof.drain(block=True)
+    pool = prof._FREE[(prof._Clock, dev.index)]
+    made, kept = prof.EVENTS_CREATED, len(pool)
+    for _ in range(50):
+        B.tape_count((("or", 0, 0),), [x])
+    prof.drain(block=True)
+    assert len(pool) - kept <= 8  # clock slots come back to the pool
+    assert prof.EVENTS_CREATED == made
+    assert prof.KERNELS.other_dispatches == 100
+
+
+def test_devprof_full_pending_list_waits_for_its_oldest(prof, dev,
+                                                          monkeypatch):
+    """Past MAX_PENDING a launch waits for the oldest and folds it in:
+    no slot leaves the list while its kernel may still write to it, and
+    every launch is counted with its clock."""
+    monkeypatch.setattr(prof, "MAX_PENDING", 2)
+    rng = np.random.default_rng(5)
+    x, y = words(rng, (1 << 16,), dev), words(rng, (1 << 16,), dev)
+    want = B.tape_count_plain((("and", 0, 1),), [x.cpu(), y.cpu()])
+    spin = int(2e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
+    prof.enable()
+    got = []
+    torch.cuda._sleep(spin)  # the launches queue up behind it
+    for _ in range(40):
+        got.append(B.tape_count((("and", 0, 1),), [x, y]))
+        assert len(prof._PENDING) <= 2
+    prof.drain(block=True)
+    assert all(int(g) == int(want) for g in got)
+    assert prof.KERNELS.other_dispatches == 40
+    assert 0 < prof.KERNELS.other_device_s < 40 * 1e-3
+
+
+def test_devprof_on_keeps_results(prof, dev):
+    api = API()
+    api.create_index("i")
+    api.create_field("i", "f")
+    api.create_field("i", "g")
+    rng = np.random.default_rng(16)
+    cols = np.arange(80_000)
+    api.import_bits("i", "f", rows=rng.integers(0, 32, cols.size).tolist(),
+                    cols=cols.tolist())
+    api.import_bits("i", "g", rows=rng.integers(0, 16, cols.size).tolist(),
+                    cols=cols.tolist())
+    qs = ["Count(Row(f=3))", "Count(Intersect(Row(f=1), Row(g=1)))",
+          "Intersect(Row(f=1), Row(g=2))", "TopN(f, n=4)"]
+    off = [api.query_json("i", q) for q in qs]
+    prof.enable()
+    on = [api.query_json("i", q) for q in qs]
+    assert on == off
+    kinds = {r["family"].split("/")[0] for r in prof.KERNELS.snapshot()}
+    assert {"count", "plane"} <= kinds

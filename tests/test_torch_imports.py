@@ -8,7 +8,9 @@ through the ``Ingester``, drains a broker through the
 ``PipelinedIngester`` and a pushed stream through ``enable_stream``
 (importing every ingest and stream module), loads SSB through
 ``API.sql`` under a query log and answers a star join and the history
-table (importing every SQL module), then reports
+table (importing every SQL module), profiles a query under the device
+profiler and the health plane (importing every observability module),
+then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -41,6 +43,13 @@ got = api.query("i", 'Count(Intersect(Row(f="a"), All()))TopN(f, n=1)')
 wrote = api.query("i", 'Set(600, f="c")Clear(1, f="b")Count(Row(f="c"))')
 import pilosa_tpu_torch.analysis.locktrace, pilosa_tpu_torch.config
 import pilosa_tpu_torch.obs.tenants
+from pilosa_tpu_torch.obs import devprof
+devprof.enable()
+hp = api.enable_health(interval_ms=1.0)
+profiled = [api.query("i", 'Count(Row(f="a"))')[0],
+            len(devprof.stats_json()["kernels"]), len(hp.timeline)]
+api.disable_health()
+devprof.disable()
 api.enable_cache()
 api.enable_scheduler(window_ms=0.0)
 served = api.query("i", 'Count(Row(f="a"))') + api.query("i", 'Count(Row(f="a"))')
@@ -90,6 +99,7 @@ hist = sq.sql("select language, status from fb_exec_requests limit 1").data
 print(json.dumps({"star": star, "hist": hist,
                   "logged": len(sq.query_logger.tail(1000)),
                   "count": got[0], "top": got[1].pairs[0].count,
+                  "profiled": profiled,
                   "wrote": wrote, "served": served, "fused": fused[0],
                   "recovered": recovered, "loaded": loaded,
                   "piped": piped, "streamed": streamed,
@@ -112,6 +122,9 @@ _INGEST = ("ingest/source.py", "ingest/batch.py", "ingest/ingest.py",
 _SQL = ("sql", "sql/lexer.py", "sql/ast.py", "sql/parser.py", "sql/types.py",
         "sql/plan.py", "sql/planner.py", "sql/joins.py", "sql/engine.py",
         "obs/history.py", "obs/logger.py", "loadgen", "loadgen/ssb.py")
+#: and the observability slice's
+_OBS = ("obs/timeline.py", "obs/slo.py", "obs/flight.py", "obs/devprof.py",
+        "obs/health.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -135,7 +148,8 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["city7"] == 4
     assert out["star"] is None and out["hist"] == [["sql", "running"]]
     assert out["logged"] == 5 + 6 + 2  # DDL, INSERT batches, SELECTs
-    for part in _SERVING + _DURABILITY + _INGEST + _SQL:
+    assert out["profiled"] == [300, 1, 1]
+    for part in _SERVING + _DURABILITY + _INGEST + _SQL + _OBS:
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -194,6 +208,13 @@ def test_scan_covers_the_sql_modules():
     for part in _SQL:
         hits = [p for p in scanned if p == part or p.startswith(part + "/")]
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_observability_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _OBS:
+        assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
 
 
 def test_api_without_a_device_needs_a_card(monkeypatch):

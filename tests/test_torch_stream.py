@@ -683,7 +683,9 @@ def test_stream_config_fields_match():
     theirs = {f.name: f.default for f in
               dataclasses.fields(_pkg(JAX).Config) if
               f.name in ours}
-    assert ours == theirs and len(ours) == 4
+    # batch_rows, queue_depth, group, max_backlog_rows and, read by the
+    # health plane, ingest_stall_s
+    assert ours == theirs and len(ours) == 5
 
 
 # -- the KafkaSource consumer protocol over a fake client ---------------------
