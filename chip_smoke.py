@@ -275,8 +275,45 @@ Phases, each printed on its own line:
     bundle holds the ``residency`` and ``kernels`` probes; the
     resident-bytes gauges equal ``BUDGET.used`` after every charge and
     release; the budget is restored; all five kernels launched;
-18. one ``{"kernels": [...]}`` JSON line;
-19. the last line: ``{"ok": true, "device": {...}}``.
+18. main path 15, the front ends (run last, data dirs under
+    ``build/chip_smoke_frontend``, removed at the end): (15a) ``python -m
+    pilosa_tpu_torch server --config <toml>`` in a process of its own on
+    a free port (``wal-sync = "batch"``, ``PILOSA_TPU_DEVPROF=1``),
+    waited for on ``GET /health``; ``GET /info`` must name the H100;
+    through the port's ``Client``, ``bench.py`` config 1 at full size
+    (1,000,000 records from seed 1, ``city`` 1000 rows, ``device`` 10;
+    ``sync_schema``, ``import_bits``: one roaring blob per shard and
+    field) and config 2's ``amount`` (10 x 2^20 values from seed 2,
+    ``import_values``, a shard a request); ``Count(Row(city=3))``,
+    ``TopN(city, n=10)``, ``GroupBy(Rows(city), Rows(device),
+    limit=100)``, a Count tree and ``Sum(Row(amount > 524288),
+    field=amount)`` over HTTP, the counts as ``POST /sql``
+    (``SETCONTAINS``, ``SUM``) and as framed gRPC (``QueryPQLUnary``,
+    ``QuerySQL``), each against numpy, before and after 64 ``Set`` writes
+    and a 4,096-bit JSON import; (15b) the CLI against it: a CSV field's
+    ``import`` / ``export`` round trip, ``SELECT COUNT(*)`` piped into
+    ``fbsql``, ``chksum`` equal to ``GET /internal/chksum``, ``backup``;
+    (15d) keep-alive p50s of the warm Count, the GroupBy and ``GET
+    /status``, the profiled Count split into its ``query.pql`` span and the front
+    end's own time, the QPS of 16 concurrent clients (every answer
+    against numpy), and each kernel's dispatches from ``GET
+    /internal/stats/kernels`` (``tape_count``, ``pair_counts``,
+    ``scatter_merge``, ``bsi_compare`` and ``ctile_count`` above 0); (15c) SIGKILL, a restart
+    on the same directory with ``[auth]`` on (JWTs signed here, a
+    permissions file with reader, writer and admin groups): every
+    acknowledged write and every 15a answer read back, the checksum
+    unchanged, restart-to-first-answer seconds, 401 / 403 / 200 as the
+    JAX package gives them; ``restore --source`` of the backup into a
+    third server on an empty directory, its ``chksum`` equal; (15e) the
+    first server's directory opened in-process with ``API(path)``:
+    ``tape_count``, ``pair_counts`` (every city block against every
+    device block, as the server's dense GroupBy launches it; the whole
+    1,000 x 10 count matrix also against numpy), ``bsi_compare``,
+    ``scatter_merge`` and ``ctile_count`` (the CSV field's compressed
+    blocks, counted as ``Rows`` counted them in the server) against their
+    plain versions on its planes;
+19. one ``{"kernels": [...]}`` JSON line;
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -6010,6 +6047,710 @@ def phase_observability(report: Report, ssb: dict, bsi: dict, by_date: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 15: front ends (a server process on the card; bench.py configs 1
+# and 2 loaded and read over HTTP, SQL and framed gRPC; the CLI; a crash)
+# ---------------------------------------------------------------------------
+
+FE_C1_ROWS = 1_000_000  # bench.py config 1 (bench.py:163-185)
+FE_C2_SHARDS = 10  # bench.py config 2 (bench.py:219-270)
+FE_WRITES = 64
+FE_IMPORT = 4096
+FE_CLIENTS, FE_CLIENT_QUERIES = 16, 32
+FE_ITERS = 50
+FE_SECRET = "chip-smoke-secret"
+FE_PERMS = ('user-groups:\n  "readers":\n    "taxi": "read"\n    "b": "read"\n'
+            '  "writers":\n    "taxi": "write"\n    "b": "write"\n'
+            'admin: "admins"\n')
+FE_TREE = ("Count(Union(Intersect(Row(city=1), Row(device=2)), "
+           "Difference(Row(city=5), Row(device=3))))")
+FE_SQL_C1 = "SELECT COUNT(*) FROM taxi WHERE SETCONTAINS(city, 3)"
+FE_SQL_C2 = "SELECT SUM(amount) FROM b WHERE amount > 524288"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _fe_call(base, method, path, body=None, ctype="application/json",
+             token=None, raw=False):
+    """(status, JSON body or raw bytes, headers) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = body if body is None or isinstance(body, bytes) \
+        else json.dumps(body).encode()
+    r = urllib.request.Request(base + path, data=data, method=method)
+    r.add_header("Content-Type", ctype)
+    if token:
+        r.add_header("Authorization", "Bearer " + token)
+    try:
+        with urllib.request.urlopen(r, timeout=600) as resp:
+            code, payload, headers = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        code, payload, headers = e.code, e.read(), e.headers
+    return code, (payload if raw else json.loads(payload)), headers
+
+
+def _fe_ok(base, path, body, token=None, ctype="text/plain"):
+    code, out, _ = _fe_call(base, "POST", path, body, ctype, token)
+    assert code == 200, f"{path}: HTTP {code}: {out}"
+    return out
+
+
+class _FeServer:
+    """``python -m pilosa_tpu_torch server --config <toml>`` in a process
+    of its own (spawned, never forked from this CUDA process), with
+    ``PILOSA_TPU_DEVPROF=1``; its stderr goes to a file, printed when the
+    server fails. ``wait=False`` returns once the process is started;
+    :meth:`ready` then waits for ``GET /health``."""
+
+    def __init__(self, base_dir: str, name: str, data_dir: str,
+                 auth: bool = False, wait: bool = True):
+        port = _free_port()
+        self.base = f"http://127.0.0.1:{port}"
+        toml = os.path.join(base_dir, f"{name}.toml")
+        lines = ['bind = "127.0.0.1"', f"port = {port}",
+                 f'data-dir = "{data_dir}"', 'wal-sync = "batch"']
+        if auth:
+            perms = os.path.join(base_dir, "permissions.yaml")
+            with open(perms, "w") as f:
+                f.write(FE_PERMS)
+            lines += ["[auth]", "enable = true", f'secret = "{FE_SECRET}"',
+                      f'permissions-file = "{perms}"']
+        with open(toml, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        self.log_path = os.path.join(base_dir, f"{name}.stderr")
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, PILOSA_TPU_DEVPROF="1",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch", "server",
+             "--config", toml], env=env, stdout=subprocess.DEVNULL,
+            stderr=self.log)
+        if wait:
+            self.ready()
+
+    def ready(self) -> None:
+        try:
+            self._wait_health(deadline_s=180.0)
+        except BaseException:
+            self.kill()
+            raise
+
+    def _wait_health(self, deadline_s: float) -> None:
+        import urllib.error
+        import urllib.request
+
+        end = time.monotonic() + deadline_s
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"server exited {self.proc.returncode}"
+                                     f": {self.stderr()}")
+            try:
+                with urllib.request.urlopen(self.base + "/health",
+                                            timeout=5) as r:
+                    if r.status == 200:
+                        return
+            except (urllib.error.URLError, OSError):
+                pass
+            if time.monotonic() > end:
+                raise AssertionError(f"no /health in {deadline_s} s: "
+                                     f"{self.stderr()}")
+            time.sleep(0.05)
+
+    def stderr(self) -> str:
+        self.log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-4000:]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def _fe_dispatches(stats: dict) -> dict:
+    """Each kernel's dispatches from ``GET /internal/stats/kernels``:
+    ``pallas/…/mm1`` is pair_counts, ``cmp1`` bsi_compare, ``scatter1``
+    scatter_merge, ``pop1`` ctile_count; tape_count launches in a count
+    family or, outside one, in ``other``."""
+    names = {"mm1": "pair_counts", "cmp1": "bsi_compare",
+             "scatter1": "scatter_merge", "pop1": "ctile_count"}
+    out = dict.fromkeys(("tape_count", "pair_counts", "bsi_compare",
+                         "scatter_merge", "ctile_count"), 0)
+    assert stats.get("enabled"), f"the server's profiler is off: {stats}"
+    for k in stats["kernels"]:
+        kind, _, rest = k["family"].partition("/")
+        if kind == "count":
+            out["tape_count"] += k["dispatches"]
+        elif kind == "pallas":
+            out[names[rest.split("/")[1].split("#")[0]]] += k["dispatches"]
+    out["tape_count"] += stats["other"]["dispatches"]
+    return out
+
+
+class _FeOracle:
+    """Config 1's records (``city``, ``device``; -1 where a record has no
+    bit) and config 2's ``amount``, with every acknowledged write."""
+
+    def __init__(self, city, dev, amount):
+        import numpy as np
+
+        self.city, self.dev = city.copy(), dev.copy()
+        self.amount = amount
+        self.np = np
+
+    def add(self, cols, city=None, dev=None):
+        np = self.np
+        top = int(max(cols)) + 1
+        if top > self.city.size:
+            pad = np.full(top - self.city.size, -1, dtype=np.int64)
+            self.city = np.concatenate([self.city, pad])
+            self.dev = np.concatenate([self.dev, pad])
+        if city is not None:
+            self.city[cols] = city
+        if dev is not None:
+            self.dev[cols] = dev
+
+    def answers(self) -> dict:
+        np = self.np
+        city, dev = self.city, self.dev
+        counts = np.bincount(city[city >= 0], minlength=1000)
+        pairs = np.bincount(city[(city >= 0) & (dev >= 0)] * 10
+                            + dev[(city >= 0) & (dev >= 0)],
+                            minlength=10_000)
+        groups = [{"group": [{"field": "city", "rowID": int(i // 10)},
+                             {"field": "device", "rowID": int(i % 10)}],
+                   "count": int(pairs[i])}
+                  for i in np.nonzero(pairs)[0][:100]]
+        tree = int((((city == 1) & (dev == 2))
+                    | ((city == 5) & (dev != 3))).sum())
+        big = self.amount[self.amount > 524288]
+        return {
+            ("taxi", "Count(Row(city=3))"): [int(counts[3])],
+            ("taxi", "TopN(city, n=10)"): [{"rows": [
+                {"id": i, "count": c} for i, c in _want_top(
+                    {i: int(x) for i, x in enumerate(counts)}, 10)],
+                "field": "city"}],
+            ("taxi", "GroupBy(Rows(city), Rows(device), limit=100)"):
+                [groups],
+            ("taxi", FE_TREE): [tree],
+            ("b", "Sum(Row(amount > 524288), field=amount)"):
+                [{"value": int(big.sum()), "count": int(big.size)}],
+        }
+
+
+def _fe_read_all(base, oracle, token=None) -> None:
+    """Every 15a read over HTTP, SQL and framed gRPC against the
+    oracle."""
+    from pilosa_tpu_torch.server import grpc as G
+    from pilosa_tpu_torch.server import proto as PR
+
+    want = oracle.answers()
+    for (index, q), res in want.items():
+        got = _fe_ok(base, f"/index/{index}/query", q.encode(), token)
+        assert got["results"] == res, f"{q}: {got} != {res}"
+    n3 = want[("taxi", "Count(Row(city=3))")][0]
+    s = want[("b", "Sum(Row(amount > 524288), field=amount)")][0]["value"]
+    for q, res in ((FE_SQL_C1, [[n3]]), (FE_SQL_C2, [[s]])):
+        got = _fe_ok(base, "/sql", q.encode(), token)["data"]
+        assert got == res, f"{q}: {got} != {res}"
+    code, body, headers = _fe_call(
+        base, "POST", "/grpc/pilosa.Pilosa/QueryPQLUnary",
+        G.frame(PR._str_field(1, "taxi")
+                + PR._str_field(2, "Count(Row(city=3))")),
+        "application/grpc", token, raw=True)
+    assert code == 200 and headers["grpc-status"] == "0", (code, headers)
+    assert PR.decode_table_response(G.unframe(body)[0])[1] == [[n3]]
+    code, body, headers = _fe_call(
+        base, "POST", "/grpc/pilosa.Pilosa/QuerySQL",
+        G.frame(PR._str_field(1, FE_SQL_C2)), "application/grpc", token,
+        raw=True)
+    assert code == 200 and headers["grpc-status"] == "0", (code, headers)
+    assert PR.decode_row_response(G.unframe(body)[0])[1] == [s]
+
+
+def _fe_load(base, lab) -> tuple:
+    """15a's load through the port's Client: config 1 with ``sync_schema``
+    and ``import_bits`` (one roaring blob per shard and field), config
+    2's ``amount`` with ``import_values``, a shard a request."""
+    import numpy as np
+
+    from pilosa_tpu_torch.client import Client, Schema
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    c = Client(base, timeout=600)
+    schema = Schema()
+    taxi = schema.index("taxi")
+    taxi.field("city", type="set")
+    taxi.field("device", type="set")
+    b = schema.index("b")
+    b.field("amount", type="int")
+    c.sync_schema(schema)
+    rng = np.random.default_rng(1)  # bench_config1's generator
+    city = rng.integers(0, 1000, FE_C1_ROWS)
+    dev = rng.integers(0, 10, FE_C1_ROWS)
+    ids = range(FE_C1_ROWS)
+    t0 = time.perf_counter()
+    c.import_bits("taxi", "city", list(zip(city.tolist(), ids)))
+    t1 = time.perf_counter()
+    c.import_bits("taxi", "device", list(zip(dev.tolist(), ids)))
+    t2 = time.perf_counter()
+    amount = np.random.default_rng(2).integers(0, 1 << 20,
+                                               FE_C2_SHARDS * SHARD_WIDTH)
+    for s in range(FE_C2_SHARDS):
+        lo = s * SHARD_WIDTH
+        c.import_values("b", "amount", list(zip(
+            range(lo, lo + SHARD_WIDTH),
+            amount[lo:lo + SHARD_WIDTH].tolist())))
+    t3 = time.perf_counter()
+    secs = {"city": t1 - t0, "device": t2 - t1, "amount": t3 - t2}
+    print(f"frontends 15a: config 1 ({FE_C1_ROWS:,} records, seed 1) "
+          "through Client.import_bits in "
+          f"{secs['city']:.3f} + {secs['device']:.3f} s, config 2's amount "
+          f"({FE_C2_SHARDS} x 2^20 values, seed 2) through import_values, a "
+          f"shard a request, in {secs['amount']:.3f} s {lab}")
+    return _FeOracle(city, dev, amount), secs
+
+
+def _fe_writes(base, oracle) -> dict:
+    """64 ``Set`` writes over HTTP, then one JSON import batch, onto the
+    resident stacks; each read back."""
+    import numpy as np
+
+    n0 = oracle.city.size
+    for k in range(FE_WRITES):
+        col = n0 + k
+        out = _fe_ok(base, "/index/taxi/query",
+                     f"Set({col}, city={k % 7})Set({col}, device=7)"
+                     .encode())
+        assert out["results"] == [True, True], out
+        oracle.add([col], city=k % 7, dev=7)
+        if k % 16 == 15:
+            got = _fe_ok(base, "/index/taxi/query",
+                         f"Count(Intersect(Row(city={k % 7}), "
+                         f"Row(device=7)))".encode())["results"][0]
+            want = int(((oracle.city == k % 7) & (oracle.dev == 7)).sum())
+            assert got == want, (got, want)
+    cols = np.arange(oracle.city.size, oracle.city.size + FE_IMPORT)
+    rows = np.random.default_rng(15).integers(0, 1000, cols.size)
+    out = _fe_ok(base, "/index/taxi/import",
+                 {"field": "city", "rows": rows.tolist(),
+                  "cols": cols.tolist()}, ctype="application/json")
+    assert out == {"changed": FE_IMPORT}, out
+    oracle.add(cols, city=rows)
+    r = int(rows[0])
+    got = _fe_ok(base, "/index/taxi/query",
+                 f"Count(Row(city={r}))".encode())["results"][0]
+    assert got == int((oracle.city == r).sum())
+    return {"sets": FE_WRITES, "imported": FE_IMPORT}
+
+
+def _fe_cli(base, base_dir, lab) -> dict:
+    """15b: the CLI against the first server: a CSV field's import and
+    export, ``SELECT COUNT(*)`` piped into fbsql, ``chksum`` against
+    ``GET /internal/chksum``, and ``backup``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pilosa_tpu_torch.ctl import main as ctl
+
+    _fe_ok(base, "/index/csv", {}, ctype="application/json")
+    _fe_ok(base, "/index/csv/field/f", {}, ctype="application/json")
+    rng = np.random.default_rng(151)
+    pairs = sorted({(int(r), int(c)) for r, c in zip(
+        rng.integers(0, 8, 300), rng.integers(0, 3 << 20, 300))})
+    path = os.path.join(base_dir, "in.csv")
+    with open(path, "w") as f:
+        f.write("".join(f"{r},{c}\n" for r, c in pairs))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert ctl(["import", "--host", base, "--index", "csv", "--field",
+                    "f", path]) == 0
+        assert ctl(["export", "--host", base, "--index", "csv", "--field",
+                    "f"]) == 0
+    got = sorted(tuple(int(x) for x in line.split(","))
+                 for line in out.getvalue().split())
+    assert got == pairs, "the CSV round trip changed the field"
+    n = _fe_ok(base, "/sql", b"SELECT COUNT(*) FROM taxi")["data"][0][0]
+    r = subprocess.run(
+        [sys.executable, "-m", "pilosa_tpu_torch", "fbsql", "--host", base],
+        input="SELECT COUNT(*) FROM taxi\n", capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))))
+    assert r.returncode == 0 and str(n) in r.stdout.split(), r.stdout
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert ctl(["chksum", "--host", base]) == 0
+    chk = out.getvalue().strip()
+    assert chk == _fe_call(base, "GET", "/internal/chksum")[1]["checksum"]
+    tar = os.path.join(base_dir, "backup.tar")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert ctl(["backup", "--host", base, "--output", tar]) == 0
+    backup_s = time.perf_counter() - t0
+    print(f"frontends 15b: the CLI's CSV import / export of {len(pairs)} "
+          f"bits round-trips, fbsql answers COUNT(*) = {n}, chksum equals "
+          f"GET /internal/chksum, backup {os.path.getsize(tar):,} B in "
+          f"{backup_s:.3f} s {lab}")
+    return {"chksum": chk, "tar": tar, "backup_s": backup_s,
+            "records": n, "pairs": pairs}
+
+
+def _fe_p50_ms(conn, method, path, body, n=FE_ITERS, check=None) -> float:
+    """Median ms of ``n`` requests over one keep-alive connection."""
+    lat = []
+    for i in range(n + 5):
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "text/plain"})
+        resp = conn.getresponse()
+        data = resp.read()
+        if i >= 5:
+            lat.append((time.perf_counter() - t0) * 1e3)
+        assert resp.status == 200, data
+        if check is not None:
+            check(json.loads(data))
+    return statistics.median(lat)
+
+
+def _fe_figures(base, oracle, lab) -> dict:
+    """15d: keep-alive p50s, the profiled Count's split, 16 concurrent
+    clients."""
+    import http.client
+    import threading
+    from urllib.parse import urlsplit
+
+    import numpy as np
+
+    host, port = urlsplit(base).hostname, urlsplit(base).port
+    want = oracle.answers()
+    count_q = "Count(Row(city=3))"
+    gb_q = "GroupBy(Rows(city), Rows(device), limit=100)"
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    out = {
+        "count_p50_ms": _fe_p50_ms(
+            conn, "POST", "/index/taxi/query", count_q.encode(),
+            check=lambda r: r["results"] == want[("taxi", count_q)]),
+        "groupby_p50_ms": _fe_p50_ms(
+            conn, "POST", "/index/taxi/query", gb_q.encode(),
+            check=lambda r: r["results"] == want[("taxi", gb_q)]),
+        "status_p50_ms": _fe_p50_ms(conn, "GET", "/status", None),
+    }
+    walls, spans = [], []
+
+    def pql_span(node):
+        if node["name"] == "query.pql":
+            return node["duration_ns"]
+        return next((d for c in node.get("children", [])
+                     if (d := pql_span(c)) is not None), None)
+
+    for _ in range(FE_ITERS):
+        t0 = time.perf_counter()
+        conn.request("POST", "/index/taxi/query?profile=true",
+                     body=count_q.encode(),
+                     headers={"Content-Type": "text/plain"})
+        doc = json.loads(conn.getresponse().read())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        assert doc["results"] == want[("taxi", count_q)]
+        spans.append(pql_span(doc["profile"]) / 1e6)
+    conn.close()
+    out["profiled_count_p50_ms"] = statistics.median(walls)
+    out["query_pql_span_p50_ms"] = statistics.median(spans)
+    out["front_end_p50_ms"] = statistics.median(
+        w - s for w, s in zip(walls, spans))
+    # 16 concurrent clients, each on its own keep-alive connection
+    city, dev = oracle.city, oracle.dev
+    qs = [(f"Count(Intersect(Row(city={c}), Row(device={d})))",
+           int(((city == c) & (dev == d)).sum()))
+          for c, d in np.random.default_rng(16).integers(
+              0, (1000, 10), (FE_CLIENT_QUERIES, 2)).tolist()]
+    errors, answered = [], []
+
+    def client(k):
+        try:
+            cn = http.client.HTTPConnection(host, port, timeout=600)
+            for i in range(FE_CLIENT_QUERIES):
+                q, w = qs[(i + k) % len(qs)]
+                cn.request("POST", "/index/taxi/query", body=q.encode(),
+                           headers={"Content-Type": "text/plain"})
+                r = json.loads(cn.getresponse().read())
+                assert r["results"] == [w], (q, r, w)
+                answered.append(1)
+            cn.close()
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(FE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    assert not errors, errors[:3]
+    assert len(answered) == FE_CLIENTS * FE_CLIENT_QUERIES
+    out["clients_qps"] = len(answered) / wall
+    print("frontends 15d: keep-alive p50 Count "
+          f"{out['count_p50_ms']:.3f} ms, GroupBy "
+          f"{out['groupby_p50_ms']:.3f} ms, GET /status "
+          f"{out['status_p50_ms']:.3f} ms; the profiled Count "
+          f"{out['profiled_count_p50_ms']:.3f} ms = query.pql "
+          f"{out['query_pql_span_p50_ms']:.3f} ms + the front end's "
+          f"{out['front_end_p50_ms']:.3f} ms; {FE_CLIENTS} clients x "
+          f"{FE_CLIENT_QUERIES} Counts: {out['clients_qps']:.1f} QPS, "
+          f"every answer equal to numpy {lab}")
+    return out
+
+
+def _fe_crash(base_dir, data_dir, oracle, backup, lab) -> dict:
+    """15c: restart on the SIGKILLed server's data directory with auth
+    on; the acknowledged writes and 15a's answers, the auth codes; then
+    ``restore --source`` into a third server on an empty directory."""
+    import contextlib
+    import io
+
+    from pilosa_tpu_torch.ctl import main as ctl
+    from pilosa_tpu_torch.server.auth import issue_token
+
+    tok = {g: issue_token(FE_SECRET, [g])
+           for g in ("readers", "writers", "admins")}
+    # the restore's server starts beside the restart: both wait for
+    # their process and the card, not for each other
+    third = _FeServer(base_dir, "restore",
+                      os.path.join(base_dir, "restored"), wait=False)
+    try:
+        out = _fe_restart(base_dir, data_dir, oracle, backup, tok)
+        third.ready()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert ctl(["restore", "--host", third.base, "--source",
+                        backup["tar"]]) == 0
+        out["restore_s"] = time.perf_counter() - t0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert ctl(["chksum", "--host", third.base]) == 0
+        assert buf.getvalue().strip() == backup["chksum"], \
+            "restore changed the checksum"
+    finally:
+        third.kill()
+    print("frontends 15c: after SIGKILL every acknowledged write reads "
+          "back and every 15a answer is equal, restart to first answer "
+          f"{out['restart_to_first_answer_s']:.3f} s; auth codes "
+          f"{out['auth_codes']}; restore --source into an empty server in "
+          f"{out['restore_s']:.3f} s, chksum equal {lab}")
+    return out
+
+
+def _fe_restart(base_dir, data_dir, oracle, backup, tok) -> dict:
+    """The SIGKILLed server's directory under a new process with auth
+    on: the acknowledged writes, 15a's answers, the checksum, the auth
+    codes."""
+    srv = _FeServer(base_dir, "restart", data_dir, auth=True)
+    out = {}
+    try:
+        code, first, _ = _fe_call(srv.base, "POST", "/index/taxi/query",
+                                  b"Count(Row(city=3))", "text/plain",
+                                  tok["admins"])
+        out["restart_to_first_answer_s"] = time.perf_counter() - srv.t0
+        assert code == 200, first
+        _fe_read_all(srv.base, oracle, tok["admins"])
+        n0 = FE_C1_ROWS
+        for k in range(FE_WRITES):  # every acknowledged Set
+            got = _fe_ok(srv.base, "/index/taxi/query",
+                         f"Row(city={k % 7})".encode(), tok["readers"])
+            assert n0 + k in got["results"][0]["columns"], k
+        assert _fe_call(srv.base, "GET", "/internal/chksum", token=tok[
+            "admins"])[1]["checksum"] == backup["chksum"]
+        codes = {
+            "no token": _fe_call(srv.base, "POST", "/index/taxi/query",
+                                 b"Count(Row(city=3))", "text/plain")[0],
+            "reader's read": _fe_call(srv.base, "POST", "/index/taxi/query",
+                                      b"Count(Row(city=3))", "text/plain",
+                                      tok["readers"])[0],
+            "reader's write": _fe_call(srv.base, "POST", "/index/taxi/query",
+                                       b"Set(5, city=5)", "text/plain",
+                                       tok["readers"])[0],
+            "writer's new index": _fe_call(srv.base, "POST", "/index/w", {},
+                                           token=tok["writers"])[0],
+            "admin's chksum": _fe_call(srv.base, "GET", "/internal/chksum",
+                                       token=tok["admins"])[0],
+        }
+        assert codes == {"no token": 401, "reader's read": 200,
+                         "reader's write": 403, "writer's new index": 403,
+                         "admin's chksum": 200}, codes
+        out["auth_codes"] = codes
+    finally:
+        srv.kill()
+    return out
+
+
+def _fe_kernels(report, data_dir, oracle, pairs, lab) -> None:
+    """15e: the first server's data directory opened in-process on the
+    card; the kernels against their plain versions on its planes, at the
+    shapes the server launched them."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import scatter as SC
+
+    api = API(data_dir)
+    taxi = api.holder.index("taxi")
+    city = STK.stacked_set(taxi.field("city"), [0], "standard")
+    dev = STK.stacked_set(taxi.field("device"), [0], "standard")
+    leaves = [city.row_plane(3), dev.row_plane(7)]
+    tape = (("and", 0, 1),)
+    report.err("tape_count", B.tape_count(tape, leaves),
+               B.tape_count_plain(tape, leaves))
+    # GroupBy(Rows(city), Rows(device)) as the server's dense GroupBy
+    # launches it: each city block as A against each device block as B
+    blocks = []
+    for _, a_blk in city.iter_blocks():
+        row = []
+        for _, b_blk in dev.iter_blocks():
+            got = G.masked_pair_counts(a_blk, b_blk, None)
+            report.err("pair_counts", got, G.pair_counts_plain(a_blk, b_blk))
+            row.append(got)
+        blocks.append(torch.cat(row, dim=1))
+    mat = torch.cat(blocks).cpu().numpy()
+    mat = mat[:len(city.row_ids), :len(dev.row_ids)]
+    want = np.zeros((1000, 10), dtype=np.int64)
+    both = (oracle.city >= 0) & (oracle.dev >= 0)
+    np.add.at(want, (oracle.city[both], oracle.dev[both]), 1)
+    assert np.array_equal(
+        mat, want[np.ix_(city.row_ids, dev.row_ids)]), \
+        "the GroupBy's count matrix differs from numpy"
+    n_pair = len(blocks) * dev.n_blocks
+    amount = STK.stacked_bsi(api.holder.index("b").field("amount"),
+                             list(range(FE_C2_SHARDS)))
+    got = S.bsi_compare(amount.planes, S.GT, 524288)
+    report.err("bsi_compare", got,
+               S.bsi_compare_plain(amount.planes, S.GT, 524288))
+    assert int(B.tape_count(((("or", 0, 0),)), [got])) == int(
+        (oracle.amount > 524288).sum())
+    # the JSON import's bits, cleared in a copy of their tiles and set anew
+    frag = taxi.field("city").fragment(0)
+    cols = np.arange(oracle.city.size - FE_IMPORT, oracle.city.size)
+    slots = np.array([frag.row_index[int(r)] for r in oracle.city[cols]])
+    addr, masks_np = SC.sort_updates(slots, cols, frag.planes.shape[1])
+    t = SC._tile_words(frag.planes.size)
+    which, packed, _ = SC.pack_tiles(addr, t)
+    tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
+    tiles[packed] &= ~masks_np
+    flat = torch.from_numpy(tiles.view(np.int32)).to(api.device)
+    addr_t = torch.from_numpy(packed.astype(np.int32)).to(api.device)
+    masks_t = torch.from_numpy(masks_np.view(np.int32)).to(api.device)
+    ours, plain = flat.clone(), flat.clone()
+    new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
+    assert int(new_bits) == cols.size, int(new_bits)
+    report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+               new_bits)
+    report.err("scatter_merge", ours, plain)
+    # the CSV field's compressed blocks, counted as Rows(f) counted them
+    # in the server (StackedSet.row_counts: one zeroed output, each
+    # block's rows at its offset)
+    csv = api.holder.index("csv")
+    f = STK.stacked_set(csv.field("f"), sorted(csv.shards()), "standard")
+    held = [(bi, f._ensure_block(bi)) for bi in range(f.n_blocks)]
+    held = [(bi, b) for bi, b in held if isinstance(b, C.CompressedBlock)]
+    assert held, "the CSV field's stack holds no compressed block"
+    cbs, offs = [b for _, b in held], [bi * f.block_rows for bi, _ in held]
+    outs = [torch.zeros(f.cap, dtype=torch.int32, device=api.device)
+            for _ in range(2)]
+    report.err("ctile_count", C.ctile_count_blocks(cbs, None, outs[0], offs),
+               C.ctile_count_blocks_plain(cbs, None, outs[1], offs))
+    rows = np.array([r for r, _ in pairs])
+    want_rows = np.bincount(rows, minlength=max(f.row_ids) + 1)[f.row_ids]
+    assert np.array_equal(f.row_counts().cpu().numpy()[:len(f.row_ids)],
+                          want_rows), "the CSV field's row counts differ"
+    torch.cuda.synchronize()
+    n_cb = len(cbs)
+    del api, city, dev, amount, f, held, cbs, outs
+    print("frontends 15e: tape_count (city=3 AND device=7), pair_counts "
+          "(each city block against each device block as the GroupBy "
+          f"launches it, launches: {n_pair}; the 1,000 x 10 matrix equals "
+          f"numpy), bsi_compare (amount > 524288 over {FE_C2_SHARDS} "
+          f"shards), scatter_merge (the JSON import's {FE_IMPORT:,} bits, "
+          "cleared in a copy and set anew) and ctile_count (the CSV "
+          f"field's compressed blocks: {n_cb}) equal their plain versions "
+          f"on the first server's planes {lab}")
+
+
+def phase_frontends(report: Report) -> dict:
+    """Path 15: the front ends. A server process on the card loads
+    bench.py configs 1 and 2 through the port's Client and answers over
+    HTTP, SQL and framed gRPC (15a); the CLI against it (15b); figures
+    (15d); a SIGKILL, a restart with auth, a restore (15c); the kernels
+    on its planes (15e)."""
+    import shutil
+
+    lab = report.label
+    base_dir = os.path.abspath(os.path.join("build", "chip_smoke_frontend"))
+    shutil.rmtree(base_dir, ignore_errors=True)
+    os.makedirs(base_dir)
+    data_dir = os.path.join(base_dir, "data")
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        srv = _FeServer(base_dir, "first", data_dir)
+        try:
+            out["start_s"] = time.perf_counter() - srv.t0
+            info = _fe_call(srv.base, "GET", "/info")[1]
+            import torch
+
+            want_dev = f"cuda:0 {torch.cuda.get_device_name(0)}"
+            assert info["devices"][0] == want_dev and "H100" in want_dev, \
+                f"/info names {info['devices']}, not the H100"
+            oracle, out["load_s"] = _fe_load(srv.base, lab)
+            _fe_read_all(srv.base, oracle)
+            out["writes"] = _fe_writes(srv.base, oracle)
+            _fe_read_all(srv.base, oracle)
+            print("frontends 15a: /info names "
+                  f"{info['devices'][0]}; Count, TopN, GroupBy, the Count "
+                  "tree and the Sum over HTTP, the counts as SQL and as "
+                  "framed gRPC (QueryPQLUnary, QuerySQL) equal numpy before "
+                  f"and after {FE_WRITES} Sets and a {FE_IMPORT}-bit JSON "
+                  f"import {lab}")
+            backup = _fe_cli(srv.base, base_dir, lab)
+            out["cli"] = {k: v for k, v in backup.items()
+                          if k not in ("tar", "pairs")}
+            out["figures"] = _fe_figures(srv.base, oracle, lab)
+            stats = _fe_call(srv.base, "GET", "/internal/stats/kernels")[1]
+            launched = _fe_dispatches(stats)
+        finally:
+            srv.kill()  # SIGKILL after the last acknowledged write
+        report.launched("frontends 15", launched,
+                        ("tape_count", "pair_counts", "scatter_merge",
+                         "bsi_compare", "ctile_count"))
+        out["launches"] = launched
+        out["15c"] = _fe_crash(base_dir, data_dir, oracle, backup, lab)
+        _fe_kernels(report, data_dir, oracle, backup["pairs"], lab)
+    finally:
+        shutil.rmtree(base_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"frontends 15: the server's dispatches (GET "
+          f"/internal/stats/kernels) {launched} {lab}")
+    print("frontends 15: " + json.dumps(out, default=str))
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -6124,6 +6865,7 @@ def main() -> int:
           report.notes.get("write_visible_ms"))
     timed("12 ingest", phase_ingest, report)
     timed("13 SQL", phase_sql, report)
+    timed("15 front ends", phase_frontends, report)
 
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ its own copy of what it needs. Each Pallas kernel of the JAX package on
 a ported path is a hand-written CUDA kernel here (``csrc/``), with a
 plain PyTorch version beside it that the CPU tests run.
 
-Entry point: ``pilosa_tpu_torch.api.API(device=None)`` — the card by
-default, ``device="cpu"`` for the plain versions.
+Entry points: ``pilosa_tpu_torch.api.API(device=None)`` — the card by
+default, ``device="cpu"`` for the plain versions — and the command line,
+``python -m pilosa_tpu_torch <subcommand>`` (``ctl/cli.py``: the HTTP
+server, backup, restore, import, export, chksum, datagen, fbsql).
 """
+
+__version__ = "0.1.0"

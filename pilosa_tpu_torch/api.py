@@ -424,6 +424,9 @@ class API:
         request: with a data directory, one group commit."""
         idx = self.holder.index(index)
         fld = idx.field(field)
+        if fld.options.type.is_bsi:
+            raise ValueError(
+                f"field {field!r} is int-like; use import_values")
         if row_keys is not None:
             if fld.translate is None:
                 raise ValueError(f"field {field!r} does not use string keys")

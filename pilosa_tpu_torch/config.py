@@ -5,19 +5,22 @@ through viper/pflag with PILOSA_* env, ctl/server.go:160
 BuildServerFlags, ``featurebase generate-config``). Same layering with
 the stdlib: tomllib for files, PILOSA_TPU_* env vars, flag dicts — the
 last source wins per field. The port carries the sections of the modules
-it has ported: the storage fields and ``[storage.recovery]``
+it has ported: the listener, ``[auth]`` and the maintenance period
+(``server/``, ``ctl/``), the storage fields and ``[storage.recovery]``
 (``storage/``), ``[obs.tracing]`` and ``[obs.timeline]`` (``obs/``), the
 log fields, ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
 ``[stream]`` (``stream/``) and the two ``[tenants]`` flags the
 scheduler reads, with the JAX package's defaults and variable names;
-the other sections land with the modules they configure.
+the cluster, ``[gossip]``, ``[membership]``, ``[cluster.*]``, ``[dax]``,
+``[degrade]`` and the other ``[tenants]`` fields land with the cluster
+planes that read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _ENV_PREFIX = "PILOSA_TPU_"
 
@@ -73,20 +76,26 @@ def _parse_toml_subset(text: str) -> Dict[str, Any]:
 
 @dataclasses.dataclass
 class Config:
+    # The fields keep the JAX package's order, so ``to_toml`` prints its
+    # lines less those of the sections still to port.
+    # listener
+    bind: str = "127.0.0.1"
+    port: int = 10101
     # storage: the data directory (empty: in memory), the WAL's sync mode
     # and the record bytes that trigger a checkpoint
     data_dir: str = ""
     wal_sync: str = "batch"  # always | batch | never
     checkpoint_bytes: int = 64 << 20
-    # crash recovery ([storage.recovery] section /
-    # PILOSA_TPU_STORAGE_RECOVERY_*): WAL segment rotation size
-    # (checkpoints prune whole sealed segments), the record bytes that
-    # trigger a checkpoint (0 falls back to checkpoint-bytes), and the
-    # shipped WAL-tail bytes per catch-up fetch (read by the cluster's
-    # catch-up, which is not ported yet)
-    storage_recovery_segment_bytes: int = 4 << 20
-    storage_recovery_checkpoint_interval_bytes: int = 0
-    storage_recovery_catchup_batch_bytes: int = 1 << 20
+    # maintenance: the TTL view-removal sweep's period
+    ttl_removal_interval_s: float = 3600.0
+    # auth (reference: auth section)
+    auth_enable: bool = False
+    auth_secret: str = ""
+    auth_permissions_file: str = ""
+    auth_allowed_networks: List[str] = dataclasses.field(default_factory=list)
+    # mark session cookies Secure (HTTPS-only); leave off for plain-HTTP
+    # dev deployments or the login flow's cookies never come back
+    auth_secure_cookies: bool = False
     # distributed tracing ([obs.tracing] section / PILOSA_TPU_TRACE_*):
     # contextvar span scopes + traceparent propagation (obs/tracing.py;
     # install via obs.tracing.configure(cfg)). sample-rate head-samples
@@ -111,6 +120,9 @@ class Config:
     obs_timeline_flight_cooldown_s: float = 30.0
     obs_timeline_flight_dump_dir: str = ""
     obs_timeline_exemplars: bool = False
+    log_level: str = "info"
+    log_path: str = ""
+    query_log_path: str = ""  # reference: server.go:792 query logger
     # query scheduler ([scheduler] section / PILOSA_TPU_SCHEDULER_*):
     # micro-batches concurrent reads to amortize the per-dispatch floor
     scheduler_enabled: bool = False
@@ -137,24 +149,35 @@ class Config:
     cache_max_bytes: int = 64 << 20
     cache_max_entries: int = 4096
     cache_ttl_ms: float = 0.0  # <=0: no TTL (and remote-leg caching off)
-    # tenant plane ([tenants] section / PILOSA_TPU_TENANTS_*): the
-    # flags QueryScheduler.from_config reads; the registry, quotas and
-    # overrides land with TenantRegistry
-    tenants_enabled: bool = False
-    tenants_fair_share: bool = True  # weighted-fair admission ordering
+    # crash recovery ([storage.recovery] section /
+    # PILOSA_TPU_STORAGE_RECOVERY_*): WAL segment rotation size
+    # (checkpoints prune whole sealed segments), the record bytes that
+    # trigger a checkpoint (0 falls back to checkpoint-bytes), and the
+    # shipped WAL-tail bytes per catch-up fetch (read by the cluster's
+    # catch-up, which is not ported yet)
+    storage_recovery_segment_bytes: int = 4 << 20
+    storage_recovery_checkpoint_interval_bytes: int = 0
+    storage_recovery_catchup_batch_bytes: int = 1 << 20
     # streaming ingest ([stream] section / PILOSA_TPU_STREAM_*): the
-    # fields StreamService.from_config reads (stream/pipeline.py; attach
-    # via API.enable_stream). Batch rows per pipeline hand-off, bounded
-    # queue depth (2 = double-buffered), the consumer group name and
-    # the broker backlog at which push starts rejecting (0 =
-    # batch_rows * queue_depth * 8), and the paused/saturated stall
-    # seconds that fire the flight recorder's ingest_stall trigger.
-    # ``enabled`` / ``index`` land with the CLI that starts the service
+    # service the CLI's ``server`` starts when ``enabled`` is set, on
+    # ``index`` (stream/pipeline.py; API.enable_stream). Batch rows per
+    # pipeline hand-off, bounded queue depth (2 = double-buffered), the
+    # consumer group name and the broker backlog at which push starts
+    # rejecting (0 = batch_rows * queue_depth * 8), and the
+    # paused/saturated stall seconds that fire the flight recorder's
+    # ingest_stall trigger
+    stream_enabled: bool = False
+    stream_index: str = ""  # target index; required when enabled
     stream_batch_rows: int = 8192
     stream_queue_depth: int = 2
     stream_group: str = "ingest"
     stream_max_backlog_rows: int = 0
     stream_ingest_stall_s: float = 5.0
+    # tenant plane ([tenants] section / PILOSA_TPU_TENANTS_*): the
+    # flags QueryScheduler.from_config reads; the registry, quotas and
+    # overrides land with TenantRegistry
+    tenants_enabled: bool = False
+    tenants_fair_share: bool = True  # weighted-fair admission ordering
 
     # -- sources -----------------------------------------------------------
 
@@ -181,6 +204,8 @@ class Config:
                 v = float(v)
             elif f.type in ("bool", bool) and isinstance(v, str):
                 v = _truthy(v)
+            elif "List" in str(f.type) and isinstance(v, str):
+                v = [p for p in v.split(",") if p]
             setattr(self, f.name, v)
 
     @staticmethod
@@ -238,6 +263,8 @@ class Config:
                 return "true" if v else "false"
             if isinstance(v, (int, float)):
                 return str(v)
+            if isinstance(v, list):
+                return "[" + ", ".join(f'"{x}"' for x in v) + "]"
             return f'"{v}"'
 
         for f in dataclasses.fields(self):

@@ -10,6 +10,11 @@ def not_ported(what: str) -> PQLError:
     return PQLError(f"not ported yet: {what}")
 
 
+class ClusterStateError(RuntimeError):
+    """Operation not allowed in the current cluster state (reference:
+    api.go:160-187 validAPIMethods gating). Maps to HTTP 412."""
+
+
 class AdmissionError(RuntimeError):
     """Query rejected at admission: the scheduler queue is full, or the
     scheduler is closed. Maps to HTTP 429 — shed load under overload

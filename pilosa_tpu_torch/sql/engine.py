@@ -6,9 +6,8 @@ The JSON result shape matches the reference's POST /sql response
 
 Port of ``pilosa_tpu/sql/engine.py``: DDL, INSERT / REPLACE, BULK
 INSERT, COPY, DELETE, views, functions, models, SHOW and the system
-tables. Writes hold ``api.txf.qcx()``. ``COPY ... WITH URL`` needs the
-HTTP client, which waits for the port's front ends: it raises
-``SQLError``.
+tables. Writes hold ``api.txf.qcx()``. ``COPY ... WITH URL`` ships the
+rows to another server through the port's HTTP client (``client/``).
 """
 
 from __future__ import annotations
@@ -246,11 +245,9 @@ class SQLEngine:
 
     def _copy(self, st: ast.CopyStatement) -> SQLResult:
         """COPY source TO target: materialize the (optionally filtered)
-        source rows, then recreate schema + rows locally (reference:
-        compilecopy.go; a remote ``URL`` target waits for the client)."""
-        if st.url:
-            raise SQLError("COPY ... WITH URL is not available: the "
-                           "HTTP client is not ported yet")
+        source rows, then recreate schema + rows locally or on a remote
+        server over the client (reference: compilecopy.go ships rows to
+        another FeatureBase at ``URL``)."""
         idx = self.api.holder.index(st.source)
         sel = ast.SelectStatement(items=[ast.SelectItem(ast.Star())],
                                   table=st.source, where=st.where)
@@ -263,6 +260,16 @@ class SQLEngine:
             for f in idx.public_fields()]
         ddl = (f"create table if not exists {st.target} "
                f"({', '.join(cols_ddl)})")
+        if st.url:
+            from pilosa_tpu_torch.client.client import Client
+
+            c = Client(st.url, token=st.api_key)
+            c.sql(ddl)
+            for i in range(0, len(rows), 1000):
+                chunk = rows[i:i + 1000]
+                if chunk:
+                    c.sql(self._insert_sql(st.target, names, chunk))
+            return SQLResult(schema=[], data=[], changed=len(rows))
         self.query(ddl)
         ins = ast.InsertStatement(
             table=st.target, columns=names,
@@ -270,6 +277,28 @@ class SQLEngine:
         with self.api.txf.qcx():
             self._insert(ins)
         return SQLResult(schema=[], data=[], changed=len(rows))
+
+    @staticmethod
+    def _insert_sql(table: str, cols: List[str], rows: List[list]) -> str:
+        def lit(v) -> str:
+            if v is None:
+                return "null"
+            if isinstance(v, bool):
+                return "true" if v else "false"
+            if isinstance(v, float):
+                s = repr(v)
+                if "e" in s or "E" in s:  # 1e-06 does not re-parse
+                    s = format(v, ".17f").rstrip("0").rstrip(".") or "0"
+                return s
+            if isinstance(v, int):
+                return repr(v)
+            if isinstance(v, list):
+                return "[" + ",".join(lit(x) for x in v) + "]"
+            return "'" + str(v).replace("'", "''") + "'"
+
+        vals = ",".join("(" + ",".join(lit(v) for v in row) + ")"
+                        for row in rows)
+        return (f"insert into {table} ({', '.join(cols)}) values {vals}")
 
     # -- DDL ------------------------------------------------------------------
 

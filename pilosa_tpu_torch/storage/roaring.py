@@ -173,7 +173,12 @@ def encode_positions(positions) -> bytes:
     """Serialize absolute bit positions into the pilosa roaring format."""
     pos = np.unique(np.asarray(positions, dtype=np.uint64))
     keys = (pos >> np.uint64(16)).astype(np.uint64)
+    # the positions are sorted: each container is one slice between the
+    # key changes (one pass, not a pass a key)
+    cuts = np.concatenate([[0], np.flatnonzero(np.diff(keys)) + 1,
+                           [pos.size]]) if pos.size else np.zeros(1, int)
     containers: Dict[int, np.ndarray] = {}
-    for key in np.unique(keys):
-        containers[int(key)] = (pos[keys == key] & np.uint64(0xFFFF)).astype(np.uint16)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        containers[int(keys[lo])] = (pos[lo:hi] & np.uint64(0xFFFF)
+                                     ).astype(np.uint16)
     return encode(containers)

@@ -1103,3 +1103,94 @@ def test_devprof_on_keeps_results(prof, dev):
     assert on == off
     kinds = {r["family"].split("/")[0] for r in prof.KERNELS.snapshot()}
     assert {"count", "plane"} <= kinds
+
+
+def test_server_on_the_card_answers_as_on_the_cpu(dev):
+    """The port's HTTP server over ``API()`` on ``cuda:0`` and over
+    ``API(device="cpu")``: the same imports and reads over HTTP, from 8
+    concurrent clients on the card, give equal answers; the card's
+    server launches ``tape_count``, ``pair_counts``, ``bsi_compare`` and
+    ``scatter_merge``."""
+    import base64
+    import json
+    import threading
+    import urllib.request
+
+    from pilosa_tpu_torch.server import serve
+    from pilosa_tpu_torch.storage.roaring import encode_positions
+
+    def call(base, path, body):
+        r = urllib.request.Request(base + path, method="POST",
+                                   data=body if isinstance(body, bytes)
+                                   else json.dumps(body).encode())
+        r.add_header("Content-Type", "text/plain" if isinstance(body, bytes)
+                     else "application/json")
+        with urllib.request.urlopen(r) as resp:
+            return json.loads(resp.read())
+
+    rng = np.random.default_rng(15)
+    cols = rng.choice(2 << 20, 50_000, replace=False)
+    city = rng.integers(0, 40, cols.size)
+    amount = rng.integers(0, 1 << 20, cols.size)
+    queries = [b"Count(Row(city=3))", b"TopN(city, n=5)",
+               b"GroupBy(Rows(city), Rows(dev), limit=20)",
+               b"Count(Intersect(Row(city=1), Row(dev=2)))",
+               b"Sum(Row(amount > 524288), field=amount)",
+               b"Count(Row(amount < 1000))"]
+    answers, launched = [], None
+    for device in (dev, "cpu"):
+        KU.reset_launches()
+        api = API(device=device)
+        srv, _ = serve(api, port=0, background=True)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            call(base, "/index/c", {})
+            for f, o in (("city", {}), ("dev", {}),
+                         ("amount", {"type": "int"})):
+                call(base, f"/index/c/field/{f}", {"options": o})
+            for shard in (0, 1):
+                sel = cols >> 20 == shard
+                blob = encode_positions(np.sort(
+                    (city[sel].astype(np.uint64) << np.uint64(20))
+                    | (cols[sel] & ((1 << 20) - 1)).astype(np.uint64)))
+                call(base, f"/index/c/shard/{shard}/import-roaring",
+                     {"field": "city",
+                      "views": {"": base64.b64encode(blob).decode()}})
+            call(base, "/index/c/import",
+                 {"field": "dev", "rows": (cols % 7).tolist(),
+                  "cols": cols.tolist()})
+            call(base, "/index/c/import-values",
+                 {"field": "amount", "cols": cols.tolist(),
+                  "values": amount.tolist()})
+            serial = [call(base, "/index/c/query", q) for q in queries]
+            call(base, "/index/c/query", b"Set(7, dev=6)Set(9, city=39)")
+            serial += [call(base, "/index/c/query", q) for q in queries]
+            got, errors = [], []
+
+            def client(k):
+                try:
+                    for q in queries[k % 3:] + queries[:k % 3]:
+                        got.append((q, call(base, "/index/c/query", q)))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not errors and len(got) == 8 * len(queries)
+            warm = dict(zip(queries, serial[len(queries):]))
+            assert all(a == warm[q] for q, a in got)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        answers.append(serial)
+        if launched is None:
+            torch.cuda.synchronize()
+            launched = KU.launches()
+    assert answers[0] == answers[1]
+    for name in ("tape_count", "pair_counts", "bsi_compare",
+                 "scatter_merge"):
+        assert launched[name] > 0, name

@@ -10,11 +10,14 @@ through the ``Ingester``, drains a broker through the
 ``API.sql`` under a query log and answers a star join and the history
 table (importing every SQL module), profiles a query under the device
 profiler and the health plane (importing every observability module),
-then reports
+serves the API over HTTP and drives it through the client, framed gRPC,
+the CLI and fbsql (importing every front-end module), then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
-fall back to the CPU by itself.
+fall back to the CPU by itself: ``python -m pilosa_tpu_torch server``
+without a card and without ``--device cpu`` exits non-zero and serves
+nothing.
 """
 
 import ast
@@ -96,8 +99,34 @@ data = ssb.generate("tiny", seed=7)
 ssb.load(sq.sql, data)
 star = ssb.verify(data, "Q2.1", sq.sql(ssb.QUERIES["Q2.1"]).data)
 hist = sq.sql("select language, status from fb_exec_requests limit 1").data
-print(json.dumps({"star": star, "hist": hist,
-                  "logged": len(sq.query_logger.tail(1000)),
+logged = len(sq.query_logger.tail(1000))
+import contextlib
+from pilosa_tpu_torch.client import Client
+from pilosa_tpu_torch.ctl import main as ctl_main
+from pilosa_tpu_torch.ctl.fbsql import Shell
+from pilosa_tpu_torch.server import serve
+from pilosa_tpu_torch.server import grpc as G, proto as PR
+from pilosa_tpu_torch.server.maintenance import remove_expired_views
+import pilosa_tpu_torch.server.oidc, pilosa_tpu_torch.__main__
+srv, _ = serve(sq, port=0, background=True)
+base = "http://127.0.0.1:%d" % srv.server_address[1]
+front = [Client(base).query("Count(All())", index="lineorder")[0],
+         len(remove_expired_views(sq.holder))]
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    ctl_main(["chksum", "--host", base])
+    Shell(host=base, stdin=io.StringIO("select count(*) from ssb_date\n"),
+          stdout=sys.stdout).run()
+front.append(out.getvalue().split()[0] == sq.checksum())
+framed = Client(base)._request(
+    "POST", "/grpc/pilosa.Pilosa/QuerySQLUnary",
+    G.frame(PR._str_field(1, "select count(*) from ssb_date")),
+    "application/grpc")
+front.append(PR.decode_table_response(G.unframe(framed)[0])[1]
+             == sq.sql("select count(*) from ssb_date").data)
+srv.shutdown()
+srv.server_close()
+print(json.dumps({"star": star, "front": front, "hist": hist,
+                  "logged": logged,
                   "count": got[0], "top": got[1].pairs[0].count,
                   "profiled": profiled,
                   "wrote": wrote, "served": served, "fused": fused[0],
@@ -125,6 +154,11 @@ _SQL = ("sql", "sql/lexer.py", "sql/ast.py", "sql/parser.py", "sql/types.py",
 #: and the observability slice's
 _OBS = ("obs/timeline.py", "obs/slo.py", "obs/flight.py", "obs/devprof.py",
         "obs/health.py")
+#: and the front ends'
+_FRONTEND = ("server", "server/http.py", "server/auth.py", "server/oidc.py",
+             "server/proto.py", "server/grpc.py", "server/maintenance.py",
+             "client", "client/client.py", "client/orm.py", "ctl",
+             "ctl/cli.py", "ctl/fbsql.py", "__main__.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -149,7 +183,8 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["star"] is None and out["hist"] == [["sql", "running"]]
     assert out["logged"] == 5 + 6 + 2  # DDL, INSERT batches, SELECTs
     assert out["profiled"] == [300, 1, 1]
-    for part in _SERVING + _DURABILITY + _INGEST + _SQL + _OBS:
+    assert out["front"][1:] == [0, True, True] and out["front"][0] > 0
+    for part in _SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND:
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -215,6 +250,29 @@ def test_scan_covers_the_observability_modules():
                for p in _sources()}
     for part in _OBS:
         assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_front_end_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _FRONTEND:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_server_without_a_card_exits_and_serves_nothing(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the server would serve from it")
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "PYTHONPATH": ROOT, "HOME": str(tmp_path)}
+    r = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch", "server",
+                        "--port", "0", "--data-dir", str(tmp_path / "d")],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device is available" in r.stderr
+    assert "serving on" not in r.stderr
+    assert not (tmp_path / "d").exists()
 
 
 def test_api_without_a_device_needs_a_card(monkeypatch):

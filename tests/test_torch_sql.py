@@ -18,8 +18,9 @@ Two kinds of test:
   schemas, cell types (int / float / str / bool / list / None),
   rows-affected and ``sql_join_*`` counter deltas; errors must have the
   same type name and text. The test's own assertions then read the
-  port's result. Covered: the cases of ``tests/test_sql.py`` (but
-  ``test_copy_remote_over_client``, which needs the HTTP server), the
+  port's result. Covered: the cases of ``tests/test_sql.py`` (its
+  ``test_copy_remote_over_client`` runs across both packages' servers
+  in ``test_copy_with_url_waits_for_the_client``), the
   single-node cases of ``tests/test_sql_defs.py`` and
   ``tests/test_sql_joins.py``'s ``TestBitIdentity`` and
   ``TestCacheInvalidation``; ``TestObservability`` runs once per package
@@ -458,10 +459,32 @@ def test_sql_class_cases(cls, name):
 
 
 def test_copy_with_url_waits_for_the_client():
-    api = TorchAPI(device="cpu")
-    api.sql("create table r1 (_id string, v int)")
-    with pytest.raises(ValueError, match="HTTP client is not ported"):
-        api.sql("copy r1 to r2 with url 'http://localhost:1'")
+    """``COPY ... WITH URL`` ships the rows through the port's client
+    (``tests/test_sql.py``'s ``test_copy_remote_over_client``): into a
+    port server and into a JAX package server, from both packages, with
+    equal rows."""
+    from pilosa_tpu.api import API as JaxAPI
+    from pilosa_tpu.server.http import serve as jax_serve
+    from pilosa_tpu_torch.server.http import serve as torch_serve
+
+    got = []
+    for make_src in (lambda: TorchAPI(device="cpu"), JaxAPI):
+        for make_dst, serve in ((lambda: TorchAPI(device="cpu"),
+                                 torch_serve), (JaxAPI, jax_serve)):
+            src, dst = make_src(), make_dst()
+            src.sql("create table r1 (_id string, v int, s string)")
+            src.sql("insert into r1 values ('a', 1, 'x'), ('b', 2, 'it''s')")
+            srv, _ = serve(dst, port=0, background=True)
+            host, port = srv.server_address[:2]
+            try:
+                r = src.sql(f"copy r1 to r2 with url 'http://{host}:{port}'")
+                assert r.changed == 2
+                got.append(sorted(map(tuple, dst.sql(
+                    "select _id, v, s from r2").data)))
+            finally:
+                srv.shutdown()
+                srv.server_close()
+    assert got == [[("a", 1, "x"), ("b", 2, "it's")]] * 4
 
 
 @pytest.fixture(scope="module")

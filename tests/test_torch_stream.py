@@ -683,9 +683,10 @@ def test_stream_config_fields_match():
     theirs = {f.name: f.default for f in
               dataclasses.fields(_pkg(JAX).Config) if
               f.name in ours}
-    # batch_rows, queue_depth, group, max_backlog_rows and, read by the
-    # health plane, ingest_stall_s
-    assert ours == theirs and len(ours) == 5
+    # batch_rows, queue_depth, group, max_backlog_rows, read by the
+    # health plane ingest_stall_s, and, read by the CLI's server,
+    # enabled and index
+    assert ours == theirs and len(ours) == 7
 
 
 # -- the KafkaSource consumer protocol over a fake client ---------------------
