@@ -312,8 +312,47 @@ Phases, each printed on its own line:
     ``scatter_merge`` and ``ctile_count`` (the CSV field's compressed
     blocks, counted as ``Rows`` counted them in the server) against their
     plain versions on its planes;
-19. one ``{"kernels": [...]}`` JSON line;
-20. the last line: ``{"ok": true, "device": {...}}``.
+19. main path 16, the cluster core (run after path 15): three
+    ``ClusterNode`` objects in this process, ``LocalCluster(3, replica_n=1,
+    device="cuda:0")``, every node on the card and served over loopback
+    HTTP; (16a) ``bench.py`` config 3 (6 x 2^20 columns, seed 3, ``year``
+    and the keyed ``brand``, whose keys the coordinator's translator
+    creates first in sorted order, the ids path 1's bulk import gives
+    them, timed on their own) loaded through ``co.import_bits``, one
+    shard's columns a call, which looks the brand keys up: the load's
+    seconds, the shards each node holds (two nodes at least)
+    and the brand keys each node's primaries created; Count, a keyed
+    Count(Intersect), TopN, GroupBy and path 1's GroupBy+TopN from every
+    node, each against numpy and against path 1's single-node answer,
+    then 8 concurrent clients asking the Counts, the TopN and the
+    GroupBy of every node, each answer equal to the serial one;
+    (16b) config 2's ``amount`` (10 x 2^20 values from seed 2, as path
+    15 draws them) through ``co.import_values``, a shard a call: Count,
+    Sum, Min, Max and Percentile nth=50 and 99 against numpy, with each
+    query's fan-outs; (16c) 64 ``Set`` calls and one 4,096-bit import
+    through node 1, read back from every node (node 2 among them) against
+    the oracle with the writes applied, ``scatter_merge`` launched on the
+    owners; the path's launches (``tape_count``, ``pair_counts``, ``scatter_merge``,
+    ``bsi_compare`` above 0, ``ctile_count`` printed); (16e) each query's
+    warm p50 from the coordinator (5 runs of a GroupBy or a Percentile,
+    11 of the others), its RPCs (``InternalClient.op_counts``)
+    and its host waits and implicit syncs over all legs and per leg, the
+    profiled GroupBy's ``cluster.leg`` and ``rpc.post_internal_query``
+    spans beside its wall time, one GroupBy leg taken apart on the host
+    (the serving node's execute, the JSON bytes, encode and decode, the
+    leg over HTTP, the coordinator's merge), and path 1's single-node
+    p50 of the same query;
+    (16f) ``tape_count``, ``pair_counts`` (a node's year block against
+    each of its brand blocks), ``bsi_compare`` (a node's ``amount`` stack)
+    and ``scatter_merge`` (16c's batch on its owner) against their plain
+    versions on the nodes' planes; (16d) ``LocalCluster(3, replica_n=2)``
+    over 4 x 2^20 columns: ``pause(1)`` leaves the coordinator DEGRADED,
+    reads equal numpy through the replicas, a write raises
+    ``ClusterStateError``; after ``unpause(1)`` NORMAL and the write is
+    read back from every node;
+20. the empty traces of counted launches that ``_device_ops`` took
+    again, then one ``{"kernels": [...]}`` JSON line;
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -423,30 +462,64 @@ def _device_ms(fn, kernel: str = "", calls: int = 20, flush=None):
     return us / events * max(1, round(events / calls)) / 1e3
 
 
+#: empty traces of windows whose launch counters rose (``_device_ops``)
+PROFILER_MISSES = []
+
+
 def _device_ops(fn, calls: int = 50):
     """{device operation name: (events, mean ms per event)} over ``calls``
     calls of ``fn`` in a ``torch.profiler`` trace (kernels, fills and
     copies alike), taken after a discarded warm-up trace. A trace can
     miss an event (99 of 100 launches seen on an H100), so an operation's
     mean is taken over the events it holds, and :func:`_once_per_call`
-    checks the count against bounds, not for equality."""
+    checks the count against bounds, not for equality.
+
+    The events are read only after the profiler has stopped: the card is
+    synchronized inside the ``profile`` block, and leaving it stops the
+    trace, flushes CUPTI's activity buffers and parses them, all before
+    ``prof.events()`` returns. A trace of real launches has once come
+    back with no device event at all (100 ``scatter_merge`` calls on an
+    H100, in one run of nine; the cause is not known). An empty trace is
+    taken again only when the kernels' own launch counters
+    (``kernel_util.launches``) rose by at least ``calls`` in its window,
+    which shows that the launches were made and the trace lost them; each
+    such trace is printed and kept in ``PROFILER_MISSES`` for the report,
+    and at most three are taken. An empty trace whose window the counters
+    do not show launching, or a third one, returns ``{}``, which fails
+    the caller's check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
     fn()
     torch.cuda.synchronize()
-    for n in (3, calls):
+    with profile(activities=[ProfilerActivity.CUDA]):  # warm-up, discarded
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for attempt in range(3):
+        before = sum(KU.launches().values())
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    seen = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.split("(")[0]
-            k, us = seen.get(name, (0, 0.0))
-            seen[name] = (k + 1, us + e.time_range.elapsed_us())
+        launched = sum(KU.launches().values()) - before
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.split("(")[0]
+                k, us = seen.get(name, (0, 0.0))
+                seen[name] = (k + 1, us + e.time_range.elapsed_us())
+        if seen:
+            break
+        print(f"profiler: a trace of {calls} calls held no device event; "
+              f"the launch counters rose by {launched} in its window "
+              f"(attempt {attempt + 1} of 3)")
+        if launched < calls:
+            break
+        PROFILER_MISSES.append({"calls": calls, "launches": launched})
     return {name: (k, us / k / 1e3) for name, (k, us) in sorted(seen.items())}
 
 
@@ -1112,6 +1185,10 @@ def phase_main_path(report: Report, args) -> dict:
     print(f"main path: p50 of the GroupBy+TopN query {p50:.3f} ms; p50 of "
           f"Count(Intersect) {count_p50:.3f} ms {report.label}")
     print("main path: every answer matches the numpy oracle")
+    # path 16 holds its cluster to these single-node answers and p50
+    report.notes["ssb_p50_ms"] = p50
+    report.notes["ssb_single"] = {cq: api.query("ssb", cq)
+                                  for cq in CL_SSB_QUERIES}
     return {"api": api, "year_of": year_of, "brand_of": brand_of,
             "names": names, "bid": bid}
 
@@ -6751,6 +6828,589 @@ def phase_frontends(report: Report) -> dict:
     return out
 
 
+#: path 16a's queries; path 1 answers them on its single node too
+CL_SSB_QUERIES = (
+    "Count(Row(year=3))",
+    'Count(Intersect(Row(year=3), Row(brand="MFGR#1007")))',
+    "TopN(brand, n=10)",
+    "GroupBy(Rows(year), Rows(brand), limit=100)",
+    "GroupBy(Rows(year), Rows(brand), limit=100)TopN(brand, n=10)",
+)
+CL_HALF = 524288
+#: path 16b's queries over config 2's amount
+CL_BSI_QUERIES = (
+    f"Count(Row(amount > {CL_HALF}))",
+    f"Sum(Row(amount > {CL_HALF}), field=amount)",
+    "Min(field=amount)",
+    "Max(field=amount)",
+    "Percentile(field=amount, nth=50)",
+    "Percentile(field=amount, nth=99)",
+)
+CL_SETS = 64
+CL_IMPORT = 4096
+CL_CLIENTS = 8
+
+
+class _ClOracle:
+    """Path 16a's numpy oracle over the generator's (year, brand) of
+    every column, in the shape the checks compare: counts, (key, count)
+    pairs, (year, brand key, count) groups."""
+
+    def __init__(self, year_of, brand_of, names, bid):
+        self.year_of, self.brand_of = year_of, brand_of
+        self.names, self.bid = names, bid
+
+    def answers(self) -> dict:
+        import numpy as np
+
+        y, b, names = self.year_of, self.brand_of, self.names
+        years, brands = 7, len(names)
+        table = np.bincount(y * brands + b,
+                            minlength=years * brands).reshape(years, brands)
+        groups = sorted((yy, self.bid[bb], names[bb], int(table[yy, bb]))
+                        for yy in range(years) for bb in range(brands)
+                        if table[yy, bb])[:100]
+        groups = [(yy, key, c) for yy, _, key, c in groups]
+        counts = np.bincount(b, minlength=brands)
+        top = sorted((-int(c), self.bid[bb], names[bb])
+                     for bb, c in enumerate(counts) if c)[:10]
+        top = [(key, -c) for c, _, key in top]
+        q = CL_SSB_QUERIES
+        return {q[0]: [int((y == 3).sum())],
+                q[1]: [int(((y == 3) & (b == 7)).sum())],
+                q[2]: [top], q[3]: [groups], q[4]: [groups, top]}
+
+
+def _cl_held(node, index: str) -> list:
+    """The shards whose data ``node`` holds (``Index.shards`` answers
+    [0] for an index without data)."""
+    idx = node.holder.index(index)
+    return sorted(set().union(*[f.shards() for f in idx.fields.values()]))
+
+
+def _cl_shape(res) -> list:
+    """A PQL result list in the oracle's shape."""
+    out = []
+    for r in res:
+        if isinstance(r, list):  # GroupBy
+            out.append([(g.group[0].row_id, g.group[1].row_key, g.count)
+                        for g in r])
+        elif hasattr(r, "pairs"):  # TopN
+            out.append([(p.key, p.count) for p in r.pairs])
+        elif hasattr(r, "val"):
+            out.append((r.val, r.count))
+        else:
+            out.append(r)
+    return out
+
+
+def _cl_ssb(c, lab, shards: int = 6) -> dict:
+    """16a: config 3 through the coordinator, one shard's columns a
+    call."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    co = c.coordinator
+    rng = np.random.default_rng(3)  # bench_config3's generator
+    years, brands = 7, 1000
+    n = shards * SHARD_WIDTH
+    year_of = rng.integers(0, years, n)
+    brand_of = rng.integers(0, brands, n)
+    names = np.array([f"MFGR#{1000 + b}" for b in range(brands)])
+    cols = np.arange(n, dtype=np.int64)
+    co.create_index("ssb")
+    co.create_field("ssb", "year", {"type": "mutex"})
+    co.create_field("ssb", "brand", {"type": "mutex", "keys": True})
+    # the brand keys, created through the coordinator's translator in
+    # sorted order: the ids path 1's bulk import gave them, so its
+    # single-node answers compare as they are
+    t0 = time.perf_counter()
+    bid_of = co.executor.translator.field_keys(
+        "ssb", "brand", names.tolist(), create=True)
+    keys_s = time.perf_counter() - t0
+    bid = {b: bid_of[names[b]] for b in range(brands)}
+    t0 = time.perf_counter()
+    secs = []
+    for s in range(shards):
+        sl = slice(s * SHARD_WIDTH, (s + 1) * SHARD_WIDTH)
+        ts = time.perf_counter()
+        co.import_bits("ssb", "year", rows=year_of[sl], cols=cols[sl])
+        co.import_bits("ssb", "brand", cols=cols[sl],
+                       row_keys=names[brand_of[sl]])
+        secs.append(round(time.perf_counter() - ts, 3))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    held = {node.node.id: _cl_held(node, "ssb") for node in c.nodes}
+    assert sum(1 for h in held.values() if h) >= 2, \
+        f"the shards are not spread: {held}"
+    assert sorted(s for h in held.values() for s in h) == \
+        list(range(shards)), held
+    keys = {node.node.id: len(node.holder.index("ssb").field("brand")
+                              .translate.key_to_id) for node in c.nodes}
+    primary = co.snapshot().partition_nodes(0)[0].id
+    assert keys[primary] == brands and \
+        sum(keys.values()) == brands, keys
+    print(f"cluster 16a: the {brands:,} brand keys created through the "
+          f"coordinator's translator in {keys_s:.3f} s; config 3 ({n:,} "
+          f"columns, seed 3) through co.import_bits, a shard a call (year, "
+          f"then brand by key, which looks the keys up), in {load_s:.3f} s "
+          f"(per shard {secs}); shards per node {held}; "
+          f"brand keys each node's primaries created {keys} (the field "
+          f"keys' primary is {primary}) {lab}")
+    oracle = _ClOracle(year_of, brand_of, names, bid)
+    return {"oracle": oracle, "keys_s": keys_s, "load_s": load_s,
+            "held": held, "keys": keys, "n": n}
+
+
+def _cl_check_ssb(c, oracle, single=None) -> None:
+    """Every 16a query from every node against the oracle (and path 1's
+    single-node answers, when given)."""
+    want = oracle.answers()
+    for node in c.nodes:
+        for q in CL_SSB_QUERIES:
+            got = node.query("ssb", q)
+            assert _cl_shape(got) == want[q], f"{q} on {node.node.id}"
+            if single is not None:
+                assert got == single[q], \
+                    f"{q} on {node.node.id} differs from path 1's answer"
+
+
+def _cl_clients(c, index, queries) -> int:
+    """CL_CLIENTS threads ask ``queries`` of every node at once; each
+    answer must equal the serial one. Returns the requests made."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    work = [(k % len(c.nodes), q) for k, q in
+            enumerate(list(queries) * len(c.nodes))]
+    serial = [c[n].query(index, q) for n, q in work]
+
+    def client(k):
+        return [c[n].query(index, q) for n, q in work[k::CL_CLIENTS]]
+
+    with ThreadPoolExecutor(max_workers=CL_CLIENTS) as pool:
+        got = list(pool.map(client, range(CL_CLIENTS)))
+    for k in range(CL_CLIENTS):
+        assert got[k] == serial[k::CL_CLIENTS], \
+            f"a concurrent answer differs from the serial one (client {k})"
+    return len(work)
+
+
+def _cl_bsi(c, lab, shards: int = FE_C2_SHARDS) -> dict:
+    """16b: config 2's amount through co.import_values, a shard a call;
+    the BSI queries against numpy, with the fan-outs each Percentile
+    took."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    co = c.coordinator
+    amount = np.random.default_rng(2).integers(0, 1 << 20,
+                                               shards * SHARD_WIDTH)
+    co.create_index("b")
+    co.create_field("b", "amount", {"type": "int"})
+    t0 = time.perf_counter()
+    for s in range(shards):
+        lo = s * SHARD_WIDTH
+        co.import_values("b", "amount",
+                         cols=np.arange(lo, lo + SHARD_WIDTH),
+                         values=amount[lo:lo + SHARD_WIDTH])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    big = amount[amount > CL_HALF]
+    lo_v, hi_v = int(amount.min()), int(amount.max())
+    ordered = np.sort(amount)
+    q = CL_BSI_QUERIES
+    want = {q[0]: [big.size], q[1]: [(int(big.sum()), big.size)],
+            q[2]: [(lo_v, int((amount == lo_v).sum()))],
+            q[3]: [(hi_v, int((amount == hi_v).sum()))],
+            q[4]: [_percentile_oracle(ordered, 50)],
+            q[5]: [_percentile_oracle(ordered, 99)]}
+    fans = {}
+    ex = co.executor
+    real = ex._fan_shards
+
+    def counted(*a, **kw):
+        fans[cur] = fans.get(cur, 0) + 1
+        return real(*a, **kw)
+
+    ex._fan_shards = counted
+    try:
+        for cur in q:
+            got = co.query("b", cur)
+            assert _cl_shape(got) == want[cur], f"{cur} disagrees: {got}"
+    finally:
+        del ex._fan_shards
+    for node in c.nodes:
+        assert node.query("b", q[0]) == want[q[0]], node.node.id
+    held = {node.node.id: len(_cl_held(node, "b")) for node in c.nodes}
+    print(f"cluster 16b: config 2's amount ({shards} x 2^20 values, seed "
+          f"2) through co.import_values, a shard a call, in {load_s:.3f} s; "
+          f"shards per node {held}; Count, Sum, Min, Max and Percentile "
+          f"nth=50 and 99 equal numpy; fan-outs per query {fans} {lab}")
+    return {"load_s": load_s, "fanouts": fans}
+
+
+def _cl_writes(c, ssb, lab) -> dict:
+    """16c: 64 Sets and one 4,096-bit import through node 1, read back
+    from node 2 on the resident stacks."""
+    import numpy as np
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    o = ssb["oracle"]
+    rng = np.random.default_rng(16)
+    before = KU.launches()
+    n = ssb["n"]
+    set_cols = rng.choice(n, CL_SETS, replace=False)
+    set_rows = rng.integers(0, 7, CL_SETS)
+    for col, row in zip(set_cols.tolist(), set_rows.tolist()):
+        assert c[1].query("ssb", f"Set({col}, year={row})") == \
+            [bool(o.year_of[col] != row)]
+        o.year_of[col] = row
+    imp_cols = np.sort(rng.choice(n, CL_IMPORT, replace=False))
+    imp_rows = rng.integers(0, 7, CL_IMPORT)
+    c[1].import_bits("ssb", "year", rows=imp_rows, cols=imp_cols)
+    o.year_of[imp_cols] = imp_rows
+    _cl_check_ssb(c, o)  # from every node, node2 included
+    after = KU.launches()
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v - before.get(k, 0)}
+    assert delta.get("scatter_merge", 0) > 0, \
+        f"the owners launched no scatter_merge: {delta}"
+    print(f"cluster 16c: {CL_SETS} Sets and one {CL_IMPORT:,}-bit import "
+          "through node1, read back from every node (node2 among them), "
+          "equal to the oracle with the writes applied; launches "
+          f"{delta} {lab}")
+    return {"imp": (imp_rows, imp_cols), "launches": delta}
+
+
+def _cl_legs(prof) -> tuple:
+    """(cluster.leg ms, rpc.post_internal_query ms) of a profile tree."""
+    legs, rpcs = [], []
+
+    def walk(sp):
+        if sp.get("name") == "cluster.leg":
+            legs.append(sp["duration_ns"] / 1e6)
+        elif sp.get("name") == "rpc.post_internal_query":
+            rpcs.append(sp["duration_ns"] / 1e6)
+        for ch in sp.get("children", ()):
+            walk(ch)
+
+    walk(prof)
+    return [round(x, 3) for x in legs], [round(x, 3) for x in rpcs]
+
+
+def _cl_syncs(fn) -> tuple:
+    """(the host waits for copies back, the implicit syncs) inside
+    ``fn``, counted over every node and thread of the process: each
+    leg's executor waits once on its copies (``_wait_copies``, an event
+    wait, which the sync debug mode does not report)."""
+    from pilosa_tpu_torch.pql import executor as EX
+
+    waits = [0]
+    wait0 = EX._wait_copies
+
+    def wait(ev):
+        if ev is not None:
+            waits[0] += 1
+        return wait0(ev)
+
+    EX._wait_copies = wait
+    try:
+        _, syncs = _implicit_syncs(fn)
+    finally:
+        EX._wait_copies = wait0
+    return waits[0], syncs
+
+
+def _cl_leg_split(c, pql) -> dict:
+    """One remote GroupBy leg taken apart on the host, each step alone
+    and serially: the serving node's execute and wire encoding, the
+    response's JSON bytes, the coordinator's decode, and the whole leg
+    over loopback HTTP; then the coordinator's merge of both legs."""
+    import json as _json
+
+    from pilosa_tpu_torch.pql import result as R
+    from pilosa_tpu_torch.pql.parser import parse
+
+    co = c.coordinator
+    out = {}
+    parts = []
+    for node in c.nodes[1:]:
+        shards = _cl_held(node, "ssb")
+        t0 = time.perf_counter()
+        wire = node.query_remote("ssb", pql, shards)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        body = _json.dumps({"results": wire}).encode()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = _json.loads(body)["results"]
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        part = R.result_from_wire(back[0])
+        from_wire_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        co.client.query_node(node.node, "ssb", pql, shards)
+        leg_ms = (time.perf_counter() - t0) * 1e3
+        parts.append(part)
+        out[node.node.id] = {
+            "groups": len(part), "bytes": len(body),
+            "serve_ms": round(serve_ms, 3), "encode_ms": round(encode_ms, 3),
+            "decode_ms": round(decode_ms, 3),
+            "from_wire_ms": round(from_wire_ms, 3),
+            "http_leg_ms": round(leg_ms, 3)}
+    call = parse(pql).calls[0]
+    t0 = time.perf_counter()
+    co.executor._reduce(co.holder.index("ssb"), call, parts)
+    out["merge_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    return out
+
+
+def _cl_figures(c, report, lab) -> dict:
+    """16e: warm p50s from the coordinator, the RPCs and syncs of each
+    query, the profiled GroupBy's legs beside its wall time, and one
+    GroupBy leg taken apart."""
+    co = c.coordinator
+    out = {"p50_ms": {}, "rpcs": {}, "syncs": {}}
+    for index, qs in (("ssb", CL_SSB_QUERIES), ("b", CL_BSI_QUERIES)):
+        legs = sum(1 for node in c.nodes if _cl_held(node, index))
+        for q in qs:
+            reps = 5 if q.startswith(("Percentile", "GroupBy")) else 11
+            out["p50_ms"][q] = round(statistics.median(
+                _wall_ms(lambda: co.query(index, q)) for _ in range(reps)),
+                3)
+            before = dict(co.client.op_counts)
+            waits, syncs = _cl_syncs(lambda: co.query(index, q))
+            out["rpcs"][q] = {k: v - before.get(k, 0)
+                              for k, v in co.client.op_counts.items()
+                              if v - before.get(k, 0)}
+            out["syncs"][q] = {"waits": waits, "implicit": len(syncs),
+                               "per_leg": round((waits + len(syncs))
+                                                / legs, 2),
+                               "sites": sorted(set(syncs))}
+    gb = CL_SSB_QUERIES[3]
+    t0 = time.perf_counter()
+    prof = co.query_json("ssb", gb, profile=True)["profile"]
+    wall = (time.perf_counter() - t0) * 1e3
+    legs_ms, rpc_ms = _cl_legs(prof)
+    assert legs_ms and rpc_ms, "the profile holds no remote leg"
+    out["profile"] = {"wall_ms": round(wall, 3),
+                      "root_ms": round(prof["duration_ns"] / 1e6, 3),
+                      "cluster.leg": legs_ms,
+                      "rpc.post_internal_query": rpc_ms}
+    out["leg_split"] = _cl_leg_split(c, gb)
+    single = report.notes.get("ssb_p50_ms")
+    for q in CL_SSB_QUERIES + CL_BSI_QUERIES:
+        print(f"cluster 16e: {q}: warm p50 {out['p50_ms'][q]} ms from the "
+              f"coordinator, RPCs {out['rpcs'][q]}, host waits and implicit "
+              f"syncs over all legs {out['syncs'][q]} {lab}")
+    print(f"cluster 16e: the profiled {gb}: wall {wall:.3f} ms, root span "
+          f"{out['profile']['root_ms']} ms, cluster.leg spans {legs_ms} ms, "
+          f"rpc.post_internal_query spans {rpc_ms} ms {lab}")
+    print(f"cluster 16e: one {gb} leg at a time, split on the host "
+          f"{out['leg_split']} {lab}")
+    print(f"cluster 16e: path 1's single-node p50 of "
+          f"{CL_SSB_QUERIES[4]} "
+          f"{single if single is None else round(single, 3)} ms against "
+          f"the cluster's {out['p50_ms'][CL_SSB_QUERIES[4]]} ms {lab}")
+    return out
+
+
+def _cl_kernels(report, c, ssb, writes, lab) -> None:
+    """16f: the kernels against their plain versions on the nodes' own
+    planes, at the shapes the cluster's legs launch them."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    node = next(n for n in c.nodes if _cl_held(n, "ssb"))
+    idx = node.holder.index("ssb")
+    shards = _cl_held(node, "ssb")
+    year = STK.stacked_set(idx.field("year"), shards, "standard")
+    brand = STK.stacked_set(idx.field("brand"), shards, "standard")
+    b1007 = ssb["oracle"].bid[7]
+    leaves = [year.row_plane(3), brand.row_plane(b1007)]
+    tape = (("and", 0, 1),)
+    got = B.tape_count(tape, leaves)
+    report.err("tape_count", got, B.tape_count_plain(tape, leaves))
+    # the node's GroupBy leg: its year block against each brand block
+    n_pair = 0
+    for _, a_blk in year.iter_blocks():
+        for _, b_blk in brand.iter_blocks():
+            report.err("pair_counts", G.masked_pair_counts(a_blk, b_blk,
+                                                           None),
+                       G.pair_counts_plain(a_blk, b_blk))
+            n_pair += 1
+    bnode = next(n for n in c.nodes if _cl_held(n, "b"))
+    amount = STK.stacked_bsi(bnode.holder.index("b").field("amount"),
+                             _cl_held(bnode, "b"))
+    report.err("bsi_compare", S.bsi_compare(amount.planes, S.GT, CL_HALF),
+               S.bsi_compare_plain(amount.planes, S.GT, CL_HALF))
+    # 16c's import batch on one owner: its bits cleared in a copy of
+    # their tiles and set anew
+    imp_rows, imp_cols = writes["imp"]
+    snap = c.coordinator.snapshot()
+    shard = next(s for s in shards
+                 if snap.shard_nodes("ssb", s)[0].id == node.node.id
+                 and ((imp_cols // SHARD_WIDTH) == s).any())
+    sel = (imp_cols // SHARD_WIDTH) == shard
+    frag = idx.field("year").fragment(shard)
+    pos = imp_cols[sel] - shard * SHARD_WIDTH
+    slots = np.array([frag.row_index[int(r)] for r in imp_rows[sel]])
+    addr, masks_np = SC.sort_updates(slots, pos, frag.planes.shape[1])
+    t = SC._tile_words(frag.planes.size)
+    which, packed, _ = SC.pack_tiles(addr, t)
+    tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
+    tiles[packed] &= ~masks_np
+    flat = torch.from_numpy(tiles.view(np.int32)).to(node.device)
+    addr_t = torch.from_numpy(packed.astype(np.int32)).to(node.device)
+    masks_t = torch.from_numpy(masks_np.view(np.int32)).to(node.device)
+    ours, plain = flat.clone(), flat.clone()
+    new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
+    assert int(new_bits) == int(sel.sum()), int(new_bits)
+    report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+               new_bits)
+    report.err("scatter_merge", ours, plain)
+    torch.cuda.synchronize()
+    print(f"cluster 16f: on {node.node.id}'s planes (shards {shards}) "
+          f"tape_count (year=3 AND brand=MFGR#1007: {int(got)}), "
+          f"pair_counts (its year block against its {brand.n_blocks} brand "
+          f"blocks, {n_pair} launches), bsi_compare (amount > {CL_HALF} "
+          f"on {bnode.node.id}'s stack), scatter_merge (16c's "
+          f"{int(sel.sum())} bits of shard {shard}) equal their plain "
+          f"versions bit for bit {lab}")
+
+
+def _cl_failover(lab, device, shards: int = 4) -> dict:
+    """16d: a 3-node cluster with 2 replicas over 4 shards; a paused node
+    leaves it DEGRADED: reads through the replicas, writes refused, then
+    NORMAL again."""
+    import numpy as np
+
+    from pilosa_tpu_torch.cluster import (ClusterStateError, LocalCluster,
+                                          STATE_DEGRADED, STATE_NORMAL)
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rows = 7
+    rng = np.random.default_rng(4)
+    f_of = rng.integers(0, rows, shards * SHARD_WIDTH)
+    c = LocalCluster(3, replica_n=2, device=device)
+    try:
+        co = c.coordinator
+        co.create_index("fo")
+        co.create_field("fo", "f", {"type": "mutex"})
+        t0 = time.perf_counter()
+        for s in range(shards):
+            sl = slice(s * SHARD_WIDTH, (s + 1) * SHARD_WIDTH)
+            co.import_bits("fo", "f", rows=f_of[sl],
+                           cols=np.arange(sl.start, sl.stop))
+        load_s = time.perf_counter() - t0
+        want = np.bincount(f_of, minlength=rows)
+
+        def reads(node):
+            for r in range(rows):
+                assert node.query("fo", f"Count(Row(f={r}))") == \
+                    [int(want[r])], f"Count(Row(f={r})) on {node.node.id}"
+            top = sorted(((-int(v), r) for r, v in enumerate(want)))[:3]
+            got = node.query("fo", "TopN(f, n=3)")[0]
+            assert [(p.id, p.count) for p in got.pairs] == \
+                [(r, -v) for v, r in top], "TopN disagrees"
+
+        reads(co)
+        c.pause(1)
+        assert co.state() == STATE_DEGRADED, co.state()
+        reads(co)
+        reads(c[2])
+        try:
+            co.query("fo", "Set(5, f=1)")
+        except ClusterStateError:
+            pass
+        else:
+            raise AssertionError("a write was accepted while DEGRADED")
+        c.unpause(1)
+        assert co.state() == STATE_NORMAL, co.state()
+        assert co.query("fo", "Set(5, f=1)") == [bool(f_of[5] != 1)]
+        want[f_of[5]] -= 1
+        want[1] += 1
+        f_of[5] = 1
+        for node in c.nodes:
+            reads(node)
+    finally:
+        c.close()
+    print(f"cluster 16d: 3 nodes, 2 replicas, {shards} x 2^20 columns "
+          f"loaded in {load_s:.3f} s; node1 paused: DEGRADED, Counts and "
+          "TopN equal numpy through the replicas, a write refused "
+          "(ClusterStateError); unpaused: NORMAL, the write accepted and "
+          f"read back from every node {lab}")
+    return {"load_s": load_s}
+
+
+def phase_cluster(report: Report, device: str = "cuda:0",
+                  shards: tuple = (6, FE_C2_SHARDS, 4)) -> dict:
+    """Path 16: the cluster core. Three nodes in this process on the card
+    load bench.py configs 3 and 2 through the coordinator (16a, 16b),
+    take routed writes (16c), answer with a node paused (16d); figures
+    (16e) and the kernels on the nodes' planes (16f). ``device`` and the
+    shards of configs 3, 2 and 16d's index are the card's and the
+    configs' own; a dry run on the CPU passes ``"cpu"`` and fewer."""
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch.cluster import LocalCluster
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    t_phase = time.perf_counter()
+    out = {}
+    KU.reset_launches()
+    c = LocalCluster(3, replica_n=1, device=device)
+    try:
+        assert all(n.device == torch.device(device) for n in c.nodes)
+        ssb = _cl_ssb(c, lab, shards[0])
+        _cl_check_ssb(c, ssb["oracle"], report.notes.get("ssb_single"))
+        out["16a"] = {k: ssb[k]
+                      for k in ("keys_s", "load_s", "held", "keys")}
+        # the Counts, the TopN and one GroupBy
+        out["16a"]["clients"] = _cl_clients(c, "ssb", CL_SSB_QUERIES[:4])
+        print("cluster 16a: every query from every node equals numpy and "
+              f"path 1's single-node answers; {CL_CLIENTS} concurrent "
+              f"clients ({out['16a']['clients']} requests) equal the serial "
+              f"answers {lab}")
+        out["16b"] = _cl_bsi(c, lab, shards[1])
+        writes = _cl_writes(c, ssb, lab)
+        out["16c"] = writes["launches"]
+        torch.cuda.synchronize()
+        launched = KU.launches()
+        report.launched("cluster 16", launched,
+                        ("tape_count", "pair_counts", "scatter_merge",
+                         "bsi_compare"))
+        out["launches"] = launched
+        print(f"cluster 16: launches on the path (16a-16c) {launched}; "
+              f"ctile_count {launched.get('ctile_count', 0)} {lab}")
+        out["16e"] = _cl_figures(c, report, lab)
+        _cl_kernels(report, c, ssb, writes, lab)
+    finally:
+        c.close()
+        del c
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["16d"] = _cl_failover(lab, device, shards[2])
+    out["seconds"] = time.perf_counter() - t_phase
+    print("cluster 16: " + json.dumps(out, default=str))
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -6866,7 +7526,10 @@ def main() -> int:
     timed("12 ingest", phase_ingest, report)
     timed("13 SQL", phase_sql, report)
     timed("15 front ends", phase_frontends, report)
+    timed("16 cluster", phase_cluster, report)
 
+    print(f"profiler: empty traces of counted launches taken again "
+          f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu_name,

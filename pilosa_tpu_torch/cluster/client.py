@@ -1,0 +1,357 @@
+"""InternalClient: node-to-node RPC over HTTP+JSON.
+
+Port of ``pilosa_tpu/cluster/client.py`` (reference: internal_client.go,
+SURVEY.md §5.8): query fan-out (QueryNode :602), import forwarding
+(:691-931), the translate-key RPCs, broadcasts and peer status. Retries
+with jittered backoff like retryablehttp (internal_client.go:1744); a
+transport failure surfaces as NodeDownError, so the executor fails over
+to a replica (executor.go:6500-6515). Every request carries the
+caller's ``traceparent`` and tenant (``x-tenant``), and a traced peer's
+span tree comes back on its response and is grafted under the calling
+span.
+
+Transport: per-node keep-alive connection pools (the server speaks
+HTTP/1.1 with Content-Length on every response), so repeated legs to
+the same peer reuse a socket. A pooled connection the peer quietly
+closed gets one fresh-socket retry that does not use up a retry.
+
+The fault-injection hook and the gossip envelope come with the
+resilience and gossip planes.
+"""
+from __future__ import annotations
+
+import http.client
+import json
+import random
+import socket
+import time
+import urllib.error
+import urllib.request
+from typing import Dict, List, Optional, Sequence
+from urllib.parse import urlsplit
+
+from pilosa_tpu_torch.analysis import locktrace
+from pilosa_tpu_torch.obs.tenants import current_tenant_id
+from pilosa_tpu_torch.obs.tracing import active_span, current_traceparent
+
+
+class NodeDownError(ConnectionError):
+    """The peer did not answer at the transport level — retarget replicas."""
+
+
+class RemoteError(RuntimeError):
+    """The peer answered with an application error (4xx/5xx)."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(f"remote status {status}: {message}")
+        self.status = status
+
+
+class LegCancelled(RuntimeError):
+    """This leg's cancellation token fired (it lost a hedge race or its
+    query completed/expired). Deliberately NOT an OSError/ConnectionError:
+    the retry loop must not swallow it and the executor must not count it
+    as a node failure."""
+
+
+class _ConnPool:
+    """Bounded per-node pool of keep-alive HTTP connections.
+
+    Keyed on the target node id when the caller knows it (so a node's
+    sockets can be evicted by id) and on netloc otherwise.
+    ``per_key`` bounds idle sockets per node; overflow returns close
+    rather than queue — a fan-out burst briefly opens extras and the
+    steady state keeps the newest ``per_key``."""
+
+    def __init__(self, per_key: int = 4):
+        self.per_key = max(1, int(per_key))
+        self._lock = locktrace.tracked_lock("cluster.client.pool")
+        self._idle: Dict[str, List[http.client.HTTPConnection]] = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key: str) -> Optional[http.client.HTTPConnection]:
+        with self._lock:
+            conns = self._idle.get(key)
+            if conns:
+                self.hits += 1
+                return conns.pop()
+            self.misses += 1
+            return None
+
+    def put(self, key: str, conn: http.client.HTTPConnection) -> None:
+        with self._lock:
+            conns = self._idle.setdefault(key, [])
+            if len(conns) < self.per_key:
+                conns.append(conn)
+                return
+            self.evictions += 1
+        conn.close()
+
+    def evict(self, key: str) -> int:
+        """Close every idle socket for a node (it was paused or failed:
+        whatever made it fail may have wedged its half of the
+        connections)."""
+        with self._lock:
+            conns = self._idle.pop(key, [])
+            self.evictions += len(conns)
+        for c in conns:
+            c.close()
+        return len(conns)
+
+    def close(self) -> None:
+        with self._lock:
+            all_conns = [c for conns in self._idle.values() for c in conns]
+            self._idle.clear()
+        for c in all_conns:
+            c.close()
+
+
+class InternalClient:
+    def __init__(self, timeout: float = 30.0, retries: int = 2,
+                 backoff: float = 0.05, sleep=None, rng=None,
+                 pool_size: int = 4):
+        self.timeout = timeout
+        self.retries = retries
+        self.backoff = backoff
+        # Injectable for tests (sched/clock.py clocks provide .wait); the
+        # retry path never calls bare time.sleep directly.
+        self._sleep = sleep if sleep is not None else time.sleep
+        self._rng = rng if rng is not None else random.Random()
+        self.pool = _ConnPool(per_key=pool_size)
+        # wire-RPC accounting by op tag (one increment per actual send
+        # attempt, retries included)
+        self.op_counts: Dict[str, int] = {}
+        self._count_lock = locktrace.tracked_lock("cluster.client.counts")
+
+    def evict_node(self, node_id: str) -> int:
+        """Drop pooled sockets for a peer (a paused node's, in the
+        harness)."""
+        return self.pool.evict(node_id)
+
+    def close(self) -> None:
+        self.pool.close()
+
+    # -- transport ---------------------------------------------------------
+
+    def _request(self, method: str, url: str, body: Optional[bytes] = None,
+                 ctype: str = "application/json", node_id: Optional[str] = None,
+                 token=None, op: Optional[str] = None) -> dict:
+        if locktrace.ACTIVE is not None:
+            # the wire boundary: any lock held here is held across
+            # blocking socket I/O (and loopback HTTP re-enters the
+            # server, so it is also a latent distributed deadlock)
+            locktrace.ACTIVE.note_io("cluster.client._request")
+        last: Optional[Exception] = None
+        for attempt in range(self.retries + 1):
+            if token is not None and token.cancelled:
+                raise LegCancelled(f"request to {node_id or url} cancelled")
+            # a token's per-leg timeout caps the client's default
+            timeout = self.timeout
+            if token is not None and token.timeout_s is not None:
+                timeout = max(1e-3, min(timeout, token.timeout_s))
+            headers: Dict[str, str] = {}
+            if body is not None:
+                headers["Content-Type"] = ctype
+            # W3C-style trace propagation: every RPC made under a sampled
+            # span scope (query legs, retries, translate) carries the
+            # context so the serving node's spans join the coordinator's
+            # trace.
+            tp = current_traceparent()
+            if tp is not None:
+                headers["traceparent"] = tp
+                if attempt:
+                    headers["x-trace-attempt"] = str(attempt)
+            # tenant context rides internal RPCs the same way, so fan-out
+            # legs and forwarded writes attribute to the original tenant
+            tenant = current_tenant_id()
+            if tenant is not None:
+                headers["x-tenant"] = tenant
+            try:
+                status, data = self._send_once(method, url, body, headers,
+                                               timeout, node_id, op)
+                if status >= 400:
+                    msg = data.decode(errors="replace")
+                    try:
+                        msg = json.loads(msg).get("error", msg)
+                    except Exception:
+                        pass
+                    raise RemoteError(status, msg)
+                out = json.loads(data) if data else {}
+                self._apply_trace(out)
+                return out
+            except (urllib.error.URLError, http.client.HTTPException,
+                    socket.timeout, OSError) as e:
+                last = e
+                if attempt < self.retries:
+                    # Jittered exponential backoff: full-jitter over
+                    # [0.5x, 1.5x) of the nominal step so synchronized
+                    # retry storms against a recovering peer decorrelate.
+                    delay = (self.backoff * (2 ** attempt)
+                             * (0.5 + self._rng.random()))
+                    if token is not None:
+                        if token.wait(delay):
+                            raise LegCancelled(
+                                f"request to {node_id or url} cancelled "
+                                f"during backoff") from None
+                    else:
+                        self._sleep(delay)
+        raise NodeDownError(str(last))
+
+    def _send_once(self, method: str, url: str, body: Optional[bytes],
+                   headers: Dict[str, str], timeout: float,
+                   node_id: Optional[str],
+                   op: Optional[str]) -> "tuple[int, bytes]":
+        """One wire send over a pooled (or fresh) keep-alive connection.
+        Returns (status, body-bytes); transport problems raise OSError /
+        HTTPException for the caller's retry loop."""
+        sp = urlsplit(url)
+        with self._count_lock:
+            key = op or "other"
+            self.op_counts[key] = self.op_counts.get(key, 0) + 1
+        if sp.scheme != "http":  # https/unix/etc: one-shot via urllib
+            req = urllib.request.Request(url, data=body, method=method,
+                                         headers=headers)
+            try:
+                with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    return resp.status, resp.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+        pool_key = node_id or sp.netloc
+        path = sp.path + (f"?{sp.query}" if sp.query else "")
+        conn = self.pool.get(pool_key)
+        pooled = conn is not None
+        if conn is None:
+            conn = http.client.HTTPConnection(sp.hostname, sp.port,
+                                              timeout=timeout)
+        # a pooled socket the server already closed fails at send or at
+        # the status line — retry ONCE on a fresh socket, free of charge
+        for fresh_retry in (False, True):
+            try:
+                conn.timeout = timeout
+                if conn.sock is not None:
+                    conn.sock.settimeout(timeout)
+                conn.request(method, path, body=body, headers=headers)
+                resp = conn.getresponse()
+                data = resp.read()
+                if resp.will_close:
+                    conn.close()
+                else:
+                    self.pool.put(pool_key, conn)
+                return resp.status, data
+            except (OSError, http.client.HTTPException):
+                conn.close()
+                if not pooled or fresh_retry:
+                    raise
+                conn = http.client.HTTPConnection(sp.hostname, sp.port,
+                                                  timeout=timeout)
+        raise NodeDownError("unreachable")  # pragma: no cover
+
+    def _post(self, node, path: str, payload: dict, token=None,
+              op: Optional[str] = None) -> dict:
+        return self._request("POST", node.uri + path,
+                             json.dumps(payload).encode(),
+                             node_id=node.id, token=token, op=op)
+
+    def _get(self, node, path: str, token=None,
+             op: Optional[str] = None) -> dict:
+        return self._request("GET", node.uri + path, node_id=node.id,
+                             token=token, op=op)
+
+    def _apply_trace(self, out) -> None:
+        """Graft the remote span tree a traced server piggybacked on its
+        response under the calling span (for a query leg, the cluster.leg
+        span on this thread)."""
+        if isinstance(out, dict):
+            sub = out.pop("trace", None)
+            if isinstance(sub, dict):
+                active_span().add_remote(sub)
+
+    # -- query fan-out (reference: internal_client.go:602 QueryNode) -------
+
+    def query_node(self, node, index: str, pql: str,
+                   shards: Sequence[int], token=None) -> List[dict]:
+        """Run `pql` for the given shards on a peer; results come back as
+        wire-tagged JSON (pql/result.py result_to_wire). ``token`` is a
+        cancellation token (``cancelled``, ``timeout_s``, ``wait``): a
+        cancelled token aborts the leg between retries, and its
+        timeout_s caps the transport timeout."""
+        out = self._post(node, f"/internal/index/{index}/query",
+                         {"query": pql, "shards": list(shards),
+                          "remote": True}, token=token, op="query")
+        return out["results"]
+
+    # -- imports (reference: internal_client.go:691-931) -------------------
+
+    def import_bits(self, node, index: str, field: str, payload: dict) -> dict:
+        return self._post(node, f"/index/{index}/import", payload,
+                          op="import")
+
+    def import_values(self, node, index: str, field: str, payload: dict) -> dict:
+        return self._post(node, f"/index/{index}/import-values", payload,
+                          op="import")
+
+    def import_roaring_shard(self, node, index: str, shard: int,
+                             payload: dict) -> dict:
+        return self._post(
+            node, f"/index/{index}/shard/{shard}/import-roaring", payload,
+            op="import")
+
+    # -- translation (reference: cluster.go:233-887 key RPC loops) ---------
+
+    def create_index_keys(self, node, index: str, keys: List[str]) -> Dict[str, int]:
+        out = self._post(node, f"/internal/translate/index/{index}/keys/create",
+                         {"keys": keys}, op="translate")
+        return {k: int(v) for k, v in out["ids"].items()}
+
+    def find_index_keys(self, node, index: str, keys: List[str]) -> Dict[str, int]:
+        out = self._post(node, f"/internal/translate/index/{index}/keys/find",
+                         {"keys": keys}, op="translate")
+        return {k: int(v) for k, v in out["ids"].items()}
+
+    def translate_index_ids(self, node, index: str, ids: List[int]) -> Dict[int, str]:
+        out = self._post(node, f"/internal/translate/index/{index}/ids",
+                         {"ids": list(ids)}, op="translate")
+        return {int(k): v for k, v in out["keys"].items()}
+
+    def create_field_keys(self, node, index: str, field: str,
+                          keys: List[str]) -> Dict[str, int]:
+        out = self._post(
+            node, f"/internal/translate/field/{index}/{field}/keys/create",
+            {"keys": keys}, op="translate")
+        return {k: int(v) for k, v in out["ids"].items()}
+
+    def find_field_keys(self, node, index: str, field: str,
+                        keys: List[str]) -> Dict[str, int]:
+        out = self._post(
+            node, f"/internal/translate/field/{index}/{field}/keys/find",
+            {"keys": keys}, op="translate")
+        return {k: int(v) for k, v in out["ids"].items()}
+
+    def translate_field_ids(self, node, index: str, field: str,
+                            ids: List[int]) -> Dict[int, str]:
+        out = self._post(node, f"/internal/translate/field/{index}/{field}/ids",
+                         {"ids": list(ids)}, op="translate")
+        return {int(k): v for k, v in out["keys"].items()}
+
+    def replicate_translate(self, node, index: str, field: Optional[str],
+                            entries: List) -> None:
+        """Push newly created (key, id) entries to a replica (reference:
+        translate.go EntryReader / http_translator.go sync stream)."""
+        self._post(node, "/internal/translate/replicate",
+                   {"index": index, "field": field,
+                    "entries": [[k, int(i)] for k, i in entries]},
+                   op="translate")
+
+    # -- control plane -----------------------------------------------------
+
+    def send_message(self, node, msg: dict) -> None:
+        self._post(node, "/internal/cluster/message", msg, op="broadcast")
+
+    def status(self, node) -> Optional[dict]:
+        """None when the node is unreachable (used as the liveness probe)."""
+        try:
+            return self._get(node, "/status")
+        except (NodeDownError, RemoteError):
+            return None

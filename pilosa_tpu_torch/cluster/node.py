@@ -1,0 +1,497 @@
+"""ClusterNode: one engine process taking part in a cluster.
+
+Port of ``pilosa_tpu/cluster/node.py`` (reference: the Server object,
+server.go:46; the API's state gating, api.go:160-187; receiveMessage,
+server.go:995). It wraps the single-node API with:
+
+- schema operations broadcast to the peers (broadcast.go semantics);
+- client queries routed through the ClusterExecutor;
+- the /internal query serving for peers (a remote-mode executor);
+- import routing: bits grouped by shard and sent to every replica of the
+  owning partition (api.go:1438 Import with the remote flag);
+- shard announcements, so every node knows the cluster-wide shard set
+  (the reference keeps these bitmaps in etcd, etcd/embed.go Sharder);
+- cluster-state gating: writes need NORMAL, reads work in DEGRADED, and
+  everything is refused when DOWN (disco/disco.go:53-61);
+- transaction changes synced to every peer (server.go:1082).
+
+It offers the surface the HTTP handler uses on the plain API, so the
+handler serves a node unchanged. ``ClusterNode(...)`` runs its engine on
+``cuda:0``; ``device="cpu"`` runs the plain PyTorch versions; without a
+card and without ``device`` it raises.
+
+Not here yet, each with the plane that brings it: SQL on a node and
+``read_executor`` (the SQL fan-out), ``enable_resilience``,
+``enable_cluster_batch`` and ``query_remote_batch`` (fan-out resilience
+and batching), ``enable_gossip``, ``enable_membership`` and
+``enable_recovery`` (gossip and catch-up), ``enable_tenants`` and
+``enable_degrade``, ``enable_health`` with its node probes, and
+``cluster_stats``.
+"""
+
+from __future__ import annotations
+
+import base64
+import contextlib
+import time
+from typing import Any, Dict, List, Optional, Sequence, Set
+
+import numpy as np
+
+from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.analysis import locktrace
+from pilosa_tpu_torch.api import API
+from pilosa_tpu_torch.cluster import broadcast as B
+from pilosa_tpu_torch.cluster.client import InternalClient
+from pilosa_tpu_torch.cluster.disco import DisCo, SingleNodeDisCo
+from pilosa_tpu_torch.cluster.executor import ClusterExecutor
+from pilosa_tpu_torch.cluster.topology import (
+    ClusterSnapshot, Node, STATE_DOWN, STATE_NORMAL,
+)
+from pilosa_tpu_torch.errors import ClusterStateError
+from pilosa_tpu_torch.obs.tracing import get_tracer
+from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
+from pilosa_tpu_torch.pql.parser import parse
+from pilosa_tpu_torch.pql.result import result_to_json, result_to_wire
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+MSG_AVAILABLE_SHARDS = B.MSG_AVAILABLE_SHARDS
+
+
+class ClusterNode:
+    def __init__(self, node_id: str, uri: str = "",
+                 disco: Optional[DisCo] = None, path: Optional[str] = None,
+                 replica_n: int = 1, client: Optional[InternalClient] = None,
+                 device: platform.DeviceLike = None):
+        self.api = API(path, device=device)
+        self.node = Node(id=node_id, uri=uri)
+        self.disco = disco or SingleNodeDisCo(self.node)
+        if hasattr(self.disco, "register"):
+            self.disco.register(self.node)
+        self.replica_n = replica_n
+        self.client = client or InternalClient()
+        self.broadcaster = B.HTTPBroadcaster(
+            self.client, self.disco.nodes, node_id)
+        self._remote_exec = Executor(self.api.holder, remote=True)
+        self._remote_shards: Dict[str, Set[int]] = {}
+        self._announced: Dict[str, Set[int]] = {}
+        self._lock = locktrace.tracked_lock("cluster.node")
+        self.executor = ClusterExecutor(
+            node_id, self.api.holder, self.client, self.snapshot,
+            self.all_shards, on_node_down=self._mark_down,
+            live_fn=lambda: set(self.disco.live_ids()))
+        self.executor._after_write = self._announce_shards_all
+        # Transaction changes sync to peers so an exclusive transaction
+        # on any node excludes cluster-wide (reference: server.go:1082).
+        self.api.transactions.on_change = self._sync_transaction
+
+    @property
+    def device(self):
+        return self.api.device
+
+    # -- topology ----------------------------------------------------------
+
+    def snapshot(self) -> ClusterSnapshot:
+        return ClusterSnapshot(self.disco.nodes(), replica_n=self.replica_n)
+
+    def state(self) -> str:
+        return self.snapshot().cluster_state(self.disco.live_ids())
+
+    def _mark_down(self, node_id: str) -> None:
+        for meth in ("down", "mark_down"):
+            fn = getattr(self.disco, meth, None)
+            if fn is not None:
+                fn(node_id)
+                return
+
+    def _check_state(self, write: bool) -> None:
+        state = self.state()
+        if state == STATE_DOWN:
+            raise ClusterStateError(f"cluster is {state}; not serving")
+        if write and state != STATE_NORMAL:
+            raise ClusterStateError(
+                f"cluster is {state}; writes require NORMAL")
+        if write and self.api.transactions.exclusive_active():
+            # local OR mirrored-from-peer exclusive (backup coordination)
+            from pilosa_tpu_torch.transaction import TransactionError
+
+            raise TransactionError(
+                "an exclusive transaction is active; writes are blocked")
+
+    # -- cluster transactions (reference: transaction.go + server.go:1082) -
+
+    @property
+    def transactions(self):
+        """The HTTP /transaction* endpoints reach the manager through the
+        node (same surface as the plain API)."""
+        return self.api.transactions
+
+    def _sync_transaction(self, action: str, tx) -> None:
+        self.broadcaster.send_sync({
+            "type": B.MSG_TRANSACTION, "action": action,
+            "txn": tx.to_json()})
+
+    # -- shard registry ----------------------------------------------------
+
+    def all_shards(self, index: str) -> Set[int]:
+        local: Set[int] = set()
+        idx = self.api.holder.indexes.get(index)
+        if idx is not None:
+            local = idx.shards()
+        with self._lock:
+            return local | self._remote_shards.get(index, set())
+
+    def _announce_shards_all(self, idx=None) -> None:
+        for name in list(self.api.holder.indexes):
+            self._announce_shards(name)
+
+    def _announce_shards(self, index: str) -> None:
+        idx = self.api.holder.indexes.get(index)
+        if idx is None:
+            return
+        shards = idx.shards()
+        with self._lock:
+            if shards <= self._announced.get(index, set()):
+                return
+            self._announced[index] = set(shards)
+        self.broadcaster.send_async({
+            "type": MSG_AVAILABLE_SHARDS, "index": index,
+            "shards": sorted(shards), "node": self.node.id,
+        })
+
+    # -- schema ops (broadcast to peers; reference: api.go CreateIndex) ----
+
+    def create_index(self, name: str, options: Optional[dict] = None):
+        self._check_state(write=True)
+        idx = self.api.create_index(name, options)
+        self.broadcaster.send_sync(
+            {"type": B.MSG_CREATE_INDEX, "index": name, "options": options})
+        return idx
+
+    def delete_index(self, name: str, broadcast: bool = True) -> None:
+        self.api.delete_index(name)
+        with self._lock:
+            self._remote_shards.pop(name, None)
+            self._announced.pop(name, None)
+        if broadcast:
+            self.broadcaster.send_sync(
+                {"type": B.MSG_DELETE_INDEX, "index": name})
+
+    def create_field(self, index: str, field: str,
+                     options: Optional[dict] = None):
+        self._check_state(write=True)
+        f = self.api.create_field(index, field, options)
+        self.broadcaster.send_sync({"type": B.MSG_CREATE_FIELD, "index": index,
+                                    "field": field, "options": options})
+        return f
+
+    def delete_field(self, index: str, field: str,
+                     broadcast: bool = True) -> None:
+        self.api.delete_field(index, field)
+        if broadcast:
+            self.broadcaster.send_sync({"type": B.MSG_DELETE_FIELD,
+                                        "index": index, "field": field})
+
+    def ensure_index(self, name: str, options: Optional[dict] = None):
+        if name not in self.api.holder.indexes:
+            self.api.create_index(name, options)
+
+    def ensure_field(self, index: str, field: str,
+                     options: Optional[dict] = None):
+        idx = self.api.holder.indexes.get(index)
+        if idx is not None and field not in idx.fields:
+            self.api.create_field(index, field, options)
+
+    # -- queries -----------------------------------------------------------
+
+    def query(self, index: str, pql: str,
+              shards: Optional[Sequence[int]] = None,
+              priority: Optional[str] = None,
+              deadline_ms: Optional[float] = None) -> List[Any]:
+        hp = self.api.health
+        if hp is None:
+            return self._query_impl(index, pql, shards, priority,
+                                    deadline_ms)
+        t0 = time.monotonic()
+        try:
+            out = self._query_impl(index, pql, shards, priority,
+                                   deadline_ms)
+        except Exception:
+            hp.record("query", time.monotonic() - t0, error=True)
+            raise
+        hp.record("query", time.monotonic() - t0)
+        return out
+
+    def _query_impl(self, index: str, pql: str,
+                    shards: Optional[Sequence[int]] = None,
+                    priority: Optional[str] = None,
+                    deadline_ms: Optional[float] = None) -> List[Any]:
+        q = parse(pql) if isinstance(pql, str) else pql
+        is_write = has_write_calls(q)
+        self._check_state(write=is_write)
+        # Per-query deadline budget, visible to every layer below
+        # (sched/deadline.py).
+        if deadline_ms is not None and deadline_ms > 0:
+            from pilosa_tpu_torch.sched.deadline import (Deadline,
+                                                         deadline_scope)
+
+            ctx = deadline_scope(Deadline(
+                time.monotonic() + deadline_ms / 1e3))
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx, get_tracer().start_trace(
+                "query.pql", index=index, node=self.node.id):
+            sched = self.executor.scheduler
+            if sched is not None and not is_write:
+                # one admission ticket per client query; the per-shard
+                # local kernels inside the fan-out micro-batch via the
+                # scheduler
+                kw = {}
+                if priority is not None:
+                    kw["priority"] = priority
+                with sched.admit(**kw):
+                    return self.executor.execute(index, q, shards=shards)
+            return self.executor.execute(index, q, shards=shards)
+
+    def query_json(self, index: str, pql: str,
+                   priority: Optional[str] = None,
+                   deadline_ms: Optional[float] = None,
+                   profile: bool = False) -> dict:
+        if profile:
+            with get_tracer().profile("query.profile", index=index,
+                                      node=self.node.id) as root:
+                out = self.query_json(index, pql, priority=priority,
+                                      deadline_ms=deadline_ms)
+            out["profile"] = root.to_json()
+            return out
+        cache = self.cache
+        if cache is not None:
+            cache.take_stale_flag()  # clear any untagged leftover
+        out = {"results": [result_to_json(r) for r in self.query(
+            index, pql, priority=priority, deadline_ms=deadline_ms)]}
+        if cache is not None and cache.take_stale_flag():
+            # a fan-out leg was served past its version key: the
+            # freshness contract for degraded reads (executor.cache and
+            # executor.local.cache are the same object, so one flag
+            # covers both legs)
+            out["stale"] = True
+        return out
+
+    def query_remote(self, index: str, pql: str,
+                     shards: Sequence[int]) -> List[dict]:
+        """Serve a peer's sub-query (reference: the Remote:true branch of
+        handlePostQuery): local shards only, raw IDs, no truncation."""
+        results = self._remote_exec.execute(index, parse(pql), shards=shards)
+        self._announce_shards(index)
+        return [result_to_wire(r) for r in results]
+
+    # -- scheduler (sched/): same surface as the plain API -----------------
+
+    @property
+    def scheduler(self):
+        return self.executor.scheduler
+
+    def enable_scheduler(self, config=None, **overrides):
+        """Attach a micro-batching scheduler over the node's LOCAL engine;
+        coordinator fan-outs then coalesce their local shard groups."""
+        from pilosa_tpu_torch.sched import QueryScheduler
+
+        self.disable_scheduler()
+        if config is not None:
+            sched = QueryScheduler.from_config(
+                self.executor.local, config, **overrides)
+        else:
+            sched = QueryScheduler(self.executor.local, **overrides)
+        self.executor.scheduler = sched
+        return sched
+
+    def disable_scheduler(self) -> None:
+        sched, self.executor.scheduler = self.executor.scheduler, None
+        if sched is not None:
+            sched.close()
+
+    # -- result cache (cache/): same surface as the plain API --------------
+
+    @property
+    def cache(self):
+        return self.executor.cache
+
+    def enable_cache(self, config=None, **overrides):
+        """Attach a result cache to the node: the LOCAL fan-out leg gets
+        exact fragment-version keying (inside executor.local); remote
+        per-shard-leg partials are cached only when ttl_ms > 0 — see
+        ClusterExecutor.cache."""
+        from pilosa_tpu_torch.cache import ResultCache
+
+        cache = ResultCache.from_config(config, **overrides)
+        self.executor.cache = cache
+        self.executor.local.cache = cache
+        return cache
+
+    def disable_cache(self) -> None:
+        self.executor.cache = None
+        self.executor.local.cache = None
+
+    # -- what the node reads through the base API -------------------------
+
+    @property
+    def health(self):
+        return self.api.health
+
+    @property
+    def history(self):
+        return self.api.history
+
+    @property
+    def idalloc(self):
+        return self.api.idalloc
+
+    # -- imports (reference: api.go:1438 Import / :618 ImportRoaring) ------
+
+    def import_bits(self, index: str, field: str, rows=None, cols=None,
+                    row_keys=None, col_keys=None, clear: bool = False,
+                    remote: bool = False) -> int:
+        if remote:
+            n = self.api.import_bits(index, field, rows=rows, cols=cols,
+                                     clear=clear)
+            self._announce_shards(index)
+            return n
+        self._check_state(write=True)
+        tr = self.executor.translator
+        if col_keys is not None and len(col_keys):
+            cols = self._key_ids(tr.index_keys, index, col_keys)
+        if row_keys is not None and len(row_keys):
+            rows = self._key_ids(
+                lambda i, keys, create: tr.field_keys(i, field, keys, create),
+                index, row_keys)
+        total = 0
+        for node, shard_rows, shard_cols, primary in self._route_bits(
+                index, rows, cols):
+            payload = {"field": field, "rows": shard_rows,
+                       "cols": shard_cols, "clear": clear, "remote": True}
+            if node.id == self.node.id:
+                n = self.api.import_bits(index, field, rows=shard_rows,
+                                         cols=shard_cols, clear=clear)
+            else:
+                n = self.client.import_bits(node, index, field,
+                                            payload).get("changed", 0)
+            if primary:
+                total += n
+        self._announce_shards(index)
+        return total
+
+    def import_values(self, index: str, field: str, cols=None, values=None,
+                      col_keys=None, remote: bool = False) -> int:
+        if remote:
+            n = self.api.import_values(index, field, cols=cols,
+                                       values=values)
+            self._announce_shards(index)
+            return n
+        self._check_state(write=True)
+        tr = self.executor.translator
+        if col_keys is not None and len(col_keys):
+            cols = self._key_ids(tr.index_keys, index, col_keys)
+        total = 0
+        for node, shard_vals, shard_cols, primary in self._route_bits(
+                index, values, cols):
+            payload = {"field": field, "cols": shard_cols,
+                       "values": shard_vals, "remote": True}
+            if node.id == self.node.id:
+                n = self.api.import_values(index, field, cols=shard_cols,
+                                           values=shard_vals)
+            else:
+                n = self.client.import_values(node, index, field,
+                                              payload).get("imported", 0)
+            if primary:
+                total += n
+        self._announce_shards(index)
+        return total
+
+    @staticmethod
+    def _key_ids(translate, index: str, keys) -> List[int]:
+        """Ids of ``keys`` from one create call over the distinct keys in
+        order of first appearance, so the ids are those that one call
+        over every key would allocate."""
+        ids = translate(index, list(dict.fromkeys(keys)), create=True)
+        return [ids[k] for k in keys]
+
+    def _route_bits(self, index: str, rows, cols):
+        """Yield (node, rows-chunk, cols-chunk, is_primary) for every
+        replica of every shard touched (reference: internal_client.go:750
+        import fan-out by shard). The shards are grouped with numpy; each
+        node's chunk holds its shards in order of first appearance, each
+        shard's entries in input order, as the JAX package's per-column
+        loop groups them."""
+        snap = self.snapshot()
+        cols = np.asarray(cols, dtype=np.int64)
+        rows = np.asarray(rows)
+        shard_of = cols // SHARD_WIDTH
+        uniq, first = np.unique(shard_of, return_index=True)
+        plan: Dict[str, Dict[str, Any]] = {}
+        for shard in uniq[np.argsort(first, kind="stable")].tolist():
+            sel = np.flatnonzero(shard_of == shard)
+            for rank, node in enumerate(snap.shard_nodes(index, shard)):
+                ent = plan.setdefault(node.id + f"#{rank == 0}", {
+                    "node": node, "cols": [], "primary": rank == 0})
+                ent["cols"].append(sel)
+        for ent in plan.values():
+            sel = np.concatenate(ent["cols"])
+            yield (ent["node"], rows[sel].tolist(), cols[sel].tolist(),
+                   ent["primary"])
+
+    def import_roaring(self, index: str, field: str, shard: int,
+                       views: Dict[str, bytes], clear: bool = False,
+                       remote: bool = False) -> None:
+        if remote:
+            self.api.import_roaring(index, field, shard, views, clear=clear)
+            self._announce_shards(index)
+            return
+        self._check_state(write=True)
+        snap = self.snapshot()
+        payload = {"field": field, "clear": clear, "remote": True,
+                   "views": {v: base64.b64encode(b).decode()
+                             for v, b in views.items()}}
+        for node in snap.shard_nodes(index, shard):
+            if node.id == self.node.id:
+                self.api.import_roaring(index, field, shard, views,
+                                        clear=clear)
+            else:
+                self.client.import_roaring_shard(node, index, shard, payload)
+        self._announce_shards(index)
+
+    # -- broadcast receive (reference: server.go:995 receiveMessage) -------
+
+    def receive_message(self, msg: dict) -> None:
+        t = msg.get("type")
+        if t == MSG_AVAILABLE_SHARDS:
+            with self._lock:
+                self._remote_shards.setdefault(
+                    msg["index"], set()).update(msg["shards"])
+            return
+        if t == B.MSG_TRANSACTION:
+            self.api.transactions.apply_remote(
+                msg.get("action", ""), msg.get("txn", {}))
+            return
+        B.apply_message(self, msg)
+
+    # -- passthroughs so the HTTP layer sees one surface -------------------
+
+    @property
+    def holder(self):
+        return self.api.holder
+
+    def schema(self) -> List[dict]:
+        return self.api.schema()
+
+    def info(self) -> dict:
+        d = self.api.info()
+        d["node"] = self.node.to_json()
+        d["state"] = self.state()
+        d["replicaN"] = self.replica_n
+        return d
+
+    def status(self) -> dict:
+        return {"state": self.state(),
+                "nodes": [n.to_json() for n in self.disco.nodes()],
+                "localID": self.node.id,
+                "indexes": sorted(self.api.holder.indexes)}

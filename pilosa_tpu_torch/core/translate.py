@@ -14,37 +14,13 @@ from __future__ import annotations
 
 import json
 import os
-import struct
 import threading
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from pilosa_tpu_torch.hashing import key_to_partition, shard_to_partition
 from pilosa_tpu_torch.shardwidth import DEFAULT_PARTITION_N, SHARD_WIDTH
-
-_FNV_OFFSET = 14695981039346656037
-_FNV_PRIME = 1099511628211
-_MASK64 = (1 << 64) - 1
-
-
-def fnv64a(data: bytes) -> int:
-    h = _FNV_OFFSET
-    for b in data:
-        h ^= b
-        h = (h * _FNV_PRIME) & _MASK64
-    return h
-
-
-def shard_to_partition(index: str, shard: int,
-                       partition_n: int = DEFAULT_PARTITION_N) -> int:
-    """Reference: disco/snapshot.go:70 (fnv64a(index || be64(shard)) % N)."""
-    return fnv64a(index.encode() + struct.pack(">Q", shard)) % partition_n
-
-
-def key_to_partition(index: str, key: str,
-                     partition_n: int = DEFAULT_PARTITION_N) -> int:
-    """Reference: disco/snapshot.go:88 (fnv64a(index || key) % N)."""
-    return fnv64a(index.encode() + key.encode()) % partition_n
 
 
 def _read_journal(path: Optional[str]):
@@ -91,6 +67,13 @@ class TranslateStore:
             self._next = max(self._next, id_ + 1)
 
     def create_keys(self, keys: Iterable[str]) -> Dict[str, int]:
+        return self.create_entries(keys)[0]
+
+    def create_entries(self, keys: Iterable[str]
+                       ) -> Tuple[Dict[str, int], List]:
+        """Find-or-create ids; also returns the newly allocated (key, id)
+        pairs, the replication stream's payload (reference:
+        cluster.go:233 createIndexKeys + translate.go EntryReader)."""
         out: Dict[str, int] = {}
         new: List = []
         with self._lock:
@@ -104,7 +87,25 @@ class TranslateStore:
                     new.append((k, id_))
                 out[k] = id_
             _append_journal(self._path, new)
-        return out
+        return out, new
+
+    def apply_entries(self, entries: Iterable) -> None:
+        """Apply replicated (key, id) pairs from the primary (reference:
+        the follower side of TranslationSyncer / EntryReader,
+        translate.go). Idempotent; advances the allocator past every
+        applied id, so a promoted replica allocates ids that do not
+        conflict."""
+        with self._lock:
+            fresh = []
+            for k, id_ in entries:
+                id_ = int(id_)
+                if self.key_to_id.get(k) == id_:
+                    continue
+                self.key_to_id[k] = id_
+                self.id_to_key[id_] = k
+                self._next = max(self._next, id_ + 1)
+                fresh.append((k, id_))
+            _append_journal(self._path, fresh)
 
     def find_keys(self, keys: Iterable[str]) -> Dict[str, int]:
         return {k: self.key_to_id[k] for k in keys if k in self.key_to_id}
@@ -161,6 +162,12 @@ class PartitionedTranslateStore:
                 return id_
 
     def create_keys(self, keys: Iterable[str]) -> Dict[str, int]:
+        return self.create_entries(keys)[0]
+
+    def create_entries(self, keys: Iterable[str]
+                       ) -> Tuple[Dict[str, int], List]:
+        """Find-or-create with the new (key, id) pairs for the
+        replication stream (see TranslateStore.create_entries)."""
         out: Dict[str, int] = {}
         new: List = []
         with self._lock:
@@ -175,7 +182,24 @@ class PartitionedTranslateStore:
                     new.append((k, id_))
                 out[k] = id_
             _append_journal(self._path, new)
-        return out
+        return out, new
+
+    def apply_entries(self, entries: Iterable) -> None:
+        """Follower side of the replication stream (see
+        TranslateStore.apply_entries); advances the per-partition max ids
+        so a promoted replica keeps the partitioned-id invariant."""
+        with self._lock:
+            fresh = []
+            for k, id_ in entries:
+                id_ = int(id_)
+                if self.key_to_id.get(k) == id_:
+                    continue
+                self.key_to_id[k] = id_
+                self.id_to_key[id_] = k
+                p = self.partition(k)
+                self._max_id[p] = max(self._max_id.get(p, 0), id_)
+                fresh.append((k, id_))
+            _append_journal(self._path, fresh)
 
     def find_keys(self, keys: Iterable[str]) -> Dict[str, int]:
         return {k: self.key_to_id[k] for k in keys if k in self.key_to_id}

@@ -585,19 +585,22 @@ class QueryScheduler:
         tscope = (tenant_scope(batch[0].tenant)
                   if len(tenants) == 1 and batch[0].tenant is not None
                   else contextlib.nullcontext())
+        # counted before the dispatch: execute_batch completes the
+        # callers' futures, and a caller that reads the counters after
+        # its result must see the batch that made it
+        self.registry.count(obs_metrics.METRIC_SCHED_BATCHES, family=family)
+        self.registry.count(obs_metrics.METRIC_SCHED_QUERIES, len(batch),
+                          family=family)
+        self.registry.observe_bucketed(
+            obs_metrics.METRIC_SCHED_BATCH_SIZE, len(batch),
+            obs_metrics.BATCH_SIZE_BUCKETS, family=family)
         t0 = time.perf_counter()
         with scope, tscope:
             execute_batch(self.executor, batch)
         elapsed = time.perf_counter() - t0
-        self.registry.observe_bucketed(
-            obs_metrics.METRIC_SCHED_BATCH_SIZE, len(batch),
-            obs_metrics.BATCH_SIZE_BUCKETS, family=family)
         self.registry.observe(obs_metrics.METRIC_SCHED_DISPATCH, elapsed)
         self.registry.observe(obs_metrics.METRIC_SCHED_AMORTIZED_DISPATCH,
                               elapsed / len(batch))
-        self.registry.count(obs_metrics.METRIC_SCHED_BATCHES, family=family)
-        self.registry.count(obs_metrics.METRIC_SCHED_QUERIES, len(batch),
-                          family=family)
 
     # -- control / test hooks ---------------------------------------------
 

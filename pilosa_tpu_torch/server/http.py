@@ -356,7 +356,9 @@ class Handler(BaseHTTPRequestHandler):
                     from pilosa_tpu_torch.obs.tracing import get_tracer
 
                     span = get_tracer().start_remote(
-                        f"rpc.{name}", tp, node="")
+                        f"rpc.{name}", tp,
+                        node=getattr(getattr(self.api, "node", None),
+                                     "id", ""))
                     attempt = self.headers.get("x-trace-attempt")
                     if attempt and span.recording:
                         span.set_tag("attempt", attempt)
@@ -576,8 +578,7 @@ class Handler(BaseHTTPRequestHandler):
             index, self._require(b, "field"),
             rows=b.get("rows", []), cols=b.get("cols", []),
             row_keys=b.get("rowKeys"), col_keys=b.get("colKeys"),
-            clear=bool(b.get("clear", False)),
-        )
+            clear=bool(b.get("clear", False)), **self._remote_kw(b))
         self._send(200, {"changed": n})
 
     def post_import_roaring(self, index: str, shard: str):
@@ -589,7 +590,8 @@ class Handler(BaseHTTPRequestHandler):
         views = {v: base64.b64decode(blob)
                  for v, blob in (b.get("views") or {}).items()}
         self.api.import_roaring(index, self._require(b, "field"), int(shard),
-                                views, clear=bool(b.get("clear", False)))
+                                views, clear=bool(b.get("clear", False)),
+                                **self._remote_kw(b))
         self._send(200, {"success": True})
 
     def post_import_values(self, index: str):
@@ -597,7 +599,7 @@ class Handler(BaseHTTPRequestHandler):
         n = self.api.import_values(
             index, self._require(b, "field"), cols=b.get("cols", []),
             values=b.get("values", []), col_keys=b.get("colKeys"),
-        )
+            **self._remote_kw(b))
         self._send(200, {"imported": n})
 
     def get_backup_tar(self):
@@ -827,6 +829,10 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, {"indexes": self.api.schema()})
 
     def get_status(self):
+        status_fn = getattr(self.api, "status", None)
+        if status_fn is not None:
+            self._send(200, status_fn())
+            return
         self._send(200, {"state": "NORMAL", "indexes": sorted(
             self.api.holder.indexes)})
 
@@ -871,7 +877,11 @@ class Handler(BaseHTTPRequestHandler):
 
     def get_internal_nodes(self):
         """(reference: /internal/nodes — the membership list)."""
-        self._send(200, [{"id": "local", "uri": "", "state": "STARTED"}])
+        snap_fn = getattr(self.api, "snapshot", None)
+        if snap_fn is None:
+            self._send(200, [{"id": "local", "uri": "", "state": "STARTED"}])
+            return
+        self._send(200, [n.to_json() for n in snap_fn().nodes])
 
     def get_shards_max(self):
         """(reference: /internal/shards/max — max shard per index)."""
@@ -886,10 +896,24 @@ class Handler(BaseHTTPRequestHandler):
 
     def get_index_shards(self, index: str):
         """(reference: /internal/index/{i}/shards)."""
-        idx = self.api.holder.index(index)
-        shards = sorted(set().union(
-            *[f.shards() for f in idx.fields.values()]) or set())
+        all_fn = getattr(self.api, "all_shards", None)
+        if all_fn is not None:
+            shards = sorted(all_fn(index))
+        else:
+            idx = self.api.holder.index(index)
+            shards = sorted(set().union(
+                *[f.shards() for f in idx.fields.values()]) or set())
         self._send(200, {"shards": shards})
+
+    def get_partition_nodes(self):
+        """(reference: /internal/partition/nodes?partition=N)."""
+        from urllib.parse import parse_qs, urlsplit
+
+        self._node_only()
+        q = parse_qs(urlsplit(self.path).query)
+        p = int((q.get("partition") or ["0"])[0])
+        snap = self.api.snapshot()
+        self._send(200, [n.to_json() for n in snap.partition_nodes(p)])
 
     def get_oauth_config(self):
         """(reference: /internal/oauth-config — the IdP config minus the
@@ -942,12 +966,21 @@ class Handler(BaseHTTPRequestHandler):
 
     def get_shard_distribution(self):
         """(reference: /ui/shard-distribution — shard->node placement)."""
+        snap_fn = getattr(self.api, "snapshot", None)
         out: dict = {}
         for iname in sorted(self.api.holder.indexes):
-            out[iname] = {"local": sorted(
-                set().union(*[f.shards() for f in self.api.holder
-                              .index(iname).fields.values()])
-                or set())}
+            if snap_fn is None:
+                out[iname] = {"local": sorted(
+                    set().union(*[f.shards() for f in self.api.holder
+                                  .index(iname).fields.values()])
+                    or set())}
+                continue
+            snap = snap_fn()
+            per: dict = {}
+            for s in sorted(self.api.all_shards(iname)):
+                owner = snap.shard_nodes(iname, s)[0].id
+                per.setdefault(owner, []).append(s)
+            out[iname] = per
         self._send(200, out)
 
     def post_cpu_profile_start(self):
@@ -991,17 +1024,53 @@ class Handler(BaseHTTPRequestHandler):
 
     # -- internal (node-to-node) handlers ---------------------------------
 
-    def _node_only(self, *_groups):
+    def _remote_kw(self, b: dict) -> dict:
+        """An import body's ``remote`` flag, for a cluster node (a leg
+        another node forwarded); a plain API applies every import alike."""
+        if not hasattr(self.api, "query_remote"):
+            return {}
+        return {"remote": bool(b.get("remote", False))}
+
+    def _node_only(self):
         """Internal endpoints exist only on cluster nodes (the plain API
-        has no peers): the JAX package's single-node 404."""
+        has no peers)."""
+        if not hasattr(self.api, "query_remote"):
+            raise KeyError("not a cluster node")
+
+    def post_internal_query(self, index: str):
+        self._node_only()
+        b = self._json_body()
+        results = self.api.query_remote(
+            index, self._require(b, "query"), b.get("shards") or [])
+        self._send(200, {"results": results})
+
+    def post_cluster_message(self):
+        self._node_only()
+        self.api.receive_message(self._json_body())
+        self._send(200, {"success": True})
+
+    def post_translate_replicate(self):
+        """Follower side of the translate replication stream (reference:
+        translate.go EntryReader)."""
+        self._node_only()
+        b = self._json_body()
+        idx = self.api.holder.index(self._require(b, "index"))
+        field = b.get("field")
+        store = idx.translate if field is None \
+            else idx.field(field).translate
+        store.apply_entries(b.get("entries") or [])
+        self._send(200, {"success": True})
+
+    def _not_yet(self, *_groups):
+        """Node-to-node routes of planes still to port (the coalesced
+        query batch, SQL subtrees, gossip, membership, replica catch-up):
+        the single-node 404 on a plain API and on a node alike."""
         raise KeyError("not a cluster node")
 
-    post_internal_query = post_internal_query_batch = _node_only
-    post_cluster_message = post_sql_subtree = _node_only
-    post_translate_replicate = get_partition_nodes = _node_only
-    post_gossip_exchange = get_gossip_state = _node_only
-    post_membership_ping = get_membership = _node_only
-    get_recovery_snapshot = get_recovery_wal = _node_only
+    post_internal_query_batch = post_sql_subtree = _not_yet
+    post_gossip_exchange = get_gossip_state = _not_yet
+    post_membership_ping = get_membership = _not_yet
+    get_recovery_snapshot = get_recovery_wal = _not_yet
 
     def post_grpc(self, method: str):
         """gRPC method over HTTP/1.1 with standard gRPC message framing
@@ -1236,11 +1305,22 @@ class Handler(BaseHTTPRequestHandler):
             raise ValueError(f"no key translation on {index}/{field or ''}")
         return store
 
+    def _translator(self):
+        """A node's ClusterTranslator (None on a plain API)."""
+        return getattr(getattr(self.api, "executor", None), "translator",
+                       None)
+
     def post_translate_index_keys(self, index: str, op: str):
         keys = self._json_body().get("keys") or []
-        store = self._translate_store(index)
-        ids = (store.create_keys(keys) if op == "create"
-               else store.find_keys(keys))
+        tr = self._translator()
+        if op == "create" and tr is not None:
+            # owner-side create replicates new entries to the partition's
+            # replicas (reference: TranslationSyncer push)
+            ids = tr.create_local(index, None, keys)
+        else:
+            store = self._translate_store(index)
+            ids = (store.create_keys(keys) if op == "create"
+                   else store.find_keys(keys))
         self._send(200, {"ids": ids})
 
     def post_translate_index_ids(self, index: str):
@@ -1249,9 +1329,13 @@ class Handler(BaseHTTPRequestHandler):
 
     def post_translate_field_keys(self, index: str, field: str, op: str):
         keys = self._json_body().get("keys") or []
-        store = self._translate_store(index, field)
-        ids = (store.create_keys(keys) if op == "create"
-               else store.find_keys(keys))
+        tr = self._translator()
+        if op == "create" and tr is not None:
+            ids = tr.create_local(index, field, keys)
+        else:
+            store = self._translate_store(index, field)
+            ids = (store.create_keys(keys) if op == "create"
+                   else store.find_keys(keys))
         self._send(200, {"ids": ids})
 
     def post_translate_field_ids(self, index: str, field: str):

@@ -11,7 +11,9 @@ through the ``Ingester``, drains a broker through the
 table (importing every SQL module), profiles a query under the device
 profiler and the health plane (importing every observability module),
 serves the API over HTTP and drives it through the client, framed gRPC,
-the CLI and fbsql (importing every front-end module), then reports
+the CLI and fbsql (importing every front-end module), runs a keyed
+two-node ``LocalCluster`` on the CPU (importing every cluster module),
+then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -125,7 +127,17 @@ front.append(PR.decode_table_response(G.unframe(framed)[0])[1]
              == sq.sql("select count(*) from ssb_date").data)
 srv.shutdown()
 srv.server_close()
+from pilosa_tpu_torch.cluster import LocalCluster
+import pilosa_tpu_torch.hashing
+with LocalCluster(2, device="cpu") as lc:
+    lc.coordinator.create_index("k", {"keys": True})
+    lc.coordinator.create_field("k", "f", {"keys": True})
+    lc[1].import_bits("k", "f", row_keys=["a", "b", "a"],
+                      col_keys=["x", "y", "z"])
+    clustered = [lc[0].query("k", 'Count(Row(f="a"))')[0],
+                 lc[1].query("k", "TopN(f, n=1)")[0].pairs[0].key]
 print(json.dumps({"star": star, "front": front, "hist": hist,
+                  "clustered": clustered,
                   "logged": logged,
                   "count": got[0], "top": got[1].pairs[0].count,
                   "profiled": profiled,
@@ -159,6 +171,11 @@ _FRONTEND = ("server", "server/http.py", "server/auth.py", "server/oidc.py",
              "server/proto.py", "server/grpc.py", "server/maintenance.py",
              "client", "client/client.py", "client/orm.py", "ctl",
              "ctl/cli.py", "ctl/fbsql.py", "__main__.py")
+#: and the cluster core's
+_CLUSTER = ("hashing.py", "cluster", "cluster/topology.py", "cluster/disco.py",
+            "cluster/broadcast.py", "cluster/client.py",
+            "cluster/translator.py", "cluster/executor.py", "cluster/node.py",
+            "cluster/harness.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -184,7 +201,9 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["logged"] == 5 + 6 + 2  # DDL, INSERT batches, SELECTs
     assert out["profiled"] == [300, 1, 1]
     assert out["front"][1:] == [0, True, True] and out["front"][0] > 0
-    for part in _SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND:
+    assert out["clustered"] == [2, "a"]
+    for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
+                 + _CLUSTER):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -296,3 +315,11 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                        timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_scan_covers_the_cluster_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _CLUSTER:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
