@@ -5463,23 +5463,356 @@ def _card_figures(api, q) -> dict:
             "sync_sites": sorted(set(syncs))}
 
 
-def phase_sql(report: Report) -> dict:
-    """Path 13: SQL over config 23's single node (13a) and the query
-    history and log (13b)."""
-    import shutil
-
+def _sql_kernels(report: Report, holder, device) -> None:
+    """Each kernel of path 13 against its plain version on the lineorder
+    planes of ``holder`` (a single node's, or a cluster node's): the INT
+    filter (bsi_compare), the Sum's sign classes (pair_counts), the filter
+    under _exists (tape_count) and the last INSERT's _exists bits cleared
+    in a copy and set anew (scatter_merge). These launches are not
+    counted."""
     import numpy as np
     import torch
 
-    from pilosa_tpu_torch.api import API
     from pilosa_tpu_torch.core import stacked as STK
-    from pilosa_tpu_torch.loadgen import ssb
-    from pilosa_tpu_torch.obs import metrics as M
     from pilosa_tpu_torch.ops import bitmap as B
     from pilosa_tpu_torch.ops import bsi as S
     from pilosa_tpu_torch.ops import groupby as G
-    from pilosa_tpu_torch.ops import kernel_util as KU
     from pilosa_tpu_torch.ops import scatter as SC
+
+    idx = holder.index("lineorder")
+    disc = STK.stacked_bsi(idx.field("lo_discount"), [0])
+    rev = STK.stacked_bsi(idx.field("lo_revenue"), [0])
+    filt = S.bsi_compare_plain(disc.planes, S.BETWEEN, 1, 3)
+    report.err("bsi_compare", S.bsi_compare(disc.planes, S.BETWEEN, 1, 3),
+               filt)
+    rows = rev.planes[S.EXISTS] & filt
+    sign = rev.planes[S.SIGN]
+    a = torch.stack([rows & ~sign, rows & sign])
+    report.err("pair_counts", G.pair_counts(a, rev.planes[S.OFFSET:]),
+               G.pair_counts_plain(a, rev.planes[S.OFFSET:]))
+    ex = STK.stacked_set(idx.field("_exists"), [0], "standard")
+    leaves = [filt, ex.row_plane(0)]
+    tape = (("and", 0, 1),)
+    report.err("tape_count", B.tape_count(tape, leaves),
+               B.tape_count_plain(tape, leaves))
+    frag = idx.field("_exists").fragment(0)
+    cols = np.arange(C23_ROWS - 500, C23_ROWS + 1)
+    addr, masks_np = SC.sort_updates(np.zeros(cols.size, np.int64), cols,
+                                     frag.planes.shape[1])
+    t = SC._tile_words(frag.planes.size)
+    which, packed, _ = SC.pack_tiles(addr, t)
+    tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
+    # the load set every one of these bits: clear them in the copy,
+    # so that both sides set all of them anew
+    tiles[packed] &= ~masks_np
+    flat = torch.from_numpy(tiles.view(np.int32)).to(device)
+    addr_t = torch.from_numpy(packed.astype(np.int32)).to(device)
+    masks_t = torch.from_numpy(masks_np.view(np.int32)).to(device)
+    ours, plain = flat.clone(), flat.clone()
+    new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
+    assert int(new_bits) == cols.size, \
+        f"the replay set {int(new_bits)} new bits of {cols.size}"
+    report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+               new_bits)
+    report.err("scatter_merge", ours, plain)
+    torch.cuda.synchronize()
+
+
+#: path 13c: warm runs of each query from the coordinator (bench.py
+#: times none: its phase 2 is a gate)
+C23_CLUSTER_ITERS = 3
+#: 13c's spread battery: tests/test_cluster.py::TestSQLFanout's queries
+#: over its fs / fu / fo tables (5, 3 and 4 shards of 8 rows)
+C23_SPREAD = (
+    "select _id, v from fs where v % 4 = 1",
+    "select _id from fs where v % 8 = 3",
+    "select seg, count(*), avg(v), min(v), max(v) from fs "
+    "where v % 2 = 0 group by seg order by seg",
+    "select count(distinct seg) from fs where v % 2 = 1",
+    "select fu.name, sum(fo.amt) from fu inner join fo on fu._id = fo.uid "
+    "where upper(fu.name) = 'U1' group by fu.name",
+    "select _id, v from fs where v % 2 = 1 order by v desc limit 3",
+    "select v % 4 as v from fs where v % 3 = 1 order by v desc limit 2",
+)
+_FANOUT_COUNTERS = ("sql_fanout_rows_total",
+                    "sql_join_broadcast_bytes_total")
+
+
+def _fanout_counts():
+    from pilosa_tpu_torch.obs import metrics as M
+
+    c = M.REGISTRY.snapshot()["counters"]
+    return [c.get(k, 0) for k in _FANOUT_COUNTERS]
+
+
+def _rpc_ops(c) -> dict:
+    """The internal RPCs every node of ``c`` sent so far, by op."""
+    out = {}
+    for n in c.nodes:
+        for k, v in n.client.op_counts.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _fanout_ops(node, q) -> list:
+    """The fan-out operators of ``q``'s plan on ``node``, with their
+    index."""
+    from pilosa_tpu_torch.sql import SQLEngine
+
+    found = []
+
+    def walk(n):
+        if n["op"] in ("FanoutScanOp", "FanoutAggOp"):
+            found.append(f"{n['op']}({n.get('fanout', {}).get('index', '')})"
+                         if "fanout" in n else n["op"])
+        for ch in n.get("children", []):
+            walk(ch)
+    walk(SQLEngine(node).compile_plan(q).plan_json())
+    return found
+
+
+def _sql_cluster_load(c, data, lab) -> dict:
+    """13c's load: ``ssb.load`` through the coordinator's ``sql``, its
+    host seconds split by stage (each stage its own time, its wrapped
+    callees' excluded). The imports a node routes to a peer run on that
+    peer's HTTP thread while the routing call waits, so they nest inside
+    it on the one stack, and the routing stage holds the RPCs' own time
+    (HTTP and JSON on both ends)."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.cluster.node import ClusterNode
+    from pilosa_tpu_torch.core.fragment import BSIFragment, SetFragment
+    from pilosa_tpu_torch.loadgen import ssb
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.sql import engine as E
+
+    rpc0 = _rpc_ops(c)
+    clock = _StageClock([
+        ("parse", E, "parse_statement"),
+        ("batch_upsert", E.SQLEngine, "_batch_upsert"),
+        ("ClusterNode.import_bits (routing, RPCs)", ClusterNode,
+         "import_bits"),
+        ("ClusterNode.import_values (routing, RPCs)", ClusterNode,
+         "import_values"),
+        ("API.import_bits (owners)", API, "import_bits"),
+        ("API.import_values (owners)", API, "import_values"),
+        ("set_mutex_many", SetFragment, "set_mutex_many"),
+        ("bsi_set_values", BSIFragment, "set_values"),
+        ("scatter (scatter_merge)", SC, "scatter_new_bits_bulk")])
+    try:
+        _, load_s = _synced_s(lambda: ssb.load(c.coordinator.sql, data))
+    finally:
+        clock.close()
+    split = dict(clock.own)
+    split["rest"] = load_s - sum(split.values())
+    rpc = {k: v - rpc0.get(k, 0) for k, v in _rpc_ops(c).items()
+           if v - rpc0.get(k, 0)}
+    snap = c.coordinator.snapshot()
+    owners = [n.id for n in snap.shard_nodes("lineorder", 0)]
+    print(f"sql 13c: config 23's 3-node phase: LocalCluster(3, replica_n=2) "
+          f"on the card, SSB {len(data.lineorder['_id'])} lineorder rows "
+          f"(seed {C23_SEED}) loaded by ssb.load in 500-row INSERTs through "
+          f"the coordinator's sql in {load_s:.3f} s; lineorder's shard 0 "
+          f"on {owners} {lab}")
+    print(f"sql 13c: the load split by host stage: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in split.items()) +
+        f" ({dict(clock.calls)} calls); RPCs by op {rpc} {lab}")
+    return {"load_s": load_s, "split_s": split, "calls": dict(clock.calls),
+            "rpcs": rpc, "lineorder_owners": owners}
+
+
+def _sql_cluster_answers(c, data, oracles) -> dict:
+    """13c's gate: every query from the coordinator and from node1 equals
+    the oracle (bench.py phase 2's check); each query's fan-out
+    operators and the fan-out rows and broadcast bytes it added; then
+    13a's no-join gate from both nodes."""
+    import numpy as np
+
+    from pilosa_tpu_torch.loadgen import ssb
+
+    out = {"cold_ms": {}, "plans": {}, "fanout_rows": {},
+           "broadcast_bytes": {}}
+    for qid, q in ssb.QUERIES.items():
+        for node in (c.coordinator, c[1]):
+            before = _fanout_counts()
+            res, sec = _synced_s(lambda: node.sql(q))
+            after = _fanout_counts()
+            err = ssb.verify(data, qid, res.data, expected=oracles[qid])
+            assert err is None, f"3-node from {node.node.id}: {err}"
+            key = f"{qid}@{node.node.id}"
+            out["cold_ms"][key] = sec * 1e3
+            out["fanout_rows"][key] = after[0] - before[0]
+            out["broadcast_bytes"][key] = after[1] - before[1]
+        out["plans"][qid] = _fanout_ops(c[1], q)
+    aggs = [qid for qid, ops in out["plans"].items()
+            if any(o.startswith("FanoutAggOp") for o in ops)]
+    assert aggs, f"no query planned a FanoutAggOp: {out['plans']}"
+    out["fanout_agg_queries"] = aggs
+    # 13a's no-join gate from both nodes: the join plane stays still, the
+    # Sum (its legs' BSI sums launch pair_counts) equals numpy
+    lo, dates = data.lineorder, data.date
+    years, counts = np.unique(np.asarray(dates["d_year"]),
+                              return_counts=True)
+    want = {C23_NO_JOIN[0]: sorted([int(y), int(n)]
+                                   for y, n in zip(years, counts)),
+            C23_NO_JOIN[1]: [[int(np.asarray(lo["lo_revenue"])[
+                np.asarray(lo["lo_discount"]) == 3].sum())]]}
+    before = _join_counts()
+    for node in (c.coordinator, c[1]):
+        for q in C23_NO_JOIN:
+            got = node.sql(q).data
+            assert sorted(got) == want[q], (node.node.id, q, got)
+    assert _join_counts() == before, "no-JOIN queries touched the join plane"
+    return out
+
+
+def _sql_cluster_spread(c, API, lab) -> dict:
+    """13c's spread battery: the fs / fu / fo tables over 5, 3 and 4
+    shards on the same cluster, so that the fan-out legs reach more than
+    one node; each query from node1 against a single node; a DELETE
+    ... WHERE from the coordinator read back from node2."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as SW
+
+    stmts = [
+        "create table fs (_id id, seg id, v int)",
+        "insert into fs values " + ",".join(
+            f"({s * SW + i}, {(s + i) % 3}, {s * 10 + i})"
+            for s in range(5) for i in range(8)),
+        "create table fu (_id id, name string, age int)",
+        "insert into fu values " + ",".join(
+            f"({s * SW + i}, 'u{(s * 8 + i) % 4}', {20 + (s * 8 + i) % 30})"
+            for s in range(3) for i in range(8)),
+        "create table fo (_id id, uid int, amt int)",
+        "insert into fo values " + ",".join(
+            f"({s * SW + i}, {(s * 8 + i) * 7 % (5 * SW)}, {i + 1})"
+            for s in range(4) for i in range(8)),
+    ]
+    single = API()
+    for target in (c.coordinator, single):
+        for stmt in stmts:
+            target.sql(stmt)
+    held = {n.node.id: _cl_held(n, "fs") for n in c.nodes}
+    assert sum(1 for h in held.values() if h) >= 2, held
+    out = {"held": held, "plans": {}, "fanout_rows": {}}
+    for q in C23_SPREAD:
+        before = _fanout_counts()
+        got = c[1].sql(q).data
+        out["fanout_rows"][q] = _fanout_counts()[0] - before[0]
+        want = single.sql(q).data
+        ordered = "order by" in q
+        assert (got if ordered else sorted(map(tuple, got))) == \
+            (want if ordered else sorted(map(tuple, want))), (q, got, want)
+        out["plans"][q] = _fanout_ops(c[1], q)
+    co = c.coordinator
+    co.sql("create table cdel (_id id, v int)")
+    co.sql(f"insert into cdel values (5,1),({SW + 5},2),({2 * SW + 5},3)")
+    assert c[1].sql("select count(*) from cdel").data == [[3]]
+    co.sql("delete from cdel where v >= 2")
+    assert c[2].sql("select count(*) from cdel").data == [[1]]
+    del single
+    print(f"sql 13c: the spread battery (fs over the shards {held}): "
+          f"{len(C23_SPREAD)} queries from node1 equal a single node, with "
+          f"plans {out['plans']} and fan-out rows {out['fanout_rows']}; a "
+          f"DELETE from the coordinator reads back 1 row from node2 {lab}")
+    return out
+
+
+def _sql_cluster_figures(c) -> dict:
+    """13c's figures: warm p50s from the coordinator, and the card's
+    busy share of one warm Q2.1 (its device time over its wall time)."""
+    from pilosa_tpu_torch.loadgen import ssb
+
+    co = c.coordinator
+    p50 = {qid: statistics.median(_wall_ms(lambda: co.sql(q))
+                                  for _ in range(C23_CLUSTER_ITERS))
+           for qid, q in ssb.QUERIES.items()}
+    q21 = ssb.QUERIES["Q2.1"]
+    wall = statistics.median(_wall_ms(lambda: co.sql(q21))
+                             for _ in range(C23_CLUSTER_ITERS))
+    busy = _device_ms(lambda: co.sql(q21), calls=C23_CLUSTER_ITERS)
+    return {"warm_p50_ms": p50, "q21_wall_ms": wall, "q21_busy_ms": busy,
+            "q21_busy_share": None if busy is None else busy / wall}
+
+
+def _sql_cluster(report: Report, data, oracles,
+                 device: str = "cuda:0") -> dict:
+    """Path 13c: bench.py config 23's phase 2, the SSB load and the 13
+    queries through a 3-node LocalCluster(replica_n=2) on the card, then
+    the multi-shard fan-out battery and a routed DELETE; the launches of
+    that run, figures, and the kernels on shard 0's owner's planes. A
+    dry run on the CPU passes ``device="cpu"``."""
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.cluster import LocalCluster
+    from pilosa_tpu_torch.loadgen import ssb
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    KU.reset_launches()
+    c = LocalCluster(3, replica_n=2, device=device)
+    try:
+        assert all(n.device == torch.device(device) for n in c.nodes)
+        out = {"load": _sql_cluster_load(c, data, lab)}
+        out.update(_sql_cluster_answers(c, data, oracles))
+        out["spread"] = _sql_cluster_spread(
+            c, lambda: API(device=device), lab)
+        torch.cuda.synchronize()
+        launched = KU.launches()
+        report.launched("sql 13c", launched,
+                        ("tape_count", "pair_counts", "bsi_compare",
+                         "scatter_merge"))
+        out["launches"] = launched
+        for qid in ssb.QUERIES:
+            keys = [f"{qid}@{n}" for n in ("node0", "node1")]
+            cold = " / ".join("%.3f" % out["cold_ms"][k] for k in keys)
+            rows = " / ".join(str(out["fanout_rows"][k]) for k in keys)
+            sent = " / ".join(str(out["broadcast_bytes"][k]) for k in keys)
+            print(f"sql 13c: {qid} equals ssb.oracle from node0 and node1, "
+                  f"cold {cold} ms; fan-out operators {out['plans'][qid]}; "
+                  f"sql_fanout_rows_total +{rows}, "
+                  f"sql_join_broadcast_bytes_total +{sent} {lab}")
+        print(f"sql 13c: FanoutAggOp planned for "
+              f"{out['fanout_agg_queries']}; launches on 13c {launched} "
+              f"{lab}")
+        out.update(_sql_cluster_figures(c))
+        for qid, ms in out["warm_p50_ms"].items():
+            print(f"sql 13c: {qid} warm p50 {ms:.3f} ms from the "
+                  f"coordinator ({C23_CLUSTER_ITERS} runs) {lab}")
+        share = out["q21_busy_share"]
+        print(f"sql 13c: one warm Q2.1: wall {out['q21_wall_ms']:.3f} ms, "
+              f"card busy {_fmt_ms(out['q21_busy_ms'])}, busy share "
+              f"{'not measured' if share is None else f'{share:.4f}'} "
+              f"{lab}")
+        owner = next(n for n in c.nodes
+                     if n.node.id == out["load"]["lineorder_owners"][0])
+        _sql_kernels(report, owner.holder, owner.device)
+        print(f"sql 13c: the four kernels equal their plain versions on "
+              f"{owner.node.id}'s lineorder planes {lab}")
+    finally:
+        c.close()
+        del c
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sql 13c: {out['seconds']:.2f} s {lab}")
+    return out
+
+
+def phase_sql(report: Report) -> dict:
+    """Path 13: SQL over config 23's single node (13a), the query history
+    and log (13b), and config 23's 3-node phase (13c)."""
+    import shutil
+
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.loadgen import ssb
+    from pilosa_tpu_torch.obs import metrics as M
+    from pilosa_tpu_torch.ops import kernel_util as KU
 
     lab = report.label
     base = os.path.abspath(os.path.join("build", "chip_smoke_sql"))
@@ -5487,8 +5820,10 @@ def phase_sql(report: Report) -> dict:
     os.makedirs(base)
     t_phase = time.perf_counter()
     out = {"cuts": {"hash_iters": C23_HASH_ITERS,
-                    "phase_2": "the 3-node LocalCluster phase waits for "
-                               "the port's cluster plane"}}
+                    "fault_plan": "13c runs bench.py phase 2 without its "
+                                  "seeded FaultPlan (the resilience plane "
+                                  "is still to port)",
+                    "warm_runs_13c": C23_CLUSTER_ITERS}}
     try:
         data = ssb.generate(C23_ROWS, seed=C23_SEED)
         oracles = {qid: ssb.oracle(data, qid) for qid in ssb.QUERIES}
@@ -5562,9 +5897,8 @@ def phase_sql(report: Report) -> dict:
                   f" ({fig['executor_calls']} executor calls) {lab}")
         print(f"sql 13a: lineorder's resident stacks [stored B, dense B]: "
               f"{resident} {lab}")
-        print("sql 13a: the 3-node LocalCluster phase (bench.py phase 2) "
-              "waits for the port's cluster plane; cut: the hash "
-              f"fallback's p50s take {C23_HASH_ITERS} runs, not 20")
+        print(f"sql 13a: cut: the hash fallback's p50s take "
+              f"{C23_HASH_ITERS} runs, not 20")
 
         # -- 13b: the query history, the query log, the counters ------------
         q11 = ssb.QUERIES["Q1.1"]
@@ -5615,59 +5949,29 @@ def phase_sql(report: Report) -> dict:
             expected.append("tape_count")
         if launched.get("ctile_count", 0):
             expected.append("ctile_count")
-        report.launched("sql 13", launched, expected)
+        report.launched("sql 13a-13b", launched, expected)
 
         # each launched kernel against its plain version on path 13's own
         # planes (these launches are not counted)
-        idx = api.holder.index("lineorder")
-        disc = STK.stacked_bsi(idx.field("lo_discount"), [0])
-        rev = STK.stacked_bsi(idx.field("lo_revenue"), [0])
-        filt = S.bsi_compare_plain(disc.planes, S.BETWEEN, 1, 3)
-        report.err("bsi_compare", S.bsi_compare(disc.planes, S.BETWEEN, 1, 3),
-                   filt)
-        rows = rev.planes[S.EXISTS] & filt
-        sign = rev.planes[S.SIGN]
-        a = torch.stack([rows & ~sign, rows & sign])
-        report.err("pair_counts", G.pair_counts(a, rev.planes[S.OFFSET:]),
-                   G.pair_counts_plain(a, rev.planes[S.OFFSET:]))
-        ex = STK.stacked_set(idx.field("_exists"), [0], "standard")
-        leaves = [filt, ex.row_plane(0)]
-        tape = (("and", 0, 1),)
-        report.err("tape_count", B.tape_count(tape, leaves),
-                   B.tape_count_plain(tape, leaves))
-        frag = idx.field("_exists").fragment(0)
-        cols = np.arange(C23_ROWS - 500, C23_ROWS + 1)
-        addr, masks_np = SC.sort_updates(np.zeros(cols.size, np.int64), cols,
-                                         frag.planes.shape[1])
-        t = SC._tile_words(frag.planes.size)
-        which, packed, _ = SC.pack_tiles(addr, t)
-        tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
-        # the load set every one of these bits: clear them in the copy,
-        # so that both sides set all of them anew
-        tiles[packed] &= ~masks_np
-        flat = torch.from_numpy(tiles.view(np.int32)).to(api.device)
-        addr_t = torch.from_numpy(packed.astype(np.int32)).to(api.device)
-        masks_t = torch.from_numpy(masks_np.view(np.int32)).to(api.device)
-        ours, plain = flat.clone(), flat.clone()
-        new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
-        assert int(new_bits) == cols.size, \
-            f"the replay set {int(new_bits)} new bits of {cols.size}"
-        report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
-                   new_bits)
-        report.err("scatter_merge", ours, plain)
-        del api, disc, rev, ex
+        _sql_kernels(report, api.holder, api.device)
+        del api
+
+        # -- 13c: config 23's 3-node phase (bench.py phase 2) ---------------
+        out["13c"] = _sql_cluster(report, data, oracles)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"sql 13: launches {launched} {lab}")
+    print(f"sql 13: launches on 13a-13b {launched}, on 13c "
+          f"{out['13c']['launches']} {lab}")
     print("sql 13: bsi_compare (lo_discount BETWEEN 1 AND 3), pair_counts "
           "(the Sum's sign classes x lo_revenue), tape_count (the filter "
           "under _exists) and scatter_merge (the last INSERT's _exists "
-          "bits, cleared and set anew) equal their plain versions on path "
-          f"13's planes {lab}")
+          "bits, cleared and set anew) equal their plain versions on the "
+          f"single node's planes and on shard 0's owner's {lab}")
     print("sql 13: " + json.dumps(out, default=str))
-    print("sql 13: every answer equals ssb.oracle; the join plane stayed "
-          "still for the no-join queries")
+    print("sql 13: every answer equals ssb.oracle, from the single node "
+          "and from two nodes of the cluster; the join plane stayed still "
+          "for the no-join queries")
     return out
 
 

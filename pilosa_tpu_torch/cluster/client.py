@@ -282,6 +282,15 @@ class InternalClient:
                           "remote": True}, token=token, op="query")
         return out["results"]
 
+    # -- SQL subtree fan-out (reference: /sql-exec-graph,
+    #    http_handler.go:538 + sql3/planner/wireprotocol.go) --------------
+
+    def sql_subtree(self, node, spec: dict, shards: Sequence[int],
+                    token=None) -> dict:
+        return self._post(node, "/internal/sql/subtree",
+                          {"spec": spec, "shards": list(shards)},
+                          token=token, op="sql")
+
     # -- imports (reference: internal_client.go:691-931) -------------------
 
     def import_bits(self, node, index: str, field: str, payload: dict) -> dict:

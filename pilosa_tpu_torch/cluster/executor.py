@@ -15,8 +15,9 @@ nodes never see a string. Writes go to every replica of their shards.
 Each node of the port is one process with its own card (or, in
 ``LocalCluster``, one card shared by every node): the node's local
 kernels run on its stacks, and this layer is the host-to-host axis.
-The SQL subtree fan-out, hedged legs and circuit breakers, leg batching
-and the gossip-keyed leg cache come with their planes.
+``sql_subtree`` fans a SQL plan subtree out over the same loop
+(sql/fanout.py). Hedged legs and circuit breakers, leg batching and the
+gossip-keyed leg cache come with their planes.
 """
 from __future__ import annotations
 
@@ -70,6 +71,9 @@ class ClusterExecutor:
         self._write_epoch: Dict[str, int] = {}
         self.translator = ClusterTranslator(node_id, holder, client,
                                             snapshot_fn, live_fn=live_fn)
+        # the node API that runs SQL subtrees on this node's shards, set
+        # by ClusterNode (sql/fanout.py); None on a bare executor
+        self._node_api = None
 
     # -- public entry ------------------------------------------------------
 
@@ -224,6 +228,37 @@ class ClusterExecutor:
         if sched is not None and call.name not in _WRITE_CALLS:
             return sched.execute(index, Query([call]), shards=shards)[0]
         return self.local.execute(index, Query([call]), shards=shards)[0]
+
+    # -- SQL subtree fan-out (reference: executionplanner.go:212-338) ------
+
+    def sql_subtree(self, spec: dict) -> List[dict]:
+        """Fan a serialized SQL subtree out to the shard owners: one
+        node-partial ``{"rows": [...]}`` per owner group, with the PQL
+        map/reduce's primary-to-replica failover (the shared
+        ``_fan_shards`` loop). Each owner runs the subtree on its own
+        shards only, through the node API that ``ClusterNode`` sets as
+        ``_node_api``; rows received from peers count under
+        ``sql_fanout_rows_total``."""
+        from pilosa_tpu_torch.obs import metrics as M
+        from pilosa_tpu_torch.sql.fanout import execute_subtree
+
+        index = spec["index"]
+        shards = sorted(self._shards_fn(index)) or [0]
+        api = self._node_api
+
+        def run_local(node_shards):
+            if api is None:
+                raise PQLError("sql_subtree needs the node API wrapper")
+            return execute_subtree(api, spec, node_shards)
+
+        def run_remote(node, node_shards, token=None):
+            out = self.client.sql_subtree(node, spec, node_shards,
+                                          token=token)
+            M.REGISTRY.count(M.METRIC_SQL_FANOUT_ROWS,
+                             len(out.get("rows", [])))
+            return out
+
+        return self._fan_shards(index, shards, run_local, run_remote)
 
     # -- reads -------------------------------------------------------------
 
@@ -413,12 +448,20 @@ class ClusterExecutor:
                 if rank == 0:
                     result = _merge_write(result, r)
                 continue
+            # the remote legs on the pool, this node's leg on this thread:
+            # a SQL write holds this holder's write lock here (its Qcx),
+            # and a pool thread waiting for it would never get it (the
+            # JAX package deadlocks there; ROADMAP C, departure 24)
             with ThreadPoolExecutor(max_workers=max(1, len(by_node))) as pool:
-                futs = [pool.submit(self._run_write_on, nodes[nid], idx,
-                                    call, nshards)
-                        for nid, nshards in by_node.items()]
-                for fut in futs:
-                    r = fut.result()
+                futs = {nid: pool.submit(self._run_write_on, nodes[nid], idx,
+                                         call, nshards)
+                        for nid, nshards in by_node.items()
+                        if nid != self.node_id}
+                mine = by_node.get(self.node_id)
+                local = None if mine is None else self._run_write_on(
+                    nodes[self.node_id], idx, call, mine)
+                for nid in by_node:
+                    r = futs[nid].result() if nid in futs else local
                     if rank == 0:
                         result = _merge_write(result, r)
         # invalidate remote-leg cache entries for this index (local-leg

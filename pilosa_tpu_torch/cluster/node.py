@@ -20,8 +20,15 @@ handler serves a node unchanged. ``ClusterNode(...)`` runs its engine on
 ``cuda:0``; ``device="cpu"`` runs the plain PyTorch versions; without a
 card and without ``device`` it raises.
 
-Not here yet, each with the plane that brings it: SQL on a node and
-``read_executor`` (the SQL fan-out), ``enable_resilience``,
+SQL runs on a node through the single-node ``API.sql``, with the node
+as its API: reads plan against ``read_executor`` (the cluster executor),
+so PQL pushdowns fan out over the shard owners and host filters and
+host aggregates ship to them as SQL subtrees (``sql/fanout.py``, served
+on ``/internal/sql/subtree``); DML routes each field's import through
+the node's ``import_bits`` / ``import_values`` to the owners and their
+replicas.
+
+Not here yet, each with the plane that brings it: ``enable_resilience``,
 ``enable_cluster_batch`` and ``query_remote_batch`` (fan-out resilience
 and batching), ``enable_gossip``, ``enable_membership`` and
 ``enable_recovery`` (gossip and catch-up), ``enable_tenants`` and
@@ -73,6 +80,7 @@ class ClusterNode:
         self.broadcaster = B.HTTPBroadcaster(
             self.client, self.disco.nodes, node_id)
         self._remote_exec = Executor(self.api.holder, remote=True)
+        self._sql_engine = None  # built on the first sql() by API.sql
         self._remote_shards: Dict[str, Set[int]] = {}
         self._announced: Dict[str, Set[int]] = {}
         self._lock = locktrace.tracked_lock("cluster.node")
@@ -81,6 +89,9 @@ class ClusterNode:
             self.all_shards, on_node_down=self._mark_down,
             live_fn=lambda: set(self.disco.live_ids()))
         self.executor._after_write = self._announce_shards_all
+        # SQL subtrees run node-locally through the node API (translator
+        # and local engine, sql/fanout.py)
+        self.executor._node_api = self
         # Transaction changes sync to peers so an exclusive transaction
         # on any node excludes cluster-wide (reference: server.go:1082).
         self.api.transactions.on_change = self._sync_transaction
@@ -285,6 +296,17 @@ class ClusterNode:
         self._announce_shards(index)
         return [result_to_wire(r) for r in results]
 
+    def read_executor(self):
+        """SQL read plans run on the cluster executor; its local legs
+        consult ``executor.scheduler`` themselves."""
+        return self.executor
+
+    # -- SQL: the single-node implementation, planned on the node's surface
+
+    sql = API.sql
+    _recorded = API._recorded
+    _maybe_slow_log = API._maybe_slow_log
+
     # -- scheduler (sched/): same surface as the plain API -----------------
 
     @property
@@ -345,6 +367,18 @@ class ClusterNode:
     @property
     def idalloc(self):
         return self.api.idalloc
+
+    @property
+    def query_logger(self):
+        return self.api.query_logger
+
+    @property
+    def txf(self):
+        """The DML group commit: the local holder's write lock and WAL
+        flush. Remote writes commit per import on their owners, so a SQL
+        statement is atomic per node, as in the reference (sql3 inserts
+        fan imports out without a cluster transaction)."""
+        return self.api.txf
 
     # -- imports (reference: api.go:1438 Import / :618 ImportRoaring) ------
 

@@ -263,21 +263,48 @@ class SetFragment:
         row, cleared from every other (reference: fragment.go:1787
         bulkImportMutex). Inputs are deduped last-wins per column by the
         caller. Returns the bits newly set in their target row. A bulk
-        write of many rows: the log resets."""
-        touched = bits_to_plane(cols, self.words)
+        write of many rows: the log resets.
+
+        The work follows the words the batch touches, not the field's
+        rows: every read, clear and OR runs on the sorted distinct words
+        ``W`` of ``cols`` (a 500-row batch of consecutive ids touches
+        about 16 of a shard's 32,768), all rows of the batch at once,
+        with the JAX package's planes, slots and count as the result."""
+        cols = np.asarray(cols, dtype=np.int64)
+        word = cols >> 5
+        W = np.unique(word)
+        local = np.searchsorted(W, word)  # each column's word in W
+        # one run of words (consecutive ids) as a slice: a view, ~5x
+        # cheaper than the gather and scatter of a fancy index
+        win = slice(int(W[0]), int(W[-1]) + 1) \
+            if W.size and W[-1] - W[0] + 1 == W.size else W
+        bit = np.left_shift(np.uint32(1), (cols & 31).astype(np.uint32))
+        touched = np.zeros(W.size, dtype=np.uint32)
+        np.bitwise_or.at(touched, local, bit)
         n = len(self.row_ids)
-        old = self.planes[:n] & touched[None, :] if n else None
-        if n:
-            self.planes[:n] &= ~touched[None, :]
-        changed = 0
-        for row, (sel,) in group_sorted(rows, cols):
-            s = self._slot(row)
-            plane = bits_to_plane(sel, self.words)
-            if old is not None and s < old.shape[0]:
-                changed += native.popcount(plane & ~old[s])
-            else:
-                changed += int(sel.size)
-            self.planes[s] |= plane
+        if n and W.size:
+            sub = self.planes[:n, win]
+            old = sub & touched
+            self.planes[:n, win] = sub & ~touched
+        # the batch's rows in sorted order, each with its len(W)-word
+        # slice; new rows take their slots in that order, as _slot would
+        uk, inv = np.unique(np.asarray(rows, dtype=np.int64),
+                            return_inverse=True)
+        n_new = sum(1 for r in uk.tolist() if r not in self.row_index)
+        if n_new:  # one capacity grow for the batch
+            self.planes = _grow_rows(self.planes, len(self.row_ids) + n_new)
+        slots = np.array([self._slot(r) for r in uk.tolist()],
+                         dtype=np.int64)
+        planes = np.zeros((uk.size, W.size), dtype=np.uint32)
+        np.bitwise_or.at(planes, (inv, local), bit)
+        was = slots < n
+        changed = int(np.bincount(inv, minlength=uk.size)[~was].sum())
+        if was.any():
+            changed += native.popcount(planes[was] & ~old[slots[was]])
+        if isinstance(win, slice):
+            self.planes[slots, win] |= planes
+        elif uk.size:
+            self.planes[slots[:, None], W[None, :]] |= planes
         self.version += 1
         self.deltas.reset(self.version)
         if PARANOIA:

@@ -25,10 +25,13 @@ own thread, and every thread launches onto the card's one stream.
 A single node answers the node-to-node routes (``/internal/index/*/
 query``, the query batch, cluster messages, SQL subtrees, translate
 replication, partition nodes, gossip, membership and recovery) and
-``/directive`` with the JAX package's single-node 404s; their cluster
-bodies land with the port's cluster plane. ``/internal/tenants`` and
-``/internal/degrade`` answer ``{"enabled": false}`` until the tenant
-registry and the degradation ladder are ported.
+``/directive`` with the JAX package's single-node 404s. A cluster node
+serves the query, message, translate, partition-node and SQL subtree
+routes; the query batch, gossip, membership, recovery and
+``/directive`` keep the 404 until their planes are ported.
+``/internal/tenants`` and ``/internal/degrade`` answer ``{"enabled":
+false}`` until the tenant registry and the degradation ladder are
+ported.
 """
 
 from __future__ import annotations
@@ -1061,13 +1064,23 @@ class Handler(BaseHTTPRequestHandler):
         store.apply_entries(b.get("entries") or [])
         self._send(200, {"success": True})
 
+    def post_sql_subtree(self):
+        """Serve a coordinator's SQL subtree on this node's shards
+        (sql/fanout.py; reference: /sql-exec-graph)."""
+        self._node_only()
+        from pilosa_tpu_torch.sql.fanout import execute_subtree
+
+        b = self._json_body()
+        self._send(200, execute_subtree(
+            self.api, self._require(b, "spec"), b.get("shards") or []))
+
     def _not_yet(self, *_groups):
         """Node-to-node routes of planes still to port (the coalesced
-        query batch, SQL subtrees, gossip, membership, replica catch-up):
-        the single-node 404 on a plain API and on a node alike."""
+        query batch, gossip, membership, replica catch-up): the
+        single-node 404 on a plain API and on a node alike."""
         raise KeyError("not a cluster node")
 
-    post_internal_query_batch = post_sql_subtree = _not_yet
+    post_internal_query_batch = _not_yet
     post_gossip_exchange = get_gossip_state = _not_yet
     post_membership_ping = get_membership = _not_yet
     get_recovery_snapshot = get_recovery_wal = _not_yet

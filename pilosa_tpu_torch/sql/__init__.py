@@ -9,8 +9,8 @@ back to a host row-stream filter only for expressions with no bitmap
 form.
 
 Port of ``pilosa_tpu/sql``: the lexer, parser, planner, plan operators,
-the bitwise semi-join plane and the engine. ``sql/fanout.py`` (the
-cluster subtree fanout) waits for the port's cluster plane.
+the bitwise semi-join plane, the engine and ``sql/fanout.py`` (the
+cluster subtree fanout).
 """
 
 from pilosa_tpu_torch.sql.engine import SQLEngine, SQLResult

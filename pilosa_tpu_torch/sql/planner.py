@@ -8,11 +8,14 @@ into PQL aggregate/groupby calls) — so the heavy work runs as the
 executor's kernels and the host only sees reduced streams. Expressions
 with no bitmap form fall back to a host filter over the scan.
 
-Port of ``pilosa_tpu/sql/planner.py`` without its cluster branches (the
-fanout scan, the pushed-down ORDER BY + LIMIT and the distributed
-partial aggregate of ``sql/fanout.py``), which wait for the port's
-cluster plane. Plan nodes read through ``API.read_executor``, so SELECT
-kernels micro-batch under the scheduler when it is on.
+Port of ``pilosa_tpu/sql/planner.py``. Plan nodes read through
+``read_executor``: on a single node the scheduling facade when it is on
+(SELECT kernels micro-batch), on a cluster node the cluster executor.
+On a cluster node a host filter, with its scan, ships to the shard
+owners as a fan-out subtree (``FanoutScanOp``, with an ORDER BY + LIMIT
+pushed into it where each term is a scanned column), and a host
+aggregate becomes a distributed partial aggregate (``FanoutAggOp``):
+see ``sql/fanout.py``.
 """
 
 from __future__ import annotations
@@ -174,6 +177,7 @@ class Planner:
             needed |= _columns_of(host_pred)
         op: PlanOp = self._filtered_scan(
             idx, sorted(needed - {"_id"}), filter_call, host_pred)
+        self._push_order_limit(op, s, items)
         proj = [(self._item_name(it, i), self._item_type(idx, it.expr), it.expr)
                 for i, it in enumerate(items)]
         # hidden order-by columns ride along; trimmed after the sort
@@ -204,16 +208,81 @@ class Planner:
             op = _TrimOp(op, len(op.schema) - len(ctx.hidden))
         return op
 
+    # -- distributed subtree fanout (reference: executionplanner.go:212
+    #    mapReducePlanOp; see sql/fanout.py) -----------------------------------
+
+    def _dist_executor(self):
+        """The cluster executor when planning on a cluster node (fanout
+        available), else None (single-node: host ops run in-process)."""
+        ex = getattr(self.api, "executor", None)
+        if ex is not None and getattr(ex, "_node_api", None) is not None:
+            return ex
+        return None
+
     def _filtered_scan(self, idx: Index, field_names: List[str],
                        filter_call: Optional[Call],
                        host_pred: Optional[ast.Expr]) -> PlanOp:
-        """Scan with the host filter above it (the JAX package ships a
-        non-lowerable WHERE with a cluster fanout subtree; the port has
-        no cluster yet)."""
+        """Scan with the host filter applied where the data is: on a
+        cluster, a WHERE with no PQL form ships with the subtree and runs
+        on each shard owner, so only matching rows cross the wire; a
+        single node keeps FilterOp."""
+        from pilosa_tpu_torch.sql.fanout import FanoutScanOp, expr_to_json
+
         scan = self._scan_op(idx, field_names, filter_call)
         if host_pred is None:
             return scan
-        return plan.FilterOp(scan, host_pred)
+        dist = self._dist_executor()
+        if dist is None:
+            return plan.FilterOp(scan, host_pred)
+        spec = {"index": idx.name, "fields": field_names,
+                "pql": filter_call.to_pql() if filter_call else None,
+                "host_filter": expr_to_json(host_pred)}
+        return FanoutScanOp(dist, spec, scan.schema)
+
+    def _push_order_limit(self, op: PlanOp, s: ast.SelectStatement,
+                          items: List[ast.SelectItem]) -> None:
+        """ORDER BY + LIMIT pushdown into a fanout scan: every order term
+        must resolve, the way _apply_order will resolve it, to a plain
+        scanned column, so each node can sort its own stream and return
+        only its top limit+offset rows; the global top-k is contained in
+        the union of per-node top-k, and the coordinator's OrderBy/Limit
+        ops above the fanout sort and cut again (reference:
+        planoptimizer.go pushing top-N toward the scans). An alias that
+        shadows a scan column (``select v % 4 as v ... order by v``)
+        makes the coordinator sort by the projected expression, so a
+        node sort by the raw column would cut the wrong rows: no push."""
+        from pilosa_tpu_torch.sql.fanout import FanoutScanOp
+
+        limit = s.limit if s.limit is not None else s.top
+        if not isinstance(op, FanoutScanOp) or not s.order_by \
+                or limit is None or s.distinct:
+            return
+        scan_names = {n for n, _ in op.schema}
+        by_item = {repr(it.expr): it.expr for it in items}
+        out_exprs = {self._item_name(it, i): it.expr
+                     for i, it in enumerate(items)}
+        terms = []
+        for t in s.order_by:
+            e = t.expr
+            if repr(e) in by_item:
+                # _apply_order sorts by that OUTPUT column; push only a
+                # pure passthrough of a scanned column
+                if not (isinstance(e, ast.ColumnRef) and e.table is None
+                        and e.name in scan_names):
+                    return
+                terms.append([e.name, bool(t.desc)])
+                continue
+            if not (isinstance(e, ast.ColumnRef) and e.table is None
+                    and e.name in scan_names):
+                return
+            shadow = out_exprs.get(e.name)
+            if shadow is not None and not (
+                    isinstance(shadow, ast.ColumnRef)
+                    and shadow.table is None and shadow.name == e.name):
+                return  # alias shadowing: the coordinator sorts the alias
+            terms.append([e.name, bool(t.desc)])
+        op.spec["order_by"] = terms
+        op.spec["limit"] = int(limit) + int(s.offset or 0)
 
     # -- scan (PQL Extract bridge) --------------------------------------------
 
@@ -885,7 +954,8 @@ class Planner:
                     except CannotLower:
                         # non-lowerable single-table conjunct: still
                         # pushes below the join (host filter on that
-                        # table's scan), so join build sides arrive
+                        # table's scan; on a cluster it ships with the
+                        # fanout subtree), so join build sides arrive
                         # pre-filtered
                         host_push[a].append(_unqualify(c))
                     continue
@@ -903,8 +973,8 @@ class Planner:
             for c in preds:  # unqualified: columns of this table only
                 need[a] |= _columns_of(c)
 
-        # per-table scans: PQL pushdown + host-filter pushdown +
-        # alias-qualified schema
+        # per-table scans: PQL pushdown + host-filter pushdown (fanout on
+        # a cluster) + alias-qualified schema
         scans: Dict[str, PlanOp] = {}
         for a in aliases:
             calls = lowered[a]
@@ -1084,13 +1154,36 @@ class Planner:
                 else (a.args[0] if a.args else None)
             specs.append((agg_names[_agg_key(a)], "INT",
                           AggSpec(a.name, expr, distinct=a.distinct)))
-        scan: PlanOp = self._filtered_scan(
-            idx, field_names, filter_call, host_pred)
-        if computed:
-            passthrough = [(n, t, ast.ColumnRef(n))
-                           for n, t in scan.schema]
-            scan = plan.ProjectOp(scan, passthrough + computed)
-        op: PlanOp = plan.GroupByOp(scan, group_names, specs)
+        dist = self._dist_executor()
+        if dist is not None:
+            # distributed partial aggregation: the nodes scan, filter,
+            # group and accumulate their own rows, and only per-group
+            # partial states cross the wire (reference: the pushed-down
+            # aggregate ops, oppqlmultigroupby / mapReducePlanOp)
+            from pilosa_tpu_torch.sql.fanout import FanoutAggOp, expr_to_json
+
+            spec = {"index": idx.name, "fields": field_names,
+                    "pql": filter_call.to_pql() if filter_call else None,
+                    "host_filter": expr_to_json(host_pred),
+                    "computed": [[n, expr_to_json(g)]
+                                 for n, _, g in computed],
+                    "group_by": group_names,
+                    "aggs": [[n, sp.func, expr_to_json(sp.expr),
+                              sp.distinct] for n, _, sp in specs]}
+            scan_schema = dict(
+                [("_id", id_sql_type(idx.options.keys))] +
+                [(f, field_to_sql_type(idx.field(f).options))
+                 for f in field_names] + [(n, t) for n, t, _ in computed])
+            gschema = [(n, scan_schema[n]) for n in group_names]
+            op: PlanOp = FanoutAggOp(dist, spec, gschema, specs)
+        else:
+            scan: PlanOp = self._filtered_scan(
+                idx, field_names, filter_call, host_pred)
+            if computed:
+                passthrough = [(n, t, ast.ColumnRef(n))
+                               for n, t in scan.schema]
+                scan = plan.ProjectOp(scan, passthrough + computed)
+            op = plan.GroupByOp(scan, group_names, specs)
         if s.having is not None:
             op = plan.FilterOp(op, _rewrite_ctx(s.having, ctx))
         proj = [(self._item_name(it, i), self._item_type(idx, it.expr),

@@ -17,10 +17,11 @@ HTTP. Covered:
 * ``tests/test_tracing.py::TestClusterEndToEnd``;
 * ``tests/test_devprof.py::TestServing::test_stats_kernels_on_warmed_cluster``.
 
-Left to ``tests/test_cluster.py`` alone: ``TestSQLFanout``, which waits
-for the port's SQL fan-out, and ``TestClusterTimesMesh``, which waits for
-the mesh reduces. Each module-scoped cluster is closed at module
-teardown; every other cluster is closed by its test.
+``TestSQLFanout`` runs once per package in
+``tests/test_torch_sql_fanout.py``. Left to ``tests/test_cluster.py``
+alone: ``TestClusterTimesMesh``, which waits for the mesh reduces. Each
+module-scoped cluster is closed at module teardown; every other cluster
+is closed by its test.
 """
 
 import importlib

@@ -12,7 +12,8 @@ table (importing every SQL module), profiles a query under the device
 profiler and the health plane (importing every observability module),
 serves the API over HTTP and drives it through the client, framed gRPC,
 the CLI and fbsql (importing every front-end module), runs a keyed
-two-node ``LocalCluster`` on the CPU (importing every cluster module),
+two-node ``LocalCluster`` on the CPU (importing every cluster module)
+and a SQL aggregate over a host filter through it (the SQL fan-out),
 then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
@@ -136,6 +137,10 @@ with LocalCluster(2, device="cpu") as lc:
                       col_keys=["x", "y", "z"])
     clustered = [lc[0].query("k", 'Count(Row(f="a"))')[0],
                  lc[1].query("k", "TopN(f, n=1)")[0].pairs[0].key]
+    lc[1].sql("create table ft (_id id, v int)")
+    lc[1].sql("insert into ft values (1, 5), (2097153, 6), (3, 7)")
+    clustered.append(lc[0].sql(
+        "select sum(v) from ft where v % 2 = 1").data)
 print(json.dumps({"star": star, "front": front, "hist": hist,
                   "clustered": clustered,
                   "logged": logged,
@@ -176,6 +181,8 @@ _CLUSTER = ("hashing.py", "cluster", "cluster/topology.py", "cluster/disco.py",
             "cluster/broadcast.py", "cluster/client.py",
             "cluster/translator.py", "cluster/executor.py", "cluster/node.py",
             "cluster/harness.py")
+#: and the SQL fan-out's
+_SQL_FANOUT = ("sql/fanout.py",)
 
 
 def _forbidden(name: str) -> bool:
@@ -201,9 +208,9 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["logged"] == 5 + 6 + 2  # DDL, INSERT batches, SELECTs
     assert out["profiled"] == [300, 1, 1]
     assert out["front"][1:] == [0, True, True] and out["front"][0] > 0
-    assert out["clustered"] == [2, "a"]
+    assert out["clustered"] == [2, "a", [[12]]]
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
-                 + _CLUSTER):
+                 + _CLUSTER + _SQL_FANOUT):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -323,3 +330,10 @@ def test_scan_covers_the_cluster_modules():
     for part in _CLUSTER:
         hits = [p for p in scanned if p == part or p.startswith(part + "/")]
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_sql_fanout_module():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _SQL_FANOUT:
+        assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"

@@ -530,7 +530,8 @@ def test_defs_case_lists_are_complete():
                 "TestFunctionEdges"):
         names = {n for n in dir(getattr(tsd, cls)) if n.startswith("test_")}
         listed = {n for c, n, _ in _DEFS_CLASS_CASES if c == cls}
-        # the LocalCluster case waits for the port's cluster plane
+        # the LocalCluster case runs in tests/test_torch_sql_fanout.py,
+        # once per package
         assert names - listed <= {"test_cluster_delete"}
 
 

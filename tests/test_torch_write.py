@@ -229,6 +229,71 @@ def test_set_fragment_write_matches(name):
         np.testing.assert_array_equal(a.row_plane(r), b.row_plane(r))
 
 
+def _mutex_batch(rng, words, n, rows, lo_word=0):
+    """``n`` columns deduped per column (as Field.import_bits hands them
+    over) in words ``lo_word..words``, each with a row below ``rows``."""
+    cols = np.unique(rng.integers(lo_word * 32, words * 32, n))
+    return rng.integers(0, rows, cols.size), cols
+
+
+def _mutex_batches(rng):
+    """name -> (fragment seed rows, [(rows, cols), ...]): sequences of
+    set_mutex_many batches, the same on both packages."""
+    spread = _mutex_batch(rng, W, 400, 12)
+    one_word = _mutex_batch(rng, 38, 20, 12, lo_word=37)
+    run = np.arange(3000, 3500)  # 500 consecutive ids: one run of words
+    return {
+        "many_existing_rows": (300, [_mutex_batch(rng, W, 700, 300)]),
+        "spread_over_words": (12, [spread]),
+        "packed_in_one_word": (12, [one_word]),
+        "consecutive_run": (40, [(rng.integers(0, 40, run.size), run),
+                                 (rng.integers(0, 40, run.size), run + 500)]),
+        "reassert_current_row": (12, [spread, spread]),
+        "partly_reasserted": (12, [spread, (np.where(
+            np.arange(spread[0].size) % 2 == 0, spread[0],
+            (spread[0] + 1) % 12), spread[1])]),
+        "new_rows_past_capacity": (6, [
+            (np.arange(40) + 100, np.unique(rng.choice(W * 32, 40,
+                                                       replace=False))),
+            _mutex_batch(rng, W, 200, 160)]),
+        "empty_batch": (12, [(np.zeros(0, np.int64), np.zeros(0, np.int64)),
+                             spread, (np.zeros(0, np.int64),
+                                      np.zeros(0, np.int64))]),
+        "last_word": (12, [_mutex_batch(rng, W, 20, 12, lo_word=W - 1),
+                           (np.array([3, 7]), np.array([W * 32 - 32,
+                                                        W * 32 - 1]))]),
+        "empty_fragment": (0, [_mutex_batch(rng, W, 300, 9)]),
+        "after_set_bits": (12, [
+            ("set", np.arange(5), np.arange(5) * 33), spread]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_mutex_batches(
+    np.random.default_rng(0))))
+@pytest.mark.parametrize("paranoia", [False, True], ids=["", "paranoia"])
+def test_set_mutex_many_matches(name, paranoia, monkeypatch):
+    """The port's set_mutex_many (its work on the batch's words only)
+    against the JAX package's (every row plane AND the whole touched
+    plane): planes, slots, return values, versions and delta logs."""
+    monkeypatch.setattr(tfrag, "PARANOIA", paranoia)
+    monkeypatch.setattr(jfrag, "PARANOIA", paranoia)
+    seed_rows, batches = _mutex_batches(np.random.default_rng(13))[name]
+    if seed_rows:
+        a, b = _set_pair(seed=7, rows=seed_rows)
+    else:
+        a, b = tfrag.SetFragment(0, CPU, words=W), jfrag.SetFragment(0, words=W)
+    for batch in batches:
+        if isinstance(batch[0], str):  # plain set_bit writes first
+            for f in (a, b):
+                for r, c in zip(batch[1], batch[2]):
+                    f.set_bit(int(r), int(c))
+            continue
+        rows, cols = batch
+        assert a.set_mutex_many(rows, cols) == b.set_mutex_many(rows, cols)
+        _same_fragment(a, b)
+    assert a.planes.shape == b.planes.shape
+
+
 def test_set_many_stops_recording_after_midloop_reset(monkeypatch):
     """After an overflow resets the log inside a bulk import, the rest of
     the import is not recorded, and the next write gets a fresh log."""
