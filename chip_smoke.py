@@ -1,6 +1,11 @@
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 3] [--shards 6]
+    python3 chip_smoke.py --f3-probe 30
+
+The second form only builds path 2's index and takes path 14c's busy
+``bsi_compare`` trace that many times, each launch's duration and start
+printed (ROADMAP C, F.3), and kept in ``build/f3_probe.json``.
 
 Run it with ``PILOSA_TPU_COMPRESS`` unset: path 3 checks what the auto
 compression rule, the one users run, makes resident.
@@ -241,15 +246,20 @@ Phases, each printed on its own line:
     kernel, executor waits and implicit syncs, and one warm run's host
     ms by layer (the SQL parse, planning, the executor's calls, the host
     operators and the API's own work); ``lineorder``'s resident
-    stacks, stored and dense bytes (the 3-node phase waits for the
-    port's cluster plane); (13b) ``fb_exec_requests`` lists the path's
+    stacks, stored and dense bytes; (13b) ``fb_exec_requests`` lists the path's
     last statements with their language and status, a ``QueryLogger``
     under ``build/`` holds one line per statement, and
     ``fb_performance_counters`` shows ``sql_queries_total``;
     ``scatter_merge``, ``bsi_compare`` and ``pair_counts`` (and
     ``tape_count`` / ``ctile_count`` when the path launched them)
     launched, and the first four against their plain versions on path
-    13's planes;
+    13's planes; (13c) config 23's 3-node phase: ``LocalCluster(3,
+    replica_n=2)`` under its ``FaultPlan`` (seed ``PILOSA_TPU_FAULT_SEED``,
+    default 23), the same load through the coordinator's ``sql``, the
+    13 queries from two nodes, a fan-out battery, a routed DELETE, warm
+    p50s, and a faulted pass: resilience on, lineorder's shard-0 owner's
+    query and SQL-subtree legs delayed 1 s, every answer against the
+    oracle, the hedged and won waves of each kind counted;
 17. main path 14, observability (run right after path 9, on the
     indexes paths 1, 2, 3 and 5 built): (14a) ``bench.py`` config 16 at
     its own sizes (seed 16, 2 shards x 80,000 columns, ``f`` 32 rows,
@@ -349,10 +359,34 @@ Phases, each printed on its own line:
     over 4 x 2^20 columns: ``pause(1)`` leaves the coordinator DEGRADED,
     reads equal numpy through the replicas, a write raises
     ``ClusterStateError``; after ``unpause(1)`` NORMAL and the write is
-    read back from every node;
-20. the empty traces of counted launches that ``_device_ops`` took
+    read back from every node; its nodes share an unarmed ``FaultPlan``
+    and it stays open for path 17;
+20. main path 17, fan-out resilience and leg batching: (17c) on 16d's
+    cluster, an owner delayed with hedging on (reads equal numpy,
+    hedges win); an owner dropped (``plan.drop``): the reads fail over,
+    its breaker opens, later reads are vetoed to the replicas with no
+    RPC to it, the coordinator's flight recorder holds the breaker
+    event and one ``breaker_open`` bundle, ``GET
+    /internal/stats/cluster`` returns every node's window (the open one
+    as "breaker open"); after ``plan.clear()`` and 2 s one half-open
+    probe closes the breaker and marks the node up; a 64-way batched
+    wave of mixed-shard Counts equal to numpy; ``pair_counts`` against
+    its plain version on a node's block; (17a) ``bench.py`` config 9 as
+    ``bench_config9`` builds it (6 x 50,000 records, seed 9,
+    ``Count(Row(f=3))`` 20 times healthy, unhedged under a delay,
+    warm and hedged), every answer equal, a hedge won, each phase's
+    p50 and p99, ``scatter_merge`` against its plain version on an
+    owner's planes; (17b) config 14 as ``bench_config14`` builds it (64
+    mixed-shard Counts, 3 waves unbatched and 3 batched through a
+    barrier, every answer against the bincount oracle, at least 8x fewer
+    node RPCs batched and none on ``/internal/query``, the chaos wave),
+    and on a serving node one batch through ``query_remote_batch``, each
+    of its ``tape_count`` launches against its plain version with its
+    ``ShardMask``; ``tape_count`` and ``scatter_merge`` launched, each
+    step's seconds;
+21. the empty traces of counted launches that ``_device_ops`` took
     again, then one ``{"kernels": [...]}`` JSON line;
-21. the last line: ``{"ok": true, "device": {...}}``.
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -5733,19 +5767,101 @@ def _sql_cluster_figures(c) -> dict:
             "q21_busy_share": None if busy is None else busy / wall}
 
 
+#: 13c's faulted pass: the delay of lineorder's shard-0 owner on its
+#: query and SQL-subtree legs (config 9's ceiling: a fact-side Extract
+#: leg takes 0.5-1 s warm, so a shorter delay lets the primary go out
+#: beside its hedge and both nodes serve it in the one interpreter)
+C23_FAULT_DELAY_S = 2.0
+#: and the floor of its adaptive leg timeouts: the client's own 30 s.
+#: With the owner and its replica serving one Extract leg at once, a leg
+#: took 4.8 s of a 5 s timeout on an H100's host, and a reaped primary
+#: and a reaped hedge leave no owner for the shard
+C23_TIMEOUT_MIN_MS = 30000.0
+
+
+def _sql_cluster_faulted(c, plan, data, oracles, owner, lab) -> dict:
+    """13c's faulted pass: resilience on with config 14's chaos-wave
+    settings (hedges after 30 ms at the least; breakers held shut) but
+    leg timeouts floored at C23_TIMEOUT_MIN_MS, since the three nodes
+    share one interpreter, one fault-free
+    pass of the 13 queries from node0 to fill the latency windows, then
+    one with ``owner``'s query and SQL-subtree legs delayed
+    C23_FAULT_DELAY_S: every answer equals the oracle; the fan-out waves
+    of each kind (PQL legs, SQL subtrees), their hedges and won hedges
+    are counted."""
+    from pilosa_tpu_torch.loadgen import ssb
+    from pilosa_tpu_torch.obs import metrics as M
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+
+    co = c.coordinator
+    reg = MetricsRegistry()
+    res = co.enable_resilience(registry=reg, hedge_min_ms=30.0,
+                               timeout_min_ms=C23_TIMEOUT_MIN_MS,
+                               breaker_threshold=1 << 30)
+    kinds = {"pql": [0, 0, 0], "sql": [0, 0, 0]}  # waves, hedges, wins
+    run_legs = res.run_legs
+
+    def counted(remote, nodes, run_remote, next_owners, **kw):
+        kind = "sql" if "sql_subtree" in run_remote.__qualname__ else "pql"
+        h0 = reg.value(M.METRIC_CLUSTER_HEDGES) or 0.0
+        w0 = reg.value(M.METRIC_CLUSTER_HEDGE_WINS) or 0.0
+        try:
+            return run_legs(remote, nodes, run_remote, next_owners, **kw)
+        finally:
+            k = kinds[kind]
+            k[0] += 1
+            k[1] += (reg.value(M.METRIC_CLUSTER_HEDGES) or 0.0) - h0
+            k[2] += (reg.value(M.METRIC_CLUSTER_HEDGE_WINS) or 0.0) - w0
+
+    res.run_legs = counted
+    ms = {}
+    try:
+        for q in ssb.QUERIES.values():
+            co.sql(q)
+        for k in kinds.values():
+            k[:] = [0, 0, 0]
+        rpc0 = dict(co.client.op_counts)
+        plan.delay(owner, C23_FAULT_DELAY_S, op="query")
+        plan.delay(owner, C23_FAULT_DELAY_S, op="sql")
+        for qid, q in ssb.QUERIES.items():
+            res_q, sec = _synced_s(lambda: co.sql(q))
+            err = ssb.verify(data, qid, res_q.data, expected=oracles[qid])
+            assert err is None, f"3-node under the straggler: {err}"
+            ms[qid] = sec * 1e3
+        rpcs = {k: v - rpc0.get(k, 0) for k, v in co.client.op_counts.items()
+                if v - rpc0.get(k, 0)}
+    finally:
+        plan.clear()
+        co.disable_resilience()
+    out = {"owner": owner, "delay_s": C23_FAULT_DELAY_S, "ms": ms,
+           "rpcs": rpcs, "seed": plan.seed,
+           "waves": {k: v[0] for k, v in kinds.items()},
+           "hedges": {k: int(v[1]) for k, v in kinds.items()},
+           "wins": {k: int(v[2]) for k, v in kinds.items()}}
+    print(f"sql 13c: faulted pass (FaultPlan seed {plan.seed}): {owner}'s "
+          f"query and SQL-subtree legs delayed {C23_FAULT_DELAY_S} s, "
+          f"resilience on; all 13 queries from node0 equal ssb.oracle in "
+          f"{sum(ms.values()):.1f} ms ({', '.join(f'{q} {v:.1f}' for q, v in ms.items())}); "
+          f"fan-out waves {out['waves']}, hedges {out['hedges']}, won "
+          f"{out['wins']}; RPCs by op {rpcs} {lab}")
+    return out
+
+
 def _sql_cluster(report: Report, data, oracles,
                  device: str = "cuda:0") -> dict:
     """Path 13c: bench.py config 23's phase 2, the SSB load and the 13
-    queries through a 3-node LocalCluster(replica_n=2) on the card, then
-    the multi-shard fan-out battery and a routed DELETE; the launches of
-    that run, figures, and the kernels on shard 0's owner's planes. A
-    dry run on the CPU passes ``device="cpu"``."""
+    queries through a 3-node LocalCluster(replica_n=2) on the card under
+    its seeded FaultPlan (``PILOSA_TPU_FAULT_SEED``, default 23, as
+    bench.py seeds it), then the multi-shard fan-out battery and a
+    routed DELETE; the launches of that run, figures, the faulted pass
+    (:func:`_sql_cluster_faulted`), and the kernels on shard 0's owner's
+    planes. A dry run on the CPU passes ``device="cpu"``."""
     import gc
 
     import torch
 
     from pilosa_tpu_torch.api import API
-    from pilosa_tpu_torch.cluster import LocalCluster
+    from pilosa_tpu_torch.cluster import FaultPlan, LocalCluster
     from pilosa_tpu_torch.loadgen import ssb
     from pilosa_tpu_torch.ops import kernel_util as KU
 
@@ -5753,7 +5869,8 @@ def _sql_cluster(report: Report, data, oracles,
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     KU.reset_launches()
-    c = LocalCluster(3, replica_n=2, device=device)
+    plan = FaultPlan(seed=int(os.environ.get("PILOSA_TPU_FAULT_SEED", "23")))
+    c = LocalCluster(3, replica_n=2, fault_plan=plan, device=device)
     try:
         assert all(n.device == torch.device(device) for n in c.nodes)
         out = {"load": _sql_cluster_load(c, data, lab)}
@@ -5787,6 +5904,10 @@ def _sql_cluster(report: Report, data, oracles,
               f"card busy {_fmt_ms(out['q21_busy_ms'])}, busy share "
               f"{'not measured' if share is None else f'{share:.4f}'} "
               f"{lab}")
+        t1 = time.perf_counter()
+        out["faulted"] = _sql_cluster_faulted(
+            c, plan, data, oracles, out["load"]["lineorder_owners"][0], lab)
+        out["faulted"]["seconds"] = time.perf_counter() - t1
         owner = next(n for n in c.nodes
                      if n.node.id == out["load"]["lineorder_owners"][0])
         _sql_kernels(report, owner.holder, owner.device)
@@ -5820,9 +5941,6 @@ def phase_sql(report: Report) -> dict:
     os.makedirs(base)
     t_phase = time.perf_counter()
     out = {"cuts": {"hash_iters": C23_HASH_ITERS,
-                    "fault_plan": "13c runs bench.py phase 2 without its "
-                                  "seeded FaultPlan (the resilience plane "
-                                  "is still to port)",
                     "warm_runs_13c": C23_CLUSTER_ITERS}}
     try:
         data = ssb.generate(C23_ROWS, seed=C23_SEED)
@@ -6215,11 +6333,14 @@ _DEVPROF_KERNELS = {
 }
 
 
-def _profiled_us(fn, fragment: str, calls: int, prep) -> float:
+def _profiled_us(fn, fragment: str, calls: int, prep,
+                 events: list = None) -> float:
     """Mean microseconds per launch of kernels named ``fragment`` in a
     ``torch.profiler`` trace of ``calls`` calls of ``fn``, each after
-    ``prep()``."""
+    ``prep()``. ``events``, when given, receives every device event of
+    the trace as (name, start us, duration us) in start order."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prep()
@@ -6233,7 +6354,28 @@ def _profiled_us(fn, fragment: str, calls: int, prep) -> float:
     hits = [e for e in prof.key_averages() if fragment in e.key]
     n = sum(e.count for e in hits)
     assert n, f"the trace holds no {fragment!r} kernel"
+    if events is not None:
+        events.extend(sorted(
+            ((e.name, e.time_range.start, e.time_range.elapsed_us())
+             for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda x: x[1]))
     return sum(e.self_device_time_total for e in hits) / n
+
+
+def _trace_launches(fragment: str, events: list) -> dict:
+    """The launches of kernels named ``fragment`` in ``events`` (from
+    :func:`_profiled_us`): each one's duration and start offset from the
+    first, in us, and every other device operation that overlaps one of
+    them. One long launch and a shift of all of them read apart here."""
+    mine = [e for e in events if fragment in e[0]]
+    t0 = mine[0][1] if mine else 0.0
+    spans = [(s, s + d) for _, s, d in mine]
+    others = [(n, round(s - t0, 2), round(d, 2)) for n, s, d in events
+              if fragment not in n
+              and any(s < b and s + d > a for a, b in spans)]
+    return {"launches": [(round(s - t0, 2), round(d, 2))
+                         for _, s, d in mine],
+            "overlapping": others}
 
 
 def _devprof_us(fn, match, calls: int, prep):
@@ -6314,11 +6456,18 @@ def _obs_full_width(report, ssb, bsi, by_date, c1, lab) -> dict:
         fn()
         row = {}
         for mode, prep in (("idle", idle), ("busy", busy)):
+            events = []
             with _uncounted():
                 dp_us, launches, bw, mfu = _devprof_us(fn, match, n, prep)
-                tr_us = _profiled_us(fn, fragment, n, prep)
+                tr_us = _profiled_us(fn, fragment, n, prep, events)
             ok = abs(dp_us - tr_us) <= max(DEVPROF_AGREE_US,
                                             DEVPROF_AGREE_REL * tr_us)
+            if not ok:
+                # F.3: tell one long event from a shift of all of them
+                print(f"14c {name} ({mode}) missed: the trace's "
+                      f"{fragment!r} launches [start offset us, us] and "
+                      f"the device ops overlapping them: "
+                      f"{json.dumps(_trace_launches(fragment, events))}")
             row[mode] = {"devprof_us": dp_us, "trace_us": tr_us,
                          "dispatches": launches, "bw_util_pct": bw,
                          "mfu_pct": mfu, "agree": ok}
@@ -6336,6 +6485,56 @@ def _obs_full_width(report, ssb, bsi, by_date, c1, lab) -> dict:
            if not (v["idle"]["agree"] and v["busy"]["agree"])}
     assert not off, f"devprof and the profiler disagree: {off}"
     return out
+
+
+def probe_f3(report, args, n: int) -> list:
+    """ROADMAP C's F.3 probe (``python3 chip_smoke.py --f3-probe N``):
+    path 2's index built as path 2 builds it, then 14c's busy
+    ``bsi_compare`` measurement (20 filtered Sums, each behind a 2 ms
+    spin kernel with L2 flushed) taken ``n`` times: devprof's time per
+    dispatch, the trace's time per launch, the check's verdict, and
+    every traced launch's start offset and duration with the device
+    operations overlapping them. Written to ``build/f3_probe.json``."""
+    import torch
+
+    bsi = phase_bsi_path(report, args)
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    spin = int(2e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
+
+    def busy():
+        flush.zero_()
+        torch.cuda._sleep(spin)
+
+    def fn():
+        return bsi["api"].query("b", "Sum(Row(amount > 524288), "
+                                     "field=amount)")
+
+    fragment, match = _DEVPROF_KERNELS["bsi_compare"]
+    rows = []
+    for i in range(n):
+        events = []
+        dp_us = _devprof_us(fn, match, 20, busy)[0]
+        tr_us = _profiled_us(fn, fragment, 20, busy, events)
+        ok = abs(dp_us - tr_us) <= max(DEVPROF_AGREE_US,
+                                        DEVPROF_AGREE_REL * tr_us)
+        tl = _trace_launches(fragment, events)
+        durs = sorted(d for _, d in tl["launches"])
+        rows.append({"devprof_us": dp_us, "trace_us": tr_us, "agree": ok,
+                     **tl})
+        print(f"f3 probe {i}: devprof {dp_us:.2f} us, trace {tr_us:.2f} "
+              f"us/launch over {len(durs)} launches (min "
+              f"{durs[0]:.2f}, median {durs[len(durs) // 2]:.2f}, max "
+              f"{durs[-1]:.2f}), {_bar(ok)}; {len(tl['overlapping'])} "
+              f"overlapping device ops" + (
+                  "" if ok else f": {json.dumps(tl)}") + f" {report.label}")
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "f3_probe.json"), "w") as f:
+        json.dump({"card": report.label, "rows": rows}, f)
+    missed = sum(1 for r in rows if not r["agree"])
+    print(f"f3 probe: {missed} of {n} busy traces missed the check "
+          f"{report.label}")
+    return rows
 
 
 def _obs_flight(ssb, lab) -> dict:
@@ -7527,14 +7726,12 @@ def _cl_figures(c, report, lab) -> dict:
 def _cl_kernels(report, c, ssb, writes, lab) -> None:
     """16f: the kernels against their plain versions on the nodes' own
     planes, at the shapes the cluster's legs launch them."""
-    import numpy as np
     import torch
 
     from pilosa_tpu_torch.core import stacked as STK
     from pilosa_tpu_torch.ops import bitmap as B
     from pilosa_tpu_torch.ops import bsi as S
     from pilosa_tpu_torch.ops import groupby as G
-    from pilosa_tpu_torch.ops import scatter as SC
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     node = next(n for n in c.nodes if _cl_held(n, "ssb"))
@@ -7568,23 +7765,10 @@ def _cl_kernels(report, c, ssb, writes, lab) -> None:
                  if snap.shard_nodes("ssb", s)[0].id == node.node.id
                  and ((imp_cols // SHARD_WIDTH) == s).any())
     sel = (imp_cols // SHARD_WIDTH) == shard
-    frag = idx.field("year").fragment(shard)
-    pos = imp_cols[sel] - shard * SHARD_WIDTH
-    slots = np.array([frag.row_index[int(r)] for r in imp_rows[sel]])
-    addr, masks_np = SC.sort_updates(slots, pos, frag.planes.shape[1])
-    t = SC._tile_words(frag.planes.size)
-    which, packed, _ = SC.pack_tiles(addr, t)
-    tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
-    tiles[packed] &= ~masks_np
-    flat = torch.from_numpy(tiles.view(np.int32)).to(node.device)
-    addr_t = torch.from_numpy(packed.astype(np.int32)).to(node.device)
-    masks_t = torch.from_numpy(masks_np.view(np.int32)).to(node.device)
-    ours, plain = flat.clone(), flat.clone()
-    new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
-    assert int(new_bits) == int(sel.sum()), int(new_bits)
-    report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
-               new_bits)
-    report.err("scatter_merge", ours, plain)
+    new_bits = _scatter_check(report, idx.field("year").fragment(shard),
+                              imp_rows[sel], imp_cols[sel] - shard *
+                              SHARD_WIDTH, node.device)
+    assert new_bits == int(sel.sum()), new_bits
     torch.cuda.synchronize()
     print(f"cluster 16f: on {node.node.id}'s planes (shards {shards}) "
           f"tape_count (year=3 AND brand=MFGR#1007: {int(got)}), "
@@ -7595,20 +7779,63 @@ def _cl_kernels(report, c, ssb, writes, lab) -> None:
           f"versions bit for bit {lab}")
 
 
-def _cl_failover(lab, device, shards: int = 4) -> dict:
+def _scatter_check(report, frag, rows, pos, device) -> int:
+    """``scatter_merge`` against its plain version on ``frag``'s packed
+    tiles: the bits of (``rows``, ``pos``) cleared in a copy of their
+    tiles and set anew by each; returns the new bits counted."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import scatter as SC
+
+    slots = np.array([frag.row_index[int(r)] for r in rows])
+    addr, masks_np = SC.sort_updates(slots, pos, frag.planes.shape[1])
+    t = SC._tile_words(frag.planes.size)
+    which, packed, _ = SC.pack_tiles(addr, t)
+    tiles = frag.planes.reshape(-1, t)[which].reshape(-1)
+    tiles[packed] &= ~masks_np
+    flat = torch.from_numpy(tiles.view(np.int32)).to(device)
+    addr_t = torch.from_numpy(packed.astype(np.int32)).to(device)
+    masks_t = torch.from_numpy(masks_np.view(np.int32)).to(device)
+    ours, plain = flat.clone(), flat.clone()
+    new_bits = SC.scatter_merge_plain(plain, addr_t, masks_t)
+    report.err("scatter_merge", SC.scatter_merge_(ours, addr_t, masks_t),
+               new_bits)
+    report.err("scatter_merge", ours, plain)
+    return int(new_bits)
+
+
+def _fo_reads(node, want) -> None:
+    """16d's reads from ``node``: each row's Count and ``TopN(f, n=3)``
+    against numpy's ``bincount`` ``want``."""
+    for r in range(len(want)):
+        assert node.query("fo", f"Count(Row(f={r}))") == [int(want[r])], \
+            f"Count(Row(f={r})) on {node.node.id}"
+    top = sorted(((-int(v), r) for r, v in enumerate(want)))[:3]
+    got = node.query("fo", "TopN(f, n=3)")[0]
+    assert [(p.id, p.count) for p in got.pairs] == \
+        [(r, -v) for v, r in top], "TopN disagrees"
+
+
+def _cl_failover(lab, device, shards: int = 4, keep: bool = False) -> dict:
     """16d: a 3-node cluster with 2 replicas over 4 shards; a paused node
     leaves it DEGRADED: reads through the replicas, writes refused, then
-    NORMAL again."""
+    NORMAL again. The nodes' clients share an unarmed ``FaultPlan``;
+    with ``keep`` the cluster stays open for path 17c and comes back as
+    ``"cluster"`` with the plan, the column rows and the bincount."""
     import numpy as np
 
-    from pilosa_tpu_torch.cluster import (ClusterStateError, LocalCluster,
-                                          STATE_DEGRADED, STATE_NORMAL)
+    from pilosa_tpu_torch.cluster import (ClusterStateError, FaultPlan,
+                                          LocalCluster, STATE_DEGRADED,
+                                          STATE_NORMAL)
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     rows = 7
     rng = np.random.default_rng(4)
     f_of = rng.integers(0, rows, shards * SHARD_WIDTH)
-    c = LocalCluster(3, replica_n=2, device=device)
+    plan = FaultPlan(seed=4)  # unarmed: path 17c arms it
+    c = LocalCluster(3, replica_n=2, fault_plan=plan, device=device)
+    kept = False
     try:
         co = c.coordinator
         co.create_index("fo")
@@ -7622,13 +7849,7 @@ def _cl_failover(lab, device, shards: int = 4) -> dict:
         want = np.bincount(f_of, minlength=rows)
 
         def reads(node):
-            for r in range(rows):
-                assert node.query("fo", f"Count(Row(f={r}))") == \
-                    [int(want[r])], f"Count(Row(f={r})) on {node.node.id}"
-            top = sorted(((-int(v), r) for r, v in enumerate(want)))[:3]
-            got = node.query("fo", "TopN(f, n=3)")[0]
-            assert [(p.id, p.count) for p in got.pairs] == \
-                [(r, -v) for v, r in top], "TopN disagrees"
+            _fo_reads(node, want)
 
         reads(co)
         c.pause(1)
@@ -7649,24 +7870,32 @@ def _cl_failover(lab, device, shards: int = 4) -> dict:
         f_of[5] = 1
         for node in c.nodes:
             reads(node)
+        kept = keep
     finally:
-        c.close()
+        if not kept:
+            c.close()
     print(f"cluster 16d: 3 nodes, 2 replicas, {shards} x 2^20 columns "
           f"loaded in {load_s:.3f} s; node1 paused: DEGRADED, Counts and "
           "TopN equal numpy through the replicas, a write refused "
           "(ClusterStateError); unpaused: NORMAL, the write accepted and "
           f"read back from every node {lab}")
-    return {"load_s": load_s}
+    out = {"load_s": load_s}
+    if keep:
+        out["cluster"] = {"c": c, "plan": plan, "f_of": f_of, "want": want}
+    return out
 
 
 def phase_cluster(report: Report, device: str = "cuda:0",
-                  shards: tuple = (6, FE_C2_SHARDS, 4)) -> dict:
+                  shards: tuple = (6, FE_C2_SHARDS, 4),
+                  keep_16d: bool = False) -> dict:
     """Path 16: the cluster core. Three nodes in this process on the card
     load bench.py configs 3 and 2 through the coordinator (16a, 16b),
     take routed writes (16c), answer with a node paused (16d); figures
     (16e) and the kernels on the nodes' planes (16f). ``device`` and the
     shards of configs 3, 2 and 16d's index are the card's and the
-    configs' own; a dry run on the CPU passes ``"cpu"`` and fewer."""
+    configs' own; a dry run on the CPU passes ``"cpu"`` and fewer. With
+    ``keep_16d`` 16d's cluster stays open for path 17 (``"16d_cluster"``
+    of the result, which the caller closes)."""
     import gc
 
     import torch
@@ -7709,9 +7938,507 @@ def phase_cluster(report: Report, device: str = "cuda:0",
         del c
         gc.collect()
         torch.cuda.empty_cache()
-    out["16d"] = _cl_failover(lab, device, shards[2])
+    out["16d"] = _cl_failover(lab, device, shards[2], keep=keep_16d)
+    kept = out["16d"].pop("cluster", None)
     out["seconds"] = time.perf_counter() - t_phase
     print("cluster 16: " + json.dumps(out, default=str))
+    if kept is not None:
+        out["16d_cluster"] = kept
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Path 17: fan-out resilience and leg batching (bench.py configs 9 and 14,
+# a straggler, a breaker and a batched wave on 16d's full-width cluster)
+# ---------------------------------------------------------------------------
+
+C9_PER_SHARD = 50_000  # bench.py config 9 (bench.py:614-695)
+C14_PER_SHARD = 40_000  # bench.py config 14 (bench.py:1085-1200)
+C9_ITERS = 20  # bench.py: max(QUERY_ITERS, 5)
+C14_WAVES = 3
+C14_QUERIES = 64
+#: 17c's breaker: open on the first failure, for long enough to read
+#: through the veto, sample every timeline and ask for the cluster stats
+C17_OPEN_MS = 2000.0
+C17_WAVE = 64
+
+
+def _barrier_wave(node, index, batch):
+    """Every (pql, shards, want) of ``batch`` from its own thread,
+    released at once through a barrier as bench.py config 14 runs them;
+    each answer must equal its ``want``. Per-query seconds."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    barrier = threading.Barrier(len(batch))
+
+    def one(entry):
+        pql, subset, want = entry
+        barrier.wait()
+        t0 = time.perf_counter()
+        r = node.query(index, pql, shards=subset)
+        dt = time.perf_counter() - t0
+        assert r == [want], f"{pql} over {subset}: {r} != [{want}]"
+        return dt
+
+    with ThreadPoolExecutor(max_workers=len(batch)) as pool:
+        return list(pool.map(one, batch))
+
+
+def _phase_print(tag, lab, **figs) -> None:
+    print(f"resilience {tag}: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in figs.items()) + f" {lab}")
+
+
+def _res_config9(report, device, lab) -> dict:
+    """17a: bench.py config 9 as ``bench_config9`` builds it: a 3-node,
+    2-replica cluster under ``FaultPlan(seed=9)``, 6 shards x 50,000
+    records of an 8-row set field from seed 9, ``Count(Row(f=3))`` 20
+    times healthy, 20 unhedged under a delay of one owner, 20 warm with
+    resilience on and 20 hedged under the same delay; every answer equal
+    to the no-fault answer and to numpy; at least one hedge won. The
+    owner's fragment of the last shard holds ``scatter_merge`` against
+    its plain version."""
+    import numpy as np
+
+    from pilosa_tpu_torch.cluster import FaultPlan, LocalCluster
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(9)
+    plan = FaultPlan(seed=9)
+    c = LocalCluster(3, replica_n=2, fault_plan=plan, device=device)
+    try:
+        co = c.coordinator
+        co.create_index("c9")
+        co.create_field("c9", "f")
+        f_all = []
+        t0 = time.perf_counter()
+        for shard in range(6):
+            rows = rng.integers(0, 8, C9_PER_SHARD)
+            cols = shard * SHARD_WIDTH + np.arange(C9_PER_SHARD)
+            co.import_bits("c9", "f", rows=rows.tolist(), cols=cols.tolist())
+            f_all.append(rows)
+        load_s = time.perf_counter() - t0
+        q = "Count(Row(f=3))"
+        want = co.query("c9", q)
+        assert want == [int(np.bincount(np.concatenate(f_all),
+                                        minlength=8)[3])], want
+        victim = next(n.node.id for n in c.nodes[1:]
+                      if n.holder.index("c9").shards())
+
+        def timed():
+            r, s = _synced_s(lambda: co.query("c9", q))
+            assert r == want, (r, want)
+            return s
+
+        healthy = [timed() for _ in range(C9_ITERS)]
+        delay_s = min(max(10 * statistics.median(healthy), 0.25), 2.0)
+        plan.delay(victim, delay_s)
+        unhedged = [timed() for _ in range(C9_ITERS)]
+        plan.clear()
+        reg = MetricsRegistry()
+        co.enable_resilience(registry=reg, hedge_min_ms=1.0,
+                             breaker_threshold=1 << 30)
+        warm = [timed() for _ in range(C9_ITERS)]
+        plan.delay(victim, delay_s)
+        hedged = [timed() for _ in range(C9_ITERS)]
+        plan.clear()
+        co.disable_resilience()
+        hedges = _counters(reg, "cluster_hedges_total")
+        wins = _counters(reg, "cluster_hedge_wins_total")
+        assert wins >= 1, f"no hedge won under the straggler ({hedges})"
+        owner = next(n for n in c.nodes if 5 in _cl_held(n, "c9"))
+        frag = owner.holder.index("c9").field("f").fragment(5)
+        with _uncounted():
+            new_bits = _scatter_check(report, frag, f_all[5],
+                                      np.arange(C9_PER_SHARD), owner.device)
+        assert new_bits == C9_PER_SHARD, new_bits
+    finally:
+        c.close()
+    out = {"load_s": load_s, "delay_s": delay_s, "hedges": hedges,
+           "wins": wins, "victim": victim, "owner": owner.node.id}
+    for name, lat in (("healthy", healthy), ("unhedged", unhedged),
+                      ("warm", warm), ("hedged", hedged)):
+        out[f"{name}_p50_ms"] = _pct_ms(lat, 0.5)
+        out[f"{name}_p99_ms"] = _pct_ms(lat, 0.99)
+    _phase_print("17a", lab, **out)
+    print(f"resilience 17a: config 9: 6 x {C9_PER_SHARD} records; "
+          f"{4 * C9_ITERS} reads equal the no-fault answer {want} and "
+          f"numpy; {victim} delayed {delay_s:.3f} s; {hedges:.0f} hedges, "
+          f"{wins:.0f} won; scatter_merge equals its plain version on "
+          f"{out['owner']}'s shard-5 planes {lab}")
+    return out
+
+
+def _batch_tape_check(report, node, index, queries, counts, lab) -> dict:
+    """On a serving node, one batch of config 14's queries (their shards
+    cut to the ones ``node`` holds) through ``query_remote_batch``: every
+    slot equals numpy, and every ``tape_count`` launch of the batch
+    equals its plain version on the same stacked planes and
+    ``ShardMask`` plane."""
+    from pilosa_tpu_torch.ops import bitmap as B
+
+    held = set(_cl_held(node, index))
+    entries, want = [], []
+    for pql, subset, _ in queries:
+        mine = [s for s in subset if s in held]
+        if mine:
+            row = int(pql.split("=")[1].rstrip(")"))
+            entries.append({"index": index, "query": pql, "shards": mine})
+            want.append(int(sum(counts[s][row] for s in mine)))
+    entries, want = entries[:32], want[:32]
+    calls = []
+    orig = B.tape_count
+
+    def tap(tape, leaves, mask=None):
+        out = orig(tape, leaves, mask)
+        calls.append((tape, list(leaves), mask, out))
+        return out
+
+    B.tape_count = tap
+    try:
+        got = node.query_remote_batch(entries)
+    finally:
+        B.tape_count = orig
+    assert [g["results"][0]["data"] for g in got] == want, (got, want)
+    for tape, leaves, mask, out in calls:
+        report.err("tape_count", out, B.tape_count_plain(tape, leaves, mask))
+    masked = sum(1 for c in calls if c[2] is not None)
+    print(f"resilience 17b: a {len(entries)}-query batch served by "
+          f"{node.node.id} (shards {sorted(held)}): every slot equals "
+          f"numpy; {len(calls)} tape_count launches for the batch, "
+          f"{masked} under a ShardMask, each equal to its plain version "
+          f"{lab}")
+    return {"batch": len(entries), "launches": len(calls), "masked": masked}
+
+
+def _res_config14(report, device, lab) -> dict:
+    """17b: bench.py config 14 as ``bench_config14`` builds it: 64
+    mixed-shard Counts over 6 shards x 40,000 records, released through a
+    barrier, 3 waves unbatched, then 3 batched; every answer equal to the
+    bincount oracle, the batched pass at least 8x fewer node RPCs and
+    none on ``/internal/query``; then the chaos wave (every batch RPC to
+    one owner delayed 0.3 s, hedging on); then a batch on a serving node
+    against the plain ``tape_count``."""
+    import numpy as np
+
+    from pilosa_tpu_torch.cluster import FaultPlan, LocalCluster
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(14)
+    plan = FaultPlan(seed=14)  # unarmed until the chaos wave
+    c = LocalCluster(3, replica_n=2, fault_plan=plan, device=device)
+    try:
+        co = c.coordinator
+        co.create_index("c14")
+        co.create_field("c14", "f")
+        counts = []
+        t0 = time.perf_counter()
+        for shard in range(6):
+            rows = rng.integers(0, 8, C14_PER_SHARD)
+            cols = shard * SHARD_WIDTH + np.arange(C14_PER_SHARD)
+            co.import_bits("c14", "f", rows=rows.tolist(),
+                           cols=cols.tolist())
+            counts.append(np.bincount(rows, minlength=8))
+        load_s = time.perf_counter() - t0
+        queries = []
+        for i in range(C14_QUERIES):
+            row = i % 8
+            subset = sorted(int(s) for s in rng.choice(
+                6, size=int(rng.integers(2, 6)), replace=False))
+            queries.append((f"Count(Row(f={row}))", subset,
+                            int(sum(counts[s][row] for s in subset))))
+        co.query("c14", queries[0][0], shards=queries[0][1])
+        sent0 = dict(co.client.op_counts)
+        unbatched = []
+        for _ in range(C14_WAVES):
+            unbatched += _barrier_wave(co, "c14", queries)
+        solo = co.client.op_counts.get("query", 0) - sent0.get("query", 0)
+        co.enable_cluster_batch()
+        sent0 = dict(co.client.op_counts)
+        batched = []
+        for _ in range(C14_WAVES):
+            batched += _barrier_wave(co, "c14", queries)
+        rpcs = co.client.op_counts.get("query_batch", 0) - \
+            sent0.get("query_batch", 0)
+        assert co.client.op_counts.get("query", 0) == \
+            sent0.get("query", 0), \
+            "batched pass leaked legs onto the solo /internal/query RPC"
+        cut = solo / max(rpcs, 1)
+        assert rpcs > 0 and cut >= 8.0, \
+            f"coalescer only cut node RPCs {cut:.1f}x ({solo} vs {rpcs})"
+        reg = MetricsRegistry()
+        co.enable_resilience(registry=reg, hedge_min_ms=30.0,
+                             timeout_min_ms=5000.0,
+                             breaker_threshold=1 << 30)
+        for _ in range(2):
+            _barrier_wave(co, "c14", queries[:16])
+        victim = next(n.node.id for n in c.nodes[1:]
+                      if n.holder.index("c14").shards())
+        plan.delay(victim, 0.3, op="query_batch")
+        chaos = _barrier_wave(co, "c14", queries[:16])
+        plan.clear()
+        co.disable_resilience()
+        co.disable_cluster_batch()
+        hedges = _counters(reg, "cluster_hedges_total")
+        with _uncounted():
+            check = _batch_tape_check(report, c.nodes[int(victim[-1])],
+                                      "c14", queries, counts, lab)
+    finally:
+        c.close()
+    out = {"load_s": load_s, "solo_rpcs": solo, "batch_rpcs": rpcs,
+           "rpc_cut": cut, "hedges": hedges, "victim": victim,
+           "unbatched_p50_ms": _pct_ms(unbatched, 0.5),
+           "unbatched_p99_ms": _pct_ms(unbatched, 0.99),
+           "batched_p50_ms": _pct_ms(batched, 0.5),
+           "batched_p99_ms": _pct_ms(batched, 0.99),
+           "chaos_p50_ms": _pct_ms(chaos, 0.5),
+           "chaos_p99_ms": _pct_ms(chaos, 0.99), "batch_check": check}
+    _phase_print("17b", lab, **{k: v for k, v in out.items()
+                                if k != "batch_check"})
+    print(f"resilience 17b: config 14: {C14_WAVES} waves of "
+          f"{C14_QUERIES} mixed-shard Counts unbatched and batched equal "
+          f"the bincount oracle; node RPCs {solo} -> {rpcs} ({cut:.1f}x, "
+          f"bench.py's 8x bar met), none batched on /internal/query; the "
+          f"chaos wave ({victim}'s batches delayed 0.3 s, {hedges:.0f} "
+          f"hedges) equals the oracle {lab}")
+    return out
+
+
+def _remote_primary(co, index: str) -> str:
+    """A node other than ``co`` that is the first owner of some shard of
+    ``index`` in the coordinator's assignment: its legs are primaries."""
+    ex = co.executor
+    by_node = ex._assign(ex._snapshot_fn(), index,
+                         sorted(ex._shards_fn(index)), set())
+    return next(nid for nid in sorted(by_node) if nid != ex.node_id)
+
+
+def _res_straggler(c, plan, want, lab) -> dict:
+    """17c.1: one owner of 16d's cluster delayed; with hedging on, the
+    Counts and the TopN equal numpy and hedges win."""
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+
+    co = c.coordinator
+    victim = _remote_primary(co, "fo")
+    reg = MetricsRegistry()
+    co.enable_resilience(registry=reg, hedge_min_ms=1.0,
+                         breaker_threshold=1 << 30)
+    try:
+        healthy = [_synced_s(lambda: _fo_reads(co, want))[1]
+                   for _ in range(3)]
+        delay_s = min(max(10 * statistics.median(healthy) / 8, 0.25), 2.0)
+        plan.delay(victim, delay_s)
+        straggled = [_synced_s(lambda: _fo_reads(co, want))[1]
+                     for _ in range(3)]
+    finally:
+        plan.clear()
+        co.disable_resilience()
+    hedges = _counters(reg, "cluster_hedges_total")
+    wins = _counters(reg, "cluster_hedge_wins_total")
+    assert hedges >= 1 and wins >= 1, (hedges, wins)
+    out = {"victim": victim, "delay_s": delay_s, "hedges": hedges,
+           "wins": wins, "healthy_reads_s": statistics.median(healthy),
+           "straggled_reads_s": statistics.median(straggled)}
+    _phase_print("17c straggler", lab, **out)
+    return out
+
+
+def _res_breaker(c, plan, want, lab) -> dict:
+    """17c.2: ``plan.drop`` of one owner: the reads fail over and the
+    breaker opens; with membership up again, the reads are vetoed to the
+    replicas with no RPC to the node; the coordinator's flight recorder
+    holds the breaker events and one ``breaker_open`` bundle, and ``GET
+    /internal/stats/cluster`` returns every node's window; after
+    ``plan.clear()`` and ``breaker_open_ms`` one half-open probe closes
+    the breaker and marks the node up."""
+    import urllib.request
+
+    from pilosa_tpu_torch.cluster.resilience import (
+        BREAKER_CLOSED, BREAKER_HALF_OPEN, BREAKER_OPEN)
+
+    co = c.coordinator
+    victim = _remote_primary(co, "fo")
+    ups, transitions = [], []
+    mark_up = co._mark_up
+    co._mark_up = lambda nid: (ups.append(nid), mark_up(nid))
+    planes = [n.enable_health() for n in c.nodes]
+    res = co.enable_resilience(
+        hedge=False, breaker_threshold=1, breaker_open_ms=C17_OPEN_MS,
+        on_breaker_transition=lambda n, f, t: transitions.append((n, f, t)))
+    try:
+        _fo_reads(co, want)  # fault-free
+        plan.drop(victim, first=plan.seen(victim))
+        _fo_reads(co, want)  # the failing leg fails over to the replicas
+        t_open = time.monotonic()  # the breaker opened before this
+        assert res.breaker.state(victim) == BREAKER_OPEN
+        # the server never died: membership sees it again, and only the
+        # breaker keeps the reads away from it
+        c.disco.up(victim)
+        seen = plan.seen(victim)
+        _fo_reads(co, want)
+        assert plan.seen(victim) == seen, "a vetoed node got an RPC"
+        for p in planes:
+            p.timeline.sample()
+        bundles = [b for b in co.health.flight.bundles()
+                   if b["trigger"] == "breaker_open"]
+        assert len(bundles) == 1, co.health.flight.summaries()
+        events = [e for e in co.health.flight.events()
+                  if e["kind"] == "breaker" and e["node"] == victim]
+        assert [e["to"] for e in events] == [BREAKER_OPEN], events
+        with urllib.request.urlopen(
+                co.node.uri + "/internal/stats/cluster?window=60",
+                timeout=30) as r:
+            stats = json.loads(r.read())
+        assert sorted(stats["nodes"]) == sorted(n.node.id for n in c.nodes)
+        assert stats["nodes"][victim] == {"enabled": False,
+                                          "error": "breaker open"}
+        live = [n for n, w in stats["nodes"].items() if w.get("samples")]
+        assert len(live) == 2, stats["nodes"].keys()
+        plan.clear()
+        time.sleep(max(0.0, C17_OPEN_MS / 1e3 - (time.monotonic() - t_open))
+                   + 0.05)
+        _fo_reads(co, want)  # the half-open probe closes the breaker
+        assert res.breaker.state(victim) == BREAKER_CLOSED
+        assert [(f, t) for n, f, t in transitions if n == victim] == [
+            (BREAKER_CLOSED, BREAKER_OPEN), (BREAKER_OPEN, BREAKER_HALF_OPEN),
+            (BREAKER_HALF_OPEN, BREAKER_CLOSED)], transitions
+        assert ups == [victim], ups
+    finally:
+        plan.clear()
+        del co._mark_up
+        co.disable_resilience()
+        for n in c.nodes:
+            n.disable_health()
+    out = {"victim": victim, "vetoed_rpcs": 0,
+           "bundle": bundles[0]["reason"],
+           "stats_nodes_reporting": stats["cluster"]["nodes_reporting"],
+           "transitions": [f"{f}->{t}" for n, f, t in transitions
+                           if n == victim]}
+    print(f"resilience 17c breaker: {victim} dropped: reads fail over, "
+          f"breaker {' , '.join(out['transitions'])}; while open the reads "
+          f"equal numpy with no RPC to {victim}; flight recorder: "
+          f"{len(events)} breaker event, one breaker_open bundle "
+          f"({out['bundle']!r}); /internal/stats/cluster: "
+          f"{sorted(stats['nodes'])}, {victim} 'breaker open', "
+          f"{out['stats_nodes_reporting']} nodes reporting; _mark_up ran "
+          f"for {ups} {lab}")
+    return out
+
+
+def _res_batched_wave(c, f_of, lab) -> dict:
+    """17c.3: a 64-way batched wave of mixed-shard Counts over 16d's
+    4 x 2^20 columns, each equal to numpy."""
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    co = c.coordinator
+    rng = np.random.default_rng(17)
+    shards = len(f_of) // SHARD_WIDTH
+    per = [np.bincount(f_of[s * SHARD_WIDTH:(s + 1) * SHARD_WIDTH],
+                       minlength=7) for s in range(shards)]
+    batch = []
+    for i in range(C17_WAVE):
+        row = i % 7
+        subset = sorted(int(s) for s in rng.choice(
+            shards, size=int(rng.integers(2, shards)), replace=False))
+        batch.append((f"Count(Row(f={row}))", subset,
+                      int(sum(per[s][row] for s in subset))))
+    co.enable_cluster_batch()
+    try:
+        sent0 = dict(co.client.op_counts)
+        lat = _barrier_wave(co, "fo", batch)
+        rpcs = {k: v - sent0.get(k, 0) for k, v in co.client.op_counts.items()
+                if v - sent0.get(k, 0)}
+    finally:
+        co.disable_cluster_batch()
+    assert rpcs.get("query", 0) == 0, rpcs
+    out = {"queries": C17_WAVE, "rpcs": rpcs, "p50_ms": _pct_ms(lat, 0.5),
+           "p99_ms": _pct_ms(lat, 0.99)}
+    _phase_print("17c batched wave", lab, **out)
+    return out
+
+
+def _res_full_width(report, kept, lab) -> dict:
+    """17c: 16d's cluster (3 nodes, 2 replicas, 4 x 2^20 columns of a
+    7-row mutex ``f``) under a straggler, an open breaker and a batched
+    wave; ``pair_counts`` (the TopN's row counts) against its plain
+    version on a node's ``f`` block."""
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops.bitmap import device_ones
+
+    c, plan, want = kept["c"], kept["plan"], kept["want"]
+    out = {"straggler": _res_straggler(c, plan, want, lab),
+           "breaker": _res_breaker(c, plan, want, lab),
+           "batched": _res_batched_wave(c, kept["f_of"], lab)}
+    node = next(n for n in c.nodes[1:] if _cl_held(n, "fo"))
+    st = STK.stacked_set(node.holder.index("fo").field("f"),
+                         _cl_held(node, "fo"), "standard")
+    n_blk = 0
+    with _uncounted():
+        for _, blk in st.iter_blocks():
+            if isinstance(blk, torch.Tensor):
+                ones = device_ones(blk.shape[-1], blk.device).reshape(1, -1)
+                report.err("pair_counts", G.pair_counts(ones, blk),
+                           G.pair_counts_plain(ones, blk))
+                n_blk += 1
+    print(f"resilience 17c: pair_counts (the TopN's row counts) equals "
+          f"its plain version on {node.node.id}'s {n_blk} f block(s) {lab}")
+    return out
+
+
+def phase_resilience(report: Report, kept: dict,
+                     device: str = "cuda:0") -> dict:
+    """Path 17: fan-out resilience and leg batching. (17c) 16d's
+    full-width cluster, handed over open by path 16, under a straggler,
+    an open breaker and a 64-way batched wave, then closed; (17a)
+    bench.py config 9; (17b) bench.py config 14. ``device`` is the
+    card's; a dry run on the CPU passes ``"cpu"``."""
+    import gc
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    t_phase = time.perf_counter()
+    out = {}
+    torch.cuda.synchronize()
+    KU.reset_launches()
+    _UNCOUNTED.clear()
+    try:
+        t0 = time.perf_counter()
+        out["17c"] = _res_full_width(report, kept, lab)
+        out["17c"]["seconds"] = time.perf_counter() - t0
+    finally:
+        kept["c"].close()
+        kept.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["17a"] = _res_config9(report, device, lab)
+    out["17a"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["17b"] = _res_config14(report, device, lab)
+    out["17b"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = {k: v - _UNCOUNTED.get(k, 0) for k, v in KU.launches().items()}
+    report.launched("resilience 17", launched,
+                    ("tape_count", "scatter_merge"))
+    out["launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"resilience 17: launches on the path {launched}; steps "
+          + ", ".join(f"{k} {out[k]['seconds']:.2f} s"
+                      for k in ("17c", "17a", "17b"))
+          + f"; {out['seconds']:.2f} s {lab}")
+    print("resilience 17: " + json.dumps(out, default=str))
     return out
 
 
@@ -7752,6 +8479,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--shards", type=int, default=6)
+    ap.add_argument("--f3-probe", type=int, default=0, metavar="N",
+                    help="only take path 14c's busy bsi_compare trace N "
+                         "times on path 2's index (ROADMAP C, F.3)")
     args = ap.parse_args()
 
     import numpy as np
@@ -7796,14 +8526,17 @@ def main() -> int:
           f"{POPC_PER_CLOCK_PER_SM}/clock x {clock_mhz:.0f} MHz)")
 
     report = Report(gpu_name, power_limit)
+    if args.f3_probe:
+        probe_f3(report, args, args.f3_probe)
+        return 0
     device = torch.device("cuda", 0)
     lop_rate = LOP_PER_CLOCK_PER_SM * props.multi_processor_count \
         * clock_mhz * 1e6
     rates = (mem_rate, popc_rate, lop_rate)
 
-    def timed(name, fn, *a):
+    def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a, **kw)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
         return out
 
@@ -7830,7 +8563,9 @@ def main() -> int:
     timed("12 ingest", phase_ingest, report)
     timed("13 SQL", phase_sql, report)
     timed("15 front ends", phase_frontends, report)
-    timed("16 cluster", phase_cluster, report)
+    cluster = timed("16 cluster", phase_cluster, report, keep_16d=True)
+    timed("17 resilience", phase_resilience, report,
+          cluster.pop("16d_cluster"))
 
     print(f"profiler: empty traces of counted launches taken again "
           f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")

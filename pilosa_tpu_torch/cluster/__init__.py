@@ -4,12 +4,14 @@ execution (SURVEY.md §2.3).
 Port of ``pilosa_tpu/cluster/``'s core: shards hash to partitions
 (fnv64a), partitions jump-hash to nodes, queries fan out to the shard
 primaries and reduce at the coordinator, writes replicate to every
-owner. The resilience plane (hedges, breakers, fault plans), leg
-batching and the gossip agent come with their slices."""
+owner. The resilience plane (hedges, breakers, seeded fault plans) and
+the per-node leg batcher guard and coalesce the remote legs; the gossip
+agent comes with its slice."""
 
 from pilosa_tpu_torch.cluster.broadcast import (  # noqa: F401
     Broadcaster, HTTPBroadcaster, NopBroadcaster,
 )
+from pilosa_tpu_torch.cluster.batch import NodeBatcher  # noqa: F401
 from pilosa_tpu_torch.cluster.client import (  # noqa: F401
     InternalClient, LegCancelled, NodeDownError, RemoteError,
 )
@@ -18,6 +20,10 @@ from pilosa_tpu_torch.cluster.disco import (  # noqa: F401
 )
 from pilosa_tpu_torch.cluster.executor import ClusterExecutor  # noqa: F401
 from pilosa_tpu_torch.cluster.harness import LocalCluster  # noqa: F401
+from pilosa_tpu_torch.cluster.resilience import (  # noqa: F401
+    CancellationToken, CircuitBreaker, FaultPlan, InjectedFault,
+    LatencyTracker, Resilience,
+)
 from pilosa_tpu_torch.hashing import (  # noqa: F401
     fnv64a, jump_hash, key_to_partition, shard_to_partition,
 )

@@ -13,10 +13,12 @@ span.
 Transport: per-node keep-alive connection pools (the server speaks
 HTTP/1.1 with Content-Length on every response), so repeated legs to
 the same peer reuse a socket. A pooled connection the peer quietly
-closed gets one fresh-socket retry that does not use up a retry.
+closed gets one fresh-socket retry that does not use up a retry or
+consult the fault plan again.
 
-The fault-injection hook and the gossip envelope come with the
-resilience and gossip planes.
+A ``FaultPlan`` (``cluster/resilience.py``) set as ``fault_plan`` is
+consulted before every send attempt, keyed on the target node id. The
+gossip envelope comes with the gossip plane.
 """
 from __future__ import annotations
 
@@ -111,7 +113,7 @@ class _ConnPool:
 class InternalClient:
     def __init__(self, timeout: float = 30.0, retries: int = 2,
                  backoff: float = 0.05, sleep=None, rng=None,
-                 pool_size: int = 4):
+                 fault_plan=None, pool_size: int = 4):
         self.timeout = timeout
         self.retries = retries
         self.backoff = backoff
@@ -119,6 +121,15 @@ class InternalClient:
         # retry path never calls bare time.sleep directly.
         self._sleep = sleep if sleep is not None else time.sleep
         self._rng = rng if rng is not None else random.Random()
+        # Optional cluster/resilience.FaultPlan consulted before every
+        # send, keyed on the target node id (duck-typed: anything with
+        # on_request(node_id, token=, op=)).
+        self.fault_plan = fault_plan
+        # The node id this client sends AS (ClusterNode sets it). Only
+        # when it is set do FaultPlan partition rules see a source, so
+        # anonymous clients and fault doubles that take no source= keep
+        # working unchanged.
+        self.self_id: Optional[str] = None
         self.pool = _ConnPool(per_key=pool_size)
         # wire-RPC accounting by op tag (one increment per actual send
         # attempt, retries included)
@@ -127,7 +138,8 @@ class InternalClient:
 
     def evict_node(self, node_id: str) -> int:
         """Drop pooled sockets for a peer (a paused node's, in the
-        harness)."""
+        harness; ClusterNode also wires this to the breaker's open
+        transition)."""
         return self.pool.evict(node_id)
 
     def close(self) -> None:
@@ -169,6 +181,13 @@ class InternalClient:
             if tenant is not None:
                 headers["x-tenant"] = tenant
             try:
+                if self.fault_plan is not None and node_id is not None:
+                    if self.self_id is not None:
+                        self.fault_plan.on_request(node_id, token=token,
+                                                   op=op, source=self.self_id)
+                    else:
+                        self.fault_plan.on_request(node_id, token=token,
+                                                   op=op)
                 status, data = self._send_once(method, url, body, headers,
                                                timeout, node_id, op)
                 if status >= 400:
@@ -282,6 +301,21 @@ class InternalClient:
                           "remote": True}, token=token, op="query")
         return out["results"]
 
+    def query_node_batch(self, node, entries: Sequence[dict],
+                         token=None) -> List[dict]:
+        """Ship many coalesced read legs to one peer as a single RPC
+        (cluster/batch.py -> /internal/query-batch). Each entry carries
+        ``index`` / ``query`` / ``shards``; the reply holds one slot per
+        entry, ``{"results": [wire...]}`` on success or ``{"error": msg,
+        "status": code}``, so one bad query never fails its
+        batch-mates. The trace tree rides the batch once."""
+        out = self._post(node, "/internal/query-batch", {
+            "queries": [{"index": e["index"], "query": e["query"],
+                         "shards": list(e["shards"])} for e in entries],
+            "remote": True,
+        }, token=token, op="query_batch")
+        return out["results"]
+
     # -- SQL subtree fan-out (reference: /sql-exec-graph,
     #    http_handler.go:538 + sql3/planner/wireprotocol.go) --------------
 
@@ -364,3 +398,12 @@ class InternalClient:
             return self._get(node, "/status")
         except (NodeDownError, RemoteError):
             return None
+
+    def stats_timeline(self, node, window_s: float = 60.0,
+                       token=None) -> dict:
+        """One peer's health-plane timeline window (obs/health.py), the
+        leg that GET /internal/stats/cluster's fan-out merges. It takes
+        the usual retries and fault plan under ``op="stats"``."""
+        return self._get(
+            node, f"/internal/stats/timeline?window={float(window_s):g}",
+            token=token, op="stats")

@@ -16,8 +16,11 @@ Each node of the port is one process with its own card (or, in
 ``LocalCluster``, one card shared by every node): the node's local
 kernels run on its stacks, and this layer is the host-to-host axis.
 ``sql_subtree`` fans a SQL plan subtree out over the same loop
-(sql/fanout.py). Hedged legs and circuit breakers, leg batching and the
-gossip-keyed leg cache come with their planes.
+(sql/fanout.py). With a ``Resilience`` attached (``cluster/resilience.py``)
+the remote legs of a read hedge onto replicas, open breakers route
+around a failing node and each leg has an adaptive timeout; with a
+``NodeBatcher`` (``cluster/batch.py``) concurrent read legs to one peer
+ship as one RPC. The gossip-keyed leg cache comes with its plane.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 from pilosa_tpu_torch.cluster.client import InternalClient, NodeDownError
-from pilosa_tpu_torch.obs.tracing import get_tracer
+from pilosa_tpu_torch.obs.tracing import active_span, get_tracer
 from pilosa_tpu_torch.cluster.topology import ClusterSnapshot, Node
 from pilosa_tpu_torch.cluster.translator import ClusterTranslator
 from pilosa_tpu_torch.core.holder import Holder
@@ -69,6 +72,18 @@ class ClusterExecutor:
         # invalidate immediately; other writers are TTL-bounded).
         self.cache = None
         self._write_epoch: Dict[str, int] = {}
+        # optional fan-out resilience manager (cluster/resilience.py), set
+        # by ClusterNode.enable_resilience: hedged remote legs, per-node
+        # circuit breakers, adaptive per-leg timeouts. READ fan-outs only;
+        # the write path mirrors to every replica and never hedges.
+        self.resilience = None
+        # optional per-node remote-leg coalescer (cluster/batch.py), set
+        # by ClusterNode.enable_cluster_batch: concurrent read legs to
+        # the same peer ship as one multi-query RPC. It sits BELOW the
+        # remote-leg cache (each query's partials stay keyed on its own
+        # shard set) and ABOVE the wire client (hedging and failover see
+        # the error surface of solo legs).
+        self.batcher = None
         self.translator = ClusterTranslator(node_id, holder, client,
                                             snapshot_fn, live_fn=live_fn)
         # the node API that runs SQL subtrees on this node's shards, set
@@ -127,56 +142,91 @@ class ClusterExecutor:
         return by_node
 
     def _fan_shards(self, index: str, shards: Sequence[int],
-                    run_local, run_remote) -> List[Any]:
+                    run_local, run_remote,
+                    hedgeable: bool = True) -> List[Any]:
         """The fan-out + replica-failover loop: group shards by primary
         owner, run the local group on this thread while the remote groups
         run concurrently (latency = max, not sum — the reference's mapper
         goroutines, executor.go:6579), and re-target a failed node's
         shards at the next replica rank (executor.go:6500).
         ``run_local(shards)`` / ``run_remote(node, shards, token)``
-        produce one partial each. Hedged legs, breakers and adaptive leg
-        timeouts come with the resilience plane."""
+        produce one partial each; the PQL map/reduce and the SQL subtree
+        fan-out share it. With a resilience manager attached the remote
+        wave also gets hedging, breaker routing and adaptive timeouts
+        (cluster/resilience.py)."""
         snap = self._snapshot_fn()
         nodes = {n.id: n for n in snap.nodes}
         # Seed with membership's view of dead peers (etcd heartbeats in
         # the reference); transport errors below add stragglers.
         dead: Set[str] = (set(nodes) - self._live_fn()
                           if self._live_fn is not None else set())
+        res = self.resilience
         pending = list(shards)
         parts: List[Any] = []
         for _attempt in range(max(1, snap.replica_n)):
             by_node = self._assign(snap, index, pending, dead)
+            if res is not None:
+                # Breaker routing: open-breaker nodes lose their legs to
+                # replicas up front (no timeout paid); when only vetoed
+                # owners remain, probe through the breaker rather than
+                # fail a query that could still succeed.
+                veto = res.vetoed(
+                    [nid for nid in by_node if nid != self.node_id])
+                if veto:
+                    active_span().set_tag("breaker_vetoed", sorted(veto))
+                    try:
+                        by_node = self._assign(snap, index, pending,
+                                               dead | veto)
+                    except NodeDownError:
+                        pass
             remote = {nid: s for nid, s in by_node.items()
                       if nid != self.node_id}
             local_shards = by_node.get(self.node_id)
             if not remote:
-                # all-local fan-out: no thread pool
+                # all-local fan-out: no thread pool, no tokens
                 if local_shards:
                     parts.append(run_local(local_shards))
                 return parts
+            local_fn = ((lambda s=local_shards: run_local(s))
+                        if local_shards else None)
             failed: List[int] = []
-
-            def traced_leg(nid, s):
-                with get_tracer().start_span("cluster.leg", node=nid,
-                                             hedge=False, shards=len(s)):
-                    return run_remote(nodes[nid], s, None)
-
-            with ThreadPoolExecutor(max_workers=len(remote)) as pool:
-                # per-leg context copies re-enter the coordinator's span
-                # scope on the pool workers (a shared Context object
-                # cannot be entered concurrently)
-                futs = {nid: pool.submit(contextvars.copy_context().run,
-                                         traced_leg, nid, s)
-                        for nid, s in remote.items()}
-                if local_shards:
-                    parts.append(run_local(local_shards))
-                for nid, fut in futs.items():
-                    try:
-                        parts.append(fut.result())
-                    except NodeDownError:
-                        dead.add(nid)
+            if res is not None:
+                def mark_failed(nid: str, transport: bool) -> None:
+                    dead.add(nid)
+                    if transport:
                         self._on_node_down(nid)
-                        failed.extend(remote[nid])
+
+                def next_owners(s, racing):
+                    return self._assign(snap, index, s, dead | {racing})
+
+                got, failed = res.run_legs(
+                    remote, nodes, run_remote, next_owners,
+                    hedgeable=hedgeable, local_fn=local_fn,
+                    mark_failed=mark_failed)
+                parts.extend(got)
+            else:
+                def traced_leg(nid, s):
+                    with get_tracer().start_span("cluster.leg", node=nid,
+                                                 hedge=False,
+                                                 shards=len(s)):
+                        return run_remote(nodes[nid], s, None)
+
+                with ThreadPoolExecutor(max_workers=len(remote)) as pool:
+                    # per-leg context copies re-enter the coordinator's
+                    # span scope on the pool workers (a shared Context
+                    # object cannot be entered concurrently)
+                    futs = {nid: pool.submit(contextvars.copy_context().run,
+                                             traced_leg, nid, s)
+                            for nid, s in remote.items()}
+                    if local_fn is not None:
+                        parts.append(local_fn())
+                    for nid, fut in futs.items():
+                        try:
+                            parts.append(fut.result())
+                        except NodeDownError:
+                            dead.add(nid)
+                            self._on_node_down(nid)
+                            failed.extend(remote[nid])
             if not failed:
                 return parts
             pending = failed
@@ -190,6 +240,10 @@ class ClusterExecutor:
         pql = call.to_pql()
 
         def run_remote(node, s, token=None):
+            batcher = self.batcher
+            if batcher is not None:
+                return R.result_from_wire(
+                    batcher.run(node, idx.name, pql, s, token=token)[0])
             return R.result_from_wire(
                 self.client.query_node(node, idx.name, pql, s,
                                        token=token)[0])
@@ -215,7 +269,8 @@ class ClusterExecutor:
             run_remote = run_remote_cached
         out = self._fan_shards(
             idx.name, shards,
-            lambda s: self._run_local_read(idx.name, call, s), run_remote)
+            lambda s: self._run_local_read(idx.name, call, s),
+            run_remote, hedgeable=call.name not in _WRITE_CALLS)
         if leg_stale[0] and cache is not None:
             cache.mark_stale()
         return out

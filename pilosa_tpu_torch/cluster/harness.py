@@ -10,17 +10,20 @@ the cluster tests' container pause
 
 Every node runs its engine on ``device``: ``cuda:0`` unless the caller
 asks for the CPU, so the nodes of one process share one card (and one
-``DeviceBudget``). The fault plan, a client factory, leg batching and
-the gossip, membership, tenant and degradation helpers come with their
-planes.
+``DeviceBudget``). A ``FaultPlan`` injects seeded faults into every
+node's client, ``client_factory`` builds each node's client, and
+``cluster_batch`` attaches the leg coalescer on every node. The gossip,
+membership, tenant and degradation helpers come with their planes.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import List, Optional
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.cluster.client import InternalClient
 from pilosa_tpu_torch.cluster.disco import InMemDisCo
 from pilosa_tpu_torch.cluster.node import ClusterNode
 from pilosa_tpu_torch.server.http import serve
@@ -29,12 +32,23 @@ from pilosa_tpu_torch.server.http import serve
 class LocalCluster:
     def __init__(self, n: int, replica_n: int = 1,
                  base_path: Optional[str] = None, disco_factory=None,
+                 fault_plan=None, client_factory=None,
+                 cluster_batch: Optional[dict] = None,
                  device: platform.DeviceLike = None):
         """``disco_factory()`` builds one DisCo per node (e.g. LeaseDisCo
         instances over a shared root — each node holds its own lease);
-        the default is one InMemDisCo shared by every node."""
+        the default is one InMemDisCo shared by every node.
+
+        ``fault_plan`` (cluster/resilience.FaultPlan) injects seeded
+        drops, delays and flaps into every node's client.
+        ``client_factory(i)`` builds node i's client instead (it sees the
+        plan only if it wires one itself). ``cluster_batch`` attaches the
+        remote-leg coalescer on every node with the given NodeBatcher
+        keyword arguments ({} for the defaults), as
+        PILOSA_TPU_CLUSTER_BATCH=1 does."""
         device = platform.resolve_device(device)
         self.disco = InMemDisCo() if disco_factory is None else None
+        self.fault_plan = fault_plan
         self.nodes: List[ClusterNode] = []
         self._servers = []
         try:
@@ -45,9 +59,18 @@ class LocalCluster:
                     os.makedirs(path, exist_ok=True)
                 disco = self.disco if disco_factory is None \
                     else disco_factory()
+                if client_factory is not None:
+                    client = client_factory(i)
+                elif fault_plan is not None:
+                    client = InternalClient(fault_plan=fault_plan)
+                else:
+                    client = None
                 node = ClusterNode(f"node{i}", "", disco, path=path,
-                                   replica_n=replica_n, device=device)
+                                   replica_n=replica_n, client=client,
+                                   device=device)
                 self.nodes.append(node)
+                if cluster_batch is not None and node.batcher is None:
+                    node.enable_cluster_batch(**cluster_batch)
                 srv, _ = serve(node, port=0, background=True)
                 self._servers.append(srv)
                 host, port = srv.server_address[:2]
@@ -79,7 +102,9 @@ class LocalCluster:
         # handler threads keep serving — evict them so the node is
         # really unreachable
         for node in self.nodes:
-            node.client.evict_node(f"node{i}")
+            evict = getattr(node.client, "evict_node", None)
+            if evict is not None:  # a client_factory's double may lack it
+                evict(f"node{i}")
         if self.disco is not None:
             self.disco.down(f"node{i}")
         else:  # per-node disco (LeaseDisCo): stop heartbeating
@@ -105,15 +130,24 @@ class LocalCluster:
         self.close()
 
     def close(self) -> None:
+        # each shutdown waits out its server's poll interval: wait for
+        # them all at once, not one after another
+        stops = [threading.Thread(target=srv.shutdown, daemon=True)
+                 for srv in self._servers]
+        for t in stops:
+            t.start()
+        for t in stops:
+            t.join()
         for srv in self._servers:
             try:
-                srv.shutdown()
                 srv.server_close()
             except Exception:
                 pass
         for node in self.nodes:
             node.disable_scheduler()
-            node.client.close()
+            close = getattr(node.client, "close", None)
+            if close is not None:
+                close()
             # stop per-node lease heartbeat threads (LeaseDisCo) so a
             # closed cluster leaves no writers behind
             leave = getattr(node.disco, "leave", None)

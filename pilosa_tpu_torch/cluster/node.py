@@ -28,12 +28,19 @@ on ``/internal/sql/subtree``); DML routes each field's import through
 the node's ``import_bits`` / ``import_values`` to the owners and their
 replicas.
 
-Not here yet, each with the plane that brings it: ``enable_resilience``,
-``enable_cluster_batch`` and ``query_remote_batch`` (fan-out resilience
-and batching), ``enable_gossip``, ``enable_membership`` and
-``enable_recovery`` (gossip and catch-up), ``enable_tenants`` and
-``enable_degrade``, ``enable_health`` with its node probes, and
-``cluster_stats``.
+Fan-out resilience and leg batching: ``enable_resilience`` attaches
+hedged legs, breakers and adaptive leg timeouts to the coordinator's
+fan-out (a breaker closing marks its node up again);
+``enable_cluster_batch`` (or ``PILOSA_TPU_CLUSTER_BATCH=1`` at
+construction) coalesces concurrent remote read legs per peer, and
+``query_remote_batch`` serves such a batch through ``execute_many``.
+``enable_health`` attaches the health plane with the node's probes (a
+breaker transition lands in its flight recorder), and ``cluster_stats``
+merges every node's timeline window.
+
+Not here yet, each with the plane that brings it: ``enable_gossip``,
+``enable_membership`` and ``enable_recovery`` (gossip and catch-up),
+``enable_tenants`` and ``enable_degrade``.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from pilosa_tpu_torch.cluster.executor import ClusterExecutor
 from pilosa_tpu_torch.cluster.topology import (
     ClusterSnapshot, Node, STATE_DOWN, STATE_NORMAL,
 )
+from pilosa_tpu_torch.config import env_bool
 from pilosa_tpu_torch.errors import ClusterStateError
 from pilosa_tpu_torch.obs.tracing import get_tracer
 from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
@@ -77,6 +85,11 @@ class ClusterNode:
             self.disco.register(self.node)
         self.replica_n = replica_n
         self.client = client or InternalClient()
+        # declare who this client sends AS, so FaultPlan partition rules
+        # can match (source, target) pairs; leave clients that lack the
+        # attribute (duck-typed test doubles) alone
+        if getattr(self.client, "self_id", "") is None:
+            self.client.self_id = node_id
         self.broadcaster = B.HTTPBroadcaster(
             self.client, self.disco.nodes, node_id)
         self._remote_exec = Executor(self.api.holder, remote=True)
@@ -95,6 +108,15 @@ class ClusterNode:
         # Transaction changes sync to peers so an exclusive transaction
         # on any node excludes cluster-wide (reference: server.go:1082).
         self.api.transactions.on_change = self._sync_transaction
+        # Opt-in fan-out leg batching (cluster/batch.py): the env flag
+        # attaches the coalescer at construction, so harness-built
+        # clusters run every node batched.
+        if env_bool("PILOSA_TPU_CLUSTER_BATCH"):
+            self.enable_cluster_batch()
+        # The env-bootstrapped health plane (PILOSA_TPU_OBS_TIMELINE=1)
+        # knows only the base API; upgrade its probes to this node's.
+        if self.api.health is not None:
+            self.api.health.attach_node(self)
 
     @property
     def device(self):
@@ -110,6 +132,15 @@ class ClusterNode:
 
     def _mark_down(self, node_id: str) -> None:
         for meth in ("down", "mark_down"):
+            fn = getattr(self.disco, meth, None)
+            if fn is not None:
+                fn(node_id)
+                return
+
+    def _mark_up(self, node_id: str) -> None:
+        """A recovered node rejoins membership (wired to the resilience
+        breaker's open -> closed transition)."""
+        for meth in ("up", "mark_up"):
             fn = getattr(self.disco, meth, None)
             if fn is not None:
                 fn(node_id)
@@ -296,6 +327,60 @@ class ClusterNode:
         self._announce_shards(index)
         return [result_to_wire(r) for r in results]
 
+    def query_remote_batch(self, entries: Sequence[dict]) -> List[dict]:
+        """Serve a coordinator's coalesced node batch (cluster/batch.py
+        -> /internal/query-batch): each index group of the batch runs
+        through the remote executor's ``execute_many``, which
+        superset-merges the entries' shard sets into one stacked layout
+        with per-query ``ShardMask``s, so a 32-query batch costs one
+        fused dispatch here, with the answers of solo runs.
+
+        Per-entry error slots isolate failures: a group-level exception
+        re-runs that index group solo, and only the offending entries
+        come back as ``{"error", "status"}``. An attached scheduler
+        charges the batch ONE admission ticket."""
+        out: List[Optional[dict]] = [None] * len(entries)
+        by_index: Dict[str, List[int]] = {}
+        for i, e in enumerate(entries):
+            by_index.setdefault(str(e.get("index", "")), []).append(i)
+        sched = self.executor.scheduler
+        ticket = sched.admit() if sched is not None else (
+            contextlib.nullcontext())
+        with ticket:
+            for index, slots in by_index.items():
+                self._serve_batch_group(index, entries, slots, out)
+                if any(out[i] is not None and "error" not in out[i]
+                       for i in slots):
+                    self._announce_shards(index)
+        return [o if o is not None else
+                {"error": "batch entry not served", "status": 500}
+                for o in out]
+
+    def _serve_batch_group(self, index: str, entries: Sequence[dict],
+                           slots: List[int],
+                           out: List[Optional[dict]]) -> None:
+        per_shards = [[int(s) for s in (entries[i].get("shards") or [])]
+                      for i in slots]
+        try:
+            queries = [parse(entries[i]["query"]) for i in slots]
+            fused = self._remote_exec.execute_many(
+                index, queries, per_query_shards=per_shards)
+        except Exception:
+            # isolation fallback: solo runs pin errors to their entries
+            for i, shards in zip(slots, per_shards):
+                try:
+                    res = self._remote_exec.execute(
+                        index, parse(entries[i]["query"]), shards=shards)
+                    out[i] = {"results": [result_to_wire(r) for r in res]}
+                except KeyError as exc:
+                    out[i] = {"error": str(exc), "status": 404}
+                except Exception as exc:
+                    out[i] = {"error": f"{type(exc).__name__}: {exc}",
+                              "status": 400}
+            return
+        for i, res in zip(slots, fused):
+            out[i] = {"results": [result_to_wire(r) for r in res]}
+
     def read_executor(self):
         """SQL read plans run on the cluster executor; its local legs
         consult ``executor.scheduler`` themselves."""
@@ -354,11 +439,141 @@ class ClusterNode:
         self.executor.cache = None
         self.executor.local.cache = None
 
-    # -- what the node reads through the base API -------------------------
+    # -- fan-out resilience (cluster/resilience.py) ------------------------
+
+    @property
+    def resilience(self):
+        return self.executor.resilience
+
+    def enable_resilience(self, config=None, **overrides):
+        """Attach hedged remote legs, per-node circuit breakers and
+        adaptive leg timeouts to this coordinator's fan-out. A breaker
+        closing (the node recovered) marks the node up in membership, so
+        it rejoins assignment."""
+        from pilosa_tpu_torch.cluster.resilience import Resilience
+
+        overrides.setdefault("on_node_up", self._mark_up)
+        res = Resilience.from_config(config, **overrides)
+        # a tripped peer's pooled sockets are suspect (whatever failed
+        # it may have wedged its half of the connections): drop them so
+        # the half-open probe and later traffic reconnect fresh
+        res.breaker.add_listener(self._evict_on_breaker_open)
+        self.executor.resilience = res
+        self._wire_health_resilience()
+        return res
+
+    def disable_resilience(self) -> None:
+        self.executor.resilience = None
+
+    def _evict_on_breaker_open(self, nid: str, frm: str, to: str) -> None:
+        from pilosa_tpu_torch.cluster.resilience import BREAKER_OPEN
+
+        if to == BREAKER_OPEN:
+            self.client.evict_node(nid)
+
+    # -- fan-out leg batching (cluster/batch.py) ---------------------------
+
+    @property
+    def batcher(self):
+        return self.executor.batcher
+
+    def enable_cluster_batch(self, config=None, **overrides):
+        """Attach the per-node remote-leg coalescer: concurrent read
+        legs bound for the same peer ship as ONE multi-query RPC served
+        by the peer's ``execute_many`` superset merge. While it is
+        attached EVERY remote read leg takes the batch RPC (a solo leg
+        ships as a batch of one), so a fault rule scoped
+        ``op="query_batch"`` covers all batched traffic."""
+        from pilosa_tpu_torch.cluster.batch import NodeBatcher
+
+        batcher = NodeBatcher.from_config(self.client, config, **overrides)
+        self.executor.batcher = batcher
+        return batcher
+
+    def disable_cluster_batch(self) -> None:
+        self.executor.batcher = None
+
+    # -- health plane (obs/: timeline + SLO + flight recorder) -------------
 
     @property
     def health(self):
         return self.api.health
+
+    def enable_health(self, config=None, start: bool = False, **overrides):
+        """Attach the health plane (see API.enable_health) with this
+        node's probes: the executor's scheduler and cache and the
+        breaker states, beside the base API's reads."""
+        plane = self.api.enable_health(config, start=start, **overrides)
+        plane.attach_node(self)
+        self._wire_health_resilience()
+        return plane
+
+    def disable_health(self) -> None:
+        self.api.disable_health()
+
+    def _wire_health_resilience(self) -> None:
+        """Feed the breaker's LOCAL transitions into the flight
+        recorder's event ring; enable_health and enable_resilience both
+        call it, so their order does not matter. The listener only
+        appends (capturing a bundle there would read breaker state back
+        under the breaker's notification); the open state fires the
+        ``breaker_open`` trigger at the next timeline sample."""
+        hp = self.api.health
+        res = self.executor.resilience
+        if hp is None or res is None:
+            return
+        old = getattr(self, "_health_listener", None)
+        if old is not None:
+            res.breaker.remove_listener(old)
+        res.breaker.add_listener(hp.on_breaker_transition)
+        self._health_listener = hp.on_breaker_transition
+
+    def cluster_stats(self, window_s: float = 60.0) -> dict:
+        """GET /internal/stats/cluster: fan the timeline window out to
+        every member over the InternalClient (``op="stats"``, so fault
+        rules can scope to it; a peer whose breaker is open is skipped,
+        not probed) and merge: per-node windows plus a cluster aggregate
+        summing each reporting node's newest sample."""
+        from pilosa_tpu_torch.cluster.client import NodeDownError, RemoteError
+        from pilosa_tpu_torch.cluster.resilience import BREAKER_OPEN
+
+        res = self.executor.resilience
+        nodes: Dict[str, dict] = {}
+        for n in self.snapshot().nodes:
+            if n.id == self.node.id:
+                hp = self.api.health
+                nodes[n.id] = (hp.timeline_json(window_s)
+                               if hp is not None else {"enabled": False})
+                continue
+            if res is not None and res.breaker.state(n.id) == BREAKER_OPEN:
+                nodes[n.id] = {"enabled": False, "error": "breaker open"}
+                continue
+            try:
+                nodes[n.id] = self.client.stats_timeline(n, window_s)
+            except (NodeDownError, RemoteError) as e:
+                nodes[n.id] = {"enabled": False, "error": str(e)}
+        rates: Dict[str, float] = {}
+        gauges: Dict[str, float] = {}
+        latest_t = None
+        reporting = 0
+        for tl in nodes.values():
+            samples = tl.get("samples") or []
+            if not tl.get("enabled") or not samples:
+                continue
+            reporting += 1
+            last = samples[-1]
+            latest_t = (last["t"] if latest_t is None
+                        else max(latest_t, last["t"]))
+            for k, v in last.get("rates", {}).items():
+                rates[k] = rates.get(k, 0.0) + v
+            for k, v in last.get("gauges", {}).items():
+                gauges[k] = gauges.get(k, 0.0) + v
+        return {"window_s": window_s, "nodes": nodes,
+                "cluster": {"nodes_reporting": reporting,
+                            "latest_t": latest_t,
+                            "rates": rates, "gauges": gauges}}
+
+    # -- what the node reads through the base API -------------------------
 
     @property
     def history(self):

@@ -149,6 +149,40 @@ class Config:
     cache_max_bytes: int = 64 << 20
     cache_max_entries: int = 4096
     cache_ttl_ms: float = 0.0  # <=0: no TTL (and remote-leg caching off)
+    # fan-out resilience ([cluster.resilience] section /
+    # PILOSA_TPU_CLUSTER_RESILIENCE_*): hedged remote shard legs,
+    # per-node circuit breakers, adaptive per-leg timeouts
+    # (cluster/resilience.py; attach via ClusterNode.enable_resilience)
+    cluster_resilience_enabled: bool = False
+    cluster_resilience_hedge: bool = True
+    # hedge a leg once it's been outstanding past this percentile of the
+    # node's recent leg latencies, clamped to [hedge-min-ms, hedge-max-ms]
+    cluster_resilience_hedge_percentile: float = 95.0
+    cluster_resilience_hedge_min_ms: float = 2.0
+    cluster_resilience_hedge_max_ms: float = 2000.0
+    # consecutive transport failures/timeouts that open a node's breaker,
+    # and how long it stays open before a half-open probe is allowed
+    cluster_resilience_breaker_threshold: int = 3
+    cluster_resilience_breaker_open_ms: float = 3000.0
+    # per-leg timeout = timeout-factor x node p99, clamped to
+    # [timeout-min-ms, timeout-max-ms] and to the query's deadline budget
+    cluster_resilience_timeout_factor: float = 4.0
+    cluster_resilience_timeout_min_ms: float = 50.0
+    cluster_resilience_timeout_max_ms: float = 30000.0
+    cluster_resilience_latency_window: int = 64  # rolling samples per node
+    # fan-out leg batching ([cluster.batch] section /
+    # PILOSA_TPU_CLUSTER_BATCH_*): concurrent remote read legs bound for
+    # the same node coalesce into one multi-query RPC (cluster/batch.py;
+    # attach via ClusterNode.enable_cluster_batch, or set
+    # PILOSA_TPU_CLUSTER_BATCH=1 to attach it at node construction)
+    cluster_batch_enabled: bool = False
+    cluster_batch_window_ms: float = 0.2  # fixed window when non-adaptive
+    cluster_batch_max_batch: int = 32  # legs per node RPC
+    # adaptive window: EWMA arrival-rate sizing shared with the local
+    # scheduler (sched/window.py), clamped to [window-min, window-max]
+    cluster_batch_adaptive_window: bool = True
+    cluster_batch_window_min_ms: float = 0.05
+    cluster_batch_window_max_ms: float = 2.0
     # crash recovery ([storage.recovery] section /
     # PILOSA_TPU_STORAGE_RECOVERY_*): WAL segment rotation size
     # (checkpoints prune whole sealed segments), the record bytes that

@@ -1,12 +1,13 @@
 """HealthPlane: the standing composition of timeline + SLO + flight.
 
 Port of ``pilosa_tpu/obs/health.py``: ``from_config``, ``attach_api``,
-``record``, ``slow_traces``, ``timeline_json``, ``start`` and ``stop``.
-``attach_api`` registers the probes under the JAX package's names; the
-``tenants`` and ``degrade`` probes read ``api.tenants`` / ``api.degrade``,
-which stay None (``{"enabled": false}``) until the port has a tenant
-registry and a degradation ladder. ``attach_node``, ``attach_dax`` and
-``on_breaker_transition`` wait for the cluster and serverless planes.
+``attach_node``, ``on_breaker_transition``, ``record``,
+``slow_traces``, ``timeline_json``, ``start`` and ``stop``. The probes
+keep the JAX package's names; the ``tenants`` and ``degrade`` probes
+read ``api.tenants`` / ``api.degrade``, and the ``gossip`` and
+``membership`` probes the node's gossip agent and membership, which
+stay None (``{"enabled": false}``) until the port has those planes.
+``attach_dax`` waits for the serverless plane.
 
 One object owns the three health-plane parts and the wiring between
 them: every timeline sample is handed to the flight recorder's trigger
@@ -19,7 +20,9 @@ background threads.
 
 ``attach_api`` registers the probes any API process has (scheduler
 queue, cache hit ratio, WAL flush lag, device residency, streaming
-ingest, kernel profiles). Probes read through the owning object at
+ingest, kernel profiles); ``attach_node`` upgrades them to a cluster
+node's live subsystems and adds the breaker-state, gossip and
+membership reads. Probes read through the owning object at
 sample time (``api.scheduler`` may be None now and real after
 ``enable_scheduler``) so enable order never matters.
 """
@@ -193,6 +196,48 @@ class HealthPlane:
         self.timeline.add_observer(
             lambda sample: (api.degrade.observe(sample)
                             if api.degrade is not None else None))
+
+    def attach_node(self, node) -> None:
+        """Upgrade probes to the cluster node's live subsystems (the
+        executor's scheduler and cache, not the base API's) and add the
+        cluster-only reads."""
+        self.node_id = node.node.id
+        self.timeline.add_probe(
+            "scheduler", lambda: _sched_probe(node.executor))
+        self.timeline.add_probe(
+            "cache", lambda: _cache_probe(node.executor))
+
+        def breakers():
+            res = node.executor.resilience
+            if res is None:
+                return {"enabled": False}
+            return {"enabled": True, "states": res.breaker.states()}
+
+        def gossip():
+            agent = getattr(node.executor, "gossip", None)
+            if agent is None:
+                return {"enabled": False}
+            ages = agent.state.origin_ages()
+            return {"enabled": True, "origins": ages,
+                    "staleness_s": max(ages.values(), default=0.0)}
+
+        def membership():
+            m = getattr(node, "membership", None)
+            if m is None:
+                return {"enabled": False}
+            return m.probe()
+
+        self.timeline.add_probe("breakers", breakers)
+        self.timeline.add_probe("gossip", gossip)
+        self.timeline.add_probe("membership", membership)
+
+    def on_breaker_transition(self, node_id: str, frm: str,
+                              to: str) -> None:
+        """CircuitBreaker listener: an event-ring append only (a capture
+        here would read breaker state back through the probe while the
+        breaker is notifying). The open state fires the
+        ``breaker_open`` trigger at the next sample."""
+        self.flight.record_event("breaker", node=node_id, frm=frm, to=to)
 
     # -- request accounting ------------------------------------------------
 

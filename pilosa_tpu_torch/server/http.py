@@ -700,6 +700,10 @@ class Handler(BaseHTTPRequestHandler):
         except ValueError:
             self._send(400, {"error": "window must be a number"})
             return
+        fanout = getattr(self.api, "cluster_stats", None)
+        if fanout is not None:
+            self._send(200, fanout(window))
+            return
         # single-node API: the "cluster" is just us
         hp = self._health_plane()
         local = (hp.timeline_json(window) if hp is not None
@@ -1047,6 +1051,19 @@ class Handler(BaseHTTPRequestHandler):
             index, self._require(b, "query"), b.get("shards") or [])
         self._send(200, {"results": results})
 
+    def post_internal_query_batch(self):
+        """A coordinator's coalesced node batch (cluster/batch.py): every
+        entry runs against this node's shards through the fused remote
+        executor, with per-entry error slots so the caller can demux
+        partial failures. The trace tree rides the batch once."""
+        self._node_only()
+        serve_batch = getattr(self.api, "query_remote_batch", None)
+        if serve_batch is None:
+            raise KeyError("peer does not serve query batches")
+        b = self._json_body()
+        self._send(200, {"results": serve_batch(
+            self._require(b, "queries"))})
+
     def post_cluster_message(self):
         self._node_only()
         self.api.receive_message(self._json_body())
@@ -1075,12 +1092,11 @@ class Handler(BaseHTTPRequestHandler):
             self.api, self._require(b, "spec"), b.get("shards") or []))
 
     def _not_yet(self, *_groups):
-        """Node-to-node routes of planes still to port (the coalesced
-        query batch, gossip, membership, replica catch-up): the
-        single-node 404 on a plain API and on a node alike."""
+        """Node-to-node routes of planes still to port (gossip,
+        membership, replica catch-up): the single-node 404 on a plain
+        API and on a node alike."""
         raise KeyError("not a cluster node")
 
-    post_internal_query_batch = _not_yet
     post_gossip_exchange = get_gossip_state = _not_yet
     post_membership_ping = get_membership = _not_yet
     get_recovery_snapshot = get_recovery_wal = _not_yet

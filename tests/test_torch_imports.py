@@ -14,7 +14,8 @@ serves the API over HTTP and drives it through the client, framed gRPC,
 the CLI and fbsql (importing every front-end module), runs a keyed
 two-node ``LocalCluster`` on the CPU (importing every cluster module)
 and a SQL aggregate over a host filter through it (the SQL fan-out),
-then reports
+a two-node cluster with a seeded ``FaultPlan``, leg batching and
+hedged legs (fan-out resilience), then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -141,7 +142,19 @@ with LocalCluster(2, device="cpu") as lc:
     lc[1].sql("insert into ft values (1, 5), (2097153, 6), (3, 7)")
     clustered.append(lc[0].sql(
         "select sum(v) from ft where v % 2 = 1").data)
-print(json.dumps({"star": star, "front": front, "hist": hist,
+from pilosa_tpu_torch.cluster import FaultPlan
+plan = FaultPlan(seed=1)
+with LocalCluster(2, device="cpu", fault_plan=plan,
+                  cluster_batch={}) as lc:
+    lc[0].create_index("rs")
+    lc[0].create_field("rs", "f")
+    lc[0].import_bits("rs", "f", rows=[1, 1, 2], cols=[1, 2097153, 3])
+    lc[0].enable_resilience()
+    plan.delay("node1", 0.0)
+    resilient = [lc[0].query("rs", "Count(Row(f=1))")[0],
+                 lc[0].client.op_counts.get("query_batch", 0) > 0,
+                 plan.seen("node1") > 0]
+print(json.dumps({"star": star, "resilient": resilient, "front": front, "hist": hist,
                   "clustered": clustered,
                   "logged": logged,
                   "count": got[0], "top": got[1].pairs[0].count,
@@ -183,6 +196,8 @@ _CLUSTER = ("hashing.py", "cluster", "cluster/topology.py", "cluster/disco.py",
             "cluster/harness.py")
 #: and the SQL fan-out's
 _SQL_FANOUT = ("sql/fanout.py",)
+#: and fan-out resilience and leg batching's
+_RESILIENCE = ("cluster/resilience.py", "cluster/batch.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -209,8 +224,9 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["profiled"] == [300, 1, 1]
     assert out["front"][1:] == [0, True, True] and out["front"][0] > 0
     assert out["clustered"] == [2, "a", [[12]]]
+    assert out["resilient"] == [2, True, True]
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
-                 + _CLUSTER + _SQL_FANOUT):
+                 + _CLUSTER + _SQL_FANOUT + _RESILIENCE):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -336,4 +352,11 @@ def test_scan_covers_the_sql_fanout_module():
     scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
                for p in _sources()}
     for part in _SQL_FANOUT:
+        assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_resilience_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _RESILIENCE:
         assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"

@@ -1409,7 +1409,7 @@ def test_grpc_framing_equal_across_packages():
 #: ``[tenants]`` fields but ``enabled`` / ``fair-share``, ``[dax]`` and
 #: ``[degrade]``
 _A7_KEYS = ("node-id", "peers", "replicas", "gossip-", "membership-",
-            "cluster-resilience-", "cluster-batch-", "tenants-max-tracked",
+            "tenants-max-tracked",
             "tenants-top-k", "tenants-default-", "tenants-cache-quota-bytes",
             "dax-", "degrade-")
 #: keys of the JAX package's ``Config`` that nothing in either package

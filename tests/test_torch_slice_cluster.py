@@ -362,16 +362,20 @@ def test_node_routes_equal_the_jax_packages(clusters):
               ("POST", "/internal/index/ssb/query",
                {"query": "Count(Row(year=3))", "shards": [2, 3]}),
               ("POST", "/internal/translate/field/ssb/brand/keys/find",
-               {"keys": ["MFGR#1003", "nope"]})]
+               {"keys": ["MFGR#1003", "nope"]}),
+              ("POST", "/internal/query-batch",
+               {"queries": [{"index": "ssb", "query": "Count(Row(year=3))",
+                             "shards": [2, 3]},
+                            {"index": "nope", "query": "Count(Row(f=1))",
+                             "shards": [0]}]})]
     for k in range(3):
         for method, path, body in routes:
             got = _get(tc[k].node.uri, path, method, body)
             want = _get(jc[k].node.uri, path, method, body)
             assert _no_uris(got) == _no_uris(want), (k, path)
-    # the coalesced batch waits for its plane: a node answers the plain
-    # API's 404 there, where the JAX package's node serves it
+    # the coalesced batch is served on a node of both packages
     assert _get(tc[1].node.uri, "/internal/query-batch", "POST",
-                {"queries": []})[0] == 404
+                {"queries": []}) == (200, {"results": []})
 
 
 # -- a mixed cluster: two port nodes and one JAX node ------------------------
