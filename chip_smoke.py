@@ -384,9 +384,39 @@ Phases, each printed on its own line:
     of its ``tape_count`` launches against its plain version with its
     ``ShardMask``; ``tape_count`` and ``scatter_merge`` launched, each
     step's seconds;
-21. the empty traces of counted launches that ``_device_ops`` took
+21. main path 18, gossip, SWIM membership and replica catch-up: (18a)
+    ``bench.py`` config 10 as ``bench_config10`` builds it (a 2-node
+    cluster, 4 x 20,000 records of an 8-row field, seed 10; 8 trials of
+    a remote shard's ``Count(Row(f=3))`` cached on the coordinator while
+    its owner is written directly, with a 300 ms TTL-only leg cache,
+    then 8 with gossip-keyed caching at ``ttl_ms=0`` and 10 ms rounds):
+    each phase's stale-read window p50 and p99 (the gossip p50 below
+    the TTL p50, no window at the 5 s bail), every read at least the
+    count before its write, the rounds, deltas and piggybacks; (18b) a
+    3-node, 2-replica cluster with data directories
+    (``build/chip_smoke_gossip``, removed at the end) over 16d's width
+    (index ``rc``, a 7-row mutex field over 4 x 2^20 columns, seed 18),
+    gossip, membership, resilience and the health plane on every node:
+    node 2 paused and silent until the coordinator's ``live_ids`` drops
+    it (reads equal numpy throughout, its breaker prewarms node 1),
+    100,000 row changes on its shards' other owners, node 2 back until
+    it is alive again, ``lagging`` naming its shards and ``catch_up``
+    (4,096 more changes land at the peer after its snapshot and reach
+    node 2 in the WAL tail): shards, records, tail and snapshot bytes,
+    ``lag_ms`` (the script's own late write, inside it, timed beside
+    it), the replay's ``scatter_merge`` launches; node 2's planes equal
+    its peer's, reads from node 2 and the coordinator equal numpy with
+    the ``tape_count`` and ``pair_counts`` launches of node 2's reads
+    (on every node) against their plain versions,
+    its breaker gossiped open then closed, a second catch-up empty,
+    ``scatter_merge`` against its plain version on the replayed tiles;
+    (18c) on that cluster, the coordinator's Count p50 with the gossip
+    envelope on its requests and off, the envelope's bytes, the round's
+    ms, the entries and origins; ``tape_count`` and ``scatter_merge``
+    launched, each step's seconds;
+22. the empty traces of counted launches that ``_device_ops`` took
     again, then one ``{"kernels": [...]}`` JSON line;
-22. the last line: ``{"ok": true, "device": {...}}``.
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -7985,8 +8015,8 @@ def _barrier_wave(node, index, batch):
         return list(pool.map(one, batch))
 
 
-def _phase_print(tag, lab, **figs) -> None:
-    print(f"resilience {tag}: " + ", ".join(
+def _phase_print(tag, lab, path="resilience", **figs) -> None:
+    print(f"{path} {tag}: " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in figs.items()) + f" {lab}")
 
@@ -8078,8 +8108,6 @@ def _batch_tape_check(report, node, index, queries, counts, lab) -> dict:
     slot equals numpy, and every ``tape_count`` launch of the batch
     equals its plain version on the same stacked planes and
     ``ShardMask`` plane."""
-    from pilosa_tpu_torch.ops import bitmap as B
-
     held = set(_cl_held(node, index))
     entries, want = [], []
     for pql, subset, _ in queries:
@@ -8089,29 +8117,16 @@ def _batch_tape_check(report, node, index, queries, counts, lab) -> dict:
             entries.append({"index": index, "query": pql, "shards": mine})
             want.append(int(sum(counts[s][row] for s in mine)))
     entries, want = entries[:32], want[:32]
-    calls = []
-    orig = B.tape_count
-
-    def tap(tape, leaves, mask=None):
-        out = orig(tape, leaves, mask)
-        calls.append((tape, list(leaves), mask, out))
-        return out
-
-    B.tape_count = tap
-    try:
-        got = node.query_remote_batch(entries)
-    finally:
-        B.tape_count = orig
+    got = []
+    n = _tapped(report, lambda: got.extend(node.query_remote_batch(entries)))
     assert [g["results"][0]["data"] for g in got] == want, (got, want)
-    for tape, leaves, mask, out in calls:
-        report.err("tape_count", out, B.tape_count_plain(tape, leaves, mask))
-    masked = sum(1 for c in calls if c[2] is not None)
     print(f"resilience 17b: a {len(entries)}-query batch served by "
           f"{node.node.id} (shards {sorted(held)}): every slot equals "
-          f"numpy; {len(calls)} tape_count launches for the batch, "
-          f"{masked} under a ShardMask, each equal to its plain version "
-          f"{lab}")
-    return {"batch": len(entries), "launches": len(calls), "masked": masked}
+          f"numpy; {n['tape_count']} tape_count launches for the batch, "
+          f"{n['masked']} under a ShardMask, each equal to its plain "
+          f"version {lab}")
+    return {"batch": len(entries), "launches": n["tape_count"],
+            "masked": n["masked"]}
 
 
 def _res_config14(report, device, lab) -> dict:
@@ -8442,6 +8457,489 @@ def phase_resilience(report: Report, kept: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 18: gossip, SWIM membership and replica catch-up (bench.py config 10
+# and a lagging replica at 16d's width)
+# ---------------------------------------------------------------------------
+
+C10_PER_SHARD = 20_000  # bench.py config 10 (bench.py:712-786)
+C10_TRIALS = 8
+C10_TTL_MS = 300.0
+C10_INTERVAL_MS = 10.0
+C10_BAIL_S = 5.0
+#: 18b: 16d's width (4 x 2^20 columns, a 7-row mutex field), from seed 18
+C18_SHARDS = 4
+C18_ROWS = 7
+#: the row changes node 2 misses while it is away, and those that land
+#: at its peer after the peer's snapshot (they reach node 2 in the tail)
+C18_LAG = 100_000
+C18_LATE = 4096
+C18_WAIT_S = 15.0
+C18_ITERS = 21
+
+
+def _gossip_counters(reg) -> dict:
+    return {k: _counters(reg, k) for k in (
+        "gossip_rounds_total", "gossip_deltas_sent_total",
+        "gossip_deltas_applied_total", "gossip_piggybacks_total")}
+
+
+def _gossip_config10(device, lab) -> dict:
+    """18a: bench.py config 10 as ``bench_config10`` builds it: a 2-node
+    cluster, 4 shards x 20,000 records of an 8-row field from seed 10;
+    ``Count(Row(f=3))`` of a remote shard cached on the coordinator, the
+    owner written directly, the coordinator polled until it reads the
+    write. 8 trials with a TTL-only leg cache (300 ms), then 8 with
+    gossip-keyed caching at ``ttl_ms=0`` (10 ms rounds on their threads,
+    3 rounds to converge first). Every read is at least the count before
+    the trial's write, a window ends at the count after it; the gossip
+    p50 is below the TTL p50 and no window hits the 5 s bail."""
+    import numpy as np
+
+    from pilosa_tpu_torch.cluster import LocalCluster
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(10)
+    reg = MetricsRegistry()
+    c = LocalCluster(2, device=device)
+    try:
+        co = c.coordinator
+        co.create_index("c10")
+        co.create_field("c10", "f")
+        f_all = []
+        for shard in range(4):
+            rows = rng.integers(0, 8, C10_PER_SHARD)
+            cols = shard * SHARD_WIDTH + np.arange(C10_PER_SHARD)
+            co.import_bits("c10", "f", rows=rows.tolist(),
+                           cols=cols.tolist())
+            f_all.append(rows)
+        owner = next(n for n in c.nodes[1:]
+                     if n.holder.index("c10").shards())
+        shard = sorted(owner.holder.index("c10").shards())[0]
+        q = "Count(Row(f=3))"
+        start = int(np.bincount(np.concatenate(f_all), minlength=8)[3])
+        assert co.query("c10", q) == [start]
+        next_col = [shard * SHARD_WIDTH + C10_PER_SHARD]
+        reads = [0]
+
+        def stale_window() -> float:
+            want = co.query("c10", q)[0] + 1
+            col, next_col[0] = next_col[0], next_col[0] + 1
+            owner.api.import_bits("c10", "f", rows=[3], cols=[col])
+            owner._announce_shards("c10")
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < C10_BAIL_S:
+                got = co.query("c10", q)[0]
+                reads[0] += 1
+                assert got >= want - 1, (got, want)
+                if got >= want:
+                    assert got == want, (got, want)
+                    return time.perf_counter() - t0
+                time.sleep(0.002)
+            return C10_BAIL_S
+
+        co.enable_cache(ttl_ms=C10_TTL_MS, registry=MetricsRegistry())
+        ttl = [stale_window() for _ in range(C10_TRIALS)]
+        co.disable_cache()
+        c.enable_gossip(interval_ms=C10_INTERVAL_MS, start=True,
+                        registry=reg)
+        c.run_gossip_rounds(3)
+        co.enable_cache(ttl_ms=0, registry=MetricsRegistry())
+        gossip = [stale_window() for _ in range(C10_TRIALS)]
+        final = co.query("c10", q)[0]
+    finally:
+        c.close()
+    assert final == start + 2 * C10_TRIALS, (final, start)
+    out = {"ttl_p50_ms": _pct_ms(ttl, 0.5), "ttl_p99_ms": _pct_ms(ttl, 0.99),
+           "gossip_p50_ms": _pct_ms(gossip, 0.5),
+           "gossip_p99_ms": _pct_ms(gossip, 0.99), "reads": reads[0],
+           "owner": owner.node.id, "shard": shard, **_gossip_counters(reg)}
+    assert max(gossip) < C10_BAIL_S, gossip
+    assert out["gossip_p50_ms"] < out["ttl_p50_ms"], out
+    _phase_print("18a", lab, "gossip", **out)
+    print(f"gossip 18a: config 10: 4 x {C10_PER_SHARD} records; "
+          f"{2 * C10_TRIALS} writes on {owner.node.id} (shard {shard}), "
+          f"{reads[0]} polled reads, none below the count before its "
+          f"write; stale window p50 {out['gossip_p50_ms']:.3f} ms with "
+          f"gossip against {out['ttl_p50_ms']:.3f} ms with a "
+          f"{C10_TTL_MS:.0f} ms TTL {lab}")
+    return out
+
+
+def _rc_reads(node, want) -> None:
+    """18b's reads from ``node``: each row's Count and ``TopN(f)``
+    against numpy's bincount ``want``."""
+    for r in range(len(want)):
+        assert node.query("rc", f"Count(Row(f={r}))") == [int(want[r])], \
+            f"Count(Row(f={r})) on {node.node.id}"
+    got = node.query("rc", "TopN(f)")[0]
+    top = sorted((-int(v), r) for r, v in enumerate(want) if v)
+    assert [(p.id, p.count) for p in got.pairs] == \
+        [(r, -v) for v, r in top], f"TopN on {node.node.id}"
+
+
+def _wait_s(pred, what: str, reads=None) -> float:
+    """Seconds until ``pred()`` holds (``reads()`` between polls)."""
+    t0 = time.perf_counter()
+    while not pred():
+        assert time.perf_counter() - t0 < C18_WAIT_S, f"{what} never held"
+        if reads is not None:
+            reads()
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def _tapped(report, fn) -> dict:
+    """Run ``fn`` with every ``tape_count`` and ``pair_counts`` launch
+    held against its plain version on the same inputs; returns each
+    kernel's launches, and ``masked``, the ``tape_count`` launches under
+    a ``ShardMask`` plane."""
+    from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import groupby as G
+
+    calls = {"tape_count": [], "pair_counts": []}
+    orig_t, orig_p = B.tape_count, G.pair_counts
+
+    def tap_t(tape, leaves, mask=None):
+        out = orig_t(tape, leaves, mask)
+        calls["tape_count"].append(((tape, list(leaves), mask), out))
+        return out
+
+    def tap_p(a, b):
+        out = orig_p(a, b)
+        calls["pair_counts"].append(((a, b), out))
+        return out
+
+    B.tape_count, G.pair_counts = tap_t, tap_p
+    try:
+        fn()
+    finally:
+        B.tape_count, G.pair_counts = orig_t, orig_p
+    plain = {"tape_count": B.tape_count_plain,
+             "pair_counts": G.pair_counts_plain}
+    with _uncounted():
+        for name, got in calls.items():
+            for args, out in got:
+                report.err(name, out, plain[name](*args))
+    n = {name: len(got) for name, got in calls.items()}
+    n["masked"] = sum(1 for args, _ in calls["tape_count"]
+                      if args[2] is not None)
+    return n
+
+
+def _gossip_lagging(report, device, base, lab) -> dict:
+    """18b: a 3-node, 2-replica cluster with a data directory a node,
+    index ``rc`` with a 7-row mutex field over 4 x 2^20 columns drawn as
+    16d draws it (seed 18); gossip (its defaults, on threads), membership
+    (its defaults), resilience and the health plane on every node, the
+    nodes' clients without retries (the chaos drives' client). Node 2
+    is paused and falls silent: the time until the coordinator's
+    ``live_ids`` drops it, reads equal numpy throughout, the
+    coordinator's breaker for node 2 reaches node 1 as a prewarm. Node
+    2's shards then change on their other owners; node 2 comes back (the
+    time until it is alive again at the coordinator), ``lagging`` names
+    each of its shards, and ``catch_up`` repairs them, while writes land
+    at the peer after its snapshot (they arrive in the WAL tail). Node
+    2's planes equal its peer's; its reads and the coordinator's equal
+    numpy; its breaker was gossiped open, then closed; a second
+    catch-up is empty. The cluster stays open for 18c."""
+    import base64
+
+    import numpy as np
+
+    from pilosa_tpu_torch.cluster import InternalClient, LocalCluster
+    from pilosa_tpu_torch.obs import metrics as M
+    from pilosa_tpu_torch.obs.metrics import MetricsRegistry
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.storage.store import export_shard_arrays
+
+    rng = np.random.default_rng(18)
+    f_of = rng.integers(0, C18_ROWS, C18_SHARDS * SHARD_WIDTH)
+    greg = MetricsRegistry()
+    regs = [MetricsRegistry() for _ in range(3)]
+    c = LocalCluster(3, replica_n=2, base_path=base, device=device,
+                     client_factory=lambda i: InternalClient(retries=0))
+    out = {}
+    try:
+        co, n2 = c.coordinator, c[2]
+        co.create_index("rc")
+        co.create_field("rc", "f", {"type": "mutex"})
+        t0 = time.perf_counter()
+        for s in range(C18_SHARDS):
+            sl = slice(s * SHARD_WIDTH, (s + 1) * SHARD_WIDTH)
+            co.import_bits("rc", "f", rows=f_of[sl],
+                           cols=np.arange(sl.start, sl.stop))
+        out["load_s"] = time.perf_counter() - t0
+        snap = co.snapshot()
+        mine = [s for s in range(C18_SHARDS)
+                if "node2" in [n.id for n in snap.shard_nodes("rc", s)]]
+        assert mine, "placement put no shard of rc on node2"
+        c.enable_gossip(start=True, registry=greg)
+        c.enable_membership()
+        for i, node in enumerate(c.nodes):
+            node.enable_resilience(registry=regs[i])
+            node.enable_health()
+        want = np.bincount(f_of, minlength=C18_ROWS)
+        _wait_s(lambda: all(len(n.gossip.state.digest()) == 3
+                            for n in c.nodes), "gossip convergence")
+        _rc_reads(co, want)
+
+        # node 2 stops: its listener closes and it sends nothing more
+        t_pause = time.perf_counter()
+        c.pause(2)
+        n2.gossip.stop()
+        _rc_reads(co, want)  # its legs fail over; its breaker opens
+        k = [0]
+
+        def poll_read():
+            r = k[0] % C18_ROWS
+            k[0] += 1
+            assert co.query("rc", f"Count(Row(f={r}))") == [int(want[r])]
+
+        _wait_s(lambda: "node2" not in co.disco.live_ids(),
+                "node2 confirmed", poll_read)
+        out["detect_s"] = time.perf_counter() - t_pause
+        out["breaker"] = co.resilience.breaker.state("node2")
+        _wait_s(lambda: regs[1].value(M.METRIC_GOSSIP_BREAKER_PREWARMS,
+                                      node="node2") >= 1,
+                "node1's prewarm")
+        out["prewarms"] = regs[1].value(M.METRIC_GOSSIP_BREAKER_PREWARMS,
+                                        node="node2")
+        out["timeout_s"] = co.membership.suspect_timeout_s(3)
+
+        # node 2's shards change on their other owners while it is away
+        def write_peers(cols, rows):
+            for s in mine:
+                sel = cols // SHARD_WIDTH == s
+                for n in snap.shard_nodes("rc", s):
+                    if n.id != "node2":
+                        c[int(n.id[4:])].api.import_bits(
+                            "rc", "f", rows=rows[sel], cols=cols[sel])
+            f_of[cols] = rows
+
+        lag = np.concatenate([rng.choice(SHARD_WIDTH, C18_LAG // len(mine),
+                                         replace=False) + s * SHARD_WIDTH
+                              for s in mine])
+        write_peers(lag, rng.integers(0, C18_ROWS, lag.size))
+        for n in c.nodes[:2]:
+            n._announce_shards("rc")
+        want = np.bincount(f_of, minlength=C18_ROWS)
+        _rc_reads(co, want)
+
+        t0 = time.perf_counter()
+        c.unpause(2)
+        n2.gossip.start()
+        out["rejoin_s"] = _wait_s(
+            lambda: (co.membership.status_of("node2") == "alive"
+                     and "node2" in co.disco.live_ids()), "node2 rejoined")
+        out["incarnation"] = n2.membership.incarnation
+        probe = co.health.timeline.sample()["probes"]["membership"]
+        out["probe"] = probe
+        assert probe["enabled"] and probe["down"] == 0, probe
+
+        rm = n2.enable_recovery()
+        _wait_s(lambda: sorted(set().union(*rm.lagging("rc").values()))
+                == mine, "node2's lag seen")
+        out["lagging"] = {o: sorted(s) for o, s in rm.lagging("rc").items()}
+        states = []
+        record = n2.gossip.record_breaker
+        n2.gossip.record_breaker = \
+            lambda t, st: (states.append((t, st)), record(t, st))[1]
+        late = np.concatenate([rng.choice(SHARD_WIDTH, C18_LATE // len(mine),
+                                          replace=False) + s * SHARD_WIDTH
+                               for s in mine])
+        late_rows = rng.integers(0, C18_ROWS, late.size)
+        fetch = n2.client.recovery_snapshot
+        snap_bytes = [0]
+
+        def snapshot_then_write(node, index, shard, token=None):
+            got = fetch(node, index, shard, token=token)
+            snap_bytes[0] += len(base64.b64decode(got.get("npz", "")))
+            if "late" not in out:  # lands after the first snapshot
+                t_w = time.perf_counter()
+                write_peers(late, late_rows)
+                out["late_write_ms"] = (time.perf_counter() - t_w) * 1e3
+                out["late"] = int(late.size)
+            return got
+
+        replayed = {}
+        replay = n2.holder.replay_records
+
+        def counted_replay(idx, recs):
+            before = KU.launches()
+            n = replay(idx, recs)
+            for k_, v in KU.launches().items():
+                replayed[k_] = replayed.get(k_, 0) + v - before.get(k_, 0)
+            replayed["records"] = replayed.get("records", 0) + n
+            return n
+
+        n2.client.recovery_snapshot = snapshot_then_write
+        n2.holder.replay_records = counted_replay
+        try:
+            summary = rm.catch_up("rc")
+        finally:
+            n2.client.recovery_snapshot = fetch
+            del n2.holder.replay_records
+            n2.gossip.record_breaker = record
+        summary["snapshot_bytes"] = snap_bytes[0]
+        summary["replayed"] = replayed
+        out["catch_up"] = summary
+        assert summary["shards"] == len(mine) and summary["records"] > 0, \
+            summary
+        assert replayed.get("scatter_merge", 0) >= 1, replayed
+        assert states == [("node2", "open"), ("node2", "closed")], states
+        want = np.bincount(f_of, minlength=C18_ROWS)
+        for s in mine:
+            peer = next(n for n in snap.shard_nodes("rc", s)
+                        if n.id != "node2")
+            a = export_shard_arrays(n2.holder.index("rc"), s)
+            b = export_shard_arrays(
+                c[int(peer.id[4:])].holder.index("rc"), s)
+            assert sorted(a) == sorted(b), (s, sorted(a), sorted(b))
+            for key in a:
+                assert np.array_equal(a[key], b[key]), (s, key)
+        out["read_launches"] = _tapped(report, lambda: _rc_reads(n2, want))
+        assert out["read_launches"]["pair_counts"] >= 1, out["read_launches"]
+        _rc_reads(co, want)
+        again = rm.catch_up("rc")
+        assert again["shards"] == 0, again
+        frag = n2.holder.index("rc").field("_exists").fragment(mine[0])
+        pos = late[late // SHARD_WIDTH == mine[0]] % SHARD_WIDTH
+        with _uncounted():
+            _scatter_check(report, frag, np.zeros(pos.size, np.int64), pos,
+                           n2.device)
+    except BaseException:
+        c.close()
+        raise
+    _phase_print("18b", lab, "gossip", load_s=out["load_s"],
+                 detect_s=out["detect_s"], timeout_s=out["timeout_s"],
+                 rejoin_s=out["rejoin_s"], prewarms=out["prewarms"],
+                 incarnation=out["incarnation"])
+    s = out["catch_up"]
+    print(f"gossip 18b: node2 (shards {mine}) paused and silent: dropped "
+          f"from the coordinator's live_ids after {out['detect_s']:.3f} s "
+          f"(suspect timeout {out['timeout_s']:.3f} s), the coordinator's "
+          f"breaker {out['breaker']}, {out['prewarms']:.0f} prewarm(s) on "
+          f"node1; {C18_LAG} row changes on its peers; back alive after "
+          f"{out['rejoin_s']:.3f} s at incarnation {out['incarnation']}; "
+          f"membership probe {out['probe']}; lagging {out['lagging']}; "
+          f"catch-up: {s['shards']} shard(s), {s['records']} records, "
+          f"{s['bytes']} tail bytes, {s['snapshot_bytes']} snapshot bytes, "
+          f"{s['queued']} queued, {s['lag_ms']:.3f} ms (of which "
+          f"{out['late_write_ms']:.3f} ms is the script's own write of "
+          f"{out['late']} changes at the peer); replay launches "
+          f"{s['replayed']}; planes equal the peer's, reads equal numpy "
+          f"from node2 and the coordinator "
+          f"({out['read_launches']['tape_count']} tape_count and "
+          f"{out['read_launches']['pair_counts']} pair_counts launches on "
+          f"node2's reads, all nodes, equal their plain versions), "
+          f"breaker gossiped open then closed, a second catch-up empty; "
+          f"scatter_merge equals its plain version on the replayed "
+          f"_exists tiles {lab}")
+    out["cluster"] = c
+    return out
+
+
+def _gossip_cost(c, greg, lab) -> dict:
+    """18c: on 18b's cluster, the coordinator's ``Count(Row(f=3))`` p50
+    with the gossip envelope on its requests and with it off
+    (``piggyback=False``), in turns; the envelope's JSON bytes a
+    request; the anti-entropy round's ms (``gossip_round_ms``: the
+    bucket that holds the median and the mean); the coordinator's
+    entries and known origins."""
+    co = c.coordinator
+    agent = co.gossip
+    sizes = []
+    wrap = co.client._piggyback
+
+    def measured(node, payload):
+        out = wrap(node, payload)
+        if "gossip" in out:
+            sizes.append(len(json.dumps(out["gossip"])))
+        return out
+
+    co.client._piggyback = measured
+    lat = {"on": [], "off": []}
+    try:
+        for turn in ("on", "off", "off", "on"):
+            co.client.gossip = agent if turn == "on" else None
+            for _ in range(C18_ITERS):
+                lat[turn].append(_synced_s(
+                    lambda: co.query("rc", "Count(Row(f=3))"))[1])
+    finally:
+        co.client.gossip = agent
+        co.client._piggyback = wrap
+    h = greg.histogram("gossip_round_ms")
+    acc, p50_le = 0, None
+    for le, n in sorted(h["buckets"].items()):
+        acc += n
+        if p50_le is None and acc * 2 >= h["count"]:
+            p50_le = le
+    out = {"on_p50_ms": _pct_ms(lat["on"], 0.5),
+           "off_p50_ms": _pct_ms(lat["off"], 0.5),
+           "envelope_bytes": statistics.mean(sizes) if sizes else 0.0,
+           "requests": len(sizes), "round_p50_le_ms": p50_le,
+           "round_mean_ms": h["sum"] / max(1, h["count"]),
+           "rounds": h["count"], "entries": len(agent.state),
+           "origins": len(agent.state.digest())}
+    _phase_print("18c", lab, "gossip", **out)
+    return out
+
+
+def phase_gossip(report: Report, device: str = "cuda:0") -> dict:
+    """Path 18: gossip, SWIM membership and replica catch-up. (18a)
+    bench.py config 10; (18b) a lagging replica at 16d's width; (18c)
+    what gossip costs on 18b's cluster. ``device`` is the card's; a dry
+    run on the CPU passes ``"cpu"``."""
+    import gc
+    import shutil
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    t_phase = time.perf_counter()
+    base = os.path.abspath(os.path.join("build", "chip_smoke_gossip"))
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+    torch.cuda.synchronize()
+    KU.reset_launches()
+    _UNCOUNTED.clear()
+    try:
+        t0 = time.perf_counter()
+        out["18a"] = _gossip_config10(device, lab)
+        out["18a"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lagging = _gossip_lagging(report, device, base, lab)
+        c = lagging.pop("cluster")
+        try:
+            out["18b"] = lagging
+            out["18b"]["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["18c"] = _gossip_cost(c, c.coordinator.gossip.registry, lab)
+            out["18c"]["seconds"] = time.perf_counter() - t0
+        finally:
+            c.close()
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.synchronize()
+    launched = {k: v - _UNCOUNTED.get(k, 0) for k, v in KU.launches().items()}
+    report.launched("gossip 18", launched, ("tape_count", "scatter_merge"))
+    out["launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"gossip 18: launches on the path {launched}; steps "
+          + ", ".join(f"{k} {out[k]['seconds']:.2f} s"
+                      for k in ("18a", "18b", "18c"))
+          + f"; {out['seconds']:.2f} s {lab}")
+    print("gossip 18: " + json.dumps(out, default=str))
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -8566,6 +9064,7 @@ def main() -> int:
     cluster = timed("16 cluster", phase_cluster, report, keep_16d=True)
     timed("17 resilience", phase_resilience, report,
           cluster.pop("16d_cluster"))
+    timed("18 gossip", phase_gossip, report)
 
     print(f"profiler: empty traces of counted launches taken again "
           f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")

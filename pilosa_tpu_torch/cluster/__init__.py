@@ -6,7 +6,8 @@ Port of ``pilosa_tpu/cluster/``'s core: shards hash to partitions
 primaries and reduce at the coordinator, writes replicate to every
 owner. The resilience plane (hedges, breakers, seeded fault plans) and
 the per-node leg batcher guard and coalesce the remote legs; the gossip
-agent comes with its slice."""
+agent spreads cluster metadata, and SWIM membership over it decides
+liveness."""
 
 from pilosa_tpu_torch.cluster.broadcast import (  # noqa: F401
     Broadcaster, HTTPBroadcaster, NopBroadcaster,
@@ -16,7 +17,8 @@ from pilosa_tpu_torch.cluster.client import (  # noqa: F401
     InternalClient, LegCancelled, NodeDownError, RemoteError,
 )
 from pilosa_tpu_torch.cluster.disco import (  # noqa: F401
-    DisCo, InMemDisCo, LeaseDisCo, SingleNodeDisCo, StaticDisCo,
+    DisCo, GossipDisCo, InMemDisCo, LeaseDisCo, SingleNodeDisCo,
+    StaticDisCo,
 )
 from pilosa_tpu_torch.cluster.executor import ClusterExecutor  # noqa: F401
 from pilosa_tpu_torch.cluster.harness import LocalCluster  # noqa: F401
@@ -24,6 +26,7 @@ from pilosa_tpu_torch.cluster.resilience import (  # noqa: F401
     CancellationToken, CircuitBreaker, FaultPlan, InjectedFault,
     LatencyTracker, Resilience,
 )
+from pilosa_tpu_torch.gossip import GossipAgent, GossipState  # noqa: F401
 from pilosa_tpu_torch.hashing import (  # noqa: F401
     fnv64a, jump_hash, key_to_partition, shard_to_partition,
 )

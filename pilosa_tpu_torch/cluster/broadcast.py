@@ -5,11 +5,14 @@ the broadcaster interface; :55-77, the message types; messages POSTed to
 /internal/cluster/message, http_handler.go:552, and received at
 server.go:995). Messages are JSON dicts with a "type" tag, carried by the
 InternalClient. NopBroadcaster mirrors broadcast.go:19 for one node.
-``GossipBroadcaster`` comes with the gossip plane.
+``GossipBroadcaster`` also carries the idempotent messages on the gossip
+plane (``ClusterNode.enable_membership``).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List
+
+from pilosa_tpu_torch.analysis import locktrace
 
 
 # Message types (reference: broadcast.go:55-77 messageType* values).
@@ -87,6 +90,60 @@ class HTTPBroadcaster(Broadcaster):
 
     def send_to(self, msg: Dict, node) -> None:
         self._client.send_message(node, msg)
+
+
+class GossipBroadcaster(Broadcaster):
+    """Partition-tolerant wrapper over another broadcaster: idempotent
+    control messages ALSO ride the gossip plane as origin-sequenced
+    ``("c", n)`` entries, so a peer the direct push cannot reach now
+    (partitioned, restarting, coordinator down) still converges through
+    anti-entropy.
+
+    Only the idempotent whitelist gets the relaxed contract: schema
+    creates and deletes re-apply as ensure / ignore-missing and
+    available-shards is a set union, so a double delivery (direct push
+    and gossip apply) is harmless and ``send_sync`` may tolerate
+    unreachable peers. Everything else (transactions) keeps the inner
+    broadcaster's all-peers-ack semantics."""
+
+    GOSSIP_TYPES = frozenset({
+        MSG_CREATE_INDEX, MSG_DELETE_INDEX, MSG_CREATE_FIELD,
+        MSG_DELETE_FIELD, MSG_AVAILABLE_SHARDS,
+    })
+
+    def __init__(self, inner: Broadcaster, agent):
+        self.inner = inner
+        self.agent = agent
+        self._lock = locktrace.tracked_lock("cluster.broadcast")
+        self._n = 0  # per-origin message counter: each message its own key
+
+    def _record(self, msg: Dict) -> bool:
+        if msg.get("type") not in self.GOSSIP_TYPES:
+            return False
+        from pilosa_tpu_torch.gossip.state import KIND_CONTROL
+
+        with self._lock:
+            self._n += 1
+            n = self._n
+        self.agent.state.bump_local((KIND_CONTROL, n), dict(msg))
+        return True
+
+    def send_sync(self, msg: Dict) -> None:
+        recorded = self._record(msg)
+        try:
+            self.inner.send_sync(msg)
+        except RuntimeError:
+            if not recorded:
+                raise
+            # unreachable peers pick the entry up through anti-entropy
+            # or a piggyback; reachable ones applied the direct push
+
+    def send_async(self, msg: Dict) -> None:
+        self._record(msg)
+        self.inner.send_async(msg)
+
+    def send_to(self, msg: Dict, node) -> None:
+        self.inner.send_to(msg, node)
 
 
 def apply_message(api, msg: Dict) -> None:

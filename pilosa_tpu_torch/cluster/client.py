@@ -17,8 +17,10 @@ closed gets one fresh-socket retry that does not use up a retry or
 consult the fault plan again.
 
 A ``FaultPlan`` (``cluster/resilience.py``) set as ``fault_plan`` is
-consulted before every send attempt, keyed on the target node id. The
-gossip envelope comes with the gossip plane.
+consulted before every send attempt, keyed on the target node id. With a
+gossip agent set as ``gossip`` (``ClusterNode.enable_gossip``), query,
+import, message and ping payloads carry its envelope and the envelope on
+each response is applied (gossip/agent.py).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import time
 import urllib.error
 import urllib.request
 from typing import Dict, List, Optional, Sequence
-from urllib.parse import urlsplit
+from urllib.parse import quote, urlsplit
 
 from pilosa_tpu_torch.analysis import locktrace
 from pilosa_tpu_torch.obs.tenants import current_tenant_id
@@ -131,6 +133,11 @@ class InternalClient:
         # working unchanged.
         self.self_id: Optional[str] = None
         self.pool = _ConnPool(per_key=pool_size)
+        # Optional gossip.GossipAgent: when set, query/import/broadcast
+        # requests carry a piggybacked gossip envelope and responses'
+        # envelopes are applied, so cluster metadata spreads with no
+        # extra round trips. ClusterNode.enable_gossip wires this.
+        self.gossip = None
         # wire-RPC accounting by op tag (one increment per actual send
         # attempt, retries included)
         self.op_counts: Dict[str, int] = {}
@@ -278,6 +285,30 @@ class InternalClient:
         return self._request("GET", node.uri + path, node_id=node.id,
                              token=token, op=op)
 
+    # -- gossip piggybacking (gossip/agent.py) ------------------------------
+
+    def _piggyback(self, node, payload: dict) -> dict:
+        """A copy of ``payload`` carrying a gossip envelope for the
+        target node (a copy: broadcast callers share one message dict
+        across peers, and each peer gets its own delta window)."""
+        g = self.gossip
+        if g is None:
+            return payload
+        out = dict(payload)
+        out["gossip"] = g.envelope(node.id)
+        from pilosa_tpu_torch.obs import metrics as M
+
+        g.registry.count(M.METRIC_GOSSIP_PIGGYBACKS)
+        return out
+
+    def _apply_gossip(self, out) -> None:
+        """Apply the gossip envelope a server attached to its response."""
+        g = self.gossip
+        if g is not None and isinstance(out, dict):
+            env = out.get("gossip")
+            if isinstance(env, dict):
+                g.receive(env)
+
     def _apply_trace(self, out) -> None:
         """Graft the remote span tree a traced server piggybacked on its
         response under the calling span (for a query leg, the cluster.leg
@@ -297,8 +328,11 @@ class InternalClient:
         cancelled token aborts the leg between retries, and its
         timeout_s caps the transport timeout."""
         out = self._post(node, f"/internal/index/{index}/query",
-                         {"query": pql, "shards": list(shards),
-                          "remote": True}, token=token, op="query")
+                         self._piggyback(node, {
+                             "query": pql, "shards": list(shards),
+                             "remote": True,
+                         }), token=token, op="query")
+        self._apply_gossip(out)
         return out["results"]
 
     def query_node_batch(self, node, entries: Sequence[dict],
@@ -308,12 +342,17 @@ class InternalClient:
         ``index`` / ``query`` / ``shards``; the reply holds one slot per
         entry, ``{"results": [wire...]}`` on success or ``{"error": msg,
         "status": code}``, so one bad query never fails its
-        batch-mates. The trace tree rides the batch once."""
-        out = self._post(node, "/internal/query-batch", {
-            "queries": [{"index": e["index"], "query": e["query"],
-                         "shards": list(e["shards"])} for e in entries],
-            "remote": True,
-        }, token=token, op="query_batch")
+        batch-mates. The gossip envelope and the trace tree ride the
+        batch once."""
+        out = self._post(node, "/internal/query-batch",
+                         self._piggyback(node, {
+                             "queries": [{"index": e["index"],
+                                          "query": e["query"],
+                                          "shards": list(e["shards"])}
+                                         for e in entries],
+                             "remote": True,
+                         }), token=token, op="query_batch")
+        self._apply_gossip(out)
         return out["results"]
 
     # -- SQL subtree fan-out (reference: /sql-exec-graph,
@@ -328,18 +367,24 @@ class InternalClient:
     # -- imports (reference: internal_client.go:691-931) -------------------
 
     def import_bits(self, node, index: str, field: str, payload: dict) -> dict:
-        return self._post(node, f"/index/{index}/import", payload,
-                          op="import")
+        out = self._post(node, f"/index/{index}/import",
+                         self._piggyback(node, payload), op="import")
+        self._apply_gossip(out)
+        return out
 
     def import_values(self, node, index: str, field: str, payload: dict) -> dict:
-        return self._post(node, f"/index/{index}/import-values", payload,
-                          op="import")
+        out = self._post(node, f"/index/{index}/import-values",
+                         self._piggyback(node, payload), op="import")
+        self._apply_gossip(out)
+        return out
 
     def import_roaring_shard(self, node, index: str, shard: int,
                              payload: dict) -> dict:
-        return self._post(
-            node, f"/index/{index}/shard/{shard}/import-roaring", payload,
-            op="import")
+        out = self._post(
+            node, f"/index/{index}/shard/{shard}/import-roaring",
+            self._piggyback(node, payload), op="import")
+        self._apply_gossip(out)
+        return out
 
     # -- translation (reference: cluster.go:233-887 key RPC loops) ---------
 
@@ -390,7 +435,50 @@ class InternalClient:
     # -- control plane -----------------------------------------------------
 
     def send_message(self, node, msg: dict) -> None:
-        self._post(node, "/internal/cluster/message", msg, op="broadcast")
+        out = self._post(node, "/internal/cluster/message",
+                         self._piggyback(node, msg), op="broadcast")
+        self._apply_gossip(out)
+
+    def membership_ping(self, node, payload: dict, token=None) -> dict:
+        """SWIM probe / ping-req relay (gossip/membership.py). Tagged
+        op="ping" so FaultPlan partition rules can sever only the probe
+        path; it carries a piggybacked gossip envelope, so the ping that
+        discovers a suspicion also delivers the refutation."""
+        out = self._post(node, "/internal/membership/ping",
+                         self._piggyback(node, payload),
+                         token=token, op="ping")
+        self._apply_gossip(out)
+        return out
+
+    def gossip_exchange(self, node, payload: dict) -> dict:
+        """Anti-entropy push/pull: POST our envelope; the peer replies
+        with one of its own, which GossipAgent.run_round applies (the
+        agent keeps its own digest books)."""
+        return self._post(node, "/internal/gossip/exchange", payload,
+                          op="gossip")
+
+    # -- recovery log shipping (storage/recovery.py catch-up) --------------
+
+    def recovery_snapshot(self, node, index: str, shard: int,
+                          token=None) -> dict:
+        """One shard's snapshot from a peer: {"npz": base64 savez of
+        export_shard_arrays, "lsn": the peer's WAL position it covers}.
+        JSON and base64 (not raw octets), so retries, backoff and fault
+        injection apply unchanged."""
+        return self._get(
+            node, f"/internal/recovery/snapshot?index={quote(index)}"
+                  f"&shard={int(shard)}", token=token, op="recovery")
+
+    def recovery_wal(self, node, index: str, since_lsn: int,
+                     max_bytes: int, token=None) -> dict:
+        """A batch of the peer's WAL tail above ``since_lsn``:
+        {"frames": base64 CRC-framed records, "last_lsn", "more",
+        "floor_lsn": the peer's checkpoint LSN; a fetch below it means
+        the peer pruned, and the caller must snapshot again}."""
+        return self._get(
+            node, f"/internal/recovery/wal?index={quote(index)}"
+                  f"&since={int(since_lsn)}&max_bytes={int(max_bytes)}",
+            token=token, op="recovery")
 
     def status(self, node) -> Optional[dict]:
         """None when the node is unreachable (used as the liveness probe)."""

@@ -7,7 +7,8 @@ disco/disco.go:161-281). ``StaticDisCo`` (a peer list from the config,
 liveness probed over HTTP) and ``LeaseDisCo`` (TTL leases over a shared
 directory) cover several hosts; ``InMemDisCo`` backs the in-process
 harness, the analog of the reference's test.MustRunCluster
-(test/cluster.go:748). ``GossipDisCo`` comes with the gossip plane.
+(test/cluster.go:748). ``GossipDisCo`` keeps a seed DisCo's discovery
+and takes liveness from the SWIM membership (gossip/membership.py).
 """
 from __future__ import annotations
 
@@ -316,6 +317,53 @@ class LeaseDisCo(DisCo):
     def mark_up(self, node_id: str) -> None:
         with self._lock:
             self._forced_down.pop(node_id, None)
+
+
+class GossipDisCo(DisCo):
+    """SWIM-backed liveness over a seed DisCo's discovery.
+
+    The seed (LeaseDisCo / StaticDisCo / InMemDisCo) keeps answering
+    ``nodes()`` (who CAN be in the cluster) while the gossip-native
+    membership protocol (gossip/membership.py) decides who IS live:
+    ``live_ids()`` leaves out only members the protocol has CONFIRMED
+    down (suspects stay routed; hedging and breakers absorb the true
+    failures, and a false suspicion is refuted before the timeout). The
+    seed's own liveness is not read: a harness ``pause`` that marks the
+    seed down changes nothing until the protocol confirms it.
+    Transport-level hints from the executor become protocol evidence: a
+    connection failure publishes a refutable suspicion instead of forcing
+    the node out, so one coordinator's flaky link cannot evict a healthy
+    peer cluster-wide.
+    """
+
+    def __init__(self, seed: DisCo, membership):
+        self.seed = seed
+        self.membership = membership
+
+    def nodes(self) -> List[Node]:
+        return self.seed.nodes()
+
+    def live_ids(self) -> List[str]:
+        return self.membership.live_ids([n.id for n in self.seed.nodes()])
+
+    def is_live(self, node_id: str) -> bool:
+        return node_id in self.live_ids()
+
+    def mark_down(self, node_id: str) -> None:
+        self.membership.evidence_down(node_id)
+
+    def mark_up(self, node_id: str) -> None:
+        self.membership.evidence_alive(node_id)
+
+    # harness pause()/unpause() use the short spelling (InMemDisCo's);
+    # ClusterNode._mark_down also prefers a "down" attribute
+    down = mark_down
+    up = mark_up
+
+    def register(self, node: Node) -> None:
+        reg = getattr(self.seed, "register", None)
+        if reg is not None:
+            reg(node)
 
 
 class SingleNodeDisCo(DisCo):

@@ -20,7 +20,9 @@ kernels run on its stacks, and this layer is the host-to-host axis.
 the remote legs of a read hedge onto replicas, open breakers route
 around a failing node and each leg has an adaptive timeout; with a
 ``NodeBatcher`` (``cluster/batch.py``) concurrent read legs to one peer
-ship as one RPC. The gossip-keyed leg cache comes with its plane.
+ship as one RPC. With a gossip agent attached, a remote leg's cached
+partial is keyed on the gossiped version fingerprint of its shards, so a
+write anywhere invalidates it exactly.
 """
 from __future__ import annotations
 
@@ -69,9 +71,16 @@ class ClusterExecutor:
         # key on, so its per-shard-leg partials are cached only when a
         # TTL bounds staleness (ttl_ms > 0), keyed additionally on this
         # coordinator's per-index write epoch (self-coordinated writes
-        # invalidate immediately; other writers are TTL-bounded).
+        # invalidate immediately; other writers are TTL-bounded), or
+        # when gossip keys them (below).
         self.cache = None
         self._write_epoch: Dict[str, int] = {}
+        # optional gossip agent (gossip/), set by ClusterNode.enable_gossip.
+        # When present, remote-leg partials are keyed on the gossiped
+        # version fingerprint instead of TTL+epoch: a write anywhere in
+        # the cluster changes some origin's seq, so entries invalidate
+        # exactly, with no reliance on a TTL.
+        self.gossip = None
         # optional fan-out resilience manager (cluster/resilience.py), set
         # by ClusterNode.enable_resilience: hedged remote legs, per-node
         # circuit breakers, adaptive per-leg timeouts. READ fan-outs only;
@@ -253,15 +262,26 @@ class ClusterExecutor:
         # pop their thread's flag into this request-scoped box and it is
         # re-raised on the request thread after the fan
         leg_stale = [False]
-        if cache is not None and cache.ttl_ms > 0:
+        gossip = self.gossip
+        if cache is not None and (gossip is not None or cache.ttl_ms > 0):
             from pilosa_tpu_torch.cache.keys import shard_key
 
-            def run_remote_cached(node, s, token=None, _raw=run_remote):
+            def leg_key(s):
                 # per-shard-leg partials: a later query overlapping only
-                # some of these shards still hits on the shared legs
-                key = ("rleg", idx.name, pql, shard_key(s),
-                       self._write_epoch.get(idx.name, 0))
-                out = cache.run(key, lambda: _raw(node, s, token))
+                # some of these shards still hits on the shared legs.
+                # With gossip the key holds the gossiped fingerprint of
+                # every known origin's version slots for these shards, so
+                # a write anywhere (once spread) changes the key: exact
+                # invalidation. Without it, this coordinator's write
+                # epoch, and the TTL bounds other writers.
+                if gossip is not None:
+                    return ("rlegg", idx.name, pql, shard_key(s),
+                            gossip.remote_fingerprint(idx.name, s))
+                return ("rleg", idx.name, pql, shard_key(s),
+                        self._write_epoch.get(idx.name, 0))
+
+            def run_remote_cached(node, s, token=None, _raw=run_remote):
+                out = cache.run(leg_key(s), lambda: _raw(node, s, token))
                 if cache.take_stale_flag():
                     leg_stale[0] = True
                 return out

@@ -12,8 +12,11 @@ Every node runs its engine on ``device``: ``cuda:0`` unless the caller
 asks for the CPU, so the nodes of one process share one card (and one
 ``DeviceBudget``). A ``FaultPlan`` injects seeded faults into every
 node's client, ``client_factory`` builds each node's client, and
-``cluster_batch`` attaches the leg coalescer on every node. The gossip,
-membership, tenant and degradation helpers come with their planes.
+``cluster_batch`` attaches the leg coalescer on every node.
+``enable_gossip``, ``enable_membership`` and ``enable_health`` attach
+those planes on every node, and ``run_gossip_rounds`` /
+``run_membership_ticks`` drive them by hand. The tenant and degradation
+helpers come with their planes.
 """
 
 from __future__ import annotations
@@ -91,6 +94,52 @@ class LocalCluster:
     def coordinator(self) -> ClusterNode:
         return self.nodes[0]
 
+    def enable_gossip(self, **kw) -> list:
+        """Enable gossip on every node (gossip/agent.py keyword
+        arguments pass through). Returns the agents in node order. Tests
+        usually keep ``start=False`` (the default) and drive rounds by
+        hand."""
+        return [node.enable_gossip(**kw) for node in self.nodes]
+
+    def enable_health(self, **kw) -> list:
+        """Enable the health plane on every node
+        (ClusterNode.enable_health keyword arguments pass through; tests
+        usually share one ManualClock through ``clock=``). Returns the
+        planes in node order."""
+        return [node.enable_health(**kw) for node in self.nodes]
+
+    def enable_membership(self, **kw) -> list:
+        """Enable SWIM membership on every node
+        (ClusterNode.enable_membership keyword arguments pass through;
+        gossip is enabled first where it is off). Tests usually share one
+        ManualClock through ``clock=`` and drive protocol rounds with
+        run_gossip_rounds (the tick rides the round hooks) or
+        run_membership_ticks. Returns the Membership objects."""
+        return [node.enable_membership(**kw) for node in self.nodes]
+
+    def run_membership_ticks(self, rounds: int = 1) -> list:
+        """Drive ``rounds`` protocol ticks on every node WITHOUT an
+        anti-entropy exchange (probe, suspect, confirm only; use
+        run_gossip_rounds for ticks and dissemination). Returns the last
+        round's tick results in node order."""
+        out = []
+        for _ in range(rounds):
+            out = [node.membership.tick() for node in self.nodes
+                   if node.membership is not None]
+        return out
+
+    def run_gossip_rounds(self, rounds: int = 1) -> int:
+        """Drive ``rounds`` synchronous anti-entropy rounds across every
+        node (round-robin, in node order), the deterministic stand-in
+        for the background threads. Returns the entries applied."""
+        applied = 0
+        for _ in range(rounds):
+            for node in self.nodes:
+                agent = node.gossip
+                if agent is not None:
+                    applied += agent.run_round()
+        return applied
+
     def pause(self, i: int) -> None:
         """Make node i unreachable (keeps its data, like SIGSTOP on a
         container). The listener closes so peers get connection-refused
@@ -130,6 +179,11 @@ class LocalCluster:
         self.close()
 
     def close(self) -> None:
+        for node in self.nodes:
+            try:
+                node.disable_gossip()  # stops the round threads first
+            except Exception:
+                pass
         # each shutdown waits out its server's poll interval: wait for
         # them all at once, not one after another
         stops = [threading.Thread(target=srv.shutdown, daemon=True)

@@ -38,9 +38,17 @@ construction) coalesces concurrent remote read legs per peer, and
 breaker transition lands in its flight recorder), and ``cluster_stats``
 merges every node's timeline window.
 
-Not here yet, each with the plane that brings it: ``enable_gossip``,
-``enable_membership`` and ``enable_recovery`` (gossip and catch-up),
-``enable_tenants`` and ``enable_degrade``.
+Gossip, membership and catch-up: ``enable_gossip`` attaches the gossip
+agent (envelopes piggybacked on the node's RPCs, anti-entropy rounds,
+the gossip-keyed remote-leg cache, breaker observations shared with the
+peers); ``enable_membership`` makes SWIM membership the source of
+liveness (``GossipDisCo``) and carries schema messages and translate
+entries on the gossip plane too; ``enable_recovery`` attaches the
+``RecoveryManager``, which catches a lagging replica up from its peers
+and queues the writes that reach it meanwhile.
+
+Not here yet, each with the plane that brings it: ``enable_tenants``
+and ``enable_degrade``.
 """
 
 from __future__ import annotations
@@ -108,6 +116,12 @@ class ClusterNode:
         # Transaction changes sync to peers so an exclusive transaction
         # on any node excludes cluster-wide (reference: server.go:1082).
         self.api.transactions.on_change = self._sync_transaction
+        # Replica catch-up manager (storage/recovery.py), None until
+        # enable_recovery; remote writes landing mid-catch-up queue
+        # through it instead of interleaving with the shipped-tail replay.
+        self._recovery = None
+        self._membership = None
+        self._seed_disco = None
         # Opt-in fan-out leg batching (cluster/batch.py): the env flag
         # attaches the coalescer at construction, so harness-built
         # clusters run every node batched.
@@ -191,6 +205,11 @@ class ClusterNode:
         idx = self.api.holder.indexes.get(index)
         if idx is None:
             return
+        # before the announced-subset early return: version bumps matter
+        # even when the shard SET is unchanged (the common write case)
+        agent = self.executor.gossip
+        if agent is not None:
+            agent.refresh_index(index)
         shards = idx.shards()
         with self._lock:
             if shards <= self._announced.get(index, set()):
@@ -426,11 +445,15 @@ class ClusterNode:
     def enable_cache(self, config=None, **overrides):
         """Attach a result cache to the node: the LOCAL fan-out leg gets
         exact fragment-version keying (inside executor.local); remote
-        per-shard-leg partials are cached only when ttl_ms > 0 — see
-        ClusterExecutor.cache."""
+        per-shard-leg partials are cached with gossip on (exact gossiped
+        keys) or when ttl_ms > 0 — see ClusterExecutor.cache."""
         from pilosa_tpu_torch.cache import ResultCache
 
         cache = ResultCache.from_config(config, **overrides)
+        if self.executor.gossip is not None and cache.ttl_ms > 0:
+            from pilosa_tpu_torch.gossip import warn_remote_ttl_deprecated
+
+            warn_remote_ttl_deprecated()
         self.executor.cache = cache
         self.executor.local.cache = cache
         return cache
@@ -449,7 +472,8 @@ class ClusterNode:
         """Attach hedged remote legs, per-node circuit breakers and
         adaptive leg timeouts to this coordinator's fan-out. A breaker
         closing (the node recovered) marks the node up in membership, so
-        it rejoins assignment."""
+        it rejoins assignment. With gossip on, the breaker's local
+        transitions are published to the peers."""
         from pilosa_tpu_torch.cluster.resilience import Resilience
 
         overrides.setdefault("on_node_up", self._mark_up)
@@ -459,6 +483,7 @@ class ClusterNode:
         # the half-open probe and later traffic reconnect fresh
         res.breaker.add_listener(self._evict_on_breaker_open)
         self.executor.resilience = res
+        self._wire_gossip_resilience()
         self._wire_health_resilience()
         return res
 
@@ -573,6 +598,247 @@ class ClusterNode:
                             "latest_t": latest_t,
                             "rates": rates, "gauges": gauges}}
 
+    # -- cluster metadata gossip (gossip/) ---------------------------------
+
+    @property
+    def gossip(self):
+        return self.executor.gossip
+
+    def enable_gossip(self, config=None, start: bool = False, **overrides):
+        """Attach a gossip agent: fragment version vectors, health and
+        breaker digests, piggybacked on the node's RPCs and exchanged in
+        periodic anti-entropy rounds. Remote-leg cache entries switch to
+        exact fingerprint keys (ClusterExecutor.gossip) and the peers'
+        breaker observations pre-warm ours. ``start=True`` launches the
+        background round thread (tests drive run_round directly)."""
+        from pilosa_tpu_torch.gossip import (GossipAgent,
+                                             warn_remote_ttl_deprecated)
+
+        self.disable_gossip()
+        agent = GossipAgent.from_config(
+            self.node.id, self.client, self._peers, self.api.holder,
+            config, **overrides)
+        agent.state.on_breaker = self._apply_remote_breaker
+        self.executor.gossip = agent
+        self.client.gossip = agent if agent.piggyback else None
+        self._wire_gossip_resilience()
+        cache = self.executor.cache
+        if cache is not None and cache.ttl_ms > 0:
+            warn_remote_ttl_deprecated()
+        agent.refresh_local()
+        agent.state.record_health()
+        if start:
+            agent.start()
+        return agent
+
+    def disable_gossip(self) -> None:
+        self.disable_membership()  # membership rides the agent
+        agent, self.executor.gossip = self.executor.gossip, None
+        self.client.gossip = None
+        listener = getattr(self, "_gossip_listener", None)
+        if listener is not None:
+            res = self.executor.resilience
+            if res is not None:
+                res.breaker.remove_listener(listener)
+            self._gossip_listener = None
+        if agent is not None:
+            agent.stop()
+
+    def _peers(self) -> List[Node]:
+        return [n for n in self.disco.nodes() if n.id != self.node.id]
+
+    def _wire_gossip_resilience(self) -> None:
+        """Publish the breaker's LOCAL transitions into gossip;
+        enable_gossip and enable_resilience both call it, so their order
+        does not matter. Remote applies notify no listener, so a
+        gossiped state never echoes back out as our own observation."""
+        agent = self.executor.gossip
+        res = self.executor.resilience
+        if agent is None or res is None:
+            return
+        old = getattr(self, "_gossip_listener", None)
+        if old is not None:
+            res.breaker.remove_listener(old)
+
+        def listener(target: str, frm: str, to: str,
+                     _agent=agent) -> None:
+            _agent.record_breaker(target, to)
+
+        res.breaker.add_listener(listener)
+        self._gossip_listener = listener
+
+    def _apply_remote_breaker(self, origin: str, target: str,
+                              state) -> None:
+        """A peer's gossiped breaker observation: pre-warm our breaker
+        for the same target (never for ourselves: we know best whether
+        we are up)."""
+        if target == self.node.id:
+            return
+        res = self.executor.resilience
+        if res is None or not isinstance(state, str):
+            return
+        if res.breaker.apply_remote(target, state):
+            from pilosa_tpu_torch.obs import metrics as M
+
+            res.registry.count(M.METRIC_GOSSIP_BREAKER_PREWARMS,
+                               node=target)
+
+    # -- gossip-native membership (gossip/membership.py) -------------------
+
+    @property
+    def membership(self):
+        return self._membership
+
+    def enable_membership(self, config=None, **overrides):
+        """Attach the SWIM membership protocol and make it the source of
+        liveness: ``self.disco`` becomes a GossipDisCo over the previous
+        (seed) DisCo, the broadcaster carries schema and shard messages
+        on the gossip plane too, translate replication rides it as a
+        second channel, and the membership tick and the translator's
+        outbox flush run on every anti-entropy round. Gossip is enabled
+        first when it is off."""
+        from pilosa_tpu_torch.cluster.disco import GossipDisCo
+        from pilosa_tpu_torch.gossip import (
+            KIND_CONTROL, KIND_TRANSLATE, Membership,
+        )
+
+        self.disable_membership()
+        agent = self.executor.gossip
+        if agent is None:
+            agent = self.enable_gossip(config)
+        m = Membership.from_config(self.node.id, agent, self.client,
+                                   self._peers, config, **overrides)
+        self._membership = m
+        self._seed_disco = self.disco
+        self.disco = GossipDisCo(self._seed_disco, m)
+        self.broadcaster = B.GossipBroadcaster(self.broadcaster, agent)
+        agent.state.add_kind_listener(KIND_CONTROL,
+                                      self._apply_control_entry)
+        agent.state.add_kind_listener(KIND_TRANSLATE,
+                                      self._apply_translate_entry)
+        self.executor.translator.gossip_publish = (
+            self._publish_translate_entries)
+        agent.round_hooks.append(m.tick)
+        agent.round_hooks.append(self.executor.translator.flush_outbox)
+        return m
+
+    def disable_membership(self) -> None:
+        m = self._membership
+        if m is None:
+            return
+        from pilosa_tpu_torch.gossip import (
+            KIND_CONTROL, KIND_MEMBER, KIND_TRANSLATE,
+        )
+
+        agent = m.agent
+        agent.state.remove_kind_listener(KIND_MEMBER, m._on_member_entry)
+        agent.state.remove_kind_listener(KIND_CONTROL,
+                                         self._apply_control_entry)
+        agent.state.remove_kind_listener(KIND_TRANSLATE,
+                                         self._apply_translate_entry)
+        for hook in (m.tick, self.executor.translator.flush_outbox):
+            try:
+                agent.round_hooks.remove(hook)
+            except ValueError:
+                pass
+        self.executor.translator.gossip_publish = None
+        if isinstance(self.broadcaster, B.GossipBroadcaster):
+            self.broadcaster = self.broadcaster.inner
+        if self._seed_disco is not None:
+            self.disco = self._seed_disco
+            self._seed_disco = None
+        self._membership = None
+
+    def _apply_control_entry(self, origin: str, key, value) -> None:
+        """A peer's gossiped control message (GossipBroadcaster's
+        whitelist) reached us through anti-entropy: apply it as a direct
+        broadcast. Every whitelisted type is idempotent, so the direct
+        push arriving too is harmless."""
+        if not isinstance(value, dict):
+            return
+        try:
+            self.receive_message(dict(value))
+        except Exception:
+            pass  # best-effort second channel; the direct push governs
+
+    def _publish_translate_entries(self, index: str, field, entries,
+                                   batch_no: int) -> None:
+        agent = self.executor.gossip
+        if agent is not None:
+            from pilosa_tpu_torch.gossip import KIND_TRANSLATE
+
+            agent.state.bump_local(
+                (KIND_TRANSLATE, index, field or "", int(batch_no)),
+                entries)
+
+    def _apply_translate_entry(self, origin: str, key, value) -> None:
+        """A peer's gossiped translate batch: apply the (key, id)
+        entries to the local store. Ids are allocated by the primary
+        only, so applying a batch again (direct push and gossip) changes
+        nothing."""
+        if not isinstance(value, list):
+            return
+        index, field = key[1], (key[2] or None)
+        try:
+            self.executor.translator.apply_replicated(
+                index, field, [(k, int(i)) for k, i in value])
+        except KeyError:
+            pass  # index or field not created here yet: the schema
+            # control entry (same origin, earlier seq) normally comes
+            # first; in a race the direct push delivers later
+
+    def membership_ping(self, body: dict) -> dict:
+        """Serve POST /internal/membership/ping: a direct probe ("am I
+        up?") or a ping-req relay (``target`` set: probe the target over
+        OUR link and report, the indirect path that tells a dead node
+        from a dead link to it)."""
+        from pilosa_tpu_torch.cluster.client import NodeDownError, RemoteError
+
+        target = body.get("target")
+        if target:
+            node = Node(id=target.get("id", ""), uri=target.get("uri", ""))
+            try:
+                out = self.client.membership_ping(
+                    node, {"from": self.node.id,
+                           "relay_for": body.get("from")})
+                return {"ok": bool(out.get("ok")), "relay": self.node.id}
+            except (NodeDownError, RemoteError):
+                return {"ok": False, "relay": self.node.id}
+        # answer even with membership off: an ack proves the process is
+        # up, which is all the prober needs
+        m = self._membership
+        return {"ok": True, "node": self.node.id,
+                "inc": m.incarnation if m is not None else 0}
+
+    def membership_json(self) -> dict:
+        """GET /internal/membership payload."""
+        m = self._membership
+        if m is None:
+            return {"enabled": False, "node": self.node.id,
+                    "live": sorted(self.disco.live_ids())}
+        return m.members_json()
+
+    # -- replica catch-up (storage/recovery.py) ----------------------------
+
+    @property
+    def recovery(self):
+        return self._recovery
+
+    def enable_recovery(self, config=None, **overrides):
+        """Attach a RecoveryManager: lag detection against the gossiped
+        fragment version vectors, shard snapshot and WAL-tail catch-up
+        from replica peers, write queueing while catching up, and
+        breaker-gated reads (lag detection and the peers' gating need
+        enable_gossip)."""
+        from pilosa_tpu_torch.storage.recovery import RecoveryManager
+
+        self._recovery = RecoveryManager.from_config(self, config,
+                                                     **overrides)
+        return self._recovery
+
+    def disable_recovery(self) -> None:
+        self._recovery = None
+
     # -- what the node reads through the base API -------------------------
 
     @property
@@ -601,6 +867,12 @@ class ClusterNode:
                     row_keys=None, col_keys=None, clear: bool = False,
                     remote: bool = False) -> int:
         if remote:
+            rm = self._recovery
+            if rm is not None and rm.defer(
+                    index, lambda: self.import_bits(
+                        index, field, rows=rows, cols=cols, clear=clear,
+                        remote=True)):
+                return 0  # queued: applies once catch-up completes
             n = self.api.import_bits(index, field, rows=rows, cols=cols,
                                      clear=clear)
             self._announce_shards(index)
@@ -632,6 +904,12 @@ class ClusterNode:
     def import_values(self, index: str, field: str, cols=None, values=None,
                       col_keys=None, remote: bool = False) -> int:
         if remote:
+            rm = self._recovery
+            if rm is not None and rm.defer(
+                    index, lambda: self.import_values(
+                        index, field, cols=cols, values=values,
+                        remote=True)):
+                return 0
             n = self.api.import_values(index, field, cols=cols,
                                        values=values)
             self._announce_shards(index)
@@ -692,6 +970,12 @@ class ClusterNode:
                        views: Dict[str, bytes], clear: bool = False,
                        remote: bool = False) -> None:
         if remote:
+            rm = self._recovery
+            if rm is not None and rm.defer(
+                    index, lambda: self.import_roaring(
+                        index, field, shard, views, clear=clear,
+                        remote=True)):
+                return
             self.api.import_roaring(index, field, shard, views, clear=clear)
             self._announce_shards(index)
             return

@@ -15,7 +15,10 @@ A push that fails waits in an outbox and goes out ahead of the next
 push to the same replica. A promoted replica serves (and extends, with
 ids that do not conflict) the translation namespace without the dead
 primary. Reads skip dead nodes, by the liveness signal the query
-fan-out uses; creates go to the true primary only.
+fan-out uses; creates go to the true primary only. With membership on
+(``ClusterNode.enable_membership``) new entries also ride the gossip
+plane (``gossip_publish``), and every gossip round drains the outbox
+(``flush_outbox``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,11 @@ class ClusterTranslator:
         # different keys.
         self._outbox: Dict[tuple, List] = {}
         self._outbox_lock = locktrace.tracked_lock("cluster.translator.outbox")
+        # gossip hook (ClusterNode.enable_membership): fn(index, field,
+        # entries, batch_no) publishes new entries on the gossip plane, so
+        # replicas a partition hides from us still converge through peers
+        self.gossip_publish = None
+        self._gossip_batch = 0
 
     def _first_live(self, owners, live=None):
         """READ failover: first live owner (reference: reads fail over
@@ -82,6 +90,15 @@ class ClusterTranslator:
 
     def _push_entries(self, index: str, field: Optional[str],
                       new: List) -> None:
+        if self.gossip_publish is not None:
+            with self._outbox_lock:
+                self._gossip_batch += 1
+                batch_no = self._gossip_batch
+            try:
+                self.gossip_publish(index, field,
+                                    [[k, int(i)] for k, i in new], batch_no)
+            except Exception:
+                pass  # gossip is a second channel; the direct push runs
         snap = self._snapshot_fn()
         by_node: Dict[str, List] = {}
         nodes = {}
@@ -118,6 +135,36 @@ class ClusterTranslator:
                 # but ordered replay keeps replica stores append-shaped)
                 self._outbox.setdefault(key, [])[:0] = payload
             return False
+
+    def flush_outbox(self) -> int:
+        """Retry every queued replica push. The gossip round hooks call
+        it, so a recovered replica drains within one round instead of
+        waiting for the next create on the same (replica, index, field).
+        Returns the entries drained."""
+        with self._outbox_lock:
+            keys = sorted(self._outbox.keys(),
+                          key=lambda t: (t[0], t[1], t[2] or ""))
+        if not keys:
+            return 0
+        nodes = {n.id: n for n in self._snapshot_fn().nodes}
+        live = set(self._live_fn()) if self._live_fn is not None else None
+        drained = 0
+        for key in keys:
+            nid, index, field = key
+            node = nodes.get(nid)
+            if node is None or (live is not None and nid not in live):
+                continue  # keep queued until the replica is back
+            with self._outbox_lock:
+                payload = self._outbox.pop(key, None)
+            if not payload:
+                continue
+            if self._send_with_outbox(node, index, field, payload):
+                drained += len(payload)
+        return drained
+
+    def outbox_depth(self) -> int:
+        with self._outbox_lock:
+            return sum(len(v) for v in self._outbox.values())
 
     # -- index (record) keys ----------------------------------------------
 

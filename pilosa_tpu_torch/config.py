@@ -9,11 +9,11 @@ it has ported: the listener, ``[auth]`` and the maintenance period
 (``server/``, ``ctl/``), the storage fields and ``[storage.recovery]``
 (``storage/``), ``[obs.tracing]`` and ``[obs.timeline]`` (``obs/``), the
 log fields, ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
-``[stream]`` (``stream/``) and the two ``[tenants]`` flags the
-scheduler reads, with the JAX package's defaults and variable names;
-the cluster, ``[gossip]``, ``[membership]``, ``[cluster.*]``, ``[dax]``,
-``[degrade]`` and the other ``[tenants]`` fields land with the cluster
-planes that read them.
+``[stream]`` (``stream/``), the two ``[tenants]`` flags the
+scheduler reads, ``[gossip]`` and ``[membership]`` (``gossip/``) and
+``[cluster.resilience]`` / ``[cluster.batch]`` (``cluster/``), with the
+JAX package's defaults and variable names; ``[dax]``, ``[degrade]`` and
+the other ``[tenants]`` fields land with the planes that read them.
 """
 
 from __future__ import annotations
@@ -149,6 +149,30 @@ class Config:
     cache_max_bytes: int = 64 << 20
     cache_max_entries: int = 4096
     cache_ttl_ms: float = 0.0  # <=0: no TTL (and remote-leg caching off)
+    # cluster metadata gossip ([gossip] section / PILOSA_TPU_GOSSIP_*):
+    # fragment version vectors, health + breaker digests, piggybacked on
+    # internode RPCs with periodic anti-entropy rounds (gossip/; attach
+    # via ClusterNode.enable_gossip). With gossip on, remote-leg cache
+    # entries key on the gossiped fingerprint and cache-ttl-ms is
+    # deprecated for that path. No ``enabled`` field: nothing builds the
+    # agent from the config yet (ROADMAP C.16).
+    gossip_interval_ms: float = 100.0  # anti-entropy round period
+    gossip_fanout: int = 1  # peers contacted per round
+    gossip_seed: int = 0  # deterministic peer selection seed
+    gossip_max_deltas: int = 512  # entries per envelope (complete windows)
+    gossip_piggyback: bool = True  # ride envelopes on query/import/broadcast
+    # gossip-native SWIM membership ([membership] section /
+    # PILOSA_TPU_MEMBERSHIP_*): incarnation-numbered alive/suspect/down
+    # records on the gossip plane, direct + indirect probing, bounded
+    # suspect timeouts (gossip/membership.py; attach via
+    # ClusterNode.enable_membership — requires gossip; no ``enabled``
+    # field, as for [gossip])
+    membership_interval_ms: float = 500.0  # protocol tick period
+    membership_ping_timeout_ms: float = 200.0  # direct/indirect probe cap
+    membership_indirect_k: int = 2  # ping-req relays before suspecting
+    # suspect timeout = tick interval x mult x log2(cluster size)
+    membership_suspect_mult: float = 3.0
+    membership_flap_window_s: float = 30.0  # flap-detection window
     # fan-out resilience ([cluster.resilience] section /
     # PILOSA_TPU_CLUSTER_RESILIENCE_*): hedged remote shard legs,
     # per-node circuit breakers, adaptive per-leg timeouts
@@ -187,8 +211,8 @@ class Config:
     # PILOSA_TPU_STORAGE_RECOVERY_*): WAL segment rotation size
     # (checkpoints prune whole sealed segments), the record bytes that
     # trigger a checkpoint (0 falls back to checkpoint-bytes), and the
-    # shipped WAL-tail bytes per catch-up fetch (read by the cluster's
-    # catch-up, which is not ported yet)
+    # shipped WAL-tail bytes per catch-up fetch (storage/recovery.py
+    # RecoveryManager)
     storage_recovery_segment_bytes: int = 4 << 20
     storage_recovery_checkpoint_interval_bytes: int = 0
     storage_recovery_catchup_batch_bytes: int = 1 << 20

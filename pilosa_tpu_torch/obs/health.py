@@ -5,8 +5,9 @@ Port of ``pilosa_tpu/obs/health.py``: ``from_config``, ``attach_api``,
 ``slow_traces``, ``timeline_json``, ``start`` and ``stop``. The probes
 keep the JAX package's names; the ``tenants`` and ``degrade`` probes
 read ``api.tenants`` / ``api.degrade``, and the ``gossip`` and
-``membership`` probes the node's gossip agent and membership, which
-stay None (``{"enabled": false}``) until the port has those planes.
+``membership`` probes the node's gossip agent and membership
+(``{"enabled": false}`` until ``enable_gossip`` / ``enable_membership``;
+the membership's transitions feed the ``membership_flap`` trigger).
 ``attach_dax`` waits for the serverless plane.
 
 One object owns the three health-plane parts and the wiring between
@@ -214,7 +215,7 @@ class HealthPlane:
             return {"enabled": True, "states": res.breaker.states()}
 
         def gossip():
-            agent = getattr(node.executor, "gossip", None)
+            agent = node.executor.gossip
             if agent is None:
                 return {"enabled": False}
             ages = agent.state.origin_ages()

@@ -26,9 +26,9 @@ A single node answers the node-to-node routes (``/internal/index/*/
 query``, the query batch, cluster messages, SQL subtrees, translate
 replication, partition nodes, gossip, membership and recovery) and
 ``/directive`` with the JAX package's single-node 404s. A cluster node
-serves the query, message, translate, partition-node and SQL subtree
-routes; the query batch, gossip, membership, recovery and
-``/directive`` keep the 404 until their planes are ported.
+serves them all but ``/directive``, which keeps the 404 until the
+serverless plane is ported; a node's query, batch, message, import and
+ping bodies carry the gossip envelope both ways.
 ``/internal/tenants`` and ``/internal/degrade`` answer ``{"enabled":
 false}`` until the tenant registry and the degradation ladder are
 ported.
@@ -577,12 +577,13 @@ class Handler(BaseHTTPRequestHandler):
 
     def post_import(self, index: str):
         b = self._json_body()
+        peer = self._gossip_apply(b)
         n = self.api.import_bits(
             index, self._require(b, "field"),
             rows=b.get("rows", []), cols=b.get("cols", []),
             row_keys=b.get("rowKeys"), col_keys=b.get("colKeys"),
             clear=bool(b.get("clear", False)), **self._remote_kw(b))
-        self._send(200, {"changed": n})
+        self._send(200, self._gossip_reply(peer, {"changed": n}))
 
     def post_import_roaring(self, index: str, shard: str):
         """Shard-transactional roaring import (reference:
@@ -590,20 +591,22 @@ class Handler(BaseHTTPRequestHandler):
         "views": {view-name: base64 pilosa-roaring blob}, "clear": bool}.
         """
         b = self._json_body()
+        peer = self._gossip_apply(b)
         views = {v: base64.b64decode(blob)
                  for v, blob in (b.get("views") or {}).items()}
         self.api.import_roaring(index, self._require(b, "field"), int(shard),
                                 views, clear=bool(b.get("clear", False)),
                                 **self._remote_kw(b))
-        self._send(200, {"success": True})
+        self._send(200, self._gossip_reply(peer, {"success": True}))
 
     def post_import_values(self, index: str):
         b = self._json_body()
+        peer = self._gossip_apply(b)
         n = self.api.import_values(
             index, self._require(b, "field"), cols=b.get("cols", []),
             values=b.get("values", []), col_keys=b.get("colKeys"),
             **self._remote_kw(b))
-        self._send(200, {"imported": n})
+        self._send(200, self._gossip_reply(peer, {"imported": n}))
 
     def get_backup_tar(self):
         import io
@@ -1044,30 +1047,59 @@ class Handler(BaseHTTPRequestHandler):
         if not hasattr(self.api, "query_remote"):
             raise KeyError("not a cluster node")
 
+    # -- gossip piggybacking (gossip/agent.py) -----------------------------
+
+    def _gossip_apply(self, body):
+        """Apply a piggybacked request envelope BEFORE running the
+        request; returns the sender's node id (for the reply window) or
+        None. A write's envelope lands first, so the forwarded write's
+        version bumps are visible to what runs below it."""
+        env = body.get("gossip") if isinstance(body, dict) else None
+        agent = getattr(self.api, "gossip", None)
+        if agent is None or not isinstance(env, dict):
+            return None
+        agent.receive(env)
+        return env.get("from")
+
+    def _gossip_reply(self, peer, payload: dict) -> dict:
+        """Attach our envelope to the response AFTER running the
+        request: a write handled above has already bumped the local
+        versions, so the caller applies our new seqs with no stale
+        window."""
+        agent = getattr(self.api, "gossip", None)
+        if agent is not None and peer is not None:
+            payload["gossip"] = agent.envelope(peer)
+        return payload
+
     def post_internal_query(self, index: str):
         self._node_only()
         b = self._json_body()
+        peer = self._gossip_apply(b)
         results = self.api.query_remote(
             index, self._require(b, "query"), b.get("shards") or [])
-        self._send(200, {"results": results})
+        self._send(200, self._gossip_reply(peer, {"results": results}))
 
     def post_internal_query_batch(self):
         """A coordinator's coalesced node batch (cluster/batch.py): every
         entry runs against this node's shards through the fused remote
         executor, with per-entry error slots so the caller can demux
-        partial failures. The trace tree rides the batch once."""
+        partial failures. The gossip envelope and the trace tree ride
+        the batch once."""
         self._node_only()
         serve_batch = getattr(self.api, "query_remote_batch", None)
         if serve_batch is None:
             raise KeyError("peer does not serve query batches")
         b = self._json_body()
-        self._send(200, {"results": serve_batch(
-            self._require(b, "queries"))})
+        peer = self._gossip_apply(b)
+        out = serve_batch(self._require(b, "queries"))
+        self._send(200, self._gossip_reply(peer, {"results": out}))
 
     def post_cluster_message(self):
         self._node_only()
-        self.api.receive_message(self._json_body())
-        self._send(200, {"success": True})
+        b = self._json_body()
+        peer = self._gossip_apply(b)
+        self.api.receive_message(b)
+        self._send(200, self._gossip_reply(peer, {"success": True}))
 
     def post_translate_replicate(self):
         """Follower side of the translate replication stream (reference:
@@ -1091,15 +1123,106 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, execute_subtree(
             self.api, self._require(b, "spec"), b.get("shards") or []))
 
-    def _not_yet(self, *_groups):
-        """Node-to-node routes of planes still to port (gossip,
-        membership, replica catch-up): the single-node 404 on a plain
-        API and on a node alike."""
-        raise KeyError("not a cluster node")
+    def post_gossip_exchange(self):
+        self._node_only()
+        agent = getattr(self.api, "gossip", None)
+        if agent is None:
+            self._send(200, {"enabled": False})
+            return
+        b = self._json_body()
+        env = b.get("gossip")
+        peer = None
+        if isinstance(env, dict):
+            agent.receive(env)
+            peer = env.get("from")
+        self._send(200, {"enabled": True,
+                         "gossip": agent.envelope(peer)})
 
-    post_gossip_exchange = get_gossip_state = _not_yet
-    post_membership_ping = get_membership = _not_yet
-    get_recovery_snapshot = get_recovery_wal = _not_yet
+    def get_gossip_state(self):
+        self._node_only()
+        agent = getattr(self.api, "gossip", None)
+        if agent is None:
+            self._send(200, {"enabled": False})
+            return
+        self._send(200, {"enabled": True, **agent.state_json()})
+
+    def post_membership_ping(self):
+        """SWIM direct probe / ping-req relay. The piggybacked envelope
+        applies FIRST, so a ping that carries a suspicion of US makes us
+        refute before we build the reply, and the refuting alive record
+        rides back on this response."""
+        self._node_only()
+        b = self._json_body()
+        peer = self._gossip_apply(b)
+        out = self.api.membership_ping(b)
+        self._send(200, self._gossip_reply(peer, out))
+
+    def get_membership(self):
+        self._node_only()
+        self._send(200, self.api.membership_json())
+
+    def get_recovery_snapshot(self):
+        """One shard's snapshot and the WAL LSN it covers, for replica
+        catch-up (storage/recovery.py). Taken under the write lock, so
+        planes and LSN agree exactly: every record <= lsn is in the
+        arrays, every record > lsn in the shipped tail."""
+        import io
+        from urllib.parse import parse_qs, urlsplit
+
+        import numpy as np
+
+        from pilosa_tpu_torch.storage.store import export_shard_arrays
+
+        self._node_only()
+        qs = parse_qs(urlsplit(self.path).query)
+        index = qs.get("index", [""])[0]
+        shard = int(qs.get("shard", ["0"])[0])
+        holder = self.api.holder
+        idx = holder.index(index)
+        with holder.write_lock:
+            if idx.wal is not None:
+                idx.wal.flush()
+            arrays = export_shard_arrays(idx, shard)
+            lsn = idx.wal.last_lsn if idx.wal is not None else 0
+        buf = io.BytesIO()
+        if arrays:
+            np.savez_compressed(buf, **arrays)
+        self._send(200, {
+            "index": index, "shard": shard, "lsn": lsn,
+            "npz": base64.b64encode(buf.getvalue()).decode()
+            if arrays else "",
+        })
+
+    def get_recovery_wal(self):
+        """A batch of this node's WAL tail above ``since`` as raw CRC
+        frames (wal.tail_bytes). ``floor_lsn`` is the checkpoint LSN: a
+        caller whose ``since`` is below it raced a prune and must take a
+        snapshot again before it trusts the tail."""
+        from urllib.parse import parse_qs, urlsplit
+
+        from pilosa_tpu_torch.storage.recovery import read_checkpoint_meta
+
+        self._node_only()
+        qs = parse_qs(urlsplit(self.path).query)
+        index = qs.get("index", [""])[0]
+        since = int(qs.get("since", ["0"])[0])
+        max_bytes = int(qs.get("max_bytes", [str(1 << 20)])[0])
+        holder = self.api.holder
+        idx = holder.index(index)
+        if idx.wal is None:
+            self._send(200, {"frames": "", "last_lsn": since,
+                             "more": False, "floor_lsn": 0})
+            return
+        frames, last, more = idx.wal.tail_bytes(since, max_bytes)
+        # the meta AFTER the tail read: a checkpoint stamps the meta
+        # before it prunes, so any prune that could have removed
+        # segments while tail_bytes ran shows in this floor, and a tail
+        # with a gap always arrives with floor > since
+        floor = read_checkpoint_meta(holder._index_path(index))
+        self._send(200, {
+            "frames": base64.b64encode(frames).decode(),
+            "last_lsn": last, "more": more, "floor_lsn": floor,
+        })
 
     def post_grpc(self, method: str):
         """gRPC method over HTTP/1.1 with standard gRPC message framing

@@ -1,10 +1,9 @@
-"""Crash-consistent recovery: kill-point injection and fuzzy checkpoint
-metadata.
+"""Crash-consistent recovery: kill-point injection, fuzzy checkpoint
+metadata, and replica catch-up by WAL log shipping.
 
-Port of ``pilosa_tpu/storage/recovery.py`` without ``RecoveryManager``
-(replica catch-up by log shipping comes with the cluster planes). Two
-subsystems share one invariant: *any* crash, restart and re-delivery
-must converge to the exact planes the committed write stream describes.
+Port of ``pilosa_tpu/storage/recovery.py``. Three subsystems share one
+invariant: *any* crash, restart and re-delivery must converge to the
+exact planes the committed write stream describes.
 
 1. :class:`CrashPlan`: deterministic kill points at the five
    durability-critical sites (``wal.append``, ``wal.flush``,
@@ -25,6 +24,16 @@ must converge to the exact planes the committed write stream describes.
    pruned tail), both of which replay to the same planes because every
    WAL op is idempotent at the plane level.
 
+3. :class:`RecoveryManager`: replica catch-up. A restarted or lagging
+   node compares its local fragment version slots against its peers'
+   gossiped vectors (gossip/state.py), fetches shard snapshots and the
+   WAL tail above each snapshot's LSN over
+   ``/internal/recovery/{snapshot,wal}``, and replays them idempotently
+   (the tail's ``import_bits`` records through ``scatter_merge``, as
+   every import). Writes arriving during catch-up queue and apply
+   after; the node gossips its own breaker open on start and closed on
+   completion, so peers route reads elsewhere until it has caught up.
+
 :func:`abandon_holder` simulates a process death in one process. Beyond
 severing the WAL handles as the JAX package does, it drops every
 field's device stacks and their ``DeviceBudget`` entries, as a real
@@ -33,14 +42,20 @@ process death frees the card.
 
 from __future__ import annotations
 
+import base64
+import io
 import json
+import logging
 import os
 import random
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from pilosa_tpu_torch.analysis import locktrace
-from pilosa_tpu_torch.storage.wal import fsync_dir
+from pilosa_tpu_torch.storage.wal import fsync_dir, iter_frames
+
+log = logging.getLogger(__name__)
 
 # the five kill sites, in write-path order
 CRASH_SITES = (
@@ -377,3 +392,254 @@ def run_crash_point(base_dir: str, plan: CrashPlan, batches,
         "api": reopened,
     }
     return out
+
+
+# -- replica catch-up by log shipping ----------------------------------------
+
+
+class RecoveryManager:
+    """Catch a lagging/restarted ClusterNode up to its replica peers.
+
+    Lag detection compares the holder's local fragment version slots
+    against gossiped vectors; repair fetches each lagging shard's
+    snapshot (``export_shard_arrays`` npz) plus the peer's WAL tail
+    above the snapshot LSN and replays it filtered to the lagging
+    shards. Both steps are idempotent, so overlap with concurrent
+    delivery or a second catch-up run is harmless. Writes forwarded to
+    this node while catch-up is active queue and drain afterwards;
+    the node's own breaker state rides gossip so peers only route reads
+    back once ``catch_up`` completes."""
+
+    def __init__(self, node, batch_bytes: int = 1 << 20, registry=None):
+        from pilosa_tpu_torch.obs import metrics as M
+
+        self.node = node
+        self.batch_bytes = max(1, int(batch_bytes))
+        self.registry = registry if registry is not None else M.REGISTRY
+        self._lock = locktrace.tracked_lock("storage.recovery.manager")
+        self._active: Set[str] = set()  # indexes mid-catch-up
+        self._queued: Dict[str, List[Callable[[], Any]]] = {}
+
+    @classmethod
+    def from_config(cls, node, config=None, **overrides):
+        kw = {}
+        if config is not None:
+            kw["batch_bytes"] = config.storage_recovery_catchup_batch_bytes
+        kw.update(overrides)
+        return cls(node, **kw)
+
+    # -- write queueing ----------------------------------------------------
+
+    def active(self, index: str) -> bool:
+        with self._lock:
+            return index in self._active
+
+    def begin(self, index: str) -> None:
+        """Mark an index as catching up so defer() queues its writes —
+        catch_up does this itself; exposed for tests and manual runs."""
+        with self._lock:
+            self._active.add(index)
+
+    def defer(self, index: str, fn: Callable[[], Any]) -> bool:
+        """Queue a remote write arriving mid-catch-up; returns False when
+        the index is not catching up (caller applies normally)."""
+        from pilosa_tpu_torch.obs import metrics as M
+
+        with self._lock:
+            if index not in self._active:
+                return False
+            self._queued.setdefault(index, []).append(fn)
+        self.registry.count(M.METRIC_RECOVERY_CATCHUP_QUEUED)
+        return True
+
+    def drain(self, indexes=None) -> int:
+        """Un-mark ``indexes`` (all when None) as catching up and apply
+        their queued writes. Per-index: a catch_up run drains only the
+        indexes IT marked active, so two overlapping runs on different
+        indexes can't release each other's queues mid-replay."""
+        with self._lock:
+            names = set(self._active) | set(self._queued) \
+                if indexes is None else set(indexes)
+            fns: List[Callable[[], Any]] = []
+            for name in names:
+                self._active.discard(name)
+                fns.extend(self._queued.pop(name, []))
+        for fn in fns:
+            try:
+                fn()
+            except Exception:  # a queued write must not wedge the drain
+                log.exception("queued catch-up write failed")
+        return len(fns)
+
+    # -- lag detection -----------------------------------------------------
+
+    def lagging(self, index: str) -> Dict[str, Set[int]]:
+        """{peer_node_id: lagging shards} — shards we own whose gossiped
+        slot at some peer is strictly ahead of ours. Strictly-ahead only:
+        fetching from a BEHIND peer would regress us."""
+        from pilosa_tpu_torch.gossip.state import local_fragment_slots
+
+        agent = self.node.gossip
+        idx = self.node.api.holder.indexes.get(index)
+        if agent is None or idx is None:
+            return {}
+        local = local_fragment_slots(idx)
+        snap = self.node.snapshot()
+        me = self.node.node.id
+        out: Dict[str, Set[int]] = {}
+        for origin, slots in agent.state.fragment_entries(index).items():
+            for (fname, shard), val in slots.items():
+                if not val:
+                    continue
+                mine = local.get((fname, shard), [0, 0])
+                ahead = (int(val[0]) > int(mine[0])
+                         or (int(val[0]) == int(mine[0])
+                             and int(val[1]) > int(mine[1])))
+                if not ahead:
+                    continue
+                owners = {n.id for n in snap.shard_nodes(index, shard)}
+                if me in owners and origin in owners:
+                    out.setdefault(origin, set()).add(int(shard))
+        return out
+
+    # -- the catch-up run --------------------------------------------------
+
+    def catch_up(self, index: Optional[str] = None) -> Dict[str, Any]:
+        """Detect lag and repair it. Returns a summary dict; a no-lag run
+        returns ``{"shards": 0, ...}`` without touching gossip."""
+        from pilosa_tpu_torch.obs import metrics as M
+
+        holder = self.node.api.holder
+        names = [index] if index else sorted(holder.indexes)
+        plans = {n: self.lagging(n) for n in names}
+        plans = {n: p for n, p in plans.items() if p}
+        summary: Dict[str, Any] = {
+            "shards": 0, "records": 0, "bytes": 0, "queued": 0,
+            "indexes": sorted(plans),
+        }
+        if not plans:
+            return summary
+        t0 = time.perf_counter()
+        agent = self.node.gossip
+        with self._lock:
+            self._active.update(plans)
+        if agent is not None:
+            # not queryable until caught up: peers' breakers veto reads
+            # toward us (local evidence still outranks — see
+            # CircuitBreaker.apply_remote)
+            agent.record_breaker(self.node.node.id, "open")
+        ok = False
+        try:
+            for name, by_origin in plans.items():
+                # each lagging shard repairs from exactly one peer (first
+                # ahead origin by id) — several peers being ahead of us
+                # does not mean several fetches
+                seen: Set[int] = set()
+                for origin in sorted(by_origin):
+                    fresh = sorted(by_origin[origin] - seen)
+                    if not fresh:
+                        continue
+                    seen.update(fresh)
+                    st = self._repair_from(name, origin, fresh)
+                    summary["shards"] += st["shards"]
+                    summary["records"] += st["records"]
+                    summary["bytes"] += st["bytes"]
+            holder.checkpoint()  # make the repaired planes durable
+            ok = True
+        finally:
+            # queued writes always apply (they were accepted; replay
+            # idempotence makes re-shipping them on a retry harmless),
+            # but only a COMPLETED repair may advertise us queryable —
+            # a failed run stays open so peers keep routing reads away,
+            # and the error propagates so the caller retries catch_up
+            summary["queued"] = self.drain(plans)
+            if agent is not None:
+                agent.record_breaker(
+                    self.node.node.id, "closed" if ok else "open")
+                agent.refresh_local()
+        lag_ms = (time.perf_counter() - t0) * 1e3
+        self.registry.observe_bucketed(
+            M.METRIC_RECOVERY_CATCHUP_LAG_MS, lag_ms,
+            M.RECOVERY_CATCHUP_LAG_BUCKETS_MS)
+        self.registry.count(M.METRIC_RECOVERY_CATCHUP_SHARDS,
+                            summary["shards"])
+        summary["lag_ms"] = lag_ms
+        if hasattr(self.node, "_announce_shards"):
+            self.node._announce_shards(index) if index else \
+                self.node._announce_shards_all()
+        return summary
+
+    def _peer(self, origin: str):
+        for n in self.node.disco.nodes():
+            if n.id == origin:
+                return n
+        raise KeyError(f"peer {origin!r} not in membership")
+
+    def _repair_from(self, index: str, origin: str,
+                     shards: List[int]) -> Dict[str, int]:
+        """Snapshot + WAL-tail repair of ``shards`` from one peer. All
+        snapshots come from the same peer so their LSNs share one
+        counter; the tail replays from the minimum."""
+        import numpy as np
+
+        from pilosa_tpu_torch.obs import metrics as M
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+        from pilosa_tpu_torch.storage.store import install_shard_arrays
+
+        holder = self.node.api.holder
+        idx = holder.index(index)
+        peer = self._peer(origin)
+        client = self.node.client
+        lagging = set(shards)
+        since = None
+        for shard in shards:
+            resp = client.recovery_snapshot(peer, index, shard)
+            raw = base64.b64decode(resp.get("npz", ""))
+            if raw:
+                with np.load(io.BytesIO(raw)) as z:
+                    arrays = {k: z[k] for k in z.files}
+            else:
+                arrays = {}
+            with holder.write_lock:
+                if arrays:
+                    install_shard_arrays(idx, shard, arrays)
+            lsn = int(resp.get("lsn", 0))
+            since = lsn if since is None else min(since, lsn)
+        records = nbytes = 0
+        since = since or 0
+        while True:
+            resp = client.recovery_wal(peer, index, since, self.batch_bytes)
+            floor = int(resp.get("floor_lsn", 0))
+            if since < floor:
+                # the peer checkpointed + pruned between our snapshot and
+                # this tail fetch: the gap is inside its new snapshots, so
+                # re-snapshot and restart the tail from there
+                since = None
+                for shard in shards:
+                    r2 = client.recovery_snapshot(peer, index, shard)
+                    raw = base64.b64decode(r2.get("npz", ""))
+                    if raw:
+                        with np.load(io.BytesIO(raw)) as z:
+                            arrays = {k: z[k] for k in z.files}
+                        with holder.write_lock:
+                            install_shard_arrays(idx, shard, arrays)
+                    since_s = int(r2.get("lsn", 0))
+                    since = since_s if since is None else min(since, since_s)
+                since = since or 0
+                continue
+            frames = base64.b64decode(resp.get("frames", ""))
+            recs = []
+            for _lsn, rec in iter_frames(frames):
+                sub = filter_record(rec, lambda s: s in lagging, SHARD_WIDTH)
+                if sub is not None:
+                    recs.append(sub)
+            if recs:
+                with holder.write_lock:
+                    records += holder.replay_records(idx, recs)
+            nbytes += len(frames)
+            since = max(since, int(resp.get("last_lsn", since)))
+            if not resp.get("more"):
+                break
+        self.registry.count(M.METRIC_RECOVERY_REPLAY_RECORDS, records)
+        self.registry.count(M.METRIC_RECOVERY_REPLAY_BYTES, nbytes)
+        return {"shards": len(shards), "records": records, "bytes": nbytes}

@@ -15,7 +15,9 @@ the CLI and fbsql (importing every front-end module), runs a keyed
 two-node ``LocalCluster`` on the CPU (importing every cluster module)
 and a SQL aggregate over a host filter through it (the SQL fan-out),
 a two-node cluster with a seeded ``FaultPlan``, leg batching and
-hedged legs (fan-out resilience), then reports
+hedged legs (fan-out resilience), a two-node cluster with gossip,
+membership and a replica's catch-up (importing every gossip module),
+then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -154,8 +156,23 @@ with LocalCluster(2, device="cpu", fault_plan=plan,
     resilient = [lc[0].query("rs", "Count(Row(f=1))")[0],
                  lc[0].client.op_counts.get("query_batch", 0) > 0,
                  plan.seen("node1") > 0]
+with LocalCluster(2, replica_n=2, base_path=tempfile.mkdtemp(),
+                  device="cpu") as lc:
+    lc[0].create_index("g")
+    lc[0].create_field("g", "f")
+    lc[0].import_bits("g", "f", rows=[1, 1], cols=[1, 2])
+    lc.enable_gossip()
+    lc.enable_membership()
+    rm = lc[1].enable_recovery()
+    lc[0].api.import_bits("g", "f", rows=[1], cols=[3])
+    lc[0]._announce_shards("g")
+    lc.run_gossip_rounds(2)
+    caught = rm.catch_up()
+    gossiped = [caught["shards"], lc[1].query("g", "Count(Row(f=1))")[0],
+                sorted(lc[1].membership_json()["members"]),
+                sorted(lc[0].gossip.state.digest())]
 print(json.dumps({"star": star, "resilient": resilient, "front": front, "hist": hist,
-                  "clustered": clustered,
+                  "clustered": clustered, "gossiped": gossiped,
                   "logged": logged,
                   "count": got[0], "top": got[1].pairs[0].count,
                   "profiled": profiled,
@@ -198,6 +215,9 @@ _CLUSTER = ("hashing.py", "cluster", "cluster/topology.py", "cluster/disco.py",
 _SQL_FANOUT = ("sql/fanout.py",)
 #: and fan-out resilience and leg batching's
 _RESILIENCE = ("cluster/resilience.py", "cluster/batch.py")
+#: and gossip, membership and replica catch-up's
+_GOSSIP = ("gossip", "gossip/state.py", "gossip/agent.py",
+           "gossip/membership.py", "storage/recovery.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -225,8 +245,10 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["front"][1:] == [0, True, True] and out["front"][0] > 0
     assert out["clustered"] == [2, "a", [[12]]]
     assert out["resilient"] == [2, True, True]
+    assert out["gossiped"] == [1, 3, ["node0", "node1"],
+                               ["node0", "node1"]]
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
-                 + _CLUSTER + _SQL_FANOUT + _RESILIENCE):
+                 + _CLUSTER + _SQL_FANOUT + _RESILIENCE + _GOSSIP):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -298,6 +320,14 @@ def test_scan_covers_the_front_end_modules():
     scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
                for p in _sources()}
     for part in _FRONTEND:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_gossip_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _GOSSIP:
         hits = [p for p in scanned if p == part or p.startswith(part + "/")]
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
 

@@ -1404,11 +1404,12 @@ def test_grpc_framing_equal_across_packages():
 
 
 #: ``generate-config`` keys of the JAX package that the port prints
-#: once its cluster plane lands: the cluster section, ``[gossip]``,
-#: ``[membership]``, ``[cluster.resilience]``, ``[cluster.batch]``, the
-#: ``[tenants]`` fields but ``enabled`` / ``fair-share``, ``[dax]`` and
-#: ``[degrade]``
-_A7_KEYS = ("node-id", "peers", "replicas", "gossip-", "membership-",
+#: once its cluster plane lands: the cluster section, ``gossip-enabled``
+#: and ``membership-enabled`` (read once a server builds the planes from
+#: the config), the ``[tenants]`` fields but ``enabled`` /
+#: ``fair-share``, ``[dax]`` and ``[degrade]``
+_A7_KEYS = ("node-id", "peers", "replicas",
+            "gossip-enabled", "membership-enabled",
             "tenants-max-tracked",
             "tenants-top-k", "tenants-default-", "tenants-cache-quota-bytes",
             "dax-", "degrade-")

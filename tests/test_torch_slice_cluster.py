@@ -11,7 +11,9 @@
   and the BSI shape of 16b, cut to a few thousand columns over three
   shards): which node holds which shard, every node's key->id maps, and
   every 16a / 16b query from every node equal across the packages and to
-  numpy.
+  numpy; the node-to-node routes answer alike, the gossip, membership
+  and catch-up routes among them (those planes off; a shard snapshot
+  compared by its LSN and arrays).
 * One mixed cluster on loopback: two port nodes and one JAX node over
   ``StaticDisCo``, which holds the wire format (query legs, imports,
   translation, broadcasts): a Count, a TopN, a GroupBy, a keyed ``Set``
@@ -344,6 +346,16 @@ def _get(base, path, method="GET", body=None):
         return e.code, json.loads(e.read())
 
 
+def _npz(blob):
+    import base64
+    import io
+
+    if not blob:
+        return {}
+    with np.load(io.BytesIO(base64.b64decode(blob))) as z:
+        return {k: z[k] for k in z.files}
+
+
 def _no_uris(doc):
     if isinstance(doc, dict):
         return {k: ("" if k == "uri" else _no_uris(v)) for k, v in doc.items()}
@@ -367,12 +379,29 @@ def test_node_routes_equal_the_jax_packages(clusters):
                {"queries": [{"index": "ssb", "query": "Count(Row(year=3))",
                              "shards": [2, 3]},
                             {"index": "nope", "query": "Count(Row(f=1))",
-                             "shards": [0]}]})]
+                             "shards": [0]}]}),
+              # gossip, membership and catch-up with those planes off
+              ("GET", "/internal/gossip/state", None),
+              ("POST", "/internal/gossip/exchange", {"gossip": {}}),
+              ("GET", "/internal/membership", None),
+              ("POST", "/internal/membership/ping", {"from": "nodeX"}),
+              ("GET", "/internal/recovery/wal?index=ssb&since=3", None)]
     for k in range(3):
         for method, path, body in routes:
             got = _get(tc[k].node.uri, path, method, body)
             want = _get(jc[k].node.uri, path, method, body)
             assert _no_uris(got) == _no_uris(want), (k, path)
+        # a shard snapshot: the same LSN and arrays (the npz bytes carry
+        # their zip entries' times)
+        for shard in (0, 2, 5):
+            path = f"/internal/recovery/snapshot?index=ssb&shard={shard}"
+            (st, got), (sj, want) = (_get(c[k].node.uri, path)
+                                     for c in (tc, jc))
+            assert st == sj == 200
+            assert {**got, "npz": ""} == {**want, "npz": ""}, (k, shard)
+            assert _npz(got["npz"]).keys() == _npz(want["npz"]).keys()
+            for key, arr in _npz(got["npz"]).items():
+                np.testing.assert_array_equal(arr, _npz(want["npz"])[key])
     # the coalesced batch is served on a node of both packages
     assert _get(tc[1].node.uri, "/internal/query-batch", "POST",
                 {"queries": []}) == (200, {"results": []})
