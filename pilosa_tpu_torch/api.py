@@ -20,8 +20,12 @@ other's. Reads may go through the micro-batching scheduler
 (``enable_cache``, ``cache/``); ``enable_stream`` attaches the pipelined
 streaming ingester (``stream/``) and ``enable_health`` the health plane
 (``obs/health.py``: timeline, SLOs, flight recorder), which every
-query, SQL statement and bulk import then feeds. ``API()`` runs on the
-card, ``cuda:0``;
+query, SQL statement and bulk import then feeds. ``enable_tenants``
+attaches the tenant plane (``obs/tenants.py``: per-tenant accounting,
+quotas, fair-share weights, tenant-scoped cache namespaces) and
+``enable_degrade`` the graceful-degradation ladder
+(``sched/degrade.py``: batch shedding, brownout stale reads and tighter
+deadlines, saturated shedding). ``API()`` runs on the card, ``cuda:0``;
 ``API(device="cpu")`` runs every kernel's plain PyTorch version on the
 CPU. Without a card, ``API()`` raises.
 """
@@ -51,6 +55,7 @@ from pilosa_tpu_torch.core.translate import bulk_translate_ids
 from pilosa_tpu_torch.ingest.idalloc import IDAllocator
 from pilosa_tpu_torch.obs import metrics as M
 from pilosa_tpu_torch.obs.history import ExecutionRequestsAPI
+from pilosa_tpu_torch.obs.tenants import current_tenant_id
 from pilosa_tpu_torch.obs.tracing import get_tracer
 from pilosa_tpu_torch.ops.bitmap import bits_to_plane
 from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
@@ -67,16 +72,17 @@ _NULL_SCOPE = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
-def _slo_scope(hp, surface: str):
-    """One request of ``surface`` into the health plane's SLO tracker,
-    an error when the body raises."""
+def _slo_scope(hp, surface: str, tenant=None):
+    """One request of ``surface`` (by ``tenant``) into the health
+    plane's SLO tracker, an error when the body raises."""
     t0 = time.monotonic()
     try:
         yield
     except Exception:
-        hp.record(surface, time.monotonic() - t0, error=True)
+        hp.record(surface, time.monotonic() - t0, error=True,
+                  tenant=tenant)
         raise
-    hp.record(surface, time.monotonic() - t0)
+    hp.record(surface, time.monotonic() - t0, tenant=tenant)
 
 
 class API:
@@ -109,10 +115,17 @@ class API:
         # burn tracking + flight recorder. None = the query and import
         # paths pay one attribute check.
         self.health = None
-        # the tenant registry and the degradation ladder are not ported;
-        # the health plane's ``tenants`` / ``degrade`` probes read these
-        # and report ``{"enabled": false}``
+        # optional tenant attribution plane (obs/tenants.py): per-tenant
+        # usage accounting, quotas, fair-share weights. None = off and
+        # the request paths pay one attribute check.
         self.tenants = None
+        # whether the tenant plane orders the scheduler's admissions by
+        # its weights ([tenants] fair-share; set by enable_tenants)
+        self._tenants_fair = True
+        # optional graceful-degradation ladder (sched/degrade.py):
+        # NORMAL -> SHED_BATCH -> BROWNOUT -> SATURATED driven by
+        # timeline signals. None = off; scheduler/cache pay one
+        # attribute check and no degrade metric ever moves.
         self.degrade = None
         if path:
             # checkpoint load + WAL replay (reference: rbf/db.go open)
@@ -125,6 +138,14 @@ class API:
                 interval_ms=float(os.environ.get(
                     "PILOSA_TPU_OBS_TIMELINE_INTERVAL_MS", "1000")),
                 start=False)
+        if env_bool("PILOSA_TPU_TENANTS"):
+            # attribution-only defaults (quotas 0 = unlimited): safe to
+            # run a whole test run under, like the timeline env gate
+            self.enable_tenants()
+        if env_bool("PILOSA_TPU_DEGRADE"):
+            # the ladder only engages past its thresholds, so always-on
+            # is safe; without the health plane it never ticks
+            self.enable_degrade()
 
     def set_query_logger(self, path: str) -> None:
         from pilosa_tpu_torch.obs.logger import QueryLogger
@@ -195,6 +216,8 @@ class API:
                 self.executor, config, **overrides)
         else:
             self.scheduler = QueryScheduler(self.executor, **overrides)
+        self._wire_tenants()
+        self._wire_degrade()
         return self.scheduler
 
     def disable_scheduler(self) -> None:
@@ -223,6 +246,8 @@ class API:
 
         self.cache = ResultCache.from_config(config, **overrides)
         self.executor.cache = self.cache
+        self._wire_tenants()
+        self._wire_degrade()
         return self.cache
 
     def disable_cache(self) -> None:
@@ -252,6 +277,7 @@ class API:
             self._health_set_exemplars = True
         if start:
             self.health.start()
+        self._wire_degrade()
         return self.health
 
     def disable_health(self) -> None:
@@ -269,7 +295,127 @@ class API:
         hp = self.health
         if hp is None:
             return _NULL_SCOPE
-        return _slo_scope(hp, "ingest")
+        return _slo_scope(hp, "ingest", current_tenant_id()
+                          if self.tenants is not None else None)
+
+    def _note_tenant_rows(self, rows: int) -> None:
+        """Per-tenant ingest accounting for the bulk-import surface."""
+        if self.tenants is not None and rows:
+            self.tenants.note(current_tenant_id(), rows=rows)
+
+    # -- tenant plane (obs/tenants.py: attribution + quotas + fair share) --
+
+    def enable_tenants(self, config=None, **overrides):
+        """Attach the tenant attribution plane: per-tenant usage counters
+        (queries, rows, device-seconds, cache traffic, WAL bytes),
+        token-bucket quotas (QuotaExceededError -> 429 + Retry-After when
+        exhausted; rate 0 = unlimited, attribution without enforcement),
+        weighted fair-share scheduler ordering, and tenant-scoped cache
+        namespaces. ``config`` is a pilosa_tpu_torch.config.Config
+        ([tenants] and its [tenants.<id>] stanzas); kwargs override
+        TenantRegistry knobs (max_tracked, top_k, default_qps,
+        default_ingest_rows_s, cache_quota_bytes, clock, registry).
+        While it is on, every kernel launch is timed on the card's clock
+        and charged to the tenant that made it (obs/devprof.py)."""
+        from pilosa_tpu_torch.obs.tenants import TenantRegistry
+
+        if self.tenants is not None:
+            self.disable_tenants()
+        self._tenants_fair = (True if config is None
+                              else bool(config.tenants_fair_share))
+        reg = self.tenants = TenantRegistry.from_config(config, **overrides)
+        if config is not None:
+            # [tenants.<id>] stanzas: per-tenant quota/weight overrides
+            reg.apply_overrides(config.tenants_overrides)
+        reg.install_hooks()
+        self._wire_tenants()
+        return reg
+
+    def _wire_tenants(self) -> None:
+        """Wire the tenant plane into whichever optional planes exist
+        right now; enable_cache/enable_scheduler call this again so
+        enable order doesn't matter."""
+        reg = self.tenants
+        if reg is None:
+            return
+        self.executor.tenant_namespaces = True
+        if self.cache is not None:
+            self.cache.tenant_hook = reg.cache_hook
+            self.cache.tenant_of = current_tenant_id
+            self.cache.tenant_quota_bytes = reg.cache_quota_bytes
+            self.cache.tenant_quota_of = reg.cache_quota_for
+        if self.scheduler is not None and self._tenants_fair:
+            self.scheduler.set_fair_share(True, reg.weight)
+
+    def disable_tenants(self) -> None:
+        reg, self.tenants = self.tenants, None
+        if reg is None:
+            return
+        reg.close()
+        self.executor.tenant_namespaces = False
+        if self.cache is not None:
+            self.cache.tenant_hook = None
+            self.cache.tenant_of = None
+            self.cache.tenant_quota_bytes = 0
+            self.cache.tenant_quota_of = None
+        if self.scheduler is not None:
+            self.scheduler.set_fair_share(False)
+
+    # -- graceful degradation (sched/degrade.py: brownout ladder) ----------
+
+    def enable_degrade(self, config=None, **overrides):
+        """Attach the graceful-degradation controller: a hysteresis-
+        bounded NORMAL -> SHED_BATCH -> BROWNOUT -> SATURATED ladder fed
+        by the health timeline (queue depth, SLO fast-burn, deadline-miss
+        and device-budget-eviction rates). SHED_BATCH rejects batch
+        admissions first; BROWNOUT lets the result cache serve entries
+        past their version fingerprint (tagged stale=true) and tightens
+        deadlines; SATURATED sheds interactive work with an honest
+        Retry-After from the live arrival window. ``config`` is a
+        pilosa_tpu_torch.config.Config ([degrade]); kwargs override
+        DegradeController knobs. Signals only flow while a health plane
+        is attached (enable order doesn't matter)."""
+        from pilosa_tpu_torch.sched.degrade import DegradeController
+
+        self.degrade = DegradeController.from_config(config, **overrides)
+        self._wire_degrade()
+        return self.degrade
+
+    def _wire_degrade(self) -> None:
+        """Point whichever planes exist right now at the controller;
+        enable_scheduler/enable_cache/enable_health call this again so
+        enable order doesn't matter. The timeline observer and probe
+        read through ``api.degrade`` at sample time, so a later
+        enable_degrade is picked up without re-wiring."""
+        deg = self.degrade
+        if deg is None:
+            return
+        if self.scheduler is not None:
+            self.scheduler.degrade = deg
+            deg.retry_after_fn = self.scheduler.retry_after_s
+        if self.cache is not None:
+            self.cache.degrade = deg
+        deg.flight = self.health.flight if self.health is not None else None
+
+    def disable_degrade(self) -> None:
+        deg, self.degrade = self.degrade, None
+        if deg is None:
+            return
+        if self.scheduler is not None:
+            self.scheduler.degrade = None
+        if self.cache is not None:
+            self.cache.degrade = None
+
+    def _degrade_shed_batch(self) -> None:
+        """Bulk-import ingress is batch-priority work: at SHED_BATCH and
+        above the HTTP import surface refuses the whole request up front
+        with an honest Retry-After (the client retries an idempotent
+        request later). The check lives at ingress — not inside
+        import_bits — so SQL DML, WAL replay, recovery catch-up, and
+        replica fan-out legs can never be torn mid-statement by a shed."""
+        deg = self.degrade
+        if deg is not None and deg.shed_reason("batch") is not None:
+            raise deg.shed("batch")
 
     # -- streaming ingest (stream/: broker + pipelined ingester) -----------
 
@@ -355,6 +501,9 @@ class API:
         rec = self.history.begin(index, text, kind)
         rec.trace_id = span.trace_id
         span.set_tag("request_id", rec.request_id)
+        tenant = current_tenant_id() if self.tenants is not None else None
+        if tenant is not None:
+            span.set_tag("tenant", tenant)
         surface = "query" if kind == "pql" else kind
         t0 = time.monotonic()
         try:
@@ -364,7 +513,10 @@ class API:
                 self.query_logger.log(kind, index, text,
                                       time.monotonic() - t0)
             if self.health is not None:
-                self.health.record(surface, time.monotonic() - t0)
+                self.health.record(surface, time.monotonic() - t0,
+                                   tenant=tenant)
+            if self.tenants is not None:
+                self.tenants.note_query(tenant)
             return out
         except Exception as e:
             span.set_tag("error", str(e) or type(e).__name__)
@@ -374,7 +526,9 @@ class API:
                                       time.monotonic() - t0, error=str(e))
             if self.health is not None:
                 self.health.record(surface, time.monotonic() - t0,
-                                   error=True)
+                                   error=True, tenant=tenant)
+            if self.tenants is not None:
+                self.tenants.note_query(tenant, error=True)
             raise
         finally:
             span.finish()
@@ -398,17 +552,27 @@ class API:
                    priority: Optional[str] = None,
                    deadline_ms: Optional[float] = None,
                    profile: bool = False) -> dict:
-        """``{"results": [...]}`` in the reference's JSON shapes.
-        ``profile=True`` forces a sampled trace for this query and returns
-        its span tree beside the results (the reference's ProfiledSpan)."""
+        """``{"results": [...]}`` in the reference's JSON shapes, with
+        ``"stale": true`` when the brownout served a cached result past
+        its version fingerprint. ``profile=True`` forces a sampled trace
+        for this query and returns its span tree beside the results (the
+        reference's ProfiledSpan)."""
         if profile:
             with get_tracer().profile("query.profile", index=index) as root:
                 out = self.query_json(index, pql, priority=priority,
                                       deadline_ms=deadline_ms)
             out["profile"] = root.to_json()
             return out
-        return {"results": [result_to_json(r) for r in self.query(
+        cache = self.cache
+        if cache is not None:
+            cache.take_stale_flag()  # clear any untagged leftover
+        out = {"results": [result_to_json(r) for r in self.query(
             index, pql, priority=priority, deadline_ms=deadline_ms)]}
+        if cache is not None and cache.take_stale_flag():
+            # brownout: served past the version fingerprint — the
+            # explicit freshness contract for degraded reads
+            out["stale"] = True
+        return out
 
     # -- bulk import (reference: api.go:1438 Import) -------------------------
 
@@ -443,6 +607,7 @@ class API:
                 self._mark_exists(idx, cols)
         M.REGISTRY.count(M.METRIC_CLEARED if clear else M.METRIC_IMPORTED,
                          len(cols))
+        self._note_tenant_rows(len(cols))
         return changed
 
     def import_values(self, index: str, field: str,
@@ -467,6 +632,7 @@ class API:
             fld.set_values(cols, values)
             self._mark_exists(idx, cols)
         M.REGISTRY.count(M.METRIC_IMPORTED, len(cols))
+        self._note_tenant_rows(len(cols))
         return len(cols)
 
     def import_roaring(self, index: str, field: str, shard: int,
@@ -482,10 +648,12 @@ class API:
                 f"field {field!r} is int-like; roaring imports target "
                 "bitmap-row fields")
         all_cols = []
+        total_bits = 0
         with self.txf.qcx():
             for view, blob in views.items():
                 view = view or timeq.VIEW_STANDARD
                 positions = decode_to_positions(blob)
+                total_bits += int(positions.size)
                 rows = (positions >> np.uint64(SHARD_WIDTH_EXP)
                         ).astype(np.int64)
                 cols = (positions & np.uint64(SHARD_WIDTH - 1)
@@ -503,6 +671,7 @@ class API:
                 idx.field(EXISTENCE_FIELD).import_bits(
                     np.zeros(len(cols), dtype=np.int64),
                     shard * SHARD_WIDTH + cols)
+        self._note_tenant_rows(total_bits)
 
     @staticmethod
     def _mark_exists(idx: Index, cols) -> None:

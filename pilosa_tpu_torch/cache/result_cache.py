@@ -16,9 +16,9 @@ their result without corrupting the cached copy. The executor caches
 results only once resolved: they are host objects holding no torch
 tensor, so a deep copy never touches the card.
 
-Port of ``pilosa_tpu/cache/result_cache.py``, whole. The brownout stale
-path (``degrade``) and the tenant hooks stay unset until the degradation
-ladder and the tenant registry are ported.
+Port of ``pilosa_tpu/cache/result_cache.py``, whole. ``API.enable_degrade``
+sets the brownout stale path (``degrade``) and ``API.enable_tenants``
+the tenant hooks.
 """
 
 from __future__ import annotations

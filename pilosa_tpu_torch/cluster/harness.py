@@ -13,10 +13,10 @@ asks for the CPU, so the nodes of one process share one card (and one
 ``DeviceBudget``). A ``FaultPlan`` injects seeded faults into every
 node's client, ``client_factory`` builds each node's client, and
 ``cluster_batch`` attaches the leg coalescer on every node.
-``enable_gossip``, ``enable_membership`` and ``enable_health`` attach
-those planes on every node, and ``run_gossip_rounds`` /
-``run_membership_ticks`` drive them by hand. The tenant and degradation
-helpers come with their planes.
+``enable_gossip``, ``enable_membership``, ``enable_health``,
+``enable_tenants`` and ``enable_degrade`` attach those planes on every
+node, and ``run_gossip_rounds`` / ``run_membership_ticks`` drive them by
+hand.
 """
 
 from __future__ import annotations
@@ -108,6 +108,19 @@ class LocalCluster:
         planes in node order."""
         return [node.enable_health(**kw) for node in self.nodes]
 
+    def enable_tenants(self, **kw) -> list:
+        """Enable the tenant attribution plane on every node
+        (ClusterNode.enable_tenants keyword arguments pass through; tests
+        usually share one ManualClock through ``clock=``). Returns the
+        registries in node order."""
+        return [node.enable_tenants(**kw) for node in self.nodes]
+
+    def enable_degrade(self, **kw) -> list:
+        """Enable the graceful-degradation ladder on every node
+        (ClusterNode.enable_degrade keyword arguments pass through).
+        Returns the controllers in node order."""
+        return [node.enable_degrade(**kw) for node in self.nodes]
+
     def enable_membership(self, **kw) -> list:
         """Enable SWIM membership on every node
         (ClusterNode.enable_membership keyword arguments pass through;
@@ -182,6 +195,14 @@ class LocalCluster:
         for node in self.nodes:
             try:
                 node.disable_gossip()  # stops the round threads first
+            except Exception:
+                pass
+        # uninstall in reverse enable order: each registry's process-wide
+        # WAL and fold hooks restore the previous link in the chain
+        for node in reversed(self.nodes):
+            try:
+                if node.tenants is not None:
+                    node.disable_tenants()
             except Exception:
                 pass
         # each shutdown waits out its server's poll interval: wait for

@@ -47,8 +47,11 @@ entries on the gossip plane too; ``enable_recovery`` attaches the
 ``RecoveryManager``, which catches a lagging replica up from its peers
 and queues the writes that reach it meanwhile.
 
-Not here yet, each with the plane that brings it: ``enable_tenants``
-and ``enable_degrade``.
+Tenants and degradation: ``enable_tenants`` attaches the tenant plane
+(see ``API.enable_tenants``) and wires it into the cluster executor's
+cache and scheduler; ``enable_degrade`` attaches the brownout ladder and
+points the node's scheduler and caches at it. The node's queries charge
+the calling tenant, and its import ingress sheds batch work first.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from pilosa_tpu_torch.cluster.topology import (
 )
 from pilosa_tpu_torch.config import env_bool
 from pilosa_tpu_torch.errors import ClusterStateError
+from pilosa_tpu_torch.obs.tenants import current_tenant_id
 from pilosa_tpu_torch.obs.tracing import get_tracer
 from pilosa_tpu_torch.pql.executor import Executor, has_write_calls
 from pilosa_tpu_torch.pql.parser import parse
@@ -131,6 +135,9 @@ class ClusterNode:
         # knows only the base API; upgrade its probes to this node's.
         if self.api.health is not None:
             self.api.health.attach_node(self)
+        # likewise the env-bootstrapped tenant plane (PILOSA_TPU_TENANTS=1)
+        # needs wiring into the cluster-side executor
+        self._wire_node_tenants()
 
     @property
     def device(self):
@@ -270,17 +277,26 @@ class ClusterNode:
               priority: Optional[str] = None,
               deadline_ms: Optional[float] = None) -> List[Any]:
         hp = self.api.health
-        if hp is None:
+        reg = self.api.tenants
+        if hp is None and reg is None:
             return self._query_impl(index, pql, shards, priority,
                                     deadline_ms)
+        tenant = current_tenant_id() if reg is not None else None
         t0 = time.monotonic()
         try:
             out = self._query_impl(index, pql, shards, priority,
                                    deadline_ms)
         except Exception:
-            hp.record("query", time.monotonic() - t0, error=True)
+            if hp is not None:
+                hp.record("query", time.monotonic() - t0, error=True,
+                          tenant=tenant)
+            if reg is not None:
+                reg.note_query(tenant, error=True)
             raise
-        hp.record("query", time.monotonic() - t0)
+        if hp is not None:
+            hp.record("query", time.monotonic() - t0, tenant=tenant)
+        if reg is not None:
+            reg.note_query(tenant)
         return out
 
     def _query_impl(self, index: str, pql: str,
@@ -410,6 +426,7 @@ class ClusterNode:
     sql = API.sql
     _recorded = API._recorded
     _maybe_slow_log = API._maybe_slow_log
+    _degrade_shed_batch = API._degrade_shed_batch
 
     # -- scheduler (sched/): same surface as the plain API -----------------
 
@@ -429,6 +446,8 @@ class ClusterNode:
         else:
             sched = QueryScheduler(self.executor.local, **overrides)
         self.executor.scheduler = sched
+        self._wire_node_tenants()
+        self._wire_node_degrade()
         return sched
 
     def disable_scheduler(self) -> None:
@@ -456,11 +475,94 @@ class ClusterNode:
             warn_remote_ttl_deprecated()
         self.executor.cache = cache
         self.executor.local.cache = cache
+        self._wire_node_tenants()
+        self._wire_node_degrade()
         return cache
 
     def disable_cache(self) -> None:
         self.executor.cache = None
         self.executor.local.cache = None
+
+    # -- tenant plane (obs/tenants.py): same surface as the plain API ------
+
+    @property
+    def tenants(self):
+        return self.api.tenants
+
+    def enable_tenants(self, config=None, **overrides):
+        """Attach the tenant attribution plane (see API.enable_tenants)
+        and wire it into the node's cluster-side executor — the fan-out
+        cache and scheduler hang off ClusterExecutor, not the base API."""
+        reg = self.api.enable_tenants(config, **overrides)
+        self._wire_node_tenants()
+        return reg
+
+    def disable_tenants(self) -> None:
+        self.api.disable_tenants()
+        self.executor.local.tenant_namespaces = False
+        cache = self.executor.cache
+        if cache is not None:
+            cache.tenant_hook = None
+            cache.tenant_of = None
+            cache.tenant_quota_bytes = 0
+        if self.executor.scheduler is not None:
+            self.executor.scheduler.set_fair_share(False)
+
+    def _wire_node_tenants(self) -> None:
+        """Wire the tenant plane into whichever node-level planes exist
+        right now; enable_cache/enable_scheduler call this again so
+        enable order doesn't matter (mirrors API._wire_tenants, which
+        only knows the base API's executor)."""
+        reg = self.api.tenants
+        if reg is None:
+            return
+        self.executor.local.tenant_namespaces = True
+        cache = self.executor.cache
+        if cache is not None:
+            cache.tenant_hook = reg.cache_hook
+            cache.tenant_of = current_tenant_id
+            cache.tenant_quota_bytes = reg.cache_quota_bytes
+            cache.tenant_quota_of = reg.cache_quota_for
+        sched = self.executor.scheduler
+        if sched is not None and self.api._tenants_fair:
+            sched.set_fair_share(True, reg.weight)
+
+    # -- graceful degradation (sched/degrade.py): node-side wiring ---------
+
+    @property
+    def degrade(self):
+        return self.api.degrade
+
+    def enable_degrade(self, config=None, **overrides):
+        """Attach the brownout ladder (see API.enable_degrade) and wire
+        it into the node's cluster-side scheduler/cache — which hang off
+        ClusterExecutor, not the base API."""
+        deg = self.api.enable_degrade(config, **overrides)
+        self._wire_node_degrade()
+        return deg
+
+    def disable_degrade(self) -> None:
+        self.api.disable_degrade()
+        if self.executor.scheduler is not None:
+            self.executor.scheduler.degrade = None
+        for cache in (self.executor.cache, self.executor.local.cache):
+            if cache is not None:
+                cache.degrade = None
+
+    def _wire_node_degrade(self) -> None:
+        """Mirror of _wire_node_tenants: point whichever node-level
+        planes exist at the controller; enable_cache/enable_scheduler/
+        enable_health call this again so enable order doesn't matter."""
+        deg = self.api.degrade
+        if deg is None:
+            return
+        sched = self.executor.scheduler
+        if sched is not None:
+            sched.degrade = deg
+            deg.retry_after_fn = sched.retry_after_s
+        for cache in (self.executor.cache, self.executor.local.cache):
+            if cache is not None:
+                cache.degrade = deg
 
     # -- fan-out resilience (cluster/resilience.py) ------------------------
 
@@ -531,6 +633,7 @@ class ClusterNode:
         plane = self.api.enable_health(config, start=start, **overrides)
         plane.attach_node(self)
         self._wire_health_resilience()
+        self._wire_node_degrade()
         return plane
 
     def disable_health(self) -> None:

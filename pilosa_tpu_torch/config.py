@@ -9,11 +9,12 @@ it has ported: the listener, ``[auth]`` and the maintenance period
 (``server/``, ``ctl/``), the storage fields and ``[storage.recovery]``
 (``storage/``), ``[obs.tracing]`` and ``[obs.timeline]`` (``obs/``), the
 log fields, ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
-``[stream]`` (``stream/``), the two ``[tenants]`` flags the
-scheduler reads, ``[gossip]`` and ``[membership]`` (``gossip/``) and
-``[cluster.resilience]`` / ``[cluster.batch]`` (``cluster/``), with the
-JAX package's defaults and variable names; ``[dax]``, ``[degrade]`` and
-the other ``[tenants]`` fields land with the planes that read them.
+``[stream]`` (``stream/``), ``[tenants]`` with its ``[tenants.<id>]``
+stanzas (``obs/tenants.py``), ``[gossip]`` and ``[membership]``
+(``gossip/``), ``[cluster.resilience]`` / ``[cluster.batch]``
+(``cluster/``) and ``[degrade]`` (``sched/degrade.py``), with the JAX
+package's defaults and variable names; ``[dax]`` lands with the plane
+that reads it.
 """
 
 from __future__ import annotations
@@ -231,11 +232,50 @@ class Config:
     stream_group: str = "ingest"
     stream_max_backlog_rows: int = 0
     stream_ingest_stall_s: float = 5.0
-    # tenant plane ([tenants] section / PILOSA_TPU_TENANTS_*): the
-    # flags QueryScheduler.from_config reads; the registry, quotas and
-    # overrides land with TenantRegistry
+    # tenant attribution plane ([tenants] section / PILOSA_TPU_TENANTS_*):
+    # bounded per-tenant accounting, tenant-scoped SLOs, token-bucket
+    # quotas and weighted-fair admission (obs/tenants.py; attach via
+    # API.enable_tenants, PILOSA_TPU_TENANTS=1, or ``enabled`` for the
+    # CLI's server). Default quotas of 0 mean unlimited — attribution
+    # without enforcement until an operator opts a rate in.
     tenants_enabled: bool = False
+    tenants_max_tracked: int = 64  # distinct tenant stat rows
+    tenants_top_k: int = 8  # label guard on tenant_* gauges
+    tenants_default_qps: float = 0.0  # queries/s per tenant; 0 = off
+    tenants_default_ingest_rows_s: float = 0.0  # rows/s per tenant
+    tenants_cache_quota_bytes: int = 0  # resident cache bytes per tenant
     tenants_fair_share: bool = True  # weighted-fair admission ordering
+    # [tenants.<id>] stanzas: per-tenant quota/weight overrides applied
+    # at enable_tenants time. Recognized keys per stanza: qps,
+    # ingest-rows-s, cache-bytes, weight.
+    tenants_overrides: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)
+
+    # graceful-degradation ladder ([degrade] section / PILOSA_TPU_DEGRADE_*):
+    # NORMAL -> SHED_BATCH -> BROWNOUT -> SATURATED state machine driven
+    # by timeline signals (sched/degrade.py; attach via API.enable_degrade,
+    # PILOSA_TPU_DEGRADE=1, or ``enabled`` for the CLI's server).
+    # Thresholds are the ENTER edges; exit edges are enter *
+    # degrade_exit_ratio, and a level change additionally needs
+    # degrade_up_hold / degrade_down_hold consecutive samples past the edge
+    # plus degrade_min_dwell_s since the last transition (hysteresis).
+    degrade_enabled: bool = False
+    degrade_queue_shed: float = 0.50  # queue fraction -> SHED_BATCH
+    degrade_queue_brownout: float = 0.75  # queue fraction -> BROWNOUT
+    degrade_queue_saturate: float = 0.92  # queue fraction -> SATURATED
+    degrade_burn_shed: float = 2.0  # SLO fast-burn -> SHED_BATCH
+    degrade_burn_brownout: float = 6.0  # SLO fast-burn -> BROWNOUT
+    degrade_burn_saturate: float = 14.0  # SLO fast-burn -> SATURATED
+    degrade_miss_rate_brownout: float = 1.0  # deadline misses/s -> BROWNOUT
+    degrade_eviction_rate_shed: float = 50.0  # budget evictions/s -> SHED
+    degrade_exit_ratio: float = 0.7  # exit edge = enter edge * ratio
+    degrade_up_hold: int = 1  # consecutive hot samples to escalate
+    degrade_down_hold: int = 3  # consecutive cool samples to step down
+    degrade_min_dwell_s: float = 1.0  # floor between transitions
+    degrade_deadline_factor: float = 0.5  # brownout deadline multiplier
+    degrade_brownout_deadline_ms: float = 250.0  # imposed when none set
+    degrade_stale_ttl_ms: float = 30000.0  # max age of a brownout stale read
+    degrade_retry_after_s: float = 1.0  # saturated-shed fallback hint
 
     # -- sources -----------------------------------------------------------
 
@@ -284,6 +324,21 @@ class Config:
         # flatten to cluster_resilience_*
         flat: Dict[str, Any] = {}
 
+        # [tenants.<id>] stanzas are per-tenant override MAPS, not
+        # scalar config fields — lift them out before flattening (real
+        # tomllib nests them under "tenants"; the subset parser keeps
+        # the dotted header as a flat "tenants.<id>" key)
+        overrides: Dict[str, Dict[str, Any]] = {}
+        tsec = doc.get("tenants")
+        if isinstance(tsec, dict):
+            for k in [k for k, v in tsec.items() if isinstance(v, dict)]:
+                overrides[k] = {ik.replace("-", "_"): iv
+                                for ik, iv in tsec.pop(k).items()}
+        for k in [k for k in doc if k.startswith("tenants.")
+                  and isinstance(doc[k], dict)]:
+            overrides[k[len("tenants."):]] = {
+                ik.replace("-", "_"): iv for ik, iv in doc.pop(k).items()}
+
         def _flatten(prefix: str, d: Dict[str, Any]) -> None:
             for k, v in d.items():
                 key = (f"{prefix}_{k}" if prefix else k) \
@@ -300,6 +355,8 @@ class Config:
         for k in list(flat):
             if k.startswith("obs_tracing_"):
                 flat["trace_" + k[len("obs_tracing_"):]] = flat.pop(k)
+        if overrides:
+            flat["tenants_overrides"] = overrides
         return flat
 
     @classmethod
@@ -327,5 +384,13 @@ class Config:
 
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
+            if isinstance(v, dict):
+                continue  # emitted as [section.id] stanzas below
             lines.append(f"{f.name.replace('_', '-')} = {scalar(v)}")
+        # per-tenant stanzas last: a TOML table header scopes every key
+        # after it, so they must follow all top-level keys
+        for tid, kv in sorted(self.tenants_overrides.items()):
+            lines.append(f"\n[tenants.{tid}]")
+            for k, v in sorted(kv.items()):
+                lines.append(f"{k.replace('_', '-')} = {scalar(v)}")
         return "\n".join(lines) + "\n"

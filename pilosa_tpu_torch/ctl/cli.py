@@ -67,6 +67,12 @@ def cmd_server(args) -> int:
         api.enable_scheduler(cfg)
     if cfg.cache_enabled:
         api.enable_cache(cfg)
+    # the JAX package's server leaves these to PILOSA_TPU_TENANTS /
+    # PILOSA_TPU_DEGRADE; the port's also reads the config's switches
+    if cfg.tenants_enabled:
+        api.enable_tenants(cfg)
+    if cfg.degrade_enabled:
+        api.enable_degrade(cfg)
     if cfg.stream_enabled:
         if not cfg.stream_index:
             raise SystemExit("stream.enabled requires stream.index")

@@ -41,6 +41,18 @@ its eager chain, records under it; a launch outside any scope lands in
 bandwidth share unless ``PILOSA_TPU_DEVPROF_PEAK_TFLOPS`` /
 ``PILOSA_TPU_DEVPROF_PEAK_GBPS`` give its peaks.
 
+**Device seconds per tenant, at the fold.** The JAX package charges a
+dispatch's wall time to the calling tenant from a synchronous dispatch
+hook. A launch here is read when it folds, which can happen later, on
+another thread, under another tenant; so a launch captures the tenant of
+the thread that opens it (``obs/tenants.current_tenant_id``), carries it
+on the pending list, and at the fold the fold hook (``set_fold_hook``,
+which the tenant registry chains) receives ``(tenant, device_seconds)``.
+While a fold hook is installed the launch sites time their launches
+(``TIMED``) even with the profiler's tables off; such a launch is folded
+into no profile. On the CPU a launch's slot is its wall clock, folded
+through the same list.
+
 Zero cost when disabled: ``ENABLED`` is False by default
 (``PILOSA_TPU_DEVPROF=1`` turns it on at import), every instrumentation
 site checks the module flag first, and a disabled launch site creates
@@ -65,11 +77,21 @@ from pilosa_tpu_torch import platform
 from pilosa_tpu_torch.analysis import locktrace
 from pilosa_tpu_torch.config import env_bool
 from pilosa_tpu_torch.obs import metrics as M
+from pilosa_tpu_torch.obs.tenants import current_tenant_id
 
 #: Module switch consulted by every instrumentation site (the launch
 #: sites, the programs, ingest, the WAL). Flip via enable()/disable() so
 #: the h2d hook stays in sync; operators use the env var.
 ENABLED = env_bool("PILOSA_TPU_DEVPROF", False)
+
+#: Fold hook ``(tenant, device_seconds) -> None`` called for every timed
+#: launch when it folds (obs/tenants.py chains through it); None costs
+#: nothing.
+_FOLD_HOOK = None
+
+#: The launch sites time a launch while this is true: the profiler is on
+#: or a fold hook is installed.
+TIMED = ENABLED
 
 WORD_BYTES = 4   # planes are 32-bit words
 BIT_LANES = 32   # one 32-bit bitwise op = 32 bit-ops ("flops" here)
@@ -467,8 +489,24 @@ INGEST = IngestAccounting()
 _SLOTS_LOCK = threading.Lock()
 #: free timing slots per (slot class, device index)
 _FREE: Dict[Tuple[type, int], List] = {}
-#: (profile entry, slot, host seconds) in launch order
+#: (profile entry, slot, host seconds, tenant) in launch order
 _PENDING: deque = deque()
+
+#: ``ent`` of a launch timed for the fold hook only (the profiler's
+#: tables are off): its fold records no profile
+UNTABLED = object()
+
+
+def set_fold_hook(hook) -> None:
+    """Install (or with None, remove) the fold hook. Chain by capturing
+    the previous value (``fold_hook()``) before installing."""
+    global _FOLD_HOOK, TIMED
+    _FOLD_HOOK = hook
+    TIMED = ENABLED or hook is not None
+
+
+def fold_hook():
+    return _FOLD_HOOK
 
 
 class _Clock:
@@ -549,6 +587,29 @@ class _Pair:
         return self.start.elapsed_time(self.stop) / 1e3
 
 
+class _Wall:
+    """What one launch on the CPU is timed with: the wall clock around
+    the plain version, which runs synchronously, so it is done when the
+    launch returns."""
+
+    __slots__ = ("t0", "t1")
+
+    def begin(self) -> None:
+        self.t0 = time.perf_counter()
+
+    def end(self) -> None:
+        self.t1 = time.perf_counter()
+
+    def done(self) -> bool:
+        return True
+
+    def wait(self) -> None:
+        pass
+
+    def seconds(self) -> float:
+        return self.t1 - self.t0
+
+
 def _take_slot(cls, device: torch.device):
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -562,6 +623,8 @@ def _take_slot(cls, device: torch.device):
 
 
 def _give_back(slot) -> None:
+    if type(slot) is _Wall:
+        return
     with _SLOTS_LOCK:
         _FREE.setdefault((type(slot), slot.index), []).append(slot)
 
@@ -574,11 +637,16 @@ def _fold_oldest(block: bool) -> bool:
             return False
         if not block and not _PENDING[0][1].done():
             return False
-        ent, slot, host_s = _PENDING.popleft()
+        ent, slot, host_s, tenant = _PENDING.popleft()
     if not slot.done():
         slot.wait()
-    KERNELS.record(ent, host_s, 0.0, device_s=slot.seconds())
+    device_s = slot.seconds()
     _give_back(slot)
+    if ent is not UNTABLED:
+        KERNELS.record(ent, host_s, 0.0, device_s=device_s)
+    hook = _FOLD_HOOK
+    if hook is not None:
+        hook(tenant, device_s)
     return True
 
 
@@ -589,11 +657,11 @@ def drain(block: bool = False) -> None:
         pass
 
 
-def _queue(ent, slot, host_s: float) -> None:
+def _queue(ent, slot, host_s: float, tenant) -> None:
     """Queue a launched slot; a full list waits for its oldest launch, so
     no slot leaves the list while its kernel may still write to it."""
     with _SLOTS_LOCK:
-        _PENDING.append((ent, slot, host_s))
+        _PENDING.append((ent, slot, host_s, tenant))
         full = len(_PENDING) > MAX_PENDING
     if full:
         _fold_oldest(True)
@@ -605,11 +673,13 @@ class _Launch:
     ``KU.PkTiming`` pointer for the C launcher (its last argument), or,
     for an eager op chain (``eager``), an event pair is recorded from
     Python around it on the current stream; on the CPU ``timing`` is
-    None and the wall time is the device time. A launch that raises
+    None and the wall time is the device time. The launch carries the
+    tenant of the thread that opens it to its fold. A launch that raises
     records nothing, and its slot goes back to the pool once the device
     is done (the kernel may have been launched)."""
 
-    __slots__ = ("ent", "device", "eager", "slot", "timing", "t0")
+    __slots__ = ("ent", "device", "eager", "slot", "timing", "t0",
+                 "tenant")
 
     def __init__(self, ent, device: torch.device, eager: bool = False):
         self.ent = ent
@@ -618,27 +688,26 @@ class _Launch:
         self.slot = self.timing = None
 
     def __enter__(self) -> "_Launch":
+        self.tenant = current_tenant_id()
         if self.device.type == "cuda":
             self.slot = _take_slot(_Pair if self.eager else _Clock,
                                    self.device)
-            self.slot.begin()
             if not self.eager:
                 self.timing = self.slot.timing
+        else:
+            self.slot = _Wall()
+        self.slot.begin()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         host_s = time.perf_counter() - self.t0
         if exc_type is not None:
-            if self.slot is not None:
-                self.slot.wait()
-                _give_back(self.slot)
-            return False
-        if self.slot is None:
-            KERNELS.record(self.ent, host_s, 0.0)
+            self.slot.wait()
+            _give_back(self.slot)
             return False
         self.slot.end()
-        _queue(self.ent, self.slot, host_s)
+        _queue(self.ent, self.slot, host_s, self.tenant)
         return False
 
 
@@ -663,9 +732,11 @@ NULL_SCOPE = _NullScope()
 
 def launch(ent, device: torch.device) -> _Launch:
     """Timing scope of one kernel launch attributed to ``ent`` (callers
-    check ``ENABLED`` first; ``ent`` None: the thread's current tape
-    family, else ``other``)."""
-    if ent is None:
+    check ``TIMED`` first; ``ent`` None: the thread's current tape
+    family, else ``other``; with the profiler off, no profile)."""
+    if not ENABLED:
+        ent = UNTABLED
+    elif ent is None:
         ent = getattr(_TLS, "kernel", None)
     return _Launch(ent, device)
 
@@ -724,14 +795,15 @@ def _on_h2d(nbytes: int, seconds: float) -> None:
 
 
 def enable() -> None:
-    global ENABLED
-    ENABLED = True
+    global ENABLED, TIMED
+    ENABLED = TIMED = True
     platform.set_h2d_hook(_on_h2d)
 
 
 def disable() -> None:
-    global ENABLED
+    global ENABLED, TIMED
     ENABLED = False
+    TIMED = _FOLD_HOOK is not None
     platform.set_h2d_hook(None)
 
 

@@ -558,7 +558,7 @@ def _count_scope(group: Sequence[CompressedBlock], out: torch.Tensor):
     """Profiler scope of one launch over ``group``: the JAX package's
     ``pop`` family over the payload entries it counts, of one tile
     each."""
-    if not devprof.ENABLED:
+    if not devprof.TIMED:
         return devprof.NULL_SCOPE
     return KU.kernel_scope("pop", sum(cb.n_payload for cb in group), 1, 1,
                            group[0].tile_words, out)

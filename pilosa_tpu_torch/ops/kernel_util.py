@@ -331,9 +331,12 @@ def kernel_scope(op: str, d1: int, d2: int, n_inputs: int,
     ``d2`` its two dimensions (``devprof.tape_cost``), with the port
     kernel's own shapes. ``like`` is a tensor on the launch's device.
     The scope's ``timing`` goes to the C launcher as its last argument.
-    The shared no-op scope when the profiler is off."""
-    if not devprof.ENABLED:
+    The shared no-op scope when no launch is timed (``devprof.TIMED``);
+    a launch timed for the tenant plane alone evaluates no cost."""
+    if not devprof.TIMED:
         return devprof.NULL_SCOPE
+    if not devprof.ENABLED:
+        return devprof.launch(None, like.device)
     ent = devprof.KERNELS.entry_for(
         "pallas", ((op, int(d1), int(d2)),), n_inputs, False,
         int(total_words), 0)
@@ -343,7 +346,7 @@ def kernel_scope(op: str, d1: int, d2: int, n_inputs: int,
 def launch_scope(like: torch.Tensor):
     """Profiler scope of one launch attributed to the calling thread's
     tape family (``devprof.kernel_scope``), or to ``other`` outside one;
-    the shared no-op scope when the profiler is off."""
-    if not devprof.ENABLED:
+    the shared no-op scope when no launch is timed."""
+    if not devprof.TIMED:
         return devprof.NULL_SCOPE
     return devprof.launch(None, like.device)

@@ -16,11 +16,7 @@ Layout:
     clock.py      injectable time sources (deterministic tests)
     deadline.py   the per-query deadline scope
     window.py     the adaptive batching window
-
-The degradation ladder (``sched/degrade.py``), with the scheduler's
-hooks into it (deadline tightening and shedding at admission) and the
-public ``retry_after_s`` read that it and stream backpressure take,
-waits for the distributed-planes slice.
+    degrade.py    graceful-degradation (brownout) ladder
 """
 
 from pilosa_tpu_torch.sched.batch import GroupKey, execute_batch, group_key
@@ -28,14 +24,19 @@ from pilosa_tpu_torch.sched.clock import ManualClock, MonotonicClock
 from pilosa_tpu_torch.sched.deadline import (
     Deadline, current_deadline, deadline_scope, remaining_budget_s,
 )
+from pilosa_tpu_torch.sched.degrade import (
+    BROWNOUT, NORMAL, SATURATED, SHED_BATCH, DegradeController,
+)
 from pilosa_tpu_torch.sched.scheduler import (
     PRIORITY_BATCH, PRIORITY_INTERACTIVE, QueryScheduler, ScheduledQuery,
     SchedulingExecutor,
 )
 
 __all__ = [
-    "Deadline", "GroupKey", "ManualClock", "MonotonicClock",
-    "PRIORITY_BATCH", "PRIORITY_INTERACTIVE", "QueryScheduler",
-    "ScheduledQuery", "SchedulingExecutor", "current_deadline",
-    "deadline_scope", "execute_batch", "group_key", "remaining_budget_s",
+    "BROWNOUT", "Deadline", "DegradeController", "GroupKey",
+    "ManualClock", "MonotonicClock", "NORMAL", "PRIORITY_BATCH",
+    "PRIORITY_INTERACTIVE", "QueryScheduler", "SATURATED",
+    "ScheduledQuery", "SchedulingExecutor", "SHED_BATCH",
+    "current_deadline", "deadline_scope", "execute_batch", "group_key",
+    "remaining_budget_s",
 ]

@@ -178,6 +178,10 @@ class QueryScheduler:
         # Toggled live by API.enable_tenants (order-independent wiring).
         self.fair_share = bool(fair_share)
         self.tenant_weight = None  # callable tenant -> weight, else 1.0
+        # graceful-degradation ladder (sched/degrade.py), wired by
+        # API.enable_degrade; None (the default) costs one attribute
+        # read per admission and ticks nothing
+        self.degrade = None
         self._tenant_vtime = {}
         self._vclock = 0.0
         self._worker = threading.Thread(
@@ -225,10 +229,25 @@ class QueryScheduler:
             deadline_s = self.default_deadline_s
         else:
             deadline_s = max(0.0, float(deadline_ms)) / 1e3
+        deg = self.degrade
+        if deg is not None:
+            # BROWNOUT+ trades tail work for good-put: tighten the
+            # caller's deadline (or impose the brownout default)
+            deadline_s = deg.tighten_deadline(deadline_s)
         now = self.clock.now()
         with self._cv:
             if self._closed:
                 raise AdmissionError("scheduler is closed")
+            if deg is not None:
+                reason = deg.shed_reason(priority)
+                if reason is not None:
+                    self.registry.count(
+                        obs_metrics.METRIC_SCHED_REJECTED,
+                        priority=priority, reason=reason)
+                    raise deg.shed(
+                        priority,
+                        retry_after_s=self._retry_after_locked(
+                            len(self._queue)))
             limit = self.max_queue
             if priority == PRIORITY_BATCH:
                 # batch traffic may only fill half the queue, reserving
@@ -329,6 +348,17 @@ class QueryScheduler:
         with self._cv:
             if self._closed:
                 raise AdmissionError("scheduler is closed")
+            deg = self.degrade
+            if deg is not None:
+                reason = deg.shed_reason(priority)
+                if reason is not None:
+                    self.registry.count(
+                        obs_metrics.METRIC_SCHED_REJECTED,
+                        priority=priority, reason=reason)
+                    raise deg.shed(
+                        priority,
+                        retry_after_s=self._retry_after_locked(
+                            self._inflight_admits + len(self._queue)))
             limit = self.max_queue
             if priority == PRIORITY_BATCH:
                 limit = max(1, self.max_queue // 2)
@@ -413,6 +443,15 @@ class QueryScheduler:
             return 1.0
         return min(max(drain, self.RETRY_AFTER_MIN_S),
                    self.RETRY_AFTER_MAX_S)
+
+    def retry_after_s(self, backlog: Optional[int] = None) -> float:
+        """Public drain-estimate read (used by stream backpressure and
+        the degrade probe); computes over the current queue when no
+        backlog is given."""
+        with self._lock:
+            if backlog is None:
+                backlog = self._inflight_admits + len(self._queue)
+            return self._retry_after_locked(backlog)
 
     def _window_s(self) -> float:
         """Effective batching window; policy shared with the cluster leg

@@ -29,9 +29,14 @@ replication, partition nodes, gossip, membership and recovery) and
 serves them all but ``/directive``, which keeps the 404 until the
 serverless plane is ported; a node's query, batch, message, import and
 ping bodies carry the gossip envelope both ways.
-``/internal/tenants`` and ``/internal/degrade`` answer ``{"enabled":
-false}`` until the tenant registry and the degradation ladder are
-ported.
+With the tenant plane on, each request acts as the tenant its
+``X-Tenant`` header (or ``?tenant=``) names, clamped to a safe id; its
+queries and imports are charged to that tenant's quotas (429 +
+``Retry-After`` when one is spent), and ``/internal/tenants`` lists every
+tracked tenant. With the degradation ladder on, the import routes shed
+batch work from SHED_BATCH up, a brownout read says ``"stale": true``,
+and ``/internal/degrade`` reads the ladder. Either route answers
+``{"enabled": false}`` while its plane is off.
 """
 
 from __future__ import annotations
@@ -42,10 +47,14 @@ import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.errors import (AdmissionError, ClusterStateError,
                                QueryDeadlineError)
+from pilosa_tpu_torch.obs.tenants import (current_tenant_id,
+                                          reset_current_tenant,
+                                          set_current_tenant)
 
 _ROUTES = [
     # node-to-node endpoints (reference: http_handler.go:552-585 /internal/*)
@@ -366,6 +375,23 @@ class Handler(BaseHTTPRequestHandler):
                     if attempt and span.recording:
                         span.set_tag("attempt", attempt)
                     self._trace_span = span if span.recording else None
+                tenant_token = None
+                reg = getattr(self.api, "tenants", None)
+                if reg is not None:
+                    # attribution entry point: X-Tenant header (or
+                    # ?tenant= for curl-ability), clamped to a safe id,
+                    # never rejected — unattributed traffic just lands
+                    # on "default"
+                    raw = self.headers.get("x-tenant")
+                    if raw is None and "?" in self.path:
+                        vals = parse_qs(urlsplit(self.path).query).get(
+                            "tenant")
+                        raw = vals[-1] if vals else None
+                    tenant = reg.resolve(raw)
+                    tenant_token = set_current_tenant(tenant)
+                    sp = self._trace_span
+                    if sp is not None and sp.recording:
+                        sp.set_tag("tenant", tenant)
                 try:
                     if self.auth is not None and name not in _AUTH_EXEMPT:
                         self._check_auth(name, match)
@@ -400,6 +426,11 @@ class Handler(BaseHTTPRequestHandler):
                     sp, self._trace_span = self._trace_span, None
                     if sp is not None:
                         sp.finish()
+                    if tenant_token is not None:
+                        # same leak hazard as the span: keep-alive reuses
+                        # this thread for the next (possibly tenant-less)
+                        # request
+                        reset_current_tenant(tenant_token)
                 return
         self._send(404, {"error": f"no route for {method} {self.path}"})
 
@@ -412,11 +443,33 @@ class Handler(BaseHTTPRequestHandler):
     def do_DELETE(self):
         self._dispatch("DELETE")
 
+    # -- tenant quota gates ------------------------------------------------
+
+    def _charge_tenant_query(self) -> None:
+        """One unit against the current tenant's QPS bucket; raises
+        QuotaExceededError -> 429 + Retry-After when exhausted. No-op
+        when the tenant plane is off or the tenant is unlimited."""
+        reg = self.api.tenants
+        if reg is not None:
+            reg.charge_query(current_tenant_id())
+
+    def _charge_tenant_ingest(self, rows: int, body=None) -> None:
+        """``rows`` against the current tenant's ingest bucket. Forwarded
+        internal legs (body["remote"]) are exempt: the entry node already
+        charged the whole batch, and double-charging fan-out would make
+        effective quota depend on cluster size."""
+        if body is not None and body.get("remote"):
+            return
+        reg = self.api.tenants
+        if reg is not None:
+            reg.charge_ingest(current_tenant_id(), rows)
+
     # -- handlers ----------------------------------------------------------
 
     def post_query(self, index: str):
         """PQL query; body is raw PQL or JSON {"query": "..."} (reference:
         http_handler.go:1295 handlePostQuery)."""
+        self._charge_tenant_query()
         raw = self._body()
         ctype = (self.headers.get("Content-Type") or "").split(";")[0]
         if ctype == "application/json":
@@ -453,6 +506,7 @@ class Handler(BaseHTTPRequestHandler):
         """SQL query; body is the raw SQL text (reference:
         http_handler.go:536 POST /sql -> :1440 handlePostSQL)."""
         # SQLError subclasses ValueError -> _dispatch maps it to a 400
+        self._charge_tenant_query()
         text = self._body().decode()
         parsed = None
         if self.auth is not None:
@@ -575,8 +629,18 @@ class Handler(BaseHTTPRequestHandler):
         self.api.delete_dataframe(index)
         self._send(200, {"success": True})
 
+    def _degrade_shed_import(self, b: dict) -> None:
+        """Ladder gate for the bulk-import ingress: SHED_BATCH and above
+        refuse the whole request before any apply (429 + Retry-After);
+        replica fan-out legs (``remote``) were already admitted at the
+        entry node and pass through."""
+        if not b.get("remote"):
+            self.api._degrade_shed_batch()
+
     def post_import(self, index: str):
         b = self._json_body()
+        self._degrade_shed_import(b)
+        self._charge_tenant_ingest(len(b.get("cols") or []), b)
         peer = self._gossip_apply(b)
         n = self.api.import_bits(
             index, self._require(b, "field"),
@@ -591,6 +655,9 @@ class Handler(BaseHTTPRequestHandler):
         "views": {view-name: base64 pilosa-roaring blob}, "clear": bool}.
         """
         b = self._json_body()
+        # roaring blobs don't expose a row count pre-decode; charge one
+        # unit per view as a coarse rate signal
+        self._charge_tenant_ingest(len(b.get("views") or {}), b)
         peer = self._gossip_apply(b)
         views = {v: base64.b64decode(blob)
                  for v, blob in (b.get("views") or {}).items()}
@@ -601,6 +668,8 @@ class Handler(BaseHTTPRequestHandler):
 
     def post_import_values(self, index: str):
         b = self._json_body()
+        self._degrade_shed_import(b)
+        self._charge_tenant_ingest(len(b.get("cols") or []), b)
         peer = self._gossip_apply(b)
         n = self.api.import_values(
             index, self._require(b, "field"), cols=b.get("cols", []),
@@ -723,12 +792,18 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, {"enabled": True, **hp.slo.status()})
 
     def get_internal_tenants(self):
-        # API.tenants stays None until the tenant registry is ported
-        self._send(200, {"enabled": False})
+        reg = self.api.tenants
+        if reg is None:
+            self._send(200, {"enabled": False})
+            return
+        self._send(200, {"enabled": True, **reg.stats_json()})
 
     def get_internal_degrade(self):
-        # API.degrade stays None until the degradation ladder is ported
-        self._send(200, {"enabled": False})
+        deg = self.api.degrade
+        if deg is None:
+            self._send(200, {"enabled": False})
+            return
+        self._send(200, deg.probe())
 
     def get_stats_kernels(self):
         # the devprof registry is process-global (not hung off the
@@ -750,7 +825,9 @@ class Handler(BaseHTTPRequestHandler):
         if svc is None or svc.index != index:
             raise KeyError(f"no stream service on index {index!r}")
         body = self._json_body()
-        self._send(200, svc.push(body.get("records") or []))
+        records = body.get("records") or []
+        self._charge_tenant_ingest(len(records))
+        self._send(200, svc.push(records))
 
     def get_debug_bundles(self):
         hp = self._health_plane()

@@ -32,9 +32,8 @@ return ``None`` and the planner falls back to the host hash join —
 never a silently wrong answer. ``PILOSA_TPU_SEMIJOIN=0`` disables the
 plane entirely (the bench baseline).
 
-Port of ``pilosa_tpu/sql/joins.py``. The dimension legs charge a tenant
-registry when the API has one (``api.tenants``); the port's API has none
-yet, so they charge nothing.
+Port of ``pilosa_tpu/sql/joins.py``. The dimension legs charge the
+calling tenant when the API has a tenant registry (``api.tenants``).
 """
 
 from __future__ import annotations

@@ -17,7 +17,9 @@ and a SQL aggregate over a host filter through it (the SQL fan-out),
 a two-node cluster with a seeded ``FaultPlan``, leg batching and
 hedged legs (fan-out resilience), a two-node cluster with gossip,
 membership and a replica's catch-up (importing every gossip module),
-then reports
+a tenant's query and an open-loop virtual run under the tenant plane and
+the degradation ladder (importing the tenant, ladder and load generator
+modules), then reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -171,7 +173,26 @@ with LocalCluster(2, replica_n=2, base_path=tempfile.mkdtemp(),
     gossiped = [caught["shards"], lc[1].query("g", "Count(Row(f=1))")[0],
                 sorted(lc[1].membership_json()["members"]),
                 sorted(lc[0].gossip.state.digest())]
-print(json.dumps({"star": star, "resilient": resilient, "front": front, "hist": hist,
+from pilosa_tpu_torch.loadgen import OpenLoopDriver, SyntheticTenants
+from pilosa_tpu_torch.obs.tenants import tenant_scope
+from pilosa_tpu_torch.sched import ManualClock
+ten = API(device="cpu")
+ten.create_index("t")
+ten.create_field("t", "f")
+ten.import_bits("t", "f", rows=[1, 1], cols=[1, 2])
+reg = ten.enable_tenants()
+deg = ten.enable_degrade()
+rep = OpenLoopDriver(lambda op: None if ten.query("t", "Count(Row(f=1))")
+                     else "error", rate_per_s=10.0, duration_s=1.0,
+                     tenants=SyntheticTenants(100, seed=1),
+                     seed=1).run_virtual(ManualClock())
+with tenant_scope("acme"):
+    ten.query("t", "Count(Row(f=1))")
+row = reg.stats_json()["tenants"]["acme"]
+tenanted = [rep.ok, row["queries"], row["device_seconds"] > 0,
+            deg.probe()["state"]]
+ten.disable_tenants()
+print(json.dumps({"star": star, "tenanted": tenanted, "resilient": resilient, "front": front, "hist": hist,
                   "clustered": clustered, "gossiped": gossiped,
                   "logged": logged,
                   "count": got[0], "top": got[1].pairs[0].count,
@@ -218,6 +239,9 @@ _RESILIENCE = ("cluster/resilience.py", "cluster/batch.py")
 #: and gossip, membership and replica catch-up's
 _GOSSIP = ("gossip", "gossip/state.py", "gossip/agent.py",
            "gossip/membership.py", "storage/recovery.py")
+#: and tenants and degradation's
+_TENANTS = ("obs/tenants.py", "sched/degrade.py", "loadgen/driver.py",
+            "loadgen/chaos.py", "loadgen/scenarios.py", "loadgen/tenants.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -247,8 +271,10 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["resilient"] == [2, True, True]
     assert out["gossiped"] == [1, 3, ["node0", "node1"],
                                ["node0", "node1"]]
+    assert out["tenanted"] == [10, 1, True, "normal"]
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
-                 + _CLUSTER + _SQL_FANOUT + _RESILIENCE + _GOSSIP):
+                 + _CLUSTER + _SQL_FANOUT + _RESILIENCE + _GOSSIP
+                 + _TENANTS):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -330,6 +356,13 @@ def test_scan_covers_the_gossip_modules():
     for part in _GOSSIP:
         hits = [p for p in scanned if p == part or p.startswith(part + "/")]
         assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_tenant_and_degrade_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _TENANTS:
+        assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
 
 
 def test_server_without_a_card_exits_and_serves_nothing(tmp_path):

@@ -8,9 +8,9 @@ that package's ``serve``. Covered: the cases of ``tests/test_http.py``,
 ``tests/test_auth_grpc.py`` (JWT, permissions, route gating, gRPC, OIDC
 against the fake IdP on loopback), ``tests/test_ctl.py`` (config,
 backup / restore / chksum, the CLI, fbsql, datagen, the query log) and
-``TestORM`` / ``TestClientRoundTrip`` of ``tests/test_client_idk.py``.
-Left to ``tests/test_ctl.py`` alone: the ``[tenants.<id>]`` stanzas and
-``enable_tenants``, which the port gets with its cluster plane.
+``TestORM`` / ``TestClientRoundTrip`` of ``tests/test_client_idk.py``,
+with the ``[tenants.<id>]`` stanzas and a stanza's quota taking effect
+at the HTTP edge.
 
 The second part holds the two packages byte for byte where no server is
 needed: JWTs under one secret and one clock, ``proto.py`` encodings,
@@ -1063,6 +1063,75 @@ class TestConfig:
                 cfg.auth_secure_cookies, cfg.auth_allowed_networks) == \
             ("x", "/p", True, ["127.0.0.0/8"])
 
+    def test_tenant_stanzas(self, P, tmp_path):
+        toml = tmp_path / "t.toml"
+        toml.write_text(
+            "port = 7000\n"
+            "[tenants.alpha]\nqps = 50\ncache-bytes = 4096\nweight = 3.0\n"
+            "[tenants.beta]\ningest-rows-s = 1000\n")
+        cfg = P.Config.from_sources(toml_path=str(toml))
+        assert cfg.tenants_overrides == {
+            "alpha": {"qps": 50, "cache_bytes": 4096, "weight": 3.0},
+            "beta": {"ingest_rows_s": 1000}}
+        # per-tenant stanzas survive to_toml -> from_sources
+        p = tmp_path / "gen.toml"
+        p.write_text(cfg.to_toml())
+        assert P.Config.from_sources(toml_path=str(p)) == cfg
+
+    def test_tenant_stanzas_applied_at_enable(self, P, tmp_path):
+        toml = tmp_path / "t.toml"
+        toml.write_text(
+            "[tenants.alpha]\nqps = 50\ncache-bytes = 4096\nweight = 3.0\n")
+        cfg = P.Config.from_sources(toml_path=str(toml))
+        api = P.API()
+        api.enable_cache()
+        api.enable_tenants(config=cfg)
+        try:
+            reg = api.tenants
+            assert reg.cache_quota_for("alpha") == 4096
+            # unconfigured tenants fall back to the global default
+            assert reg.cache_quota_for("nobody") == reg.cache_quota_bytes
+            assert api.cache.tenant_quota_of("alpha") == 4096
+            assert reg.weight("alpha") == 3.0
+        finally:
+            api.disable_tenants()
+
+    def test_tenant_stanza_quota_takes_effect_over_http(self, P, tmp_path):
+        # [tenants.capped] qps = 1 holds a burst of 2 queries: the third
+        # in the same instant is a 429 with Retry-After, and a tenant
+        # without a stanza stays unlimited
+        toml = tmp_path / "t.toml"
+        toml.write_text("[tenants]\nenabled = true\n"
+                        "[tenants.capped]\nqps = 1\n")
+        cfg = P.Config.from_sources(toml_path=str(toml), env={})
+        assert cfg.tenants_enabled
+        api = P.API()
+        api.create_index("i")
+        api.create_field("i", "f")
+        api.enable_tenants(config=cfg, clock=lambda: 0.0)
+        srv = _Served(P, api)
+        try:
+            codes = []
+            for tenant in ["capped"] * 3 + ["free"] * 3:
+                req = urllib.request.Request(
+                    srv.base + "/index/i/query", method="POST",
+                    data=b"Count(Row(f=1))",
+                    headers={"X-Tenant": tenant})
+                try:
+                    with urllib.request.urlopen(req, timeout=10) as r:
+                        codes.append((r.status, None))
+                except urllib.error.HTTPError as e:
+                    codes.append((e.code, e.headers.get("Retry-After")))
+            assert codes[:2] == [(200, None)] * 2
+            assert codes[2][0] == 429 and int(codes[2][1]) >= 1
+            assert codes[3:] == [(200, None)] * 3
+            rows = api.tenants.stats_json()["tenants"]
+            assert rows["capped"]["rejected"] == 1
+            assert rows["free"]["rejected"] == 0
+        finally:
+            srv.close()
+            api.disable_tenants()
+
 
 class TestBackupRestore:
     def test_tar_roundtrip_between_servers(self, ctl_server, P):
@@ -1406,13 +1475,9 @@ def test_grpc_framing_equal_across_packages():
 #: ``generate-config`` keys of the JAX package that the port prints
 #: once its cluster plane lands: the cluster section, ``gossip-enabled``
 #: and ``membership-enabled`` (read once a server builds the planes from
-#: the config), the ``[tenants]`` fields but ``enabled`` /
-#: ``fair-share``, ``[dax]`` and ``[degrade]``
+#: the config) and ``[dax]``
 _A7_KEYS = ("node-id", "peers", "replicas",
-            "gossip-enabled", "membership-enabled",
-            "tenants-max-tracked",
-            "tenants-top-k", "tenants-default-", "tenants-cache-quota-bytes",
-            "dax-", "degrade-")
+            "gossip-enabled", "membership-enabled", "dax-")
 #: keys of the JAX package's ``Config`` that nothing in either package
 #: reads; the port has no field for them, so that setting one does not
 #: look as if it took effect (ROADMAP C.16)

@@ -24,7 +24,7 @@ Two kinds of test:
   single-node cases of ``tests/test_sql_defs.py`` and
   ``tests/test_sql_joins.py``'s ``TestBitIdentity`` and
   ``TestCacheInvalidation``; ``TestObservability`` runs once per package
-  (its tenant case waits for the port's ``TenantRegistry``).
+  (its tenant case too: the dimension legs charge the calling tenant).
 
 Tolerance: exact. Floats (AVG, decimals) are computed by the same host
 code from the same integers in both packages, so they compare with
@@ -613,6 +613,24 @@ def test_join_dim_rows_and_broadcast_bytes_counted(P, monkeypatch):
     c1 = P.M.REGISTRY.snapshot()["counters"]
     for k in ("sql_join_dim_rows_total", "sql_join_broadcast_bytes_total"):
         assert c1.get(k, 0) > c0.get(k, 0)
+
+
+def test_join_tenant_charged_for_dim_legs(P, monkeypatch):
+    api, eng = _join_engine(P, monkeypatch)
+    tenants = importlib.import_module(f"{P.root}.obs.tenants")
+    api.enable_tenants()
+    try:
+        with tenants.tenant_scope("acme"):
+            eng.query("select sum(v) from fact where v > 10")
+        base = api.tenants.stats_json()["tenants"]["acme"]["queries"]
+        with tenants.tenant_scope("acme"):
+            eng.query(tsj.JOIN_SQLS[0])
+        st = api.tenants.stats_json()["tenants"]["acme"]
+        # query counting happens at the request layers, so base is 0
+        # here and the delta is the dimension leg
+        assert st["queries"] >= base + 1
+    finally:
+        api.disable_tenants()
 
 
 def test_sql_request_is_recorded(P, tmp_path):
