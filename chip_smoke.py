@@ -240,7 +240,7 @@ Phases, each printed on its own line:
     no-join queries must leave ``sql_join_queries_total`` /
     ``sql_join_fallback_total`` still; each query's first (cold) time and
     warm p50 (20 runs); the Q2/Q3 flights' hash-fallback p50s
-    (``PILOSA_TPU_SEMIJOIN=0``, 2 runs, the first answer checked) and the worst
+    (``PILOSA_TPU_SEMIJOIN=0``, one run, its answer checked) and the worst
     speedup against ``bench.py``'s 2x bar, printed met or missed, not
     asserted; Q1.1, Q2.1, Q3.1 and Q4.1's card busy ms, launches per
     kernel, executor waits and implicit syncs, and one warm run's host
@@ -442,9 +442,40 @@ Phases, each printed on its own line:
     the bounded tables; the saturated good-put against its 50% bar (met
     / missed). Every kernel each step launched held against its plain
     version at the step's shapes;
-23. the empty traces of counted launches that ``_device_ops`` took
+23. main path 20, the DAX serverless plane (shared directory under
+    ``build/chip_smoke_dax``, removed at the end): (20a) ``bench.py``
+    config 19 as ``bench_config19`` builds it (a 3-computer
+    ``DaxCluster`` on the card with ``dead_after_s=1.0``,
+    ``snapshot_every=64`` and the serving queryer; table ``e`` with a
+    16-row set field ``f`` and an int field ``v`` over 12 shards, seed
+    19; 4,800 ``Set``s in batches of 8, each retried until acked and then
+    mirrored to an oracle ``API``, ``import_values`` every 12th batch, a
+    read against the oracle every 10th; computer 0 killed at 30%,
+    computer 1 silenced at 50% (the checkin poller buries it), a
+    scale-up at 70%): every read the oracle's; a RESET behind the
+    controller's back rebuilt by a FULL resync; a warm handoff whose new
+    owner prewarms before its ack; the fresh owner's p99 against 2x the
+    warm p99 and the 5 s window (host-speed bars, printed met / missed);
+    a fresh computer replaying all 12 shards to the oracle's checksum,
+    then ``Count(Row(v > 0))`` and ``Sum(field=v)`` on it against the
+    oracle. (20b) the same plane at SSB SF-1 width (``bench.py`` config
+    3's lineorder cut to its first 3 of 6 shards x 2^20 columns, a 7-row
+    mutex ``year`` and a 1,000-row mutex ``brand`` by row id, seed 3) with
+    ``snapshot_every=8``, loaded through ``Queryer.import_bits`` in 8
+    batches a shard a field (every shard snapshots), 64 ``Set``s as the
+    log tail, then GroupBy, TopN and ``Count`` trees through the queryer
+    against numpy; the computer holding the most shards killed (the
+    seconds to the first correct answer over its shards, and the new
+    owner's snapshot install, tail replay and prewarm); a scale-up (its
+    directive-to-ack seconds, prewarmed stacks and bytes, the p99 of 60
+    distinct reads on a fresh shard and on a warm one); every shard
+    replayed into a fresh computer to the oracle ``API``'s checksum; the
+    snapshot bytes on disk, each computer's resident bytes and the
+    prewarm's PCIe bytes. Every kernel each step launched held against
+    its plain version at the step's shapes;
+24. the empty traces of counted launches that ``_device_ops`` took
     again, then one ``{"kernels": [...]}`` JSON line;
-24. the last line: ``{"ok": true, "device": {...}}``.
+25. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's seconds are printed as it ends.
 
@@ -5434,8 +5465,10 @@ C23_SEED = 7
 C23_ITERS = 20
 #: the hash fallback's iterations a flight (bench.py: 20), cut first to
 #: keep path 13 inside its 600 s beside the load: a hash-fallback run of
-#: a Q2/Q3 flight takes 5-7 s at 120,000 rows on the H100's host
-C23_HASH_ITERS = 2
+#: a Q2/Q3 flight takes 5-10 s at 120,000 rows on the H100's host. One
+#: run since path 20 came: with 2 and 20b already cut to 3 shards, the
+#: whole script took 1,136.7 s of its 1,200 s on a slow host
+C23_HASH_ITERS = 1
 #: the queries whose card time, launches and syncs path 13 prints
 C23_CARD = ("Q1.1", "Q2.1", "Q3.1", "Q4.1")
 #: bench.py config 23's no-join queries (the join plane must not move)
@@ -8619,16 +8652,26 @@ def _wait_s(pred, what: str, reads=None) -> float:
 
 
 def _tapped(report, fn) -> dict:
-    """Run ``fn`` with every ``tape_count``, ``pair_counts`` and
-    ``ctile_count`` launch held against its plain version on the same
-    inputs; returns each kernel's launches, and ``masked``, the
-    ``tape_count`` launches under a ``ShardMask`` plane."""
+    """Run ``fn`` with every ``tape_count``, ``pair_counts``,
+    ``ctile_count``, ``scatter_merge`` and ``bsi_compare`` launch held
+    against its plain version on the same inputs; returns each kernel's
+    launches, and ``masked``, the ``tape_count`` launches under a
+    ``ShardMask`` plane. ``scatter_merge`` works in place: its tiles are
+    copied before the launch, and the plain version runs on the copy at
+    once (the staging tiles are reused by the next launch)."""
+    import torch
+
     from pilosa_tpu_torch.ops import bitmap as B
+    from pilosa_tpu_torch.ops import bsi as S
     from pilosa_tpu_torch.ops import ctiles as C
     from pilosa_tpu_torch.ops import groupby as G
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.pql import executor as EX
 
-    calls = {"tape_count": [], "pair_counts": [], "ctile_count": []}
+    calls = {"tape_count": [], "pair_counts": [], "ctile_count": [],
+             "scatter_merge": [], "bsi_compare": []}
     orig_t, orig_p, orig_c = B.tape_count, G.pair_counts, C.ctile_count_blocks
+    orig_s, orig_b = SC.scatter_merge_, S.bsi_compare
 
     def tap_t(tape, leaves, mask=None):
         out = orig_t(tape, leaves, mask)
@@ -8648,19 +8691,46 @@ def _tapped(report, fn) -> dict:
                                      got.clone()))
         return got
 
-    B.tape_count, G.pair_counts, C.ctile_count_blocks = tap_t, tap_p, tap_c
+    def tap_s(flat, addr, masks, out=None):
+        # held at once: the staging tiles are reused by the next launch
+        before = flat.clone()
+        got = orig_s(flat, addr, masks, out=out)
+        with _uncounted():
+            count = SC.scatter_merge_plain(before, addr, masks)
+            report.err("scatter_merge",
+                       torch.cat([got.reshape(1), flat.reshape(-1)]),
+                       torch.cat([count.reshape(1), before.reshape(-1)]))
+        calls["scatter_merge"].append(None)
+        return got
+
+    def tap_b(planes, op, value, value2=None):
+        out = orig_b(planes, op, value, value2)
+        calls["bsi_compare"].append(((planes, op, value, value2), out))
+        return out
+
+    # the executor and the BSI ops call pair_counts by the name they
+    # imported: tap it there too
+    sites = [(B, "tape_count", tap_t), (C, "ctile_count_blocks", tap_c),
+             (SC, "scatter_merge_", tap_s), (S, "bsi_compare", tap_b)] + [
+        (mod, "pair_counts", tap_p) for mod in (G, EX, S)
+        if getattr(mod, "pair_counts", None) is orig_p]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    for mod, name, tap in sites:
+        setattr(mod, name, tap)
     try:
         fn()
     finally:
-        B.tape_count, G.pair_counts, C.ctile_count_blocks = \
-            orig_t, orig_p, orig_c
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
     plain = {"tape_count": B.tape_count_plain,
              "pair_counts": G.pair_counts_plain,
-             "ctile_count": C.ctile_count_blocks_plain}
+             "ctile_count": C.ctile_count_blocks_plain,
+             "bsi_compare": S.bsi_compare_plain}
     with _uncounted():
-        for name, got in calls.items():
-            for args, out in got:
-                report.err(name, out, plain[name](*args))
+        for name, fn_plain in plain.items():
+            for args, out in calls[name]:
+                report.err(name, out, fn_plain(*args))
     n = {name: len(got) for name, got in calls.items()}
     n["masked"] = sum(1 for args, _ in calls["tape_count"]
                       if args[2] is not None)
@@ -9772,6 +9842,729 @@ def phase_tenants(report: Report, device: str = "cuda:0") -> dict:
     return out
 
 
+C19_SETS = 4_800  # bench.py config 19 (bench.py:1887-2063)
+C19_BATCH = 8
+C19_SHARDS = 12
+C19_ROWS = 16
+C19_BAR_S = 5.0  # bench's measurement window
+C20B_CONFIG3_SHARDS = 6  # bench.py config 3's lineorder (bench.py:1746-1790)
+#: 20b keeps the first 3 of config 3's 6 shards at their width: the whole
+#: script passed 1,100 s with all 6 on a slow host
+C20B_SHARDS = 3
+C20B_BATCHES = 8  # import batches a shard a field: 16 ops a shard log
+C20B_TAIL = 64
+C20B_READS = 60
+#: 20b's Count trees, each with its numpy mask over (year, brand)
+C20B_COUNTS = (
+    ("Count(Row(year=3))", lambda y, b: y == 3),
+    ("Count(Intersect(Row(year=3), Row(brand=7)))",
+     lambda y, b: (y == 3) & (b == 7)),
+    ("Count(Union(Row(brand=1), Row(brand=2), Row(year=6)))",
+     lambda y, b: (b == 1) | (b == 2) | (y == 6)),
+    ("Count(Difference(Row(year=1), Row(brand=5)))",
+     lambda y, b: (y == 1) & (b != 5)),
+)
+
+
+def _dax_counters() -> dict:
+    """The DAX plane's counters in the process registry."""
+    from pilosa_tpu_torch.obs import metrics as M
+
+    reg = M.REGISTRY
+    h = reg.histogram(M.METRIC_DAX_REPLAY_SECONDS) or {"sum": 0.0,
+                                                       "count": 0}
+    return {"pushes": sum(reg.value(M.METRIC_DAX_DIRECTIVE_PUSHES,
+                                    method=m, outcome=o)
+                          for m in ("full", "diff", "reset")
+                          for o in ("applied", "stale", "failed")),
+            "resyncs": reg.value(M.METRIC_DAX_FULL_RESYNCS),
+            "prewarm_stacks": reg.value(M.METRIC_DAX_PREWARM_STACKS),
+            "replay_ops": reg.value(M.METRIC_DAX_REPLAY_OPS),
+            "replay_s": h["sum"], "shard_loads": h["count"]}
+
+
+def _dax_moved(before: dict) -> dict:
+    now = _dax_counters()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, files in os.walk(root) for f in files)
+
+
+def _dax_resident(comp) -> int:
+    """Device bytes of one computer's cached stacks in the budget."""
+    from pilosa_tpu_torch.core import stacked as STK
+
+    return STK.holder_resident_bytes(comp.api.holder)
+
+
+def _dax_write_stages():
+    """20b's host stages of a write window, for ``_StageClock``: the
+    queryer's and the computer's split by shard, the writelog, the apply,
+    the kernel with its parity check, and the snapshots."""
+    import numpy as np
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.dax.computer import Computer
+    from pilosa_tpu_torch.dax.queryer import Queryer
+    from pilosa_tpu_torch.dax.storage import Snapshotter, WriteLogger
+    from pilosa_tpu_torch.ops import scatter as SC
+    from pilosa_tpu_torch.storage import store
+
+    return [
+        ("Queryer.import_bits (split by shard)", Queryer, "import_bits"),
+        ("Queryer.query (route, HTTP, JSON)", Queryer, "query"),
+        ("Computer.import_bits (split by shard)", Computer, "import_bits"),
+        ("Computer.query_remote (parse, apply)", Computer, "query_remote"),
+        ("writelog append (JSON, framing)", WriteLogger, "append"),
+        ("writelog commit (fsync)", WriteLogger, "commit"),
+        ("API.import_bits (apply)", API, "import_bits"),
+        ("scatter (host)", SC, "scatter_new_bits_bulk"),
+        ("scatter_merge and its parity check", SC, "scatter_merge_"),
+        ("snapshot export", store, "export_shard_arrays"),
+        ("snapshot compression (np.savez_compressed)", np,
+         "savez_compressed"),
+        ("snapshot write (fsync, rename)", Snapshotter, "write")]
+
+
+def _dax_resume_stages():
+    """The host stages of a directive that loads shards: the snapshot's
+    read and install, the prewarm's stacks, the rest of the directive.
+    The tail replay is the ``dax_replay_seconds`` histogram's growth
+    less the snapshot's read and install."""
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.dax.computer import Computer
+    from pilosa_tpu_torch.dax.storage import Snapshotter
+    from pilosa_tpu_torch.storage import store
+
+    return [("snapshot read", Snapshotter, "latest"),
+            ("snapshot install", store, "install_shard_arrays"),
+            ("prewarm", STK, "stacked_set"), ("prewarm", STK, "stacked_bsi"),
+            ("directive (rest)", Computer, "apply_directive")]
+
+
+def _dax_window(stages, fn) -> dict:
+    """Run one window of 20b: its seconds to a device sync, its host
+    seconds split by ``stages`` (each stage's own time; ``rest`` is the
+    window's less theirs), and the card's busy time from devprof: the
+    kernels' device seconds and the uploads' seconds over the window."""
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.obs import devprof
+
+    c0, up0 = _dax_counters(), dict(STK.UPLOAD_STATS)
+    was = devprof.ENABLED
+    devprof.enable()
+    devprof.reset()
+    clock = _StageClock(stages)
+    try:
+        _, wall = _synced_s(fn)
+    finally:
+        clock.close()
+        kstats = devprof.stats_json()
+        if not was:
+            devprof.disable()
+    split = dict(clock.own)
+    split["rest"] = wall - sum(split.values())
+    kern_s = sum(k["device_seconds"] for k in kstats["kernels"]) \
+        + kstats["other"]["device_seconds"]
+    h2d = kstats["h2d"]
+    moved = _dax_moved(c0)
+    return {"wall_s": wall, "split_s": split, "calls": dict(clock.calls),
+            "kernel_s": kern_s, "kernel_share": kern_s / wall,
+            "h2d_s": h2d["seconds"], "h2d_bytes": h2d["bytes"],
+            "h2d_share": h2d["seconds"] / wall,
+            "upload_bytes": STK.UPLOAD_STATS["bytes"] - up0["bytes"],
+            "counters": moved}
+
+
+def _dax_resume(w: dict) -> dict:
+    """A resume window's figures: the shards loaded, the snapshot's read
+    and install, the tail replay, the prewarm (host seconds; its uploads
+    are the window's)."""
+    sp = w["split_s"]
+    c = w["counters"]
+    read, inst = sp.get("snapshot read", 0.0), sp.get("snapshot install",
+                                                     0.0)
+    return {"loads": c["shard_loads"], "read_s": read, "install_s": inst,
+            "replay_s": c["replay_s"] - read - inst,
+            "replay_ops": c["replay_ops"],
+            "prewarm_s": sp.get("prewarm", 0.0),
+            "prewarm_stacks": c["prewarm_stacks"],
+            "prewarm_bytes": w["upload_bytes"], "wall_s": w["wall_s"]}
+
+
+def _fmt_window(w: dict) -> str:
+    return (f"{w['wall_s']:.3f} s: host "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in
+                        sorted(w["split_s"].items(), key=lambda kv: -kv[1]))
+            + f"; the card busy in kernels {w['kernel_s']:.4f} s "
+            f"({100 * w['kernel_share']:.2f}%), in uploads {w['h2d_s']:.4f}"
+            f" s ({100 * w['h2d_share']:.2f}%, {w['h2d_bytes']:,} B)")
+
+
+def _dax_release(*apis) -> None:
+    """Free the stacks of finished APIs (and their budget entries): the
+    path's later steps and the card start clean."""
+    from pilosa_tpu_torch.storage.recovery import abandon_holder
+
+    for api in apis:
+        abandon_holder(api.holder)
+
+
+def _dax_config19(report, device, base, lab) -> dict:
+    """20a: bench.py config 19 as ``bench_config19`` builds it, at its
+    full size, on the card. Hard asserts as bench.py makes them; its two
+    host-speed bars (the fresh owner's p99 within 2x the warm one, floor
+    2 ms; the measurement within 5 s of the directive) printed met /
+    missed. Then ``Count(Row(v > 0))`` and ``Sum(field=v)`` on the
+    replayed computer against the oracle."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.dax.computer import Computer
+    from pilosa_tpu_torch.dax.directive import (Directive, METHOD_FULL,
+                                                METHOD_RESET)
+    from pilosa_tpu_torch.dax.harness import DaxCluster
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(19)
+    out = {"retries": 0, "reads": 0, "acked_sets": 0, "acked_values": 0}
+    secs = {}
+    c0 = _dax_counters()
+    t_step = time.perf_counter()
+    with _uncounted():
+        oracle = API(device=device)
+        oracle.create_index("e", {})
+        oracle.create_field("e", "f", {"type": "set"})
+        oracle.create_field("e", "v", {"type": "int"})
+    cluster = DaxCluster(3, shared_dir=os.path.join(base, "c19"),
+                         dead_after_s=1.0, snapshot_every=64, serving=True,
+                         device=device)
+    fields = [{"name": "f", "options": {"type": "set"}},
+              {"name": "v", "options": {"type": "int"}}]
+    cluster.controller.create_table("e", {}, fields=fields)
+    alive = {0, 1, 2}
+
+    def ask(q, shards=None):
+        with _uncounted():
+            return oracle.query("e", q, shards=shards)
+
+    def beat():
+        for i in alive:
+            cluster.controller.checkin(cluster.computers[i].node.id)
+
+    def retry(fn, what, tries=300):
+        last = None
+        for _ in range(tries):
+            try:
+                return fn()
+            except Exception as exc:  # noqa: BLE001 — the chaos window
+                last = exc
+                out["retries"] += 1
+                beat()
+                cluster.step()
+                time.sleep(0.02)
+        raise AssertionError(f"{what} never recovered: {last!r}")
+
+    check = None
+    try:
+        # -- phase 1: mixed load with a kill, a silence, a scale-up -----
+        cols = rng.integers(0, 4096, C19_SETS)
+        rowv = rng.integers(0, C19_ROWS, C19_SETS)
+        shardv = rng.integers(0, C19_SHARDS, C19_SETS)
+        n_batches = C19_SETS // C19_BATCH
+        kill_at, silence_at, grow_at = (int(n_batches * f)
+                                        for f in (0.3, 0.5, 0.7))
+        for bi in range(n_batches):
+            if bi == kill_at:
+                cluster.kill(0)
+                alive.discard(0)
+            if bi == silence_at:
+                cluster.silence(1)
+                alive.discard(1)
+            if bi == grow_at:
+                cluster.scale_up()
+                alive.add(len(cluster.computers) - 1)
+            lo = bi * C19_BATCH
+            pql = "".join(
+                f"Set({int(shardv[i]) * SHARD_WIDTH + int(cols[i])},"
+                f" f={int(rowv[i])})" for i in range(lo, lo + C19_BATCH))
+            retry(lambda: cluster.queryer.query("e", pql), "write batch")
+            out["acked_sets"] += C19_BATCH
+            with _uncounted():
+                oracle.query("e", pql)  # mirror once the fleet acked
+            if bi % 12 == 5:
+                vc = [int(shardv[lo]) * SHARD_WIDTH + k for k in range(12)]
+                vv = [int(x) for x in rng.integers(-50, 50, 12)]
+                retry(lambda: cluster.queryer.import_values("e", "v", vc,
+                                                            vv),
+                      "value import")
+                with _uncounted():
+                    oracle.import_values("e", "v", cols=vc, values=vv)
+                out["acked_values"] += 12
+            if bi % 10 == 7:
+                q = f"Count(Row(f={bi % C19_ROWS}))"
+                got = retry(lambda: cluster.queryer.query("e", q),
+                            "read")[0]
+                assert got == ask(q)[0], (bi, got)
+                out["reads"] += 1
+            beat()
+            if bi % 10 == 0:
+                cluster.step()
+        dead = {cluster.computers[0].node.id, cluster.computers[1].node.id}
+        assert dead <= cluster.controller.dead, \
+            f"a dead computer is still live: {cluster.controller.dead}"
+        torch.cuda.synchronize()
+        secs["load"] = time.perf_counter() - t_step
+        out["after_load"] = _dax_moved(c0)
+
+        # -- phase 2: a RESET behind the controller forces a FULL resync -
+        t_step = time.perf_counter()
+        live = cluster.controller.live_ids()
+        victim = next(c for c in cluster.computers if c.node.id in live)
+        c1 = _dax_counters()
+        victim.apply_directive(Directive(
+            version=0, method=METHOD_RESET, schema=[],
+            assigned=[]).to_json())
+        cluster.controller.create_field("e", "aux", {"type": "set"})
+        with _uncounted():
+            oracle.create_field("e", "aux", {"type": "set"})
+        out["reset"] = _dax_moved(c1)
+        assert out["reset"]["resyncs"] > 0, \
+            "restarted computer was not rebuilt via a FULL resync"
+        q = "Count(Row(f=3))"
+        assert retry(lambda: cluster.queryer.query("e", q),
+                     "post-resync read")[0] == ask(q)[0]
+        out["reads"] += 1
+        torch.cuda.synchronize()
+        secs["reset"] = time.perf_counter() - t_step
+
+        # -- phase 3: warm handoff, fresh owner p99 against the warm ------
+        def p99(pool, tag):
+            pairs = [(r, s) for s in pool for r in range(2 * C19_ROWS)]
+            times = []
+            for i in range(min(60, len(pairs))):  # distinct: cache misses
+                r, s = pairs[i]
+                t0 = time.perf_counter()
+                got = retry(lambda: cluster.queryer.query(
+                    "e", f"Count(Row(f={r}))", shards=[s]), tag)[0]
+                times.append((time.perf_counter() - t0) * 1e3)
+                assert got == ask(f"Count(Row(f={r}))", [s])[0], (tag, r, s)
+                out["reads"] += 1
+            return float(np.percentile(times, 99))
+
+        t_step = time.perf_counter()
+        assign = cluster.controller.assignment()
+        out["warm_p99_ms"] = p99(sorted({s for (_, s) in assign}),
+                                 "warm read")
+        c2 = _dax_counters()
+        new_shards = []
+        for _ in range(3):  # jump hash may (rarely) move nothing
+            t_dir = time.perf_counter()
+            cluster.scale_up()
+            alive.add(len(cluster.computers) - 1)
+            new_id = cluster.computers[-1].node.id
+            new_shards = sorted(
+                s for (_, s), nid in cluster.controller.assignment().items()
+                if nid == new_id)
+            if new_shards:
+                break
+        assert new_shards, "scale-up moved no shards after 3 attempts"
+        out["handoff"] = _dax_moved(c2)
+        assert out["handoff"]["prewarm_stacks"] > 0, \
+            "new owner acked without prewarming the hot fields"
+        out["fresh_p99_ms"] = p99(new_shards, "fresh read")
+        out["within_s"] = time.perf_counter() - t_dir
+        out["moved_shards"] = len(new_shards)
+        out["bar_p99_met"] = out["fresh_p99_ms"] <= \
+            2.0 * max(out["warm_p99_ms"], 2.0)
+        out["bar_window_met"] = out["within_s"] <= C19_BAR_S
+        secs["handoff"] = time.perf_counter() - t_step
+
+        # -- phase 4: zero loss, every shard replayed into a fresh node ---
+        t_step = time.perf_counter()
+        shards_all = sorted(cluster.controller.shards_of("e"))
+        assert len(shards_all) == C19_SHARDS, shards_all
+        c3 = _dax_counters()
+        check = Computer("c19-check", cluster.dir, device=device)
+        res = check.apply_directive(Directive(
+            version=1, method=METHOD_FULL,
+            schema=copy.deepcopy(cluster.controller.schema),
+            assigned=[("e", s) for s in shards_all]).to_json())
+        assert res["applied"], res
+        torch.cuda.synchronize()
+        out["replay"] = _dax_moved(c3)
+        out["replay_wall_s"] = time.perf_counter() - t_step
+        got, want = check.api.checksum(), oracle.checksum()
+        assert got == want, \
+            "writes acked by the elastic fleet were lost: replayed " \
+            f"checksum {got!r} != oracle {want!r}"
+        out["checksum"] = got
+        # the replayed node's BSI reads: bsi_compare and the Sum's kernels
+        for q in ("Count(Row(v > 0))", "Sum(field=v)"):
+            got = check.api.query("e", q)[0]
+            want = ask(q)[0]
+            if q.startswith("Sum"):
+                got, want = (got.val, got.count), (want.val, want.count)
+            assert got == want, (q, got, want)
+            out[q] = got
+        torch.cuda.synchronize()
+        secs["zero_loss"] = time.perf_counter() - t_step
+        out["resident_bytes"] = {c.node.id: _dax_resident(c)
+                                 for c in cluster.computers + [check]}
+        out["log_bytes"] = _tree_bytes(os.path.join(cluster.dir, "wl"))
+        out["snapshot_bytes"] = _tree_bytes(os.path.join(cluster.dir,
+                                                         "snap"))
+        out["counters"] = _dax_moved(c0)
+    finally:
+        cluster.close()
+        if check is not None:
+            check.close()
+        _dax_release(oracle, *(c.api for c in cluster.computers),
+                     *([check.api] if check is not None else []))
+    out["seconds_by_step"] = secs
+    bar = lambda ok: "met" if ok else "MISSED"  # noqa: E731
+    print(f"dax 20a: config 19 at full size ({C19_SETS:,} Sets in "
+          f"{C19_SETS // C19_BATCH} batches over {C19_SHARDS} shards, seed "
+          f"19): {out['acked_sets']:,} Sets and {out['acked_values']} values "
+          f"acked after {out['retries']} retries through a kill, a silence "
+          f"and a scale-up; {out['reads']} reads, each the oracle's; "
+          f"directive pushes {out['counters']['pushes']:.0f}, resyncs "
+          f"{out['counters']['resyncs']:.0f} (the RESET's "
+          f"{out['reset']['resyncs']:.0f}), prewarm stacks "
+          f"{out['counters']['prewarm_stacks']:.0f} (the handoff's "
+          f"{out['handoff']['prewarm_stacks']:.0f}); the replay of all "
+          f"{C19_SHARDS} shards {out['replay']['replay_ops']:.0f} ops, "
+          f"dax_replay_seconds {out['replay']['replay_s']:.3f} s over "
+          f"{out['replay']['shard_loads']:.0f} shard loads "
+          f"({out['replay_wall_s']:.3f} s wall), checksum equal; warm p99 "
+          f"{out['warm_p99_ms']:.2f} ms, fresh p99 "
+          f"{out['fresh_p99_ms']:.2f} ms on {out['moved_shards']} moved "
+          f"shards: the 2x bar {bar(out['bar_p99_met'])}, window "
+          f"{out['within_s']:.2f} s: the {C19_BAR_S:.0f} s bar "
+          f"{bar(out['bar_window_met'])}; Count(Row(v > 0)) "
+          f"{out['Count(Row(v > 0))']}, Sum(field=v) "
+          f"{out['Sum(field=v)']} on the replayed node, the oracle's; log "
+          f"{out['log_bytes']:,} B, snapshots {out['snapshot_bytes']:,} B; "
+          f"resident bytes {out['resident_bytes']}; steps "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f" {lab}")
+    return out
+
+
+def _dax_ssb(report, device, base, lab) -> dict:
+    """20b: the DAX plane at SSB SF-1 width: the first ``C20B_SHARDS``
+    shards of config 3's lineorder (6 x 2^20 columns drawn from seed 3,
+    as ``bench_config3`` draws them), ``year`` x 7 and ``brand`` x 1,000
+    mutex by row id, through ``Queryer.import_bits``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.dax.computer import Computer
+    from pilosa_tpu_torch.dax.directive import Directive, METHOD_FULL
+    from pilosa_tpu_torch.dax.harness import DaxCluster
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(3)  # bench_config3's generator
+    years, brands = 7, 1000
+    n = C20B_SHARDS * SHARD_WIDTH
+    year_of = rng.integers(0, years, C20B_CONFIG3_SHARDS * SHARD_WIDTH)[:n]
+    brand_of = rng.integers(0, brands,
+                            C20B_CONFIG3_SHARDS * SHARD_WIDTH)[:n]
+    cols = np.arange(n, dtype=np.int64)
+    out, secs = {}, {}
+    schema = [{"name": "year", "options": {"type": "mutex"}},
+              {"name": "brand", "options": {"type": "mutex"}}]
+    c0 = _dax_counters()
+    t_step = time.perf_counter()
+    with _uncounted():
+        oracle = API(device=device)
+        oracle.create_index("ssb", {})
+        for f in schema:
+            oracle.create_field("ssb", f["name"], f["options"])
+        oracle.import_bits("ssb", "year", rows=year_of, cols=cols)
+        oracle.import_bits("ssb", "brand", rows=brand_of, cols=cols)
+        torch.cuda.synchronize()
+    secs["oracle"] = time.perf_counter() - t_step
+    cluster = DaxCluster(3, shared_dir=os.path.join(base, "ssb"),
+                         snapshot_every=8, serving=True, device=device)
+    cluster.controller.create_table("ssb", {}, fields=schema)
+    qy = cluster.queryer
+
+    def want_of(q, shards=None):
+        """numpy's answer to one of 20b's reads."""
+        y, b = year_of, brand_of
+        if shards is not None:
+            keep = np.isin(cols // SHARD_WIDTH, shards)
+            y, b = y[keep], b[keep]
+        if q.startswith("GroupBy"):
+            table = np.bincount(y * brands + b, minlength=years * brands)
+            nz = np.flatnonzero(table)[:100]
+            return [(int(k // brands), int(k % brands), int(table[k]))
+                    for k in nz]
+        if q.startswith("TopN"):
+            cnt = np.bincount(b, minlength=brands)
+            return sorted((-int(c), r) for r, c in enumerate(cnt) if c)[:10]
+        return int(dict(C20B_COUNTS)[q](y, b).sum())
+
+    def shape(q, res):
+        if q.startswith("GroupBy"):
+            return [(g.group[0].row_id, g.group[1].row_id, g.count)
+                    for g in res]
+        if q.startswith("TopN"):
+            return [(-p.count, p.id) for p in res.pairs]
+        return res
+
+    def check_reads(shards=None):
+        for q in (("GroupBy(Rows(year), Rows(brand), limit=100)",
+                   "TopN(brand, n=10)") + tuple(q for q, _ in C20B_COUNTS)):
+            got = qy.query("ssb", q, shards=shards)[0]
+            assert shape(q, got) == want_of(q, shards), (q, shards)
+
+    check = None
+    try:
+        # -- load: 8 batches a shard a field through the queryer ----------
+        per = SHARD_WIDTH // C20B_BATCHES
+
+        def load():
+            changed = 0
+            for s in range(C20B_SHARDS):
+                for bi in range(C20B_BATCHES):
+                    sl = slice(s * SHARD_WIDTH + bi * per,
+                               s * SHARD_WIDTH + (bi + 1) * per)
+                    for f, rows in (("year", year_of), ("brand", brand_of)):
+                        changed += qy.import_bits(
+                            "ssb", f, rows=rows[sl].tolist(),
+                            cols=cols[sl].tolist())
+            return changed
+
+        changed = []
+        out["load"] = _dax_window(_dax_write_stages(),
+                                  lambda: changed.append(load()))
+        secs["load"] = out["load"]["wall_s"]
+        out["load_changed"] = changed[0]
+        snaps = {s: max(int(name.split(".")[1])
+                        for name in os.listdir(
+                            os.path.join(cluster.dir, "snap", "ssb"))
+                        if name.startswith(f"{s}."))
+                 for s in range(C20B_SHARDS)}
+        assert all(v >= 2 * C20B_BATCHES for v in snaps.values()), snaps
+        out["snapshot_versions"] = snaps
+        # -- the log tail: 64 Sets of year, mirrored to numpy -------------
+        tc = rng.integers(0, n, C20B_TAIL)
+        ty = rng.integers(0, years, C20B_TAIL)
+
+        def tail():
+            for c, y in zip(tc.tolist(), ty.tolist()):
+                qy.query("ssb", f"Set({c}, year={y})")
+                with _uncounted():
+                    oracle.query("ssb", f"Set({c}, year={y})")
+                year_of[c] = y
+
+        out["tail"] = _dax_window(_dax_write_stages(), tail)
+        secs["tail"] = out["tail"]["wall_s"]
+        # -- reads through the queryer against numpy ----------------------
+        t_step = time.perf_counter()
+        check_reads()
+        torch.cuda.synchronize()
+        secs["reads"] = time.perf_counter() - t_step
+        held = {}
+        for (t, s), nid in cluster.controller.assignment().items():
+            held.setdefault(nid, []).append(s)
+        out["held"] = {k: sorted(v) for k, v in held.items()}
+        # -- kill the busiest computer: time to a correct answer ----------
+        victim = max(held, key=lambda k: (len(held[k]), k))
+        vi = next(i for i, c in enumerate(cluster.computers)
+                  if c.node.id == victim)
+        lost = sorted(held[victim])
+        t_kill = time.perf_counter()
+        w = _dax_window(_dax_resume_stages(), lambda: cluster.kill(vi))
+        q = "Count(Row(year=3))"
+        got = qy.query("ssb", q, shards=lost)[0]
+        out["kill_to_answer_s"] = time.perf_counter() - t_kill
+        assert got == want_of(q, lost), (got, lost)
+        out["kill"] = {"victim": victim, "shards": lost,
+                       "owners": _dax_resume(w), "window": w}
+        check_reads()
+        secs["kill"] = time.perf_counter() - t_kill
+        # -- scale up: directive to ack, prewarm, fresh against warm ------
+        t_step = time.perf_counter()
+        new_shards, grown, ack_s = [], None, None
+        for _ in range(3):  # jump hash may move nothing: grow again
+            new = cluster.spawn()
+            t_push = new.clock.now()
+            w = _dax_window(_dax_resume_stages(),
+                            cluster.controller.rebalance)
+            new_shards = sorted(
+                s for (_, s), nid in
+                cluster.controller.assignment().items()
+                if nid == new.node.id)
+            if new_shards:
+                grown, ack_s = w, new.directive_at - t_push
+                break
+        assert new_shards, "scale-up moved no shards after 3 attempts"
+        assert grown["counters"]["prewarm_stacks"] > 0, \
+            "the new owner acked without prewarming"
+        warm_shard = next(
+            s for (_, s), nid in
+            sorted(cluster.controller.assignment().items())
+            if nid != new.node.id)
+
+        def p99(shard):
+            """Distinct reads, so every one misses the cache."""
+            sl = slice(shard * SHARD_WIDTH, (shard + 1) * SHARD_WIDTH)
+            want = np.bincount(brand_of[sl], minlength=brands)
+            times = []
+            for r in range(C20B_READS):
+                t0 = time.perf_counter()
+                got = qy.query("ssb", f"Count(Row(brand={r}))",
+                               shards=[shard])[0]
+                times.append((time.perf_counter() - t0) * 1e3)
+                assert got == int(want[r]), (shard, r)
+            return float(np.percentile(times, 99))
+
+        out["scale_up"] = {
+            "node": new.node.id, "shards": new_shards,
+            "directive_to_ack_s": ack_s, "stage": _dax_resume(grown),
+            "window": grown, "fresh_shard": new_shards[0],
+            "warm_shard": warm_shard, "fresh_p99_ms": p99(new_shards[0]),
+            "warm_p99_ms": p99(warm_shard)}
+        check_reads()
+        torch.cuda.synchronize()
+        secs["scale_up"] = time.perf_counter() - t_step
+        # -- zero loss: every shard replayed into a fresh computer --------
+        t_step = time.perf_counter()
+        check = Computer("ssb-check", cluster.dir, device=device)
+        d = Directive(
+            version=1, method=METHOD_FULL,
+            schema=copy.deepcopy(cluster.controller.schema),
+            assigned=[("ssb", s) for s in range(C20B_SHARDS)]).to_json()
+        res = []
+        w = _dax_window(_dax_resume_stages(),
+                        lambda: res.append(check.apply_directive(d)))
+        assert res[0]["applied"], res
+        out["replay"] = {"stage": _dax_resume(w), "window": w}
+        got, want = check.api.checksum(), oracle.checksum()
+        assert got == want, \
+            f"20b lost acked writes: {got!r} != oracle {want!r}"
+        out["checksum"] = got
+        secs["zero_loss"] = time.perf_counter() - t_step
+        out["resident_bytes"] = {c.node.id: _dax_resident(c)
+                                 for c in cluster.computers + [check]}
+        out["log_bytes"] = _tree_bytes(os.path.join(cluster.dir, "wl"))
+        out["snapshot_bytes"] = _tree_bytes(os.path.join(cluster.dir,
+                                                         "snap"))
+        out["counters"] = _dax_moved(c0)
+    finally:
+        cluster.close()
+        if check is not None:
+            check.close()
+        _dax_release(oracle, *(c.api for c in cluster.computers),
+                     *([check.api] if check is not None else []))
+    out["seconds_by_step"] = secs
+    k, up, rp = out["kill"], out["scale_up"], out["replay"]["stage"]
+    ow = k["owners"]
+    print(f"dax 20b: config 3's lineorder, its first {C20B_SHARDS} of "
+          f"{C20B_CONFIG3_SHARDS} shards ({n:,} columns, seed 3) on a "
+          f"3-computer fleet with snapshot_every=8: loaded through "
+          f"Queryer.import_bits ({C20B_BATCHES} batches a shard a field) in "
+          f"{secs['load']:.2f} s, snapshot versions "
+          f"{out['snapshot_versions']}, {C20B_TAIL} Sets as the tail in "
+          f"{secs['tail']:.2f} s; GroupBy, TopN and {len(C20B_COUNTS)} "
+          f"Count trees equal numpy before the kill, after it and after "
+          f"the scale-up; shards per computer {out['held']}; killed "
+          f"{k['victim']} (shards {k['shards']}): first correct answer "
+          f"over them {out['kill_to_answer_s']:.3f} s after the kill; the "
+          f"new owners: {ow['loads']} shards, snapshot read "
+          f"{ow['read_s']:.3f} s and install {ow['install_s']:.3f} s, tail "
+          f"replay {ow['replay_s']:.3f} s ({ow['replay_ops']:.0f} ops), "
+          f"prewarm {ow['prewarm_s']:.3f} s ({ow['prewarm_stacks']:.0f} "
+          f"stacks, {ow['prewarm_bytes']:,} B uploaded); scale-up "
+          f"{up['node']} took shards {up['shards']}, directive to ack "
+          f"{up['directive_to_ack_s']:.3f} s, prewarm stacks "
+          f"{up['stage']['prewarm_stacks']:.0f}, prewarm PCIe bytes "
+          f"{up['stage']['prewarm_bytes']:,}; p99 of {C20B_READS} distinct "
+          f"reads: fresh shard {up['fresh_shard']} "
+          f"{up['fresh_p99_ms']:.2f} ms, warm shard {up['warm_shard']} "
+          f"{up['warm_p99_ms']:.2f} ms; all {C20B_SHARDS} shards replayed "
+          f"into a fresh computer in {rp['wall_s']:.3f} s (snapshot read "
+          f"{rp['read_s']:.3f} s, install {rp['install_s']:.3f} s, "
+          f"{rp['replay_ops']:.0f} tail ops in {rp['replay_s']:.3f} s), "
+          f"checksum equal to the oracle's; log {out['log_bytes']:,} B, "
+          f"snapshots {out['snapshot_bytes']:,} B on disk; resident bytes "
+          f"{out['resident_bytes']}; steps "
+          + ", ".join(f"{k_} {v:.2f} s" for k_, v in secs.items())
+          + f" {lab}")
+    for name in ("load", "tail"):
+        print(f"dax 20b: the {name} window {_fmt_window(out[name])} {lab}")
+    return out
+
+
+def phase_dax(report: Report, device: str = "cuda:0") -> dict:
+    """Path 20: the DAX serverless plane. (20a) bench.py config 19;
+    (20b) the plane at SSB SF-1 width. ``device`` is the card's; a dry
+    run on the CPU passes ``"cpu"``. The shared directory is under
+    ``build/chip_smoke_dax``, removed at the end."""
+    import gc
+    import shutil
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    lab = report.label
+    t_phase = time.perf_counter()
+    base = os.path.abspath(os.path.join("build", "chip_smoke_dax"))
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+    try:
+        for tag, fn, expected in (
+                ("20a", _dax_config19,
+                 ("tape_count", "pair_counts", "bsi_compare")),
+                ("20b", _dax_ssb,
+                 ("tape_count", "pair_counts", "scatter_merge"))):
+            torch.cuda.synchronize()
+            KU.reset_launches()
+            _UNCOUNTED.clear()
+            t0 = time.perf_counter()
+            res = {}
+            checked = _tapped(report, lambda: res.update(
+                fn(report, device, base, lab)))
+            res["seconds"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launched = {k: v - _UNCOUNTED.get(k, 0)
+                        for k, v in KU.launches().items()}
+            report.launched(f"dax {tag}", launched, expected)
+            for name, n in launched.items():
+                assert not n or checked.get(name, 0) >= 1, \
+                    f"{tag} launched {name} {n} times, held none"
+            res["launches"], res["checked"] = launched, checked
+            out[tag] = res
+            print(f"dax {tag}: launches on the path {launched}; held "
+                  f"against the plain versions {checked} {lab}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"dax 20: steps "
+          + ", ".join(f"{k} {out[k]['seconds']:.2f} s"
+                      for k in ("20a", "20b"))
+          + f"; {out['seconds']:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB on the card "
+          f"after {lab}")
+    print("dax 20: " + json.dumps(out, default=str))
+    return out
+
+
 def _print_ptxas(info: str) -> None:
     """ptxas's report on the tape_count, ctile_count and scatter_merge
     kernels; the one-op path of tape_count and both scatter_merge kernels
@@ -9898,6 +10691,7 @@ def main() -> int:
           cluster.pop("16d_cluster"))
     timed("18 gossip", phase_gossip, report)
     timed("19 tenants", phase_tenants, report)
+    timed("20 DAX", phase_dax, report)
 
     print(f"profiler: empty traces of counted launches taken again "
           f"{len(PROFILER_MISSES)} {PROFILER_MISSES}")

@@ -366,6 +366,14 @@ class InternalClient:
 
     # -- imports (reference: internal_client.go:691-931) -------------------
 
+    def send_directive(self, node, payload: dict, token=None) -> dict:
+        """DAX controller -> computer assignment push (reference:
+        dax/controller/controller.go:1033 sendDirectives -> /directive).
+        Tagged op="directive" so FaultPlan rules can scope chaos to the
+        control plane without touching query or import legs."""
+        return self._post(node, "/directive", payload, token=token,
+                          op="directive")
+
     def import_bits(self, node, index: str, field: str, payload: dict) -> dict:
         out = self._post(node, f"/index/{index}/import",
                          self._piggyback(node, payload), op="import")

@@ -12,9 +12,9 @@ log fields, ``[scheduler]`` (``sched/``), ``[cache]`` (``cache/``),
 ``[stream]`` (``stream/``), ``[tenants]`` with its ``[tenants.<id>]``
 stanzas (``obs/tenants.py``), ``[gossip]`` and ``[membership]``
 (``gossip/``), ``[cluster.resilience]`` / ``[cluster.batch]``
-(``cluster/``) and ``[degrade]`` (``sched/degrade.py``), with the JAX
-package's defaults and variable names; ``[dax]`` lands with the plane
-that reads it.
+(``cluster/``), ``[dax]`` (``dax/``) and ``[degrade]``
+(``sched/degrade.py``), with the JAX package's defaults and variable
+names.
 """
 
 from __future__ import annotations
@@ -250,6 +250,24 @@ class Config:
     # ingest-rows-s, cache-bytes, weight.
     tenants_overrides: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
+
+    # elastic serverless plane ([dax] section / PILOSA_TPU_DAX_*): the
+    # disaggregated deployment shape (dax/) — group-commit shared-FS
+    # writelog, directive push cadence, warm handoff, and the autoscaler
+    # bounds (dax/autoscale.py), read by DaxCluster.from_config. Off
+    # unless a fleet is built: zero dax threads, metrics or spans.
+    dax_segment_bytes: int = 1 << 20  # writelog segment rotation size
+    dax_sync: str = "batch"  # writelog fsync: always | batch | never
+    dax_snapshot_every: int = 256  # ops between shard snapshots
+    dax_dead_after_s: float = 5.0  # checkin deadline (no membership)
+    dax_directive_retries: int = 2  # per-node push retries
+    dax_directive_backoff_ms: float = 50.0  # base push retry backoff
+    dax_warm_handoff: bool = True  # prewarm hot fields before ack
+    dax_autoscale_min: int = 1  # autoscaler pool floor
+    dax_autoscale_max: int = 8  # autoscaler pool ceiling
+    dax_autoscale_cooldown_s: float = 30.0  # hold after each decision
+    dax_autoscale_queue_high: int = 16  # queue depth scale-up trigger
+    dax_autoscale_p99_high_ms: float = 250.0  # leg p99 scale-up trigger
 
     # graceful-degradation ladder ([degrade] section / PILOSA_TPU_DEGRADE_*):
     # NORMAL -> SHED_BATCH -> BROWNOUT -> SATURATED state machine driven

@@ -218,6 +218,13 @@ class DeviceBudget:
         M.REGISTRY.gauge(M.METRIC_DEVICE_HBM_RESIDENT_BYTES, self.used)
         M.REGISTRY.gauge(M.METRIC_DEVICE_BUDGET_RESIDENT_BYTES, self.used)
 
+    def bytes_of(self, serials) -> int:
+        """Resident bytes of the entries of the stacks ``serials``."""
+        serials = set(serials)
+        with self._lock:
+            return sum(b for (serial, _bi), (b, _) in self._lru.items()
+                       if serial in serials)
+
     def audit(self) -> None:
         """The byte counter must equal the sum of resident entries — a
         drift means a leak or double release."""
@@ -647,6 +654,17 @@ def release_field_cache(field) -> None:
     for inner in (cache or {}).values():
         for _, stack in inner.values():
             stack.release_device()
+
+
+def holder_resident_bytes(holder) -> int:
+    """Device bytes the budget holds for a holder's cached stacks."""
+    serials = set()
+    with _LOCK:
+        for idx in holder.indexes.values():
+            for field in idx.fields.values():
+                for inner in getattr(field, "_stacked_cache", {}).values():
+                    serials.update(st.serial for _, st in inner.values())
+    return BUDGET.bytes_of(serials)
 
 
 # ---------------------------------------------------------------------------

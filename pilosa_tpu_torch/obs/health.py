@@ -8,7 +8,9 @@ read ``api.tenants`` / ``api.degrade``, and the ``gossip`` and
 ``membership`` probes the node's gossip agent and membership
 (``{"enabled": false}`` until ``enable_gossip`` / ``enable_membership``;
 the membership's transitions feed the ``membership_flap`` trigger).
-``attach_dax`` waits for the serverless plane.
+``attach_dax`` merges the serverless plane's controller, queryer and
+autoscaler reads into one ``dax`` probe (its directive churn feeds the
+``directive_churn`` trigger).
 
 One object owns the three health-plane parts and the wiring between
 them: every timeline sample is handed to the flight recorder's trigger
@@ -197,6 +199,27 @@ class HealthPlane:
         self.timeline.add_observer(
             lambda sample: (api.degrade.observe(sample)
                             if api.degrade is not None else None))
+
+    def attach_dax(self, queryer=None, controller=None,
+                   autoscaler=None) -> None:
+        """Serverless-plane probe: the controller's directive state
+        (version, age, churn — feeds the ``directive_churn`` trigger),
+        the queryer's serving pressure (the autoscaler's inputs), and
+        the autoscaler's own decision trail, merged into one "dax"
+        timeline read."""
+
+        def dax():
+            out: dict = {"enabled": controller is not None
+                         or queryer is not None}
+            if controller is not None:
+                out.update(controller.probe())
+            if queryer is not None:
+                out.update(queryer.probe())
+            if autoscaler is not None:
+                out["autoscale"] = autoscaler.probe()
+            return out
+
+        self.timeline.add_probe("dax", dax)
 
     def attach_node(self, node) -> None:
         """Upgrade probes to the cluster node's live subsystems (the

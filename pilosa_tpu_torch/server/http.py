@@ -26,9 +26,12 @@ A single node answers the node-to-node routes (``/internal/index/*/
 query``, the query batch, cluster messages, SQL subtrees, translate
 replication, partition nodes, gossip, membership and recovery) and
 ``/directive`` with the JAX package's single-node 404s. A cluster node
-serves them all but ``/directive``, which keeps the 404 until the
-serverless plane is ported; a node's query, batch, message, import and
-ping bodies carry the gossip envelope both ways.
+serves them all but ``/directive``, which only a DAX ``Computer`` answers
+(``dax/computer.py``); a node's query, batch, message, import and ping
+bodies carry the gossip envelope both ways. The optional planes (tenants,
+degradation, health, cache, stream, history) are read with ``getattr``,
+so the handler serves any object with the API's surface, a ``Computer``
+among them, whatever planes it lacks.
 With the tenant plane on, each request acts as the tenant its
 ``X-Tenant`` header (or ``?tenant=``) names, clamped to a safe id; its
 queries and imports are charged to that tenant's quotas (429 +
@@ -449,7 +452,7 @@ class Handler(BaseHTTPRequestHandler):
         """One unit against the current tenant's QPS bucket; raises
         QuotaExceededError -> 429 + Retry-After when exhausted. No-op
         when the tenant plane is off or the tenant is unlimited."""
-        reg = self.api.tenants
+        reg = getattr(self.api, "tenants", None)
         if reg is not None:
             reg.charge_query(current_tenant_id())
 
@@ -460,7 +463,7 @@ class Handler(BaseHTTPRequestHandler):
         effective quota depend on cluster size."""
         if body is not None and body.get("remote"):
             return
-        reg = self.api.tenants
+        reg = getattr(self.api, "tenants", None)
         if reg is not None:
             reg.charge_ingest(current_tenant_id(), rows)
 
@@ -514,7 +517,7 @@ class Handler(BaseHTTPRequestHandler):
         from urllib.parse import parse_qs, urlsplit
 
         qs = parse_qs(urlsplit(self.path).query)
-        cache = self.api.cache
+        cache = getattr(self.api, "cache", None)
         if cache is not None:
             cache.take_stale_flag()  # clear any untagged leftover
         if qs.get("profile", [""])[-1].lower() == "true":
@@ -635,7 +638,9 @@ class Handler(BaseHTTPRequestHandler):
         replica fan-out legs (``remote``) were already admitted at the
         entry node and pass through."""
         if not b.get("remote"):
-            self.api._degrade_shed_batch()
+            shed = getattr(self.api, "_degrade_shed_batch", None)
+            if shed is not None:
+                shed()
 
     def post_import(self, index: str):
         b = self._json_body()
@@ -699,14 +704,14 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, {"checksum": self.api.checksum()})
 
     def post_cache_flush(self):
-        cache = self.api.cache
+        cache = getattr(self.api, "cache", None)
         if cache is None:
             self._send(200, {"enabled": False, "flushed": 0})
             return
         self._send(200, {"enabled": True, "flushed": cache.flush()})
 
     def get_cache_stats(self):
-        cache = self.api.cache
+        cache = getattr(self.api, "cache", None)
         if cache is None:
             self._send(200, {"enabled": False})
             return
@@ -744,7 +749,7 @@ class Handler(BaseHTTPRequestHandler):
     # -- health plane (obs/health.py) --------------------------------------
 
     def _health_plane(self):
-        return self.api.health
+        return getattr(self.api, "health", None)
 
     def _window_param(self, default=None):
         from urllib.parse import parse_qs, urlsplit
@@ -792,14 +797,14 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, {"enabled": True, **hp.slo.status()})
 
     def get_internal_tenants(self):
-        reg = self.api.tenants
+        reg = getattr(self.api, "tenants", None)
         if reg is None:
             self._send(200, {"enabled": False})
             return
         self._send(200, {"enabled": True, **reg.stats_json()})
 
     def get_internal_degrade(self):
-        deg = self.api.degrade
+        deg = getattr(self.api, "degrade", None)
         if deg is None:
             self._send(200, {"enabled": False})
             return
@@ -813,7 +818,7 @@ class Handler(BaseHTTPRequestHandler):
         self._send(200, devprof.stats_json())
 
     def get_stats_stream(self):
-        svc = self.api.stream
+        svc = getattr(self.api, "stream", None)
         self._send(200, svc.stats() if svc is not None else
                    {"enabled": False})
 
@@ -821,7 +826,7 @@ class Handler(BaseHTTPRequestHandler):
         """Push records into the streaming ingest broker. Saturation
         (device stages behind, backlog over limit) surfaces as 429 via
         AdmissionError -> _dispatch, telling producers to back off."""
-        svc = self.api.stream
+        svc = getattr(self.api, "stream", None)
         if svc is None or svc.index != index:
             raise KeyError(f"no stream service on index {index!r}")
         body = self._json_body()
@@ -1041,8 +1046,11 @@ class Handler(BaseHTTPRequestHandler):
     def get_queries(self):
         """Currently executing queries (reference: /queries; completed
         history rides /query-history)."""
-        self._send(200, {"queries": [r.to_json()
-                                     for r in self.api.history.list()
+        hist = getattr(self.api, "history", None)
+        if hist is None:
+            self._send(200, {"queries": []})
+            return
+        self._send(200, {"queries": [r.to_json() for r in hist.list()
                                      if r.status == "running"]})
 
     def post_recalculate_caches(self):
@@ -1417,7 +1425,10 @@ class Handler(BaseHTTPRequestHandler):
     def post_directive(self):
         """DAX assignment push (reference: api_directive.go:21
         ApplyDirective); only compute nodes implement it."""
-        raise KeyError("not a DAX compute node")
+        apply = getattr(self.api, "apply_directive", None)
+        if apply is None:
+            raise KeyError("not a DAX compute node")
+        self._send(200, apply(self._json_body()))
 
     # -- resource accounting (reference: http_handler.go:557-559) ----------
 

@@ -9,7 +9,9 @@ exact planes the committed write stream describes.
    durability-critical sites (``wal.append``, ``wal.flush``,
    ``savez.pre_replace``, ``savez.post_replace``, ``checkpoint.mid``)
    and at the streaming pipeline's three stage boundaries
-   (``STREAM_CRASH_SITES``, stream/pipeline.py) raise
+   (``STREAM_CRASH_SITES``, stream/pipeline.py) and the DAX plane's
+   shared-FS sites (``DAX_CRASH_SITES``, dax/storage.py and
+   dax/computer.py) raise
    :class:`SimulatedCrash`; after the first fire the simulated
    process is *dead* and every hooked operation silently no-ops, so
    unwind paths (``Qcx.__exit__`` still calls ``finish()``) cannot
@@ -76,6 +78,16 @@ STREAM_CRASH_SITES = (
     "stream.commit",
 )
 
+# DAX shared-FS durability kill sites (dax/storage.py + computer.py).
+# Another separate tuple, same reason: the dax lane draws from
+# dax_seeded() in its own keyspace so the pinned storage/stream lane
+# seeds keep selecting the same sites.
+DAX_CRASH_SITES = (
+    "dax.wl.append",
+    "dax.snap.replace",
+    "dax.directive.mid",
+)
+
 CHECKPOINT_META = "checkpoint.json"
 
 
@@ -105,7 +117,8 @@ class CrashPlan:
         self._lock = locktrace.tracked_lock("storage.recovery.crashplan")
 
     def kill(self, site: str, at: int = 1) -> "CrashPlan":
-        if site not in CRASH_SITES and site not in STREAM_CRASH_SITES:
+        if site not in CRASH_SITES and site not in STREAM_CRASH_SITES \
+                and site not in DAX_CRASH_SITES:
             raise ValueError(f"unknown crash site {site!r}")
         if at < 1:
             raise ValueError("at must be >= 1")
@@ -126,6 +139,15 @@ class CrashPlan:
         storage lane's pinned seeds stay untouched)."""
         rng = random.Random(f"stream-crash:{seed}")
         return cls().kill(rng.choice(STREAM_CRASH_SITES),
+                          at=rng.randint(1, 3))
+
+    @classmethod
+    def dax_seeded(cls, seed) -> "CrashPlan":
+        """Seed-derived plan over the DAX shared-FS durability sites —
+        the dax lane's analog of :meth:`seeded` (its own keyspace so
+        the storage and stream lanes' pinned seeds stay untouched)."""
+        rng = random.Random(f"dax-crash:{seed}")
+        return cls().kill(rng.choice(DAX_CRASH_SITES),
                           at=rng.randint(1, 3))
 
     @classmethod

@@ -19,7 +19,9 @@ hedged legs (fan-out resilience), a two-node cluster with gossip,
 membership and a replica's catch-up (importing every gossip module),
 a tenant's query and an open-loop virtual run under the tenant plane and
 the degradation ladder (importing the tenant, ladder and load generator
-modules), then reports
+modules), a two-computer DAX fleet with a kill, a replay into a fresh
+computer and an autoscaler tick (importing every DAX module), then
+reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
 module of the port and of ``chip_smoke.py``. The port also refuses to
@@ -192,7 +194,30 @@ row = reg.stats_json()["tenants"]["acme"]
 tenanted = [rep.ok, row["queries"], row["device_seconds"] > 0,
             deg.probe()["state"]]
 ten.disable_tenants()
+import shutil
+import tempfile
+from pilosa_tpu_torch.dax import Computer, Directive
+from pilosa_tpu_torch.dax.autoscale import Autoscaler
+from pilosa_tpu_torch.dax.harness import DaxCluster
+ddir = tempfile.mkdtemp()
+fleet = DaxCluster(2, shared_dir=ddir, snapshot_every=4, serving=True,
+                   device="cpu")
+fleet.controller.create_table("d", {}, [{"name": "f", "options": {}}])
+fleet.queryer.import_bits("d", "f", rows=[1] * 6,
+                          cols=[1, 2, 3, 4, 1 << 20, (1 << 20) + 1])
+fleet.kill(0)
+replayed = Computer("check", ddir, device="cpu")
+replayed.apply_directive(Directive(
+    version=1, schema=fleet.controller.schema,
+    assigned=[("d", 0), ("d", 1)]).to_json())
+daxed = [fleet.queryer.query("d", "Count(Row(f=1))")[0],
+         replayed.api.query("d", "Count(Row(f=1))")[0],
+         Autoscaler(probes_fn=fleet.queryer.probe, scale_up=lambda: 2,
+                    scale_down=lambda: 1, pool_size=lambda: 1).tick()]
+fleet.close()
+shutil.rmtree(ddir)
 print(json.dumps({"star": star, "tenanted": tenanted, "resilient": resilient, "front": front, "hist": hist,
+                  "daxed": daxed,
                   "clustered": clustered, "gossiped": gossiped,
                   "logged": logged,
                   "count": got[0], "top": got[1].pairs[0].count,
@@ -243,6 +268,11 @@ _GOSSIP = ("gossip", "gossip/state.py", "gossip/agent.py",
 _TENANTS = ("obs/tenants.py", "sched/degrade.py", "loadgen/driver.py",
             "loadgen/chaos.py", "loadgen/scenarios.py", "loadgen/tenants.py")
 
+#: and the DAX plane's
+_DAX = ("dax", "dax/directive.py", "dax/storage.py",
+        "dax/computer.py", "dax/controller.py", "dax/queryer.py",
+        "dax/autoscale.py", "dax/harness.py")
+
 
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in _FORBIDDEN)
@@ -272,9 +302,10 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
     assert out["gossiped"] == [1, 3, ["node0", "node1"],
                                ["node0", "node1"]]
     assert out["tenanted"] == [10, 1, True, "normal"]
+    assert out["daxed"] == [6, 6, None]
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
                  + _CLUSTER + _SQL_FANOUT + _RESILIENCE + _GOSSIP
-                 + _TENANTS):
+                 + _TENANTS + _DAX):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -423,3 +454,11 @@ def test_scan_covers_the_resilience_modules():
                for p in _sources()}
     for part in _RESILIENCE:
         assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_dax_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _DAX:
+        hits = [p for p in scanned if p == part or p.startswith(part + "/")]
+        assert hits, f"the AST scan misses pilosa_tpu_torch/{part}"

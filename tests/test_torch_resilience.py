@@ -733,9 +733,14 @@ class TestClusterFaultInjection:
             co = c.coordinator
             transitions = []
             reg = P.MetricsRegistry()
+            # an explicit leg-timeout floor: the adaptive timeout is 4x
+            # one warm leg's p99 (~13 ms on the port, ~0.5 s in the JAX
+            # package, whose first leg compiles), so without it a probe
+            # leg slowed past ~50 ms by a loaded host times out and
+            # re-opens the breaker (threshold 1)
             res = co.enable_resilience(
                 registry=reg, hedge=False, breaker_threshold=1,
-                breaker_open_ms=100.0,
+                breaker_open_ms=100.0, timeout_min_ms=5000.0,
                 on_breaker_transition=lambda n, f, t: transitions.append(
                     (n, f, t)))
             try:

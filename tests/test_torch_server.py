@@ -24,6 +24,7 @@ import base64
 import importlib
 import io
 import json
+import os
 import struct
 import time
 import types
@@ -1473,11 +1474,11 @@ def test_grpc_framing_equal_across_packages():
 
 
 #: ``generate-config`` keys of the JAX package that the port prints
-#: once its cluster plane lands: the cluster section, ``gossip-enabled``
-#: and ``membership-enabled`` (read once a server builds the planes from
-#: the config) and ``[dax]``
+#: once its cluster plane lands: the cluster section, ``gossip-enabled``,
+#: ``membership-enabled`` and ``dax-enabled`` (read once a server builds
+#: the planes from the config)
 _A7_KEYS = ("node-id", "peers", "replicas",
-            "gossip-enabled", "membership-enabled", "dax-")
+            "gossip-enabled", "membership-enabled", "dax-enabled")
 #: keys of the JAX package's ``Config`` that nothing in either package
 #: reads; the port has no field for them, so that setting one does not
 #: look as if it took effect (ROADMAP C.16)
@@ -1496,3 +1497,209 @@ def test_generate_config_is_the_jax_packages_less_the_cluster_sections(
             and line.split(" = ")[0] not in _UNREAD_KEYS]
     assert outs[1].splitlines() == kept
     assert len(kept) < len(outs[0].splitlines())
+
+
+def test_dax_keys_set_from_toml_and_env_take_effect(tmp_path, monkeypatch):
+    """``[dax]`` in a TOML file and ``PILOSA_TPU_DAX_*`` variables parse
+    alike in both packages. The JAX package has no reader of the section,
+    so its fleet takes the values by hand; the port's comes from
+    ``DaxCluster.from_config`` alone, and both fleets then behave alike:
+    ``sync = "always"`` fsyncs every append, ``segment-bytes`` rotates
+    the log, ``snapshot-every`` sets when a computer snapshots, the
+    checkin deadline buries a silent computer, the directive retries
+    hold, and the autoscaler's ceiling and p99 trigger decide.
+    ``dax-enabled`` has no field in the port (nothing reads it;
+    ROADMAP C.16)."""
+    import dataclasses
+
+    cfg_path = tmp_path / "dax.toml"
+    cfg_path.write_text('[dax]\nenabled = true\nsync = "always"\n'
+                        'snapshot-every = 4\ndirective-retries = 0\n'
+                        'directive-backoff-ms = 7.0\ndead-after-s = 0.5\n'
+                        'autoscale-max = 2\nautoscale-cooldown-s = 0.0\n'
+                        'autoscale-queue-high = 1000\n')
+    env = {"PILOSA_TPU_DAX_SEGMENT_BYTES": "64",
+           "PILOSA_TPU_DAX_WARM_HANDOFF": "false",
+           "PILOSA_TPU_DAX_AUTOSCALE_P99_HIGH_MS": "5.0",
+           "PILOSA_TPU_DAX_ENABLED": "true"}
+    schema = [{"name": "f", "options": {}}]
+    seen = []
+    for r in (J, T):
+        P = _package(r)
+        cfg = P.Config.from_sources(str(cfg_path), env=env)
+        assert (cfg.dax_sync, cfg.dax_snapshot_every,
+                cfg.dax_directive_retries, cfg.dax_directive_backoff_ms,
+                cfg.dax_dead_after_s, cfg.dax_autoscale_max,
+                cfg.dax_autoscale_p99_high_ms, cfg.dax_segment_bytes,
+                cfg.dax_warm_handoff) == \
+            ("always", 4, 0, 7.0, 0.5, 2, 5.0, 64, False)
+        m = lambda name: importlib.import_module(f"{r}.{name}")  # noqa
+        clock = m("sched.clock").ManualClock()
+        root = str(tmp_path / r)
+        if r == T:
+            assert "dax_enabled" not in {
+                f.name for f in dataclasses.fields(P.Config)}
+            cl = m("dax.harness").DaxCluster.from_config(
+                1, cfg, shared_dir=root, http=False, autoscale=True,
+                clock=clock, device="cpu")
+        else:
+            assert cfg.dax_enabled is True
+            cl = m("dax.harness").DaxCluster(
+                1, shared_dir=root, http=False, autoscale=True,
+                clock=clock, dead_after_s=cfg.dax_dead_after_s,
+                snapshot_every=cfg.dax_snapshot_every, sync=cfg.dax_sync,
+                warm_handoff=cfg.dax_warm_handoff,
+                autoscale_kw=dict(
+                    min_nodes=cfg.dax_autoscale_min,
+                    max_nodes=cfg.dax_autoscale_max,
+                    cooldown_s=cfg.dax_autoscale_cooldown_s,
+                    queue_high=cfg.dax_autoscale_queue_high,
+                    p99_high_ms=cfg.dax_autoscale_p99_high_ms))
+            cl.controller.directive_retries = cfg.dax_directive_retries
+            cl.controller.directive_backoff_s = \
+                cfg.dax_directive_backoff_ms / 1e3
+            cl.computers[0].wl.segment_bytes = cfg.dax_segment_bytes
+        try:
+            comp = cl.computers[0]
+            cl.controller.create_table("t", {}, fields=schema)
+            cl.controller.ensure_shard("t", 0)
+            assert ("t", 0) in comp.assigned
+            fsyncs = []
+            real = os.fsync
+            monkeypatch.setattr(os, "fsync",
+                                lambda fd: (fsyncs.append(fd), real(fd))[1])
+            comp.query_remote("t", "Set(1, f=1)Set(2, f=1)Set(3, f=1)",
+                              shards=[0])
+            monkeypatch.setattr(os, "fsync", real)
+            assert len(fsyncs) >= 3  # sync="always": one per append
+            segs = sorted(os.listdir(os.path.join(root, "wl", "t")))
+            assert len(segs) >= 2, segs  # 64-byte segments rotate
+            snaps = m("dax.storage").Snapshotter(root)
+            assert snaps.latest_version("t", 0) == 0
+            comp.query_remote("t", "Set(4, f=1)", shards=[0])
+            assert snaps.latest_version("t", 0) == 4  # snapshot-every = 4
+            ctl = cl.controller
+            assert (ctl.directive_retries, ctl.directive_backoff_s) == \
+                (0, 0.007)
+            sc = cl.autoscaler
+            assert (sc.min_nodes, sc.max_nodes, sc.queue_high,
+                    sc.p99_high_ms) == (1, 2, 1000, 5.0)
+            # the p99 trigger alone scales up to the ceiling, then holds
+            sc.probes_fn = lambda: {"queue_depth": 0, "leg_p99_ms": 6.0}
+            decisions = [sc.tick(), sc.tick()]
+            assert decisions == ["up", None]
+            assert len(ctl.live_ids()) == 2
+            # the checkin deadline: only the computer that checks in lives
+            clock.advance(0.4)
+            ctl.checkin(cl.computers[1].node.id)
+            clock.advance(0.2)
+            dead = ctl.poll()
+            assert dead == [comp.node.id]
+            seen.append((len(fsyncs), segs, decisions, dead,
+                         comp.api.checksum(),
+                         cl.computers[1].api.checksum()))
+        finally:
+            cl.close()
+    assert seen[0] == seen[1]
+
+
+class _Stub:
+    """A bare object with the API's surface less every optional plane
+    (no tenants, degrade, health, cache, stream or history)."""
+
+    def __init__(self, api):
+        self._api = api
+        self.holder = api.holder
+        self.transactions = api.transactions
+        self.idalloc = api.idalloc
+
+    def query(self, index, pql, shards=None):
+        return self._api.query(index, pql, shards=shards)
+
+    def query_json(self, *a, **kw):
+        return self._api.query_json(*a, **kw)
+
+    def import_bits(self, *a, **kw):
+        return self._api.import_bits(*a, **kw)
+
+    def schema(self):
+        return self._api.schema()
+
+
+def _plane_less_routes(base):
+    """Status and body of every route that reads an optional plane."""
+    out = []
+    for method, path, body in [
+            ("POST", "/index/t/query", b"Set(3, f=1)"),
+            ("POST", "/index/t/query", b"Count(Row(f=1))"),
+            ("POST", "/index/t/import",
+             json.dumps({"field": "f", "rows": [1, 2],
+                         "cols": [5, 9]}).encode()),
+            ("POST", "/index/t/query", b"Count(Row(f=1))"),
+            ("GET", "/internal/tenants", b""),
+            ("GET", "/internal/degrade", b""),
+            ("GET", "/internal/stats/timeline", b""),
+            ("GET", "/internal/slo", b""),
+            ("GET", "/internal/debug/bundles", b""),
+            ("GET", "/internal/cache/stats", b""),
+            ("POST", "/internal/cache/flush", b""),
+            ("GET", "/internal/stats/stream", b""),
+            ("GET", "/queries", b""),
+            ("GET", "/health", b"")]:
+        ctype = "text/plain" if path.endswith("/query") \
+            else "application/json"
+        status, raw = _req(base, method, path, body, ctype=ctype)
+        out.append((method, path, status, json.loads(raw or b"null")))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["computer", "stub"])
+def test_handler_serves_an_object_without_the_optional_planes(tmp_path,
+                                                              kind):
+    """A DAX ``Computer`` (and a bare stub) served through each package's
+    ``serve()``: the routes that read the tenant, degradation, health,
+    cache, stream and history planes answer alike in both packages (the
+    port's handler read them directly and answered 500)."""
+    answers = []
+    for r in (J, T):
+        P = _package(r)
+        m = lambda name: importlib.import_module(f"{r}.{name}")  # noqa
+        kw = {"device": "cpu"} if r == T else {}
+        if kind == "computer":
+            obj = m("dax.computer").Computer("c0", str(tmp_path / r), **kw)
+            directive = {"version": 1, "method": "full",
+                         "schema": [{"index": "t", "options": {},
+                                     "fields": [{"name": "f",
+                                                 "options": {}}]}],
+                         "assigned": [["t", 0]], "hot": []}
+        else:
+            api = P.API()
+            api.create_index("t", {})
+            api.create_field("t", "f", {"type": "set"})
+            obj = _Stub(api)
+        srv, _ = P.serve(obj, port=0, background=True)
+        try:
+            base = "http://%s:%d" % srv.server_address[:2]
+            got = []
+            if kind == "computer":
+                status, raw = _req(base, "POST", "/directive",
+                                   json.dumps(directive).encode(),
+                                   ctype="application/json")
+                got.append(("POST", "/directive", status, json.loads(raw)))
+            got += _plane_less_routes(base)
+            answers.append(got)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    assert answers[0] == answers[1]
+    queries = [(s, b) for _m, p, s, b in answers[1] if p == "/index/t/query"]
+    if kind == "stub":
+        assert [b["results"] for _s, b in queries] == [[True], [1], [2]]
+    else:
+        # a Computer has no ``query_json``: in both packages the PQL
+        # route answers 500 with the same body (ROADMAP C)
+        assert {(s, b["error"]) for s, b in queries} == {
+            (500, "AttributeError: 'Computer' object has no attribute "
+                  "'query_json'")}
+    assert all(s == 200 for _m, p, s, _b in answers[1]
+               if p != "/index/t/query"), answers[1]
