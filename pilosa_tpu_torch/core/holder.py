@@ -59,9 +59,12 @@ class Holder:
         self.crash_plan = None
         # serializes write requests against each other, against
         # checkpoints and against stack builds; reads never take it
-        # (core/stacked.py)
+        # (core/stacked.py). Held across device work by design: a build
+        # uploads, and an advance launches, from a still snapshot of the
+        # host planes (dispatch_ok)
         self.write_lock = locktrace.tracked_lock("core.holder.write",
-                                                 rlock=True)
+                                                 rlock=True,
+                                                 dispatch_ok=True)
         self.indexes: Dict[str, Index] = {}
         if path:
             os.makedirs(path, exist_ok=True)

@@ -279,11 +279,10 @@ class StackedSet:
                        * self.block_rows)
         self.paged = self.cap > self.block_rows
         self._fragments = list(fragments)
-        self._built_vers = tuple(
-            -1 if f is None else f.version for f in fragments)
+        self._built_vers = _versions(fragments)
         self._blocks: List[Optional[Block]] = (
             [None] * (self.cap // self.block_rows))
-        self._lock = locktrace.tracked_lock("core.stacked.stack")
+        self._lock = _stack_lock()
         # a stack of a write request is never published: it charges no
         # budget entry (storage/txn.py)
         self.ephemeral = False
@@ -502,7 +501,7 @@ class StackedBSI:
         self.serial = next(_stack_serial)
         self._write_lock = (write_lock if write_lock is not None
                             else contextlib.nullcontext())
-        self._lock = locktrace.tracked_lock("core.stacked.stack")
+        self._lock = _stack_lock()
         self.ephemeral = False
         self._fragments = list(fragments)
         self._built_vers = _versions(fragments)
@@ -582,6 +581,13 @@ def _nbytes(blk: Block) -> int:
     if isinstance(blk, ctiles.CompressedBlock):
         return blk.nbytes + blk.nz_nbytes
     return blk.numel() * blk.element_size()
+
+
+def _stack_lock():
+    """A stack's own lock. A block evicted from the budget is rebuilt
+    under it, upload included, so that two readers build it once
+    (dispatch_ok)."""
+    return locktrace.tracked_lock("core.stacked.stack", dispatch_ok=True)
 
 
 def _versions(fragments) -> Tuple:
@@ -794,7 +800,7 @@ def _advance_set(stack: StackedSet, fragments, built_vers
     new.total_words = stack.total_words
     new.serial = next(_stack_serial)
     new.block_rows = stack.block_rows
-    new._lock = locktrace.tracked_lock("core.stacked.stack")
+    new._lock = _stack_lock()
     new._write_lock = stack._write_lock
     new.ephemeral = False
     _restamp(new, fragments)
@@ -912,7 +918,7 @@ def _advance_bsi(stack: StackedBSI, fragments, built_vers
     new.depth = stack.depth
     new.serial = next(_stack_serial)
     new._write_lock = stack._write_lock
-    new._lock = locktrace.tracked_lock("core.stacked.stack")
+    new._lock = _stack_lock()
     new.ephemeral = False
     _restamp(new, fragments)
     # a compressed stack decays to dense: decoded on the device, fresh

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import platform
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 _FRAME_RE = re.compile(r"shard\.(\d+)\.npz$")
@@ -83,14 +84,6 @@ class ShardFrame:
 
     def length(self) -> int:
         return max((c.size for c in self.columns.values()), default=0)
-
-
-def _staging(shape, dtype: torch.dtype, device: torch.device,
-             fill: int = 0) -> torch.Tensor:
-    """A host tensor to assemble a stack in: pinned when it goes to a
-    card, so its upload is one pinned copy."""
-    return torch.full(shape, fill, dtype=dtype,
-                      pin_memory=device.type == "cuda")
 
 
 class DataframeStore:
@@ -218,10 +211,10 @@ class DataframeStore:
         cols: Dict[str, torch.Tensor] = {}
         dev = self.device
         if names:
-            valid_t = _staging((S, cap), torch.bool, dev, fill=1)
+            valid_t = platform.staging((S, cap), torch.bool, dev, fill=1)
             valid_np = valid_t.numpy()
             for name in names:
-                host_t = _staging((S, cap), torch.float32, dev)
+                host_t = platform.staging((S, cap), torch.float32, dev)
                 host = host_t.numpy()
                 vmask = np.zeros((S, cap), dtype=bool)
                 for si, shard in enumerate(shard_list):
@@ -231,10 +224,10 @@ class DataframeStore:
                     col = frame.columns[name]
                     host[si, : col.size] = col
                     vmask[si, : col.size] = frame.valid[name][: col.size]
-                cols[name] = host_t.to(dev, non_blocking=True)
+                cols[name] = platform.h2d_copy(host_t, dev, non_blocking=True)
                 valid_np &= vmask
         else:
-            valid_t = _staging((S, cap), torch.bool, dev)
+            valid_t = platform.staging((S, cap), torch.bool, dev)
             valid_np = valid_t.numpy()
             for si, shard in enumerate(shard_list):
                 frame = self.frames.get(shard)
@@ -242,7 +235,7 @@ class DataframeStore:
                     continue
                 for v in frame.valid.values():
                     valid_np[si, : v.size] |= v
-        valid = valid_t.to(dev, non_blocking=True)
+        valid = platform.h2d_copy(valid_t, dev, non_blocking=True)
         with self._lock:
             self._device_cache[key] = (vers, cols, valid, cap)
             while len(self._device_cache) > _CACHE_ENTRIES:

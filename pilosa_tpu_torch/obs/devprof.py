@@ -6,9 +6,10 @@ Port of ``pilosa_tpu/obs/devprof.py``. The cost model (``tape_cost``),
 :class:`IngestAccounting`, ``kernel_scope``, ``ingest_scope``,
 ``record_stage``, ``stats_json`` and ``timeline_probe`` keep the JAX
 package's formulas and keys: the same arguments give the same FLOPs,
-bytes and family names in both packages. ``mesh_epoch`` is 0 (the port
-has no mesh). Two things differ, because the port runs on a card whose
-launches are asynchronous:
+bytes and family names in both packages. ``mesh_epoch`` is 0: the
+port's engine runs on one device (the engine mesh is ROADMAP A.7h). Two
+things differ, because the port runs on a card whose launches are
+asynchronous:
 
 **Device time on the card, without a sync on the query path.** The JAX
 package times the wall clock around a dispatch, which on an
@@ -486,7 +487,7 @@ INGEST = IngestAccounting()
 # drained without waiting
 # ---------------------------------------------------------------------------
 
-_SLOTS_LOCK = threading.Lock()
+_SLOTS_LOCK = locktrace.tracked_lock("obs.devprof.slots")
 #: free timing slots per (slot class, device index)
 _FREE: Dict[Tuple[type, int], List] = {}
 #: (profile entry, slot, host seconds, tenant) in launch order

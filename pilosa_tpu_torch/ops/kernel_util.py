@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from pilosa_tpu_torch.analysis import locktrace
 from pilosa_tpu_torch.native import BUILD_DIR
 from pilosa_tpu_torch.obs import devprof
 
@@ -256,7 +257,11 @@ def check(rc: int, kernel: str) -> None:
 def on_card(kernel: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor is on one CUDA device (launch the kernel),
     False when every tensor is on the CPU (plain version). Anything else
-    raises."""
+    raises. Every launch and every plain version passes here, so this is
+    where the lock tracer hears of a dispatch (the counterpart of
+    ``pilosa_tpu/platform.py`` ``guarded_call``)."""
+    if locktrace.ACTIVE is not None:
+        locktrace.ACTIVE.note_dispatch("kernel_util.on_card")
     first = tensors[0]
     if first.is_cuda:  # the launch path: one attribute read per tensor
         idx = first.get_device()

@@ -11,8 +11,10 @@ no compiler, so a "program" is the checked tape bound to its terminal:
 * the plane terminal was never a Pallas kernel (``mesh.py:338-352``) and
   stays plain PyTorch: one eager op per tape op.
 
-The multi-device mesh reduces (``mesh.py:164-236``) wait for the
-distributed slice.
+The mesh reduces (``mesh.py:144-236``) are ``parallel/mesh.py``; the
+engine mesh and the mesh branch of the count terminal
+(``mesh.py:293-309``) wait for the engine over several cards (ROADMAP
+A.7h).
 """
 
 from __future__ import annotations

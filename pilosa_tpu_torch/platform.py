@@ -1,8 +1,9 @@
 """Device resolution and host<->device plane copies.
 
 Port of the transfer half of ``pilosa_tpu/platform.py`` (``:171``
-``h2d_copy``, with its ``device.h2d_copy`` span and the device
-profiler's h2d hook, ``:188-202``). There is no dispatch lock and no
+``h2d_copy``, with its ``device.h2d_copy`` span, the lock tracer's
+dispatch note and the device profiler's h2d hook, ``:186-202``). There
+is no dispatch lock and no
 backend probing: PyTorch launches are ordered on the current CUDA
 stream, and the caller names its device. Planes live on the host as
 ``np.uint32`` and on the device as ``torch.int32`` with the same bit
@@ -17,6 +18,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.analysis import locktrace
 from pilosa_tpu_torch.obs.tracing import get_tracer
 
 DeviceLike = Union[str, torch.device, None]
@@ -55,19 +57,41 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def h2d_copy(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint32 host planes -> int32 device tensor (bit-identical), traced
-    as a ``device.h2d_copy`` span tagged with the byte count, as the JAX
-    package traces it: a warm resident query has no such span."""
-    arr = np.ascontiguousarray(host, dtype=np.uint32).view(np.int32)
-    t = torch.from_numpy(arr)
+def staging(shape, dtype: torch.dtype, device: torch.device,
+            fill: int = 0) -> torch.Tensor:
+    """A host tensor to assemble an upload in: pinned when it goes to a
+    card, so that :func:`h2d_copy` of it with ``non_blocking`` is one
+    pinned copy."""
+    return torch.full(shape, fill, dtype=dtype,
+                      pin_memory=device.type == "cuda")
+
+
+def h2d_copy(host: Union[np.ndarray, torch.Tensor], device: torch.device,
+             non_blocking: bool = False) -> torch.Tensor:
+    """Host -> device copy, traced as a ``device.h2d_copy`` span tagged
+    with the byte count, as the JAX package traces it: a warm resident
+    query has no such span. ``host`` is either uint32 planes, which land
+    as an int32 tensor with the same bits, or a host tensor (a
+    :func:`staging` buffer), copied as it is, ``non_blocking`` when
+    asked. On the CPU planes are cloned (the caller's host planes are
+    never aliased) and a host tensor is handed over as it is."""
+    if isinstance(host, torch.Tensor):
+        t, given = host, True
+    else:
+        arr = np.ascontiguousarray(host, dtype=np.uint32).view(np.int32)
+        t, given = torch.from_numpy(arr), False
+    nbytes = t.numel() * t.element_size()
+    if locktrace.ACTIVE is not None:
+        locktrace.ACTIVE.note_dispatch("platform.h2d_copy")
     hook = _H2D_HOOK
-    with get_tracer().start_span("device.h2d_copy", nbytes=arr.nbytes):
+    with get_tracer().start_span("device.h2d_copy", nbytes=nbytes):
         t0 = time.perf_counter() if hook is not None else 0.0
-        # never alias the caller's host planes on the CPU
-        out = t.clone() if device.type == "cpu" else t.to(device)
+        if device.type == "cpu":
+            out = t if given else t.clone()
+        else:
+            out = t.to(device, non_blocking=non_blocking)
     if hook is not None:
-        hook(arr.nbytes, time.perf_counter() - t0)
+        hook(nbytes, time.perf_counter() - t0)
     return out
 
 

@@ -1194,3 +1194,54 @@ def test_server_on_the_card_answers_as_on_the_cpu(dev):
     for name in ("tape_count", "pair_counts", "bsi_compare",
                  "scatter_merge"):
         assert launched[name] > 0, name
+
+
+# -- the mesh reduces (parallel/mesh.py) on the card ---------------------------
+
+
+@pytest.mark.parametrize("w, cp", [(512, 1), (512, 2), (512, 4), (32768, 2)])
+def test_mesh_reduces_at_block_widths(dev, w, cp):
+    """The five reduces over 8 virtual devices on the card at blocks of
+    w / cp words, against numpy, with one launch per block and kernel."""
+    from pilosa_tpu_torch.parallel import ShardPlacement, analytics_mesh
+
+    rng = np.random.default_rng(w + cp)
+    n_s = 8
+    raw = rng.random((n_s, 6, w * 32)) < 0.3
+    planes = np.packbits(raw, axis=-1, bitorder="little").view("<u4")
+    pl = ShardPlacement(analytics_mesh([dev] * 8, col_parallel=cp))
+    blocks = 8
+
+    def launched(fn, want):
+        before = KU.launches()
+        got = fn()
+        after = KU.launches()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == want
+        return got
+
+    p0, p1 = pl.place(planes[:, 0]), pl.place(planes[:, 1])
+    assert launched(lambda: pl.count(p0), {"tape_count": blocks}) == \
+        int(raw[:, 0].sum())
+    assert launched(lambda: pl.intersect_count(p0, p1),
+                    {"tape_count": blocks}) == \
+        int((raw[:, 0] & raw[:, 1]).sum())
+    pr = pl.place(planes)
+    got = launched(lambda: pl.row_counts(pr), {"pair_counts": blocks})
+    np.testing.assert_array_equal(got, raw.sum(axis=(0, 2)))
+    pa, pb = pl.place(planes[:, :2]), pl.place(planes[:, 2:])
+    got = launched(lambda: pl.groupby_counts(pa, pb),
+                   {"pair_counts": blocks})
+    np.testing.assert_array_equal(got, np.einsum(
+        "sgw,srw->gr", raw[:, :2].astype(np.int64),
+        raw[:, 2:].astype(np.int64)))
+    cols = np.arange(w * 32)
+    vals = rng.integers(-5000, 5000, (n_s, cols.size))
+    keep = rng.random((n_s, cols.size)) < 0.5
+    bsi = np.stack([S.encode_values(cols, v, 14, w) for v in vals])
+    filt = np.packbits(keep, axis=-1, bitorder="little").view("<u4")
+    c, per = launched(
+        lambda: pl.bsi_sum_counts(pl.place(bsi), pl.place(filt)),
+        {"pair_counts": blocks, "tape_count": blocks})
+    assert (c, sum(int(per[k]) << k for k in range(14))) == \
+        (int(keep.sum()), int(vals[keep].sum()))

@@ -216,7 +216,13 @@ daxed = [fleet.queryer.query("d", "Count(Row(f=1))")[0],
                     scale_down=lambda: 1, pool_size=lambda: 1).tick()]
 fleet.close()
 shutil.rmtree(ddir)
-print(json.dumps({"star": star, "tenanted": tenanted, "resilient": resilient, "front": front, "hist": hist,
+import torch
+from pilosa_tpu_torch.parallel import ShardPlacement, analytics_mesh
+import pilosa_tpu_torch.analysis.lint, pilosa_tpu_torch.cluster.hash
+pl = ShardPlacement(analytics_mesh([torch.device("cpu")] * 4, col_parallel=2))
+meshed = [pl.count(pl.place(np.ones((4, 64), np.uint32))),
+          pl.row_counts(pl.place(np.ones((4, 3, 64), np.uint32))).tolist()]
+print(json.dumps({"meshed": meshed, "star": star, "tenanted": tenanted, "resilient": resilient, "front": front, "hist": hist,
                   "daxed": daxed,
                   "clustered": clustered, "gossiped": gossiped,
                   "logged": logged,
@@ -268,6 +274,9 @@ _GOSSIP = ("gossip", "gossip/state.py", "gossip/agent.py",
 _TENANTS = ("obs/tenants.py", "sched/degrade.py", "loadgen/driver.py",
             "loadgen/chaos.py", "loadgen/scenarios.py", "loadgen/tenants.py")
 
+#: and the last slice's: the mesh reduces, the linter, the hash re-export
+_MESH = ("parallel/mesh.py", "analysis/lint.py", "cluster/hash.py")
+
 #: and the DAX plane's
 _DAX = ("dax", "dax/directive.py", "dax/storage.py",
         "dax/computer.py", "dax/controller.py", "dax/queryer.py",
@@ -303,9 +312,10 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
                                ["node0", "node1"]]
     assert out["tenanted"] == [10, 1, True, "normal"]
     assert out["daxed"] == [6, 6, None]
+    assert out["meshed"] == [4 * 64, [4 * 64] * 3]  # one bit a word
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
                  + _CLUSTER + _SQL_FANOUT + _RESILIENCE + _GOSSIP
-                 + _TENANTS + _DAX):
+                 + _TENANTS + _DAX + _MESH):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]
@@ -394,6 +404,28 @@ def test_scan_covers_the_tenant_and_degrade_modules():
                for p in _sources()}
     for part in _TENANTS:
         assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_scan_covers_the_mesh_lint_and_hash_modules():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "pilosa_tpu_torch"))
+               for p in _sources()}
+    for part in _MESH:
+        assert part in scanned, f"the AST scan misses pilosa_tpu_torch/{part}"
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module of pilosa_tpu has one in the port, but
+    ops/pallas_util.py, whose job ops/kernel_util.py does."""
+    missing = []
+    jax_root = os.path.join(ROOT, "pilosa_tpu")
+    for dirpath, _, files in os.walk(jax_root):
+        for f in files:
+            if f.endswith(".py") or f.endswith(".json"):
+                rel = os.path.relpath(os.path.join(dirpath, f), jax_root)
+                if not os.path.exists(os.path.join(ROOT, "pilosa_tpu_torch",
+                                                   rel)):
+                    missing.append(rel)
+    assert missing == [os.path.join("ops", "pallas_util.py")]
 
 
 def test_server_without_a_card_exits_and_serves_nothing(tmp_path):
