@@ -486,11 +486,36 @@ Phases, each printed on its own line:
     executor's own Count, TopN, GroupBy and Sum; each reduce's p50, its
     launches a call (blocks x kernels, from the counters, exact), its
     kernels and device ops a call in a trace, and the bytes placed;
-25. the empty traces of counted launches that ``_device_ops`` took
+25. main path 22, the engine over several devices (right after path
+    21, on paths 1 and 2's indexes): (22a) with every stack cache
+    released, ``Count(Row(year=1))``, a ``Row`` of a brand, an
+    ``Intersect`` Count, ``TopN(brand, n=10)``, the full year x brand
+    ``GroupBy``, and on ``amount`` ``Sum``, a ``Range`` Count, ``Min``,
+    ``Max`` and ``Percentile`` through ``API.query``, plus a masked
+    fused wave of two Counts over four shard subsets through
+    ``execute_many``, on one device, then with the engine mesh set to a
+    virtual 2 x 2 mesh over ``cuda:0`` (every stack rebuilt in 4 blocks
+    of the fused word axis): every answer numpy's and the one device's;
+    each read's launches a call exactly 4 x one device's for
+    ``tape_count``, ``pair_counts`` and ``bsi_compare``, no
+    ``ctile_count``, no compressed block, no gather, the resident bytes
+    the one device's; each read's p50 on both; (22b) 4 rounds of 16
+    ``Set``s and 16 ``Clear``s on ``year`` and ``brand`` at the words
+    on either side of each block edge (one cuts shard 1), every read
+    after each round against the updated oracle, the stacks advanced
+    with no upload; (22c) a ``Shift`` of a row with a bit on block 0's
+    last word, against numpy's per-shard shift; (22d) the engine mesh
+    reset to its default, every stack rebuilt (on one device on one
+    card, a block a card on several: launches a call 1 or n x one
+    device's) and every read numpy's and the mesh's again; the seconds
+    it took;
+26. the empty traces of counted launches that ``_device_ops`` took
     again, then one ``{"kernels": [...]}`` JSON line;
-26. the last line: ``{"ok": true, "device": {...}}``.
+27. the last line: ``{"ok": true, "device": {...}}``.
 
-Each phase's seconds are printed as it ends.
+Each phase's seconds are printed as it ends, and then the threads still
+alive: their count, the non-daemon ones by name, and all of them by
+name (ROADMAP C, F.5).
 
 Exits non-zero, without the last line, when there is no CUDA device, when
 the port is not importable, or when any phase fails.
@@ -7025,6 +7050,397 @@ def phase_mesh(report: Report, ssb: dict, bsi: dict, device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Path 22: the engine over several devices (A.7h): PQL reads and writes on
+# stacks split over the engine mesh
+# ---------------------------------------------------------------------------
+
+#: the kernels the engine's reads launch, one launch a block
+EM_KERNELS = ("tape_count", "pair_counts", "bsi_compare")
+EM_ITERS = 5
+EM_ROUNDS = 4  # 22b: rounds of 16 Sets and 16 Clears
+EM_SUBSETS = ([0, 1, 2, 3], [4, 5], [1, 2], [0, 3, 4, 5])
+
+
+def _em_norm(res):
+    """A PQL result as plain values, to compare placements and numpy."""
+    if isinstance(res, (bool, int)):
+        return res
+    if hasattr(res, "pairs"):
+        return [(p.key or p.id, p.count) for p in res.pairs]
+    if hasattr(res, "columns"):
+        return list(res.columns)
+    if hasattr(res, "val"):
+        return (res.val, res.count)
+    if isinstance(res, list):  # GroupBy
+        return sorted((tuple(g.row_key or g.row_id for g in gc.group),
+                       gc.count) for gc in res)
+    raise TypeError(f"no plain form for {res!r}")
+
+
+def _em_entries(api):
+    """(index, field, entry) of every resident entry the holder caches."""
+    out = []
+    for iname, idx in api.holder.indexes.items():
+        fields = list(idx.fields.values())
+        if idx.existence is not None and idx.existence not in fields:
+            fields.append(idx.existence)
+        for f in fields:
+            for inner in getattr(f, "_stacked_cache", {}).values():
+                for _, st in inner.values():
+                    ents = ([st._planes] if hasattr(st, "_planes")
+                            else st._blocks)
+                    out += [(iname, f.name, e) for e in ents if e is not None]
+    return out
+
+
+def _em_release(api) -> None:
+    from pilosa_tpu_torch.core import stacked as STK
+
+    for idx in api.holder.indexes.values():
+        for f in list(idx.fields.values()) + [idx.existence]:
+            if f is not None:
+                STK.release_field_cache(f)
+
+
+class _EmOracle:
+    """numpy's answers on paths 1 and 2's indexes, kept as 22b writes."""
+
+    def __init__(self, ssb: dict, bsi: dict):
+        import numpy as np
+
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+        self.year = ssb["year_of"].copy()
+        self.brand = ssb["brand_of"].copy()
+        self.names = ssb["names"]
+        self.shards = int(self.year.size // SHARD_WIDTH)
+        _, exists, values = _bsi_planes(
+            bsi["api"].holder.index("b").field("amount"), bsi["shards"])
+        self.amount = np.sort(values[exists])
+
+    def reads(self) -> dict:
+        """{name: (index, PQL)} of 22a's reads through ``API.query``."""
+        return {
+            "count": ("ssb", "Count(Row(year=1))"),
+            "row": ("ssb", 'Row(brand="MFGR#1003")'),
+            "intersect": ("ssb", 'Count(Intersect(Row(year=1), '
+                                 'Row(brand="MFGR#1003")))'),
+            "topn": ("ssb", "TopN(brand, n=10)"),
+            "groupby": ("ssb", "GroupBy(Rows(year), Rows(brand), "
+                               "limit=7000)"),
+            "sum": ("b", "Sum(field=amount)"),
+            "range": ("b", "Count(Row(amount > 524288))"),
+            "min": ("b", "Min(field=amount)"),
+            "max": ("b", "Max(field=amount)"),
+            "percentile": ("b", "Percentile(field=amount, nth=50)"),
+        }
+
+    def wave(self):
+        """22a's masked fused wave: a Count and an Intersect Count over
+        each of ``EM_SUBSETS``."""
+        qs = [self.reads()[k][1] for k in ("count", "intersect")]
+        return [q for q in qs for _ in EM_SUBSETS], [
+            list(s) for _ in qs for s in EM_SUBSETS]
+
+    def check(self, name: str, got) -> None:
+        import numpy as np
+
+        y, b, v = self.year, self.brand, self.amount
+        if name == "count":
+            want = int((y == 1).sum())
+        elif name == "row":  # copied back block by block
+            want = np.nonzero(b == 3)[0].tolist()
+        elif name == "intersect":
+            want = int(((y == 1) & (b == 3)).sum())
+        elif name == "topn":
+            counts = np.bincount(b[b >= 0], minlength=len(self.names))
+            top = sorted(counts.tolist(), reverse=True)[:10]
+            assert [c for _, c in got] == top, (got, top)
+            key = {str(n): k for k, n in enumerate(self.names)}
+            assert all(counts[key[k]] == c for k, c in got), got
+            return
+        elif name == "groupby":
+            both = (y >= 0) & (b >= 0)
+            gb = np.bincount(y[both] * len(self.names) + b[both],
+                             minlength=7 * len(self.names))
+            want = sorted(((int(g // len(self.names)),
+                            str(self.names[g % len(self.names)])), int(c))
+                          for g, c in enumerate(gb) if c)
+        elif name == "sum":
+            want = (int(v.sum()), int(v.size))
+        elif name == "range":
+            want = int((v > 524288).sum())
+        elif name == "min":
+            want = (int(v[0]), int((v == v[0]).sum()))
+        elif name == "max":
+            want = (int(v[-1]), int((v == v[-1]).sum()))
+        elif name == "percentile":
+            want = _percentile_oracle(v, 50)
+        elif name == "shift":
+            from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+            bits = (y == 1).reshape(self.shards, SHARD_WIDTH)
+            want = int(bits[:, :-1].sum())  # the carry stops at a shard's end
+        else:
+            raise KeyError(name)
+        assert got == want, f"engine mesh {name}: {got} != numpy's {want}"
+
+    def check_wave(self, got) -> None:
+        import numpy as np
+
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+        shard = np.arange(self.year.size) // SHARD_WIDTH
+        sels = [self.year == 1, (self.year == 1) & (self.brand == 3)]
+        want = [[int((sel & np.isin(shard, s)).sum())]
+                for sel in sels for s in EM_SUBSETS]
+        assert got == want, f"engine mesh wave: {got} != numpy's {want}"
+
+
+def _em_reads(apis, oracle, label, ref=None, per_query=True):
+    """22a's reads once each (checked against numpy and, given ``ref``,
+    against those answers), the masked fused wave, then each read's
+    launches a call (counters, exact) and its p50 over ``EM_ITERS``
+    calls (uncounted). Returns ({name: answer}, {name: launches},
+    {name: p50 ms})."""
+    from pilosa_tpu_torch.ops import kernel_util as KU
+
+    got, launches, p50 = {}, {}, {}
+    for name, (index, pql) in oracle.reads().items():
+        got[name] = _em_norm(apis[index].query(index, pql)[0])
+        oracle.check(name, got[name])
+        if ref is not None:
+            assert got[name] == ref[name], \
+                f"{label} {name}: {got[name]} != one device's {ref[name]}"
+    qs, subsets = oracle.wave()
+    wave = apis["ssb"].executor.execute_many("ssb", qs,
+                                             per_query_shards=subsets)
+    oracle.check_wave(wave)
+    got["wave"] = wave
+    if not per_query:
+        return got, launches, p50
+    for name, (index, pql) in list(oracle.reads().items()) + [
+            ("wave", (None, None))]:
+        call = ((lambda: apis["ssb"].executor.execute_many(
+                    "ssb", qs, per_query_shards=subsets))
+                if pql is None else
+                (lambda i=index, q=pql: apis[i].query(i, q)))
+        with _uncounted():
+            before = KU.launches()
+            call()
+            after = KU.launches()
+            launches[name] = {k: after[k] - before.get(k, 0) for k in after
+                              if after[k] != before.get(k, 0)}
+            p50[name] = statistics.median(_wall_ms(call)
+                                          for _ in range(EM_ITERS))
+    return got, launches, p50
+
+
+def _em_same_launches(label: str, got: dict, one: dict, k: int) -> None:
+    """Every read's launches a call are ``k`` x its one-device launches
+    for each kernel of ``EM_KERNELS``, and no ``ctile_count``."""
+    for name, counts in got.items():
+        want = {n: k * one[name].get(n, 0) for n in EM_KERNELS}
+        have = {n: counts.get(n, 0) for n in EM_KERNELS}
+        assert have == want, f"{label} {name}: launches {have} != {want}"
+        assert counts.get("ctile_count", 0) == 0, (label, name, counts)
+
+
+def _em_edge_writes(api, oracle, rng, edges):
+    """22b: one round of 16 ``Set``s and 16 ``Clear``s on ``year`` and
+    ``brand`` at columns of the words on either side of each block edge,
+    each result against the oracle, which takes the writes (mutex
+    fields: a Set moves the column, a Clear empties it)."""
+    import numpy as np
+
+    words = np.array(sorted({w for e in edges for w in (e - 1, e)}))
+    cols = (rng.choice(words, 32) * 32 + rng.integers(0, 32, 32)).tolist()
+    calls, want = [], []
+    for k, c in enumerate(cols):
+        field = "year" if k % 2 else "brand"
+        arr = oracle.year if field == "year" else oracle.brand
+        if k < 16:
+            r = int(rng.integers(0, 7 if field == "year"
+                                 else len(oracle.names)))
+            want.append(bool(arr[c] != r))
+            arr[c] = r
+            verb = "Set"
+        else:  # clear what the column holds, or a row it has not got
+            r = int(arr[c]) if arr[c] >= 0 else 2
+            want.append(bool(arr[c] == r))
+            if arr[c] == r:
+                arr[c] = -1
+            verb = "Clear"
+        val = (str(r) if field == "year"
+               else f'"{oracle.names[r]}"')
+        calls.append(f"{verb}({c}, {field}={val})")
+    got = api.query("ssb", "".join(calls))
+    assert got == want, f"22b writes: {got} != {want}"
+    return len(calls)
+
+
+def phase_engine_mesh(report: Report, ssb: dict, bsi: dict,
+                      device=None) -> dict:
+    """Path 22: paths 1 and 2's indexes (SSB SF-1's ``year`` and keyed
+    ``brand``, config 2's ``amount``) read through ``API.query`` on one
+    device and with every stack split over a virtual 2 x 2 engine mesh
+    over ``cuda:0`` (22a); writes at the blocks' edges (22b); a Shift
+    across the edge that cuts shard 1 (22c); then the default mesh
+    again (22d): one device on one card, a block a card on several."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import stacked as STK
+    from pilosa_tpu_torch.ops import ctiles as C
+    from pilosa_tpu_torch.ops import kernel_util as KU
+    from pilosa_tpu_torch.parallel import mesh as PM
+    from pilosa_tpu_torch.parallel import split as SP
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+
+    lab = report.label
+    device = torch.device(device or "cuda:0")
+    t_start = time.perf_counter()
+    threads0 = threading.active_count()
+    KU.reset_launches()
+    _UNCOUNTED.clear()
+    apis = {"ssb": ssb["api"], "b": bsi["api"]}
+    oracle = _EmOracle(ssb, bsi)
+    n_pos = 4
+    out = {}
+
+    # -- 22a: one device, then the virtual 2 x 2 engine mesh ---------------
+    PM.set_engine_mesh(PM.analytics_mesh([device]))
+    for a in apis.values():
+        _em_release(a)
+    one, one_l, one_p = _em_reads(apis, oracle, "one device")
+    one_bytes = sum(STK.holder_resident_bytes(a.holder)
+                    for a in apis.values())
+    odd = [(i, f, type(e).__name__) for a in apis.values()
+           for i, f, e in _em_entries(a) if not isinstance(e, torch.Tensor)]
+    assert not odd, f"one-device stacks that are not one dense tensor: {odd}"
+    u0, g0 = STK.UPLOAD_STATS["count"], dict(SP.GATHER_STATS)
+    PM.set_engine_mesh(PM.analytics_mesh([device] * n_pos, col_parallel=2))
+    epoch = PM.mesh_epoch()
+    try:
+        t0 = time.perf_counter()
+        _, mesh_l, mesh_p = _em_reads(apis, oracle, "2 x 2 mesh",
+                                      ref=one)
+        torch.cuda.synchronize()
+        out["22a_mesh_s"] = time.perf_counter() - t0
+        rebuilt = STK.UPLOAD_STATS["count"] - u0
+        assert rebuilt > 0, "the epoch change rebuilt no stack"
+        _em_same_launches("22a", mesh_l, one_l, n_pos)
+        ents = [e for a in apis.values() for _, _, e in _em_entries(a)]
+        assert ents and all(isinstance(e, SP.Split) and e.n == n_pos
+                            for e in ents), \
+            f"a stack is not split over {n_pos} positions: " \
+            f"{[repr(e) for e in ents if not isinstance(e, SP.Split)]}"
+        assert not any(isinstance(e, C.CompressedBlock) for e in ents)
+        mesh_bytes = sum(STK.holder_resident_bytes(a.holder)
+                         for a in apis.values())
+        assert mesh_bytes == one_bytes == sum(e.nbytes for e in ents), \
+            (mesh_bytes, one_bytes)
+        for name in one_p:
+            print(f"engine mesh 22a: {name}: p50 one device "
+                  f"{one_p[name]:.4f} ms, 2 x 2 mesh {mesh_p[name]:.4f} ms; "
+                  f"launches a call {one_l[name]} / {mesh_l[name]} {lab}")
+        print(f"engine mesh 22a: {len(ents)} resident entries of "
+              f"{n_pos} blocks, {mesh_bytes} bytes placed (one device "
+              f"{one_bytes}), {rebuilt} stacks rebuilt at epoch {epoch}, "
+              f"0 compressed {lab}")
+        out["22a"] = {"p50_ms": {"one_device": one_p, "mesh": mesh_p},
+                      "launches": {"one_device": one_l, "mesh": mesh_l},
+                      "entries": len(ents), "bytes": mesh_bytes}
+
+        # -- 22b: writes at the blocks' edges advance the split stacks ------
+        total = oracle.shards * WORDS_PER_SHARD
+        edges = [k * total // n_pos for k in range(1, n_pos)]
+        assert total // n_pos % WORDS_PER_SHARD, "no edge cuts a shard"
+        rng = np.random.default_rng(22)
+        u1, a1 = STK.UPLOAD_STATS["count"], STK.ADVANCE_STATS["advanced"]
+        writes = 0
+        for _ in range(EM_ROUNDS):
+            writes += _em_edge_writes(apis["ssb"], oracle, rng, edges)
+            _em_reads(apis, oracle, "22b", per_query=False)
+        advanced = STK.ADVANCE_STATS["advanced"] - a1
+        assert STK.UPLOAD_STATS["count"] == u1, \
+            f"22b rebuilt {STK.UPLOAD_STATS['count'] - u1} stacks"
+        assert advanced > 0, "22b advanced no stack"
+        ents = [e for a in apis.values() for _, _, e in _em_entries(a)]
+        assert all(isinstance(e, SP.Split) and e.n == n_pos for e in ents)
+        print(f"engine mesh 22b: {writes} Sets and Clears at the words on "
+              f"either side of the edges {edges} (the first cuts shard "
+              f"{edges[0] // WORDS_PER_SHARD}) "
+              f"in {EM_ROUNDS} rounds, every read after each round "
+              f"numpy's; {advanced} stack advances, 0 uploads {lab}")
+        out["22b"] = {"writes": writes, "advanced": advanced}
+
+        # -- 22c: a Shift carries across the edge inside shard 1 -----------
+        col = edges[0] * 32 - 1  # block 0's last word's top bit
+        apis["ssb"].query("ssb", f"Set({col}, year=1)")
+        oracle.year[col] = 1
+        shift = apis["ssb"].query("ssb", "Count(Shift(Row(year=1), n=1))")[0]
+        oracle.check("shift", shift)
+        hit = apis["ssb"].query(
+            "ssb", f"Count(Intersect(Shift(Row(year=1), n=1), "
+                   f"ConstRow(columns=[{col + 1}])))")[0]
+        assert hit == 1, "the carry did not cross the block edge"
+        print(f"engine mesh 22c: Count(Shift(Row(year=1), n=1)) {shift} "
+              f"equals numpy's per-shard shift; column {col} (block 0's "
+              f"last word) carried into block 1 {lab}")
+        after, _, _ = _em_reads(apis, oracle, "22c", per_query=False)
+        out["22c"] = {"shift": shift}
+    finally:
+        PM.set_engine_mesh(None)
+
+    # -- 22d: the default mesh again: one device on one card, a block a
+    # card on several; the epoch change rebuilds every stack -------------
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    u2 = STK.UPLOAD_STATS["count"]
+    again, again_l, again_p = _em_reads(apis, oracle, "the default mesh",
+                                        ref=after)
+    again_shift = apis["ssb"].query(
+        "ssb", "Count(Shift(Row(year=1), n=1))")[0]
+    assert again_shift == shift, (again_shift, shift)
+    assert again["wave"] == after["wave"], (again["wave"], after["wave"])
+    assert STK.UPLOAD_STATS["count"] > u2, "the reset rebuilt nothing"
+    _em_same_launches("22d", again_l, one_l, cards)
+    ents = [e for a in apis.values() for _, _, e in _em_entries(a)]
+    if cards > 1:
+        assert all(isinstance(e, SP.Split) and e.n == cards
+                   and len({b.device for b in e.blocks}) == cards
+                   for e in ents), "a stack is not a block a card"
+        for name in one_p:
+            print(f"engine mesh 22d: {name}: p50 one device "
+                  f"{one_p[name]:.4f} ms, {cards} cards "
+                  f"{again_p[name]:.4f} ms {lab}")
+        print(f"engine mesh 22d: every read over {cards} cards numpy's, "
+              f"a block a card {lab}")
+    else:
+        assert all(isinstance(e, torch.Tensor) for e in ents)
+        print("engine mesh 22d: one card; the mesh over distinct cards "
+              "was not run")
+    assert SP.GATHER_STATS == g0, \
+        f"path 22 gathered {SP.GATHER_STATS} (was {g0})"
+    out["22d"] = {"cards": cards, "p50_ms": again_p,
+                  "launches": again_l}
+    launched = {k: v - _UNCOUNTED.get(k, 0)
+                for k, v in KU.launches().items()}
+    report.launched("engine mesh", launched, EM_KERNELS)
+    assert launched.get("ctile_count", 0) == 0, launched
+    assert threading.active_count() == threads0, "path 22 left threads"
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"engine mesh: after set_engine_mesh(None) every read numpy's "
+          f"and the mesh's, {STK.UPLOAD_STATS['count'] - u2} uploads; "
+          f"launches {launched}; 0 gathers; path 22 "
+          f"{out['seconds']:.2f} s {lab}")
+    print("engine mesh: " + json.dumps(out, default=str))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Path 15: front ends (a server process on the card; bench.py configs 1
 # and 2 loaded and read over HTTP, SQL and framed gRPC; the CLI; a crash)
 # ---------------------------------------------------------------------------
@@ -8946,15 +9362,91 @@ def _rc_reads(node, want) -> None:
         [(r, -v) for v, r in top], f"TopN on {node.node.id}"
 
 
-def _wait_s(pred, what: str, reads=None) -> float:
-    """Seconds until ``pred()`` holds (``reads()`` between polls)."""
+def _wait_s(pred, what: str, reads=None, explain=None) -> float:
+    """Seconds until ``pred()`` holds (``reads()`` between polls); past
+    ``C18_WAIT_S`` it prints ``explain()``, when given, and fails."""
     t0 = time.perf_counter()
     while not pred():
-        assert time.perf_counter() - t0 < C18_WAIT_S, f"{what} never held"
+        if time.perf_counter() - t0 >= C18_WAIT_S:
+            if explain is not None:
+                print(f"{what}: not within {C18_WAIT_S} s; {explain()}")
+            raise AssertionError(f"{what} never held")
         if reads is not None:
             reads()
         time.sleep(0.01)
     return time.perf_counter() - t0
+
+
+def _ladder_tap(controllers, nodes) -> list:
+    """Note every transition of each node's degradation ladder as it
+    happens: ``(perf_counter seconds, node id, from, to, the signals, each
+    node's scheduler queue depth and admits in flight)``."""
+    seen = []
+    for ctl, node in zip(controllers, nodes):
+        def transition(to, now, sig, orig=ctl._transition, ctl=ctl,
+                       nid=node.node.id):
+            frm = ctl._level
+            orig(to, now, sig)
+            depths = {}
+            for n in nodes:
+                sched = n.scheduler
+                if sched is not None:
+                    st = sched.stats()
+                    depths[n.node.id] = (st["queue_depth"],
+                                         st["inflight_admits"])
+            seen.append((time.perf_counter(), nid, frm, to,
+                         {k: round(v, 3) for k, v in sig.items()}, depths))
+
+        ctl._transition = transition
+    return seen
+
+
+def _ladder_state(seen: list, t0: float) -> str:
+    """The ladder's transitions seconds after ``t0``, each with its
+    signals and the queue depths (queued, admits in flight) a node."""
+    return "; ".join(
+        f"{t - t0:+.3f} s {nid} {frm}->{to} signals {sig} queues {depths}"
+        for t, nid, frm, to, sig, depths in seen) or "no transition"
+
+
+def _swim_tap(nodes) -> dict:
+    """Note each node's SWIM probes, its last probe and last ack
+    (``perf_counter`` seconds and the target) as they happen:
+    ``{node id: {"ticks": n, "probe": (t, target), "ack": (t,
+    target)}}``."""
+    seen = {}
+    for node in nodes:
+        m = node.membership
+        rec = seen.setdefault(node.node.id, {"probes": 0})
+
+        def probe(target, peers, orig=m._probe, rec=rec):
+            t = time.perf_counter()
+            rec["probes"] += 1
+            rec["probe"] = (t, target.id)
+            ok = orig(target, peers)
+            if ok:
+                rec["ack"] = (time.perf_counter(), target.id)
+            return ok
+
+        m._probe = probe
+    return seen
+
+
+def _swim_state(nodes, seen: dict, t0: float) -> str:
+    """Each member's SWIM view and each node's last probe and ack,
+    seconds after ``t0``; the threads alive."""
+    import threading
+
+    parts = []
+    for node in nodes:
+        nid = node.node.id
+        view = node.membership.members_json()["members"]
+        rec = seen.get(nid, {})
+        when = {k: (round(rec[k][0] - t0, 3), rec[k][1])
+                for k in ("probe", "ack") if k in rec}
+        parts.append(f"{nid}: view {view}, probes {rec.get('probes', 0)}, "
+                     f"last probe / ack (s after the pause, target) {when}")
+    return "; ".join(parts) + f"; {threading.active_count()} threads"
 
 
 def _tapped(report, fn) -> dict:
@@ -9093,6 +9585,7 @@ def _gossip_lagging(report, device, base, lab) -> dict:
         assert mine, "placement put no shard of rc on node2"
         c.enable_gossip(start=True, registry=greg)
         c.enable_membership()
+        swim = _swim_tap(c.nodes)
         for i, node in enumerate(c.nodes):
             node.enable_resilience(registry=regs[i])
             node.enable_health()
@@ -9114,7 +9607,8 @@ def _gossip_lagging(report, device, base, lab) -> dict:
             assert co.query("rc", f"Count(Row(f={r}))") == [int(want[r])]
 
         _wait_s(lambda: "node2" not in co.disco.live_ids(),
-                "node2 confirmed", poll_read)
+                "node2 confirmed", poll_read,
+                lambda: _swim_state(c.nodes, swim, t_pause))
         out["detect_s"] = time.perf_counter() - t_pause
         out["breaker"] = co.resilience.breaker.state("node2")
         _wait_s(lambda: regs[1].value(M.METRIC_GOSSIP_BREAKER_PREWARMS,
@@ -9747,11 +10241,12 @@ def _degrade_config22(report, device, base, lab) -> dict:
               f"{sum(cap_out.values())} answers from 16 clients in 1.2 s; "
               f"the ramp scales off {qps_conc:.3f}/s {lab}")
 
-        c.enable_degrade(
+        ladder = _ladder_tap(c.enable_degrade(
             queue_shed=0.30, queue_brownout=0.55, queue_saturate=0.80,
             burn_shed=60.0, burn_brownout=90.0, burn_saturate=130.0,
             miss_rate_brownout=1e9, eviction_rate_shed=1e9,
-            exit_ratio=0.6, up_hold=1, down_hold=2, min_dwell_s=0.25)
+            exit_ratio=0.6, up_hold=1, down_hold=2, min_dwell_s=0.25),
+            c.nodes)
 
         lock = threading.Lock()
         first_degrade_shed = {}
@@ -9881,7 +10376,7 @@ def _degrade_config22(report, device, base, lab) -> dict:
                                     duration_s=s, tenants=tenants,
                                     seed=fault_seed, arrivals="poisson",
                                     max_workers=16, chaos=chaos)
-            soak_t0 = time.monotonic()
+            soak_t0, soak_p0 = time.monotonic(), time.perf_counter()
             rep_std = driver.run()
             soak_t1 = time.monotonic()
             plan.heal()
@@ -9898,6 +10393,14 @@ def _degrade_config22(report, device, base, lab) -> dict:
                           if soak_t0 <= x[0] <= soak_t1]
             std_max_level = max((x[1] for x in std_window), default=0)
             std_max_burn = max((x[2] for x in std_window), default=0.0)
+            if std_max_level >= 2:
+                polled = [(round(x[0] - soak_t0, 3),) + x[1:]
+                          for x in std_window if x[1]]
+                print(f"degrade 19b: the ladder passed SHED_BATCH under "
+                      f"the standing load; its transitions from the "
+                      f"soak's start: {_ladder_state(ladder, soak_p0)}; "
+                      f"the coordinator's polled (s, level, burn, queue "
+                      f"fraction): {polled}")
             assert std_max_level < 2, (
                 f"standing load should not pass SHED_BATCH (saw level "
                 f"{std_max_level}; level, burn, queue: "
@@ -10894,6 +11397,25 @@ def _print_ptxas(info: str) -> None:
                 f"{name} uses local memory: {props}"
 
 
+def _threads_line(phase: str) -> None:
+    """The threads alive after a phase (ROADMAP C, F.5: threads an
+    earlier path leaves running compete for the interpreter's lock with
+    the later paths' host-timed checks): the count, the non-daemon ones
+    by name, and every live thread by name with its trailing number
+    dropped."""
+    import collections
+    import re
+    import threading
+
+    alive = [t for t in threading.enumerate()
+             if t is not threading.main_thread()]
+    kinds = collections.Counter(re.sub(r"[-_ ]?\d+$", "", t.name)
+                                for t in alive)
+    print(f"threads after {phase}: {threading.active_count()} alive; "
+          f"non-daemon {[t.name for t in alive if not t.daemon]}; by name "
+          f"{dict(sorted(kinds.items()))}")
+
+
 def _wall_ms(fn) -> float:
     import torch
 
@@ -10967,6 +11489,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*a, **kw)
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+        _threads_line(name)
         return out
 
     timed("kernel parity", phase_kernels, report,
@@ -10986,6 +11509,7 @@ def main() -> int:
     timed("14 observability", phase_observability, report, ssb, bsi, by_date,
           config1)
     timed("21 mesh", phase_mesh, report, ssb, bsi)
+    timed("22 engine mesh", phase_engine_mesh, report, ssb, bsi)
     del ssb, by_date, c4, bsi, config1
     timed("10 API reads", phase_api_reads, report)
     timed("11 durability", phase_durability, report, args,

@@ -54,6 +54,16 @@ stack is **rebuilt** from the host planes. ``UPLOAD_STATS`` counts every
 stack upload, ``ADVANCE_STATS`` the advances, builds and mask bytes.
 Stacks built or advanced inside a write request are not published
 (``storage/txn.py``).
+
+**The engine mesh** (``parallel/mesh.py``). When the stack's device is
+the engine mesh's first position and the mesh has more positions, every
+block and BSI stack is uploaded by ``engine_put`` as a
+:class:`~pilosa_tpu_torch.parallel.split.Split` of one block per
+position along ``S*W``, and stays dense (the ``mesh`` rule of
+``ctiles``; forced compression yields to the placement here). The budget
+charges the summed bytes of the blocks; an advance scatters a touched
+word into the block that holds it, at its local offset, and copies only
+the touched blocks. The mesh epoch leads every version vector.
 """
 
 from __future__ import annotations
@@ -76,6 +86,8 @@ from pilosa_tpu_torch.ops import bitmap as bitops
 from pilosa_tpu_torch.ops import bsi as bsiops
 from pilosa_tpu_torch.ops import ctiles
 from pilosa_tpu_torch.ops import topk as topkops
+from pilosa_tpu_torch.parallel import mesh as meshmod
+from pilosa_tpu_torch.parallel.split import Split
 from pilosa_tpu_torch.shardwidth import BITS_PER_WORD, WORDS_PER_SHARD
 from pilosa_tpu_torch.storage.txn import in_write_qcx
 
@@ -92,8 +104,9 @@ ADVANCE_STATS = {"advanced": 0, "built": 0, "scatters": 0, "mask_bytes": 0}
 #: fragments newer than the stack's snapshot (``Holder.residency_stats`` reads them, as in the JAX package)
 PAGING_STATS = {"block_builds": 0, "evictions": 0, "stale_retries": 0}
 
-#: a resident entry: a dense device tensor or a compressed-tile block
-Block = Union[torch.Tensor, ctiles.CompressedBlock]
+#: a resident entry: a dense device tensor (split over the engine mesh
+#: or not) or a compressed-tile block
+Block = Union[torch.Tensor, Split, ctiles.CompressedBlock]
 
 
 def _dense(blk: Block) -> torch.Tensor:
@@ -124,11 +137,16 @@ def _take(blk: Block, slots: Sequence[int]) -> torch.Tensor:
 
 def _upload(host: np.ndarray, device: torch.device, kind: str) -> Block:
     """Upload an assembled block, compressed when the policy says so,
-    counted in ``UPLOAD_STATS`` (the stored bytes of a compressed one).
-    ``kind`` (``set`` | ``bsi``) labels the compression metrics."""
-    blk = ctiles.maybe_compress(host, device, kind)
+    else in the engine placement (split over the engine mesh or on
+    ``device``), counted in ``UPLOAD_STATS`` (the stored bytes of a
+    compressed one). ``kind`` (``set`` | ``bsi``) labels the compression
+    metrics."""
+    sharding = meshmod.engine_sharding(host.ndim, host.shape[-1], device)
+    blk = None
+    if sharding is None or not ctiles.forced():
+        blk = ctiles.maybe_compress(host, device, kind)
     if blk is None:
-        blk = platform.h2d_copy(host, device)
+        blk = meshmod.engine_put(host, device, sharding)
     UPLOAD_STATS["count"] += 1
     UPLOAD_STATS["bytes"] += _nbytes(blk)
     return blk
@@ -279,7 +297,7 @@ class StackedSet:
                        * self.block_rows)
         self.paged = self.cap > self.block_rows
         self._fragments = list(fragments)
-        self._built_vers = _versions(fragments)
+        self._built_vers = _frag_versions(fragments)
         self._blocks: List[Optional[Block]] = (
             [None] * (self.cap // self.block_rows))
         self._lock = _stack_lock()
@@ -381,7 +399,7 @@ class StackedSet:
     # -- reads ----------------------------------------------------------------
 
     def zero_plane(self) -> torch.Tensor:
-        return bitops.device_zeros(self.total_words, self.device)
+        return meshmod.engine_zeros(self.total_words, self.device)
 
     def row_plane(self, row: int) -> torch.Tensor:
         """Device ``[S*W]`` plane of one row id (zeros when absent); a
@@ -409,8 +427,7 @@ class StackedSet:
             bi, (dst, src) = next(iter(by_block.items()))
             order = np.argsort(dst)
             return _take(self._ensure_block(bi), np.asarray(src)[order])
-        out = torch.zeros((len(rows), self.total_words), dtype=torch.int32,
-                          device=self.device)
+        out = _zeros_rows(len(rows), self.total_words, self.device)
         for bi, (dst, src) in by_block.items():
             idx = torch.as_tensor(np.asarray(dst, dtype=np.int64),
                                   device=self.device)
@@ -504,7 +521,7 @@ class StackedBSI:
         self._lock = _stack_lock()
         self.ephemeral = False
         self._fragments = list(fragments)
-        self._built_vers = _versions(fragments)
+        self._built_vers = _frag_versions(fragments)
         self._planes: Optional[Block] = self._build_host()
         self._charge()
 
@@ -547,7 +564,7 @@ class StackedBSI:
         with self._write_lock, self._lock:
             blk = self._planes
             if blk is None:
-                if _versions(self._fragments) != self._built_vers:
+                if _frag_versions(self._fragments) != self._built_vers:
                     PAGING_STATS["stale_retries"] += 1
                     raise StackStale(
                         "fragment advanced past the stack snapshot")
@@ -577,10 +594,21 @@ class StackedBSI:
 def _nbytes(blk: Block) -> int:
     """Bytes a resident entry holds: the stored bytes of a compressed
     block (the JAX package's ``nbytes``) plus its list of non-zero
-    constants, never its decoded size."""
+    constants, never its decoded size; a split block's summed over its
+    blocks."""
     if isinstance(blk, ctiles.CompressedBlock):
         return blk.nbytes + blk.nz_nbytes
     return blk.numel() * blk.element_size()
+
+
+def _zeros_rows(rows: int, words: int, device: torch.device):
+    """A new zeroed ``int32[rows, words]`` in the engine placement of
+    ``device``'s stacks."""
+    sh = meshmod.placement(words, device)
+    if sh is None:
+        return torch.zeros((rows, words), dtype=torch.int32, device=device)
+    return Split([torch.zeros((rows, sh.width), dtype=torch.int32, device=d)
+                  for d in sh.devices], sh.mesh)
 
 
 def _stack_lock():
@@ -590,8 +618,17 @@ def _stack_lock():
     return locktrace.tracked_lock("core.stacked.stack", dispatch_ok=True)
 
 
-def _versions(fragments) -> Tuple:
+def _frag_versions(fragments) -> Tuple:
+    """Each fragment's version, -1 when absent: a stack's snapshot."""
     return tuple(-1 if f is None else f.version for f in fragments)
+
+
+def _versions(fragments) -> Tuple:
+    """The cache key's versions: the mesh epoch, then the snapshot. A
+    mesh switch misses every cached stack and rebuilds it under the new
+    placement, as in the JAX package
+    (``pilosa_tpu/core/stacked.py:588-594``)."""
+    return (meshmod.mesh_epoch(),) + _frag_versions(fragments)
 
 
 # Cache layout: field._stacked_cache maps a group (kind, view) to an
@@ -695,9 +732,15 @@ def _apply_bit_deltas(planes: torch.Tensor, slots: torch.Tensor,
     return out
 
 
-def _grow_rows_device(planes: torch.Tensor, new_rows: int) -> torch.Tensor:
-    """``planes`` with ``new_rows`` zero slots appended, on the device."""
-    return torch.nn.functional.pad(planes, (0, 0, 0, new_rows))
+def _grow_rows_device(planes, new_rows: int):
+    """``planes`` with ``new_rows`` zero slots appended, on the device
+    (on each block of a split)."""
+    def grow(p):
+        return torch.nn.functional.pad(p, (0, 0, 0, new_rows))
+
+    if isinstance(planes, Split):
+        return planes.map(grow)
+    return grow(planes)
 
 
 class _MaskAccum:
@@ -722,22 +765,36 @@ class _MaskAccum:
     def touches(self, lo_slot: int, hi_slot: int) -> bool:
         return any(lo_slot <= k[0] < hi_slot for k in self.masks)
 
-    def apply(self, planes: torch.Tensor, lo_slot: int = 0,
-              hi_slot: Optional[int] = None, fresh: bool = False
-              ) -> torch.Tensor:
+    def apply(self, planes, lo_slot: int = 0,
+              hi_slot: Optional[int] = None, fresh: bool = False):
         """Scatter the masks whose slot lies in [lo_slot, hi_slot) onto
         ``planes`` (slots rebased by lo_slot): one H2D copy of the packed
         slots, words and masks, then :func:`_apply_bit_deltas`.
-        ``planes`` itself comes back when no mask falls in the range."""
+        ``planes`` itself comes back when no mask falls in the range. On
+        a split, each word goes to the block that holds it, at its local
+        offset: one scatter per touched block, and the untouched blocks
+        are shared with ``planes`` (no copy)."""
         if hi_slot is None:
             hi_slot = lo_slot + planes.shape[0]
         keys = [k for k in self.masks if lo_slot <= k[0] < hi_slot]
         if not keys:
             return planes
+        if isinstance(planes, Split):
+            blocks = list(planes.blocks)
+            for bi, (off, blk) in enumerate(zip(planes.offsets(), blocks)):
+                mine = [k for k in keys if off <= k[1] < off + blk.shape[-1]]
+                if mine:
+                    blocks[bi] = self._scatter(blk, mine, lo_slot, off,
+                                               fresh)
+            return planes.like(blocks)
+        return self._scatter(planes, keys, lo_slot, 0, fresh)
+
+    def _scatter(self, planes: torch.Tensor, keys, lo_slot: int,
+                 lo_word: int, fresh: bool) -> torch.Tensor:
         packed = np.empty((4, len(keys)), dtype=np.uint32)
         for i, k in enumerate(keys):
             packed[0, i] = k[0] - lo_slot
-            packed[1, i] = k[1]
+            packed[1, i] = k[1] - lo_word
             packed[2, i], packed[3, i] = self.masks[k]
         dev = platform.h2d_copy(packed, planes.device)
         ADVANCE_STATS["scatters"] += 1
@@ -751,7 +808,7 @@ def _restamp(stack, fragments) -> None:
     the stack's snapshot (caller holds the writer lock), so a lazy
     rebuild of an evicted block raises no spurious StackStale."""
     stack._fragments = list(fragments)
-    stack._built_vers = _versions(fragments)
+    stack._built_vers = _frag_versions(fragments)
 
 
 def _advance_set(stack: StackedSet, fragments, built_vers
@@ -940,8 +997,8 @@ def _advance_or_rebuild(field, group, subset, vers, fragments, advance,
     holds the writer lock."""
     stale = _cache_peek(field, group, subset)
     built = None
-    if stale is not None:
-        built = advance(stale[1], fragments, stale[0])
+    if stale is not None and stale[0][0] == vers[0]:  # same mesh epoch
+        built = advance(stale[1], fragments, stale[0][1:])
         if built is stale[1] and in_write_qcx():
             ADVANCE_STATS["advanced"] += 1
             return built  # re-stamped, and still the published stack

@@ -6,9 +6,9 @@ Port of ``pilosa_tpu/obs/devprof.py``. The cost model (``tape_cost``),
 :class:`IngestAccounting`, ``kernel_scope``, ``ingest_scope``,
 ``record_stage``, ``stats_json`` and ``timeline_probe`` keep the JAX
 package's formulas and keys: the same arguments give the same FLOPs,
-bytes and family names in both packages. ``mesh_epoch`` is 0: the
-port's engine runs on one device (the engine mesh is ROADMAP A.7h). Two
-things differ, because the port runs on a card whose launches are
+bytes and family names in both packages, and each entry is keyed by the
+engine mesh's ``mesh_epoch`` (``parallel/mesh.py``), so a mesh switch
+profiles apart. Two things differ, because the port runs on a card whose launches are
 asynchronous:
 
 **Device time on the card, without a sync on the query path.** The JAX
@@ -762,7 +762,10 @@ def kernel_scope(kind: str, tape: Tuple, n_leaves: int, masked: bool,
                  total_words: int):
     """Attribute the launches of this thread to a tape's kernel family
     (callers check ``ENABLED`` first). Nests: the inner scope wins."""
-    ent = KERNELS.entry_for(kind, tape, n_leaves, masked, total_words, 0)
+    from pilosa_tpu_torch.parallel.mesh import mesh_epoch
+
+    ent = KERNELS.entry_for(kind, tape, n_leaves, masked, total_words,
+                            mesh_epoch())
     prev = getattr(_TLS, "kernel", None)
     _TLS.kernel = ent
     try:

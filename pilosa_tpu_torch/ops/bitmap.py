@@ -24,6 +24,7 @@ import torch
 
 from pilosa_tpu_torch import native
 from pilosa_tpu_torch.ops import kernel_util as KU
+from pilosa_tpu_torch.parallel import split as SP
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
 # ---------------------------------------------------------------------------
@@ -86,6 +87,15 @@ def device_zeros(words: int, device: torch.device) -> torch.Tensor:
 def device_ones(words: int, device: torch.device) -> torch.Tensor:
     """Shared device all-ones plane (every bit set)."""
     return _const_plane(words, device, -1)
+
+
+def ones_like_plane(planes):
+    """The shared all-ones plane over the last axis of ``planes``, split
+    as ``planes`` is."""
+    if isinstance(planes, SP.Split):
+        return planes.like([_const_plane(b.shape[-1], b.device, -1)
+                            for b in planes.blocks])
+    return _const_plane(planes.shape[-1], planes.device, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -269,9 +279,14 @@ def tape_count(tape, leaves: Sequence[torch.Tensor],
     CUDA tensors: one launch of csrc/tape_count.cu, which replaces
     pilosa_tpu/ops/bitmap.py:209/:224 with the tape fused in, and no
     other device operation (the output is not zeroed first). CPU
-    tensors: :func:`tape_count_plain`."""
-    ops = encode_tape(tape, len(leaves))
+    tensors: :func:`tape_count_plain`. Split operands (the engine mesh):
+    one of those per block, the partials summed on the first position."""
     operands = list(leaves) if mask is None else [*leaves, mask]
+    if SP.any_split(*operands):
+        k = len(leaves)
+        return SP.map_sum(lambda *bs: tape_count(
+            tape, bs[:k], bs[k] if mask is not None else None), *operands)
+    ops = encode_tape(tape, len(leaves))
     # a launch of the calling thread's tape family (pql/programs.py)
     with KU.launch_scope(operands[0]) as prof:
         if not KU.on_card("tape_count", *operands):

@@ -28,6 +28,7 @@ import torch
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops.groupby import pair_counts
+from pilosa_tpu_torch.parallel import split as SP
 
 EXISTS = 0
 SIGN = 1
@@ -183,7 +184,11 @@ def bsi_compare(planes: torch.Tensor, op: str, value: int,
 
     CUDA tensors: one launch of csrc/bsi_compare.cu (replaces
     pilosa_tpu/ops/bsi.py:138/:197). CPU tensors:
-    :func:`bsi_compare_plain`."""
+    :func:`bsi_compare_plain`. A split stack (the engine mesh): one of
+    those per block, the planes split alike."""
+    if isinstance(planes, SP.Split):
+        return SP.map_split(
+            lambda p: bsi_compare(p, op, value, value2), planes)
     depth = planes.shape[0] - OFFSET
     with KU.kernel_scope("cmp", depth, 2 if op == BETWEEN else 1,
                          OFFSET + depth, planes.shape[-1], planes) as prof:

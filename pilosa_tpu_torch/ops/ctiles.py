@@ -36,8 +36,10 @@ the JAX package's meanings): unset -- compress a block of at least
 :data:`MIN_BYTES` whose stored form is at most :data:`MAX_RATIO` of
 dense; ``0`` -- every block stays dense; ``1`` -- compress every block.
 The variable chooses the residency format only: a compressed block on
-the card always counts through the kernel. The JAX package's ``mesh``
-rule is dropped (the port runs on one card) and so are its metric ticks.
+the card always counts through the kernel. On an engine mesh of more
+than one position a block stays dense unless compression is forced (the
+JAX package's ``mesh`` rule, metered as ``why="mesh"``), so no
+``ctile_count`` runs on a split stack.
 """
 
 from __future__ import annotations
@@ -106,14 +108,19 @@ def tile_words(width: int) -> int:
 
 def why_not_compress(dense_nbytes: int) -> Optional[str]:
     """``None`` when a block of ``dense_nbytes`` should be classified,
-    else why it stays dense: ``disabled`` | ``small``. The ratio rule
-    comes after classification, which gives the stored size."""
+    else why it stays dense: ``disabled`` | ``small`` | ``mesh`` (an
+    engine mesh of more than one position). The ratio rule comes after
+    classification, which gives the stored size."""
     if disabled():
         return "disabled"
     if forced():
         return None
     if _env_int("PILOSA_TPU_COMPRESS_MIN_BYTES", MIN_BYTES) > dense_nbytes:
         return "small"
+    from pilosa_tpu_torch.parallel.mesh import engine_mesh
+
+    if engine_mesh().devices.size > 1:
+        return "mesh"
     return None
 
 

@@ -17,6 +17,7 @@ import torch
 
 from pilosa_tpu_torch.ops import kernel_util as KU
 from pilosa_tpu_torch.ops.bitmap import popcount
+from pilosa_tpu_torch.parallel import split as SP
 
 pair_counts_launches = KU.LaunchCounter("pair_counts")
 
@@ -95,7 +96,11 @@ def pair_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors launch csrc/pair_counts.cu as :func:`_plan` says
     (replaces pilosa_tpu/ops/groupby.py:98/:116/:153); CPU tensors take
-    :func:`pair_counts_plain`."""
+    :func:`pair_counts_plain`. Split operands (the engine mesh): one of
+    those per block, contracting each block's words, the partials summed
+    on the first position."""
+    if isinstance(a, SP.Split) or isinstance(b, SP.Split):
+        return SP.map_sum(pair_counts, a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"pair_counts: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)} do not share a word axis")

@@ -14,15 +14,14 @@ from typing import Optional, Tuple
 import torch
 
 from pilosa_tpu_torch.ops import groupby as G
-from pilosa_tpu_torch.ops.bitmap import device_ones
+from pilosa_tpu_torch.ops.bitmap import ones_like_plane
 
 
 def row_counts(planes: torch.Tensor, filt: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """``int32[R]`` per-row popcounts of ``int32[R, W]``, optionally
     intersected with ``filt`` first, through :func:`G.pair_counts`."""
-    f = filt if filt is not None else device_ones(planes.shape[-1],
-                                                  planes.device)
+    f = filt if filt is not None else ones_like_plane(planes)
     return G.pair_counts(f.reshape(1, -1).contiguous(), planes)[0]
 
 

@@ -26,26 +26,39 @@ the JAX suite's 8 virtual CPU devices); each block then runs the plain
 versions. A block on a card launches under ``torch.cuda.device`` of that
 card, since the launchers use the current device's stream.
 
-**The engine mesh.** The JAX package's ``engine_mesh`` /
-``set_engine_mesh`` / ``engine_sharding`` and the mesh epoch that keys
-its caches wait for the engine over several cards (ROADMAP A.7h), the
-first code that would place a stack by them; the port's engine runs on
-one device.
+**The engine mesh** (``pilosa_tpu/parallel/mesh.py:45-127``). The PQL
+engine places every stacked tensor by one process-wide mesh:
+:func:`engine_put` splits the fused ``(shard, word)`` last axis into one
+contiguous block per position (row-major), a
+:class:`~pilosa_tpu_torch.parallel.split.Split`, which is what the JAX
+``P((shards, cols))`` on that axis places. A block may cut a shard in
+two. This is not :meth:`ShardPlacement.place`'s 2-D layout (shards over
+rows, words over columns), which stays for the mesh reduces. Unset, the
+mesh is every visible card (the JAX default, ``jax.devices()``), and on
+a machine without one the CPU alone. A stack is placed by the mesh only
+when its own device (its API's) is the mesh's first position: a
+``device="cpu"`` API on a machine with cards stays on the CPU, and a
+test installs a virtual CPU mesh (``[torch.device("cpu")] * 8``) to
+split it. :func:`set_engine_mesh` bumps :func:`mesh_epoch`, which keys
+the stacks' versions, the programs, the mask planes and the device
+profiler's entries, so a switch rebuilds every placement.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import List, Optional, Sequence, Tuple
+import logging
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch import platform
+from pilosa_tpu_torch.obs import metrics as M
 from pilosa_tpu_torch.ops import bitmap as B
 from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import groupby as G
 from pilosa_tpu_torch.ops import topk as T
+from pilosa_tpu_torch.parallel.split import Split, on
 
 SHARD_AXIS = "shards"
 COL_AXIS = "cols"
@@ -86,6 +99,124 @@ def analytics_mesh(devices: Optional[Sequence] = None,
 
 
 # ---------------------------------------------------------------------------
+# The engine mesh (pilosa_tpu/parallel/mesh.py:45-127)
+# ---------------------------------------------------------------------------
+
+_ENGINE_MESH: Optional[Mesh] = None
+_MESH_EPOCH = 0
+
+
+def mesh_epoch() -> int:
+    """Bumped on every :func:`set_engine_mesh` call. The stacks, programs,
+    mask planes and profile entries fold it into their keys, so a mesh
+    switch invalidates everything placed under the old mesh."""
+    return _MESH_EPOCH
+
+
+def engine_mesh() -> Mesh:
+    """The process-wide mesh queries execute over: every visible card
+    unless :func:`set_engine_mesh` installed another (the CPU alone on a
+    machine without a card)."""
+    global _ENGINE_MESH
+    if _ENGINE_MESH is None:
+        _ENGINE_MESH = analytics_mesh(
+            None if torch.cuda.is_available() else [torch.device("cpu")])
+    return _ENGINE_MESH
+
+
+def set_engine_mesh(mesh: Optional[Mesh]) -> None:
+    """Install (or with None, reset to the default on next use) the
+    engine mesh, bumping the epoch."""
+    global _ENGINE_MESH, _MESH_EPOCH
+    _ENGINE_MESH = mesh
+    _MESH_EPOCH += 1
+
+
+class EngineSharding(NamedTuple):
+    """The engine placement of a tensor: ``width`` words of the last axis
+    on each of ``devices`` (the mesh's, row-major)."""
+    mesh: Mesh
+    devices: Tuple[torch.device, ...]
+    width: int
+
+
+def placement(last_dim: int, device: Optional[torch.device] = None
+              ) -> Optional[EngineSharding]:
+    """The engine placement of a last axis of ``last_dim`` words owned by
+    ``device`` (None: the mesh's first position), quietly: None on a
+    one-position mesh, for a device that is not the first position, or
+    when the axis does not divide over the positions."""
+    mesh = engine_mesh()
+    n = mesh.devices.size
+    devs = tuple(mesh.devices.flat)
+    if n <= 1 or last_dim % n:
+        return None
+    if device is not None and torch.device(device) != devs[0]:
+        return None
+    return EngineSharding(mesh, devs, last_dim // n)
+
+
+_FALLBACK_WARNED: set = set()
+
+
+def engine_sharding(ndim: int, last_dim: int,
+                    device: Optional[torch.device] = None
+                    ) -> Optional[EngineSharding]:
+    """Placement of a stacked engine tensor whose LAST axis is the fused
+    (shard, word) space. None when the mesh has one position, when
+    ``device`` is not its first position, or when that axis does not
+    divide over it (callers place on one device). The last fallback is
+    LOUD, as in the JAX package: a warning per (positions, words) and a
+    metric on every call."""
+    del ndim  # every leading axis stays whole on each block
+    mesh = engine_mesh()
+    n = mesh.devices.size
+    mine = device is None or torch.device(device) == mesh.devices.flat[0]
+    if n > 1 and mine and last_dim % n:
+        key = (n, last_dim)
+        if key not in _FALLBACK_WARNED:
+            _FALLBACK_WARNED.add(key)
+            logging.getLogger("pilosa_tpu_torch.mesh").warning(
+                "stacked tensor word axis %d does not divide over the "
+                "%d-device engine mesh; falling back to SINGLE-DEVICE "
+                "placement (no query parallelism for this stack)",
+                last_dim, n)
+        M.REGISTRY.count(M.METRIC_MESH_FALLBACK)
+    return placement(last_dim, device)
+
+
+def engine_put(host: np.ndarray, device: Optional[torch.device] = None,
+               sharding="engine"):
+    """Copy a stacked tensor to the engine placement: a :class:`Split`
+    of one block per mesh position, words ``[k*L, (k+1)*L)`` of the last
+    axis on position ``k``, each through ``platform.h2d_copy`` (so the
+    ``device.h2d_copy`` span and the profiler's h2d hook see every
+    byte); or one tensor on ``device`` when :func:`engine_sharding` says
+    so. A caller that already asked :func:`engine_sharding` passes its
+    answer as ``sharding``."""
+    host = np.asarray(host)
+    if sharding == "engine":
+        sharding = engine_sharding(host.ndim, host.shape[-1], device)
+    if sharding is None:
+        return platform.h2d_copy(
+            host, device if device is not None
+            else engine_mesh().devices.flat[0])
+    w = sharding.width
+    return Split([platform.h2d_copy(host[..., k * w:(k + 1) * w], d)
+                  for k, d in enumerate(sharding.devices)], sharding.mesh)
+
+
+def engine_zeros(words: int, device: torch.device):
+    """The shared zero plane of ``words`` in the engine placement of
+    ``device``'s stacks: blocks of the per-device shared zeros
+    (``B.device_zeros``), or one of them."""
+    sh = placement(words, device)
+    if sh is None:
+        return B.device_zeros(words, device)
+    return Split([B.device_zeros(sh.width, d) for d in sh.devices], sh.mesh)
+
+
+# ---------------------------------------------------------------------------
 # Shard placement and the mesh reduces (pilosa_tpu/parallel/mesh.py:144-236,
 # :355-371)
 # ---------------------------------------------------------------------------
@@ -113,13 +244,6 @@ class Placed:
 
     def flat(self) -> List[torch.Tensor]:
         return [b for row in self.blocks for b in row]
-
-
-def _on(device: torch.device):
-    """Launch context of a block: its card as the current device."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 class ShardPlacement:
@@ -175,7 +299,7 @@ class ShardPlacement:
         context per block."""
         out = []
         for blocks in zip(*(p.flat() for p in placed)):
-            with _on(blocks[0].device):
+            with on(blocks[0].device):
                 out.append(fn(*blocks))
         return out
 
@@ -185,7 +309,7 @@ class ShardPlacement:
             total = parts[0]
         else:
             first = self.mesh.devices.flat[0]
-            with _on(first):
+            with on(first):
                 total = torch.stack([p.to(first) for p in parts]).sum(
                     0, dtype=torch.int32)
         return total.cpu().numpy()

@@ -1,4 +1,4 @@
-"""Op-tape programs on one device.
+"""Op-tape programs, on one device or over the engine mesh.
 
 Port of ``pilosa_tpu/parallel/mesh.py:250-352``. A query family lowers to
 an op tape (pql/programs.py): a register machine whose registers start as
@@ -7,14 +7,15 @@ the tape plus its terminal compiled to one XLA executable; here there is
 no compiler, so a "program" is the checked tape bound to its terminal:
 
 * the count terminal is ONE launch of the ``tape_count`` kernel, which
-  takes the tape as data (ops/bitmap.py);
+  takes the tape as data (ops/bitmap.py); when the leaves are split over
+  the engine mesh (the mesh branch, ``mesh.py:293-309``), one launch per
+  block and the int32 partials summed on the first position, where the
+  JAX mesh branch runs a ``shard_map`` of plain popcounts and a
+  ``lax.psum``;
 * the plane terminal was never a Pallas kernel (``mesh.py:338-352``) and
-  stays plain PyTorch: one eager op per tape op.
+  stays plain PyTorch: one eager op per tape op (per block when split).
 
-The mesh reduces (``mesh.py:144-236``) are ``parallel/mesh.py``; the
-engine mesh and the mesh branch of the count terminal
-(``mesh.py:293-309``) wait for the engine over several cards (ROADMAP
-A.7h).
+The mesh reduces (``mesh.py:144-236``) are ``parallel/mesh.py``.
 """
 
 from __future__ import annotations
@@ -43,13 +44,15 @@ def _tape_result(tape, masked: bool, args):
 def compile_tape_count(tape, n_leaves: int, masked: bool,
                        total_words: int) -> Callable:
     """``fn(*leaves[, mask])`` -> 0-d int32 ``popcount(tape [& mask])``,
-    one tape_count launch per call on the card.
+    one tape_count launch per call on the card. Over leaves split by the
+    engine mesh (the mesh branch, ``mesh.py:293-309``) ``B.tape_count``
+    launches once a block and sums the partials on the first position.
 
     A tape over the kernel's limits (more than ``MAX_LEAVES`` leaves or
     ``MAX_OPS`` ops; the JAX package has none) first reduces the root's
     two operand sub-trees to one plane each with the plane terminal; the
-    count is then one launch over those two leaves."""
-    del total_words  # one device: every width is one launch
+    count is then one launch over those two leaves (per block)."""
+    del total_words  # the leaves' placement picks the branch
     if B.tape_fits(tape, n_leaves):
         run_tape, pre = tape, None
     else:

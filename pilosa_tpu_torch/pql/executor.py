@@ -44,7 +44,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pilosa_tpu_torch import platform
 from pilosa_tpu_torch.cache.keys import query_cache_key
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import Field
@@ -61,6 +60,8 @@ from pilosa_tpu_torch.ops import bsi as S
 from pilosa_tpu_torch.ops import topk as T
 from pilosa_tpu_torch.ops.groupby import (masked_pair_counts, pair_counts,
                                           pair_sums)
+from pilosa_tpu_torch.parallel import mesh as meshmod
+from pilosa_tpu_torch.parallel import split as SP
 from pilosa_tpu_torch.pql import programs
 from pilosa_tpu_torch.pql import result as R
 from pilosa_tpu_torch.pql.ast import Call, Condition, Query
@@ -125,12 +126,14 @@ def query_maskable(query) -> bool:
     return True
 
 
-# Device-resident ShardMask planes, LRU-bounded and keyed by (device,
-# union layout, subset): masks depend only on shard lists, never data, so
-# warm fused dispatches (sched/batch.py) find their mask already on the
-# card instead of staging a host plane per ShardMask. As in the JAX
-# package they are not charged to the DeviceBudget: at 256 shards one
-# plane is 33,554,432 B, so the cap bounds them at 1 GiB.
+# Device-resident ShardMask planes, LRU-bounded and keyed by (mesh
+# epoch, device, union layout, subset): masks depend only on shard lists,
+# never data, so warm fused dispatches (sched/batch.py) find their mask
+# already on the card instead of staging a host plane per ShardMask. They
+# are placed like the stacks (``engine_put``: split over the engine
+# mesh), and a mesh switch misses them. As in the JAX package they are
+# not charged to the DeviceBudget: at 256 shards one plane is
+# 33,554,432 B, so the cap bounds them at 1 GiB.
 _MASK_CAP = 32
 _MASK_PLANES: "OrderedDict[Tuple, torch.Tensor]" = OrderedDict()
 _MASK_LOCK = threading.Lock()
@@ -138,7 +141,7 @@ _MASK_LOCK = threading.Lock()
 
 def _mask_plane(shard_list: Tuple[int, ...], subset, device: torch.device
                 ) -> torch.Tensor:
-    key = (str(device), shard_list, subset)
+    key = (meshmod.mesh_epoch(), str(device), shard_list, subset)
     with _MASK_LOCK:
         hit = _MASK_PLANES.get(key)
         if hit is not None:
@@ -146,7 +149,7 @@ def _mask_plane(shard_list: Tuple[int, ...], subset, device: torch.device
     if hit is not None:
         M.REGISTRY.count(M.METRIC_DEVICE_RESIDENT_HITS)
         return hit
-    plane = platform.h2d_copy(B.shard_mask_plane(shard_list, subset), device)
+    plane = meshmod.engine_put(B.shard_mask_plane(shard_list, subset), device)
     with _MASK_LOCK:
         plane = _MASK_PLANES.setdefault(key, plane)
         _MASK_PLANES.move_to_end(key)
@@ -191,8 +194,9 @@ def _parse_ts(v) -> dt.datetime:
 class _Deferred:
     """A query result whose device tensors haven't been copied back yet:
     every call of a query launches before any result is fetched.
-    :func:`_start_copies` fills ``host``, and :meth:`resolve` finalizes
-    from it after the one wait."""
+    :func:`_start_copies` fills ``host`` (a list of block copies for a
+    split result), and :meth:`resolve` finalizes from it after the one
+    wait."""
 
     __slots__ = ("arrays", "finalize", "host")
 
@@ -202,42 +206,51 @@ class _Deferred:
         self.host: Optional[List[torch.Tensor]] = None
 
     def resolve(self):
-        return self.finalize(*[h.numpy() for h in self.host])
+        return self.finalize(*[
+            np.concatenate([b.numpy() for b in h], axis=-1)
+            if isinstance(h, list) else h.numpy() for h in self.host])
 
 
-def _start_copies(raw) -> Optional[torch.cuda.Event]:
+def _copy_back(a: torch.Tensor, devices: Dict) -> torch.Tensor:
+    """Start the host copy of one device tensor (pinned, non_blocking),
+    noting its device; a CPU tensor is read where it is."""
+    if not a.is_cuda:
+        return a
+    h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    h.copy_(a, non_blocking=True)
+    devices[a.device] = True
+    return h
+
+
+def _start_copies(raw) -> List[torch.cuda.Event]:
     """Start the host copy of every deferred tensor of ``raw`` and return
-    the one CUDA event to wait on (None when nothing is on the card). A
-    card tensor is copied ``non_blocking`` into pinned memory from
-    torch's caching host allocator; a CPU tensor is read where it is.
-    The event is recorded on the current stream after the last copy, so
-    one wait covers every copy of a query or a fused batch (the JAX
+    the CUDA events to wait on: one per card the copies ran on (none
+    when nothing is on a card). A card tensor is copied ``non_blocking``
+    into pinned memory from torch's caching host allocator, a split one
+    block by block; a CPU tensor is read where it is. Each event is
+    recorded on its card's current stream after the last copy, so one
+    wait covers every copy of a query or a fused batch (the JAX
     package's ``copy_to_host_async`` then one block,
     pilosa_tpu/pql/executor.py:193-200)."""
-    device = None
+    devices: Dict[torch.device, bool] = {}
     for r in raw:
         if not isinstance(r, _Deferred):
             continue
-        host = []
-        for a in r.arrays:
-            if a.is_cuda:
-                h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                h.copy_(a, non_blocking=True)
-                device = a.device
-            else:
-                h = a
-            host.append(h)
-        r.host = host
-    if device is None:
-        return None
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
+        r.host = [[_copy_back(b, devices) for b in a.blocks]
+                  if isinstance(a, SP.Split) else _copy_back(a, devices)
+                  for a in r.arrays]
+    events = []
+    for device in devices:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        events.append(event)
+    return events
 
 
-def _wait_copies(event: Optional[torch.cuda.Event]) -> None:
-    """The host's one blocking wait per query or fused batch."""
-    if event is not None:
+def _wait_copies(events: Sequence[torch.cuda.Event]) -> None:
+    """The host's one blocking wait per query or fused batch: every
+    card's event."""
+    for event in events:
         event.synchronize()
 
 
@@ -673,14 +686,19 @@ class Executor:
                     by_shard.setdefault(si, []).append(c % SHARD_WIDTH)
             for si, cols in by_shard.items():
                 plane[si] = B.bits_to_plane(cols)
-            return platform.h2d_copy(plane.reshape(-1), idx.device)
+            return meshmod.engine_put(plane.reshape(-1), idx.device)
         if name == "UnionRows":
             return self._union_rows(idx, call, shard_list, mask)
         if len(call.children) != 1:
             raise PQLError("Shift requires exactly one child")
-        shaped = self._eval_all(idx, call.children[0], shard_list,
-                                mask).reshape(
-            len(shard_list), WORDS_PER_SHARD)
+        plane = self._eval_all(idx, call.children[0], shard_list, mask)
+        if isinstance(plane, SP.Split):
+            # blocks may cut a shard: the carry crosses a block edge
+            # inside a shard and stops at a shard's end
+            for _ in range(int(call.arg("n", 1))):
+                plane = SP.shift(plane, WORDS_PER_SHARD)
+            return plane
+        shaped = plane.reshape(len(shard_list), WORDS_PER_SHARD)
         for _ in range(int(call.arg("n", 1))):
             # carries stop at shard boundaries, as the reference's
             # per-shard executeShiftShard
@@ -714,8 +732,8 @@ class Executor:
                 # out of place: a part may be the shared zeros plane
                 out = part if out is None else out | part
         if out is None:
-            return B.device_zeros(len(shard_list) * WORDS_PER_SHARD,
-                                  idx.device)
+            return meshmod.engine_zeros(len(shard_list) * WORDS_PER_SHARD,
+                                        idx.device)
         return out
 
     def _materialize_row(self, idx: Index, call: Call, shards,
@@ -1070,7 +1088,9 @@ class Executor:
             return False
         word = shard_list.index(shard) * WORDS_PER_SHARD + pos // 32
         plane = self._eval_all(idx, call.children[0], shard_list)
-        return bool((int(plane[word]) >> (pos % 32)) & 1)
+        bits = (plane.at(word) if isinstance(plane, SP.Split)
+                else int(plane[word]))
+        return bool((bits >> (pos % 32)) & 1)
 
     # -- GroupBy (reference: executor.go:3918 executeGroupByShard) -------------
 
@@ -1264,7 +1284,7 @@ class Executor:
             keys = [keys[g] + (st.row_ids[r],) for g, r in zip(gi, gj)]
         # each group's count, and with a Sum aggregate its per-plane
         # signed counts, in one launch
-        side = B.device_ones(group_planes.shape[1], group_planes.device)[None]
+        side = B.ones_like_plane(group_planes)[None]
         if agg_st is not None:
             planes = agg_st.planes
             mags = planes[S.OFFSET:]
@@ -1496,6 +1516,10 @@ class Executor:
         positions, LSB first. The shift is arithmetic on int32, and
         ``(w >> s) & 1`` is still bit ``s`` for every s in 0..31."""
         need_words = (cap + 31) // 32
+        if isinstance(plane, SP.Split):
+            # the dataframe's columns sit on one device (ROADMAP: a gather
+            # left to run block by block)
+            plane = plane.gather(plane.device)
         words = plane.reshape(n_shards, WORDS_PER_SHARD)[:, :need_words]
         shifts = torch.arange(32, dtype=torch.int32, device=plane.device)
         bits = (words[:, :, None] >> shifts) & 1

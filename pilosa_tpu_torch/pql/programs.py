@@ -4,9 +4,11 @@ Port of ``pilosa_tpu/pql/programs.py``. A bitmap call tree lowers to an
 *op tape* (a register machine whose initial registers are resident leaf
 planes and whose ops are the four bitmap combinators); the tape plus its
 terminal runs as one program from parallel/tape.py. ``Count`` is then ONE
-launch of the tape_count kernel. Programs are cached per (kind, tape,
-leaf count, masked, width) in a bounded LRU, so query *families* share
-one checked program with different leaf planes.
+launch of the tape_count kernel, or one per block when the leaves are
+split over the engine mesh. Programs are cached per (kind, tape, leaf
+count, masked, width, mesh epoch) in a bounded LRU, so query
+*families* share one checked program with different leaf planes, and a
+mesh switch compiles anew.
 
 Lowering never re-stages data: leaves are rows of the budget-managed
 resident stacks (core/stacked.py), and a Range row (a ``Condition``, or
@@ -32,7 +34,7 @@ from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.stacked import stacked_set
 from pilosa_tpu_torch.errors import PQLError
 from pilosa_tpu_torch.obs import devprof
-from pilosa_tpu_torch.ops import bitmap as B
+from pilosa_tpu_torch.parallel import mesh as meshmod
 from pilosa_tpu_torch.parallel import tape as T
 from pilosa_tpu_torch.pql.ast import Condition, ROW_OPTIONS
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
@@ -45,7 +47,7 @@ _PROGRAMS_LOCK = threading.Lock()
 
 def _program(kind: str, tape: Tuple, n_leaves: int, masked: bool,
              total_words: int) -> Callable:
-    key = (kind, tape, n_leaves, masked, total_words)
+    key = (kind, tape, n_leaves, masked, total_words, meshmod.mesh_epoch())
     with _PROGRAMS_LOCK:
         fn = _PROGRAMS.get(key)
         if fn is not None:
@@ -106,11 +108,11 @@ def _lower_root(ex, idx, call, shard_list: List[int], mask=None):
             return leaf(ex._eval_bsi_row(field, value, shard_list))
         row = ex._row_id(field, value)
         if row is None:  # unknown key -> empty row
-            return leaf(B.device_zeros(total_words, device))
+            return leaf(meshmod.engine_zeros(total_words, device))
         views = ex._range_views(field, c)
         if views is not None:
             # the row's planes in the covering time views, OR-chained
-            out = leaf(B.device_zeros(total_words, device))
+            out = leaf(meshmod.engine_zeros(total_words, device))
             for v in views:
                 st = stacked_set(field, shard_list, v)
                 out = emit("or", out, leaf(st.row_plane(row)))
@@ -124,7 +126,7 @@ def _lower_root(ex, idx, call, shard_list: List[int], mask=None):
             return lower_row(c)
         if name in ("Union", "Xor"):
             if not c.children:
-                return leaf(B.device_zeros(total_words, device))
+                return leaf(meshmod.engine_zeros(total_words, device))
             refs = [lower(ch) for ch in c.children]
             out = refs[0]
             opn = "or" if name == "Union" else "xor"

@@ -20,7 +20,8 @@ membership and a replica's catch-up (importing every gossip module),
 a tenant's query and an open-loop virtual run under the tenant plane and
 the degradation ladder (importing the tenant, ladder and load generator
 modules), a two-computer DAX fleet with a kill, a replay into a fresh
-computer and an autoscaler tick (importing every DAX module), then
+computer and an autoscaler tick (importing every DAX module), the mesh
+reduces and a Count over a stack split on a virtual engine mesh, then
 reports
 what ``sys.modules`` holds (this test process cannot tell:
 tests/conftest.py loads JAX in every worker); and an AST scan of every
@@ -222,6 +223,14 @@ import pilosa_tpu_torch.analysis.lint, pilosa_tpu_torch.cluster.hash
 pl = ShardPlacement(analytics_mesh([torch.device("cpu")] * 4, col_parallel=2))
 meshed = [pl.count(pl.place(np.ones((4, 64), np.uint32))),
           pl.row_counts(pl.place(np.ones((4, 3, 64), np.uint32))).tolist()]
+from pilosa_tpu_torch.parallel import set_engine_mesh
+set_engine_mesh(analytics_mesh([torch.device("cpu")] * 4, col_parallel=2))
+em = API(device="cpu")
+em.create_index("e")
+em.create_field("e", "f")
+em.query("e", f"Set(1, f=1)Set({(1 << 20) + 5}, f=1)")
+meshed.append(em.query("e", "Count(Row(f=1))TopN(f)")[0])
+set_engine_mesh(None)
 print(json.dumps({"meshed": meshed, "star": star, "tenanted": tenanted, "resilient": resilient, "front": front, "hist": hist,
                   "daxed": daxed,
                   "clustered": clustered, "gossiped": gossiped,
@@ -277,6 +286,9 @@ _TENANTS = ("obs/tenants.py", "sched/degrade.py", "loadgen/driver.py",
 #: and the last slice's: the mesh reduces, the linter, the hash re-export
 _MESH = ("parallel/mesh.py", "analysis/lint.py", "cluster/hash.py")
 
+#: and the engine mesh's
+_ENGINE_MESH = ("parallel/split.py",)
+
 #: and the DAX plane's
 _DAX = ("dax", "dax/directive.py", "dax/storage.py",
         "dax/computer.py", "dax/controller.py", "dax/queryer.py",
@@ -312,10 +324,11 @@ def test_import_and_query_load_neither_jax_nor_the_jax_package():
                                ["node0", "node1"]]
     assert out["tenanted"] == [10, 1, True, "normal"]
     assert out["daxed"] == [6, 6, None]
-    assert out["meshed"] == [4 * 64, [4 * 64] * 3]  # one bit a word
+    # one bit a word; then a Count over a stack split in 4 blocks
+    assert out["meshed"] == [4 * 64, [4 * 64] * 3, 2]
     for part in (_SERVING + _DURABILITY + _INGEST + _SQL + _OBS + _FRONTEND
                  + _CLUSTER + _SQL_FANOUT + _RESILIENCE + _GOSSIP
-                 + _TENANTS + _DAX + _MESH):
+                 + _TENANTS + _DAX + _MESH + _ENGINE_MESH):
         mod = "pilosa_tpu_torch." + part.removesuffix(".py").replace("/", ".")
         assert mod in out["modules"], f"the probe did not load {mod}"
     bad = [m for m in out["modules"] if _forbidden(m)]

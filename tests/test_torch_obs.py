@@ -791,6 +791,21 @@ class TestKernelProfileRegistry:
                                      1024, epoch), 0.001, 0.0)
         assert reg.profile_count() == 2
 
+    def test_kernel_scope_keys_by_the_engine_mesh_epoch(self, P):
+        # kernel_scope reads the package's own mesh_epoch: a mesh switch
+        # profiles the same tape apart, as the stacks rebuild
+        mesh = importlib.import_module(f"{P.root}.parallel.mesh")
+        profs = []
+        for _ in range(2):
+            mesh.set_engine_mesh(None)
+            with P.devprof.kernel_scope("count", (("and", 0, 1),), 2,
+                                        False, 1024):
+                profs.append(P.devprof._TLS.kernel[0])
+            assert profs[-1].mesh_epoch == mesh.mesh_epoch()
+        mesh.set_engine_mesh(None)
+        assert profs[0] is not profs[1]
+        assert profs[1].mesh_epoch == profs[0].mesh_epoch + 1
+
     def test_call_cache_reuses_allocations(self, P):
         reg = P.devprof.KernelProfileRegistry()
         args = ("count", (("and", 0, 1),), 2, False, 1024, 0)
